@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's GPT-2 serving path on one GPU.
+"""Drive the PyTorch/CUDA port's GPT-2 serving and training paths on one
+GPU.
 
 Run from the repository root, on a machine with a CUDA device and nvcc:
 
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from paddle_tpu_torch/ops/csrc/, holds
-each kernel against its plain PyTorch version, checks a narrow model
-against the JAX package's committed outputs, drives GPT-2 small (vocab
-50304, hidden 768, 12 layers, 12 heads, random weights from a seed)
-through the eval forward at 4 x 1024 (one forward per configuration
-under torch.profiler, for the device time by kernel and the device's idle
-share) and greedy ``generate``, and times every kernel. Each phase prints one JSON line; then a ``kernels`` line,
-the card's name and power limit, and last
+each kernel (flash-attention forward, its dQ and dK/dV backward kernels,
+the TPP matmul) against its plain PyTorch version, checks a narrow model's
+eval forward, greedy ``generate`` and three AdamW training steps against
+the JAX package's committed outputs, drives GPT-2 small (vocab 50304,
+hidden 768, 12 layers, 12 heads, random weights from a seed) through the
+serving path (eval forward at 4 x 1024 and greedy ``generate``) and the
+training path (SpmdTrainer + AdamW at 16 x 1024, bf16 auto_cast with
+FLAGS_tpp_kernels off and on, and fp32), each configuration once under
+torch.profiler for the device time by kernel and the device's idle share,
+and times every kernel. Each phase prints one JSON line; then a
+``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits nonzero and prints no result; it also exits nonzero at once when
 torch.cuda.is_available() is false. It imports neither jax nor the JAX
@@ -48,6 +53,24 @@ BF16_VS_FP32_MATH_TOL = 0.02
 # Cached greedy decode vs the argmax of the cache-free forward (fp32): a
 # token may differ only where the two top logits are this close.
 TIE_GAP = 1e-4
+# Flash backward kernels vs the plain backward (and vs autograd through
+# the plain forward), both fp32 math on the same inputs, scaled by
+# max(1, max|plain|): fp32 differs only by summation order over up to
+# 2048 terms; bf16 outputs may also round to the neighbouring bf16 value
+# (2^-7 relative), so 2e-2 allows ~2 ulps.
+FLASH_BWD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# The narrow model's 3 training steps against the JAX package's. fp32:
+# summation order only. bf16: both packages round the loss to bf16, whose
+# step is 2^-5 at the losses' magnitude (4-8), so a loss may land one step
+# away; the kept parameter rows are held by golden.update_rel_err, their
+# update against the JAX package's, within golden.TRAIN_BF16_UPDATE_RTOL
+# (the reasons are there). Two control runs zero the dQ or the dK/dV
+# kernel's output and must land outside that limit.
+TRAIN_FP32_TOL = 1e-4
+TRAIN_BF16_LOSS_TOL = 2.0 ** -5
+# GPT-2 small training (bench.py's headline workload): batch 16, seq 1024,
+# AdamW lr 1e-4; 1 warm-up step, then this many timed steps per cell.
+TRAIN_BATCH, TRAIN_STEPS = 16, 5
 
 
 def emit(obj):
@@ -63,6 +86,10 @@ def kernel_group(name):
     n = name.lower()
     if "flash_fwd_kernel" in n:
         return "flash_fwd"
+    if "flash_dq_kernel" in n:
+        return "flash_dq"
+    if "flash_dkv_kernel" in n:
+        return "flash_dkv"
     if "tpp_matmul_kernel" in n:
         return "tpp_matmul"
     if any(t in n for t in ("gemm", "nvjet", "cutlass", "xmma")):
@@ -128,8 +155,11 @@ def main():
     import numpy as np
 
     from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.distributed import SpmdTrainer
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM, \
-        params_from_jax
+        GPTPretrainLoss, params_from_jax
+    from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.ops import _build, tpp
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.testing import golden
@@ -178,19 +208,27 @@ def main():
                       f"flash s={s} d={d} {dname} causal={causal} "
                       f"window={window}: o err {eo}, lse err {el}")
                 n_flash += 1
-    # the main path's call: strided q/k/v views of one packed qkv tensor
-    b, s, h, d = 4, 1024, 12, 64
+    # the main paths' calls: strided q/k/v views of one packed qkv tensor,
+    # at the serving batch (4) and the training batch
+    s, h, d = 1024, 12, 64
     for dname, dt in dtypes.items():
-        qkv = randn(b, s, 3 * h * d, dtype=dt)
-        q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
-        o = fa.flash_attention(q, k, v, causal=True)
-        torch.cuda.synchronize()
-        heads = [t.transpose(1, 2).reshape(b * h, s, d) for t in (q, k, v)]
-        ro, _ = fa.flash_attention_ref(*heads, True, 1.0 / math.sqrt(d))
-        ro = ro.reshape(b, h, s, d).transpose(1, 2)
-        flash_err[dname] = (o.float() - ro.float()).abs().max().item()
-        check(flash_err[dname] <= FLASH_TOL[dname],
-              f"flash main shape {dname}: err {flash_err[dname]}")
+        flash_err[dname] = {}
+        for b in (4, TRAIN_BATCH):
+            qkv = randn(b, s, 3 * h * d, dtype=dt)
+            q, k, v = (t.reshape(b, s, h, d)
+                       for t in qkv.split(h * d, dim=-1))
+            with torch.no_grad():
+                o = fa.flash_attention(q, k, v, causal=True)
+                torch.cuda.synchronize()
+                ro, _ = fa.flash_attention_ref(
+                    *(fa._heads(t) for t in (q, k, v)), True,
+                    1.0 / math.sqrt(d))
+            ro = fa._unheads(ro, b, h)
+            err = (o.float() - ro.float()).abs().max().item()
+            flash_err[dname][b] = err
+            check(err <= FLASH_TOL[dname],
+                  f"flash main shape b={b} {dname}: err {err}")
+            del qkv, q, k, v, o, ro
     # SDPA sends every shape its gate passes to the kernel: the wide heads
     # launch it, and a head it has no tiling for raises
     from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
@@ -215,8 +253,9 @@ def main():
         raised = True
     check(raised, "SDPA head_dim 320 on the card raises")
     emit({"phase": "kernels_vs_plain", "kernel": "flash_fwd",
-          "configs": n_flash + 2, "shapes_s_d": shapes,
-          "main_shape_max_abs_err": flash_err,
+          "configs": n_flash + 4, "shapes_s_d": shapes,
+          "main_shape_s_h_d": [1024, 12, 64],
+          "main_shape_max_abs_err_by_batch": flash_err,
           "sdpa_head_dim_192_256_launched": True,
           "sdpa_head_dim_320_raises": True,
           "tol": {"o": FLASH_TOL, "lse": LSE_TOL}})
@@ -229,6 +268,7 @@ def main():
         return err
 
     M, H, I = 4096, 768, 3072
+    M_TRAIN = TRAIN_BATCH * 1024      # the training step's rows (b x s)
     tpp_errs = {}
     for dname, dt in dtypes.items():
         x = randn(M, H, dtype=dt)
@@ -245,13 +285,22 @@ def main():
             "plain_kn": tpp_err(
                 tpp.matmul(x, fc1.t().contiguous(), b1),
                 tpp._matmul_ref(x, fc1.t(), b1), dname, "plain [k,n]"),
-            "ln": tpp_err(tpp.ln_matmul(x, gamma, beta, fc1.t(), b1),
-                          tpp._matmul_ref(x, fc1.t(), b1, gamma=gamma,
-                                          beta=beta), dname, "ln"),
-            "gelu_in": tpp_err(tpp._fused_tail(pre, fc2.t(), b2, False),
-                               tpp._matmul_ref(pre, fc2.t(), b2, "gelu"),
-                               dname, "gelu_in"),
         }
+        # the two variants on the main paths, at the serving and the
+        # training row counts
+        for m_rows in (M, M_TRAIN):
+            xm, prem = (x, pre) if m_rows == M else \
+                (randn(m_rows, H, dtype=dt), randn(m_rows, I, dtype=dt))
+            with torch.no_grad():
+                errs[f"ln@{m_rows}"] = tpp_err(
+                    tpp.ln_matmul(xm, gamma, beta, fc1.t(), b1),
+                    tpp._matmul_ref(xm, fc1.t(), b1, gamma=gamma, beta=beta),
+                    dname, f"ln m={m_rows}")
+                errs[f"gelu_in@{m_rows}"] = tpp_err(
+                    tpp._fused_tail(prem, fc2.t(), b2, False),
+                    tpp._matmul_ref(prem, fc2.t(), b2, "gelu"),
+                    dname, f"gelu_in m={m_rows}")
+            del xm, prem
         # every input activation and epilogue, at a ragged shape
         xs, ws, bs = randn(200, 72, dtype=dt), randn(72, 136, dtype=dt,
                                                      std=0.1), \
@@ -264,9 +313,89 @@ def main():
         torch.cuda.synchronize()
         tpp_errs[dname] = errs
     emit({"phase": "kernels_vs_plain", "kernel": "tpp_matmul",
-          "shapes": [[M, H, I], [M, I, H], [200, 72, 136]],
+          "shapes": [[M, H, I], [M, I, H], [M_TRAIN, H, I], [M_TRAIN, I, H],
+                     [200, 72, 136]],
           "max_abs_err": tpp_errs,
           "tol_x_max(1,max|plain|)": TPP_TOL})
+
+    # the backward kernels against the plain backward, and against autograd
+    # through the plain forward, on the same inputs
+    def bwd_err(got, want, dname):
+        err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got, want))
+        scale = max(1.0, max(w.float().abs().max().item() for w in want))
+        return err, err <= FLASH_BWD_TOL[dname] * scale
+
+    n_bwd = 0
+    for s, d in shapes:
+        for dname, dt in dtypes.items():
+            for causal, window in ((False, None), (True, None),
+                                   (True, 100)):
+                q, k, v, do = (randn(8, s, d, dtype=dt) for _ in range(4))
+                scale = 1.0 / math.sqrt(d)
+                leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                o, lse = fa.flash_attention_ref(*leaves, causal, scale,
+                                                window)
+                autograd = torch.autograd.grad(o, leaves, do)
+                o, lse = o.detach(), lse.detach()
+                got = fa._flash_bwd(q, k, v, o, lse, do, causal, scale,
+                                    window=window)
+                torch.cuda.synchronize()
+                plain = fa.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                   causal, scale,
+                                                   window=window)
+                for what, want in (("plain", plain), ("autograd", autograd)):
+                    err, ok = bwd_err(got, want, dname)
+                    check(ok, f"flash bwd s={s} d={d} {dname} causal="
+                          f"{causal} window={window} vs {what}: err {err}")
+                if causal and window is None:
+                    # an external delta (ring attention's) is used as given
+                    delta = torch.randn(8, s, generator=gen, device=dev)
+                    got = fa._flash_bwd(q, k, v, o, lse, do, causal, scale,
+                                        delta=delta)
+                    want = fa.flash_attention_bwd_ref(
+                        q, k, v, o, lse, do, causal, scale, delta=delta)
+                    err, ok = bwd_err(got, want, dname)
+                    check(ok, f"flash bwd external delta s={s} d={d} "
+                          f"{dname}: err {err}")
+                n_bwd += 1
+    # the training path's call, at its shape: grads of strided q/k/v views
+    # of one packed qkv through the autograd Function, against autograd
+    # through the plain forward
+    bwd_errs = {}
+    b, s, h, d = TRAIN_BATCH, 1024, 12, 64
+    for dname, dt in dtypes.items():
+        qkv = randn(b, s, 3 * h * d, dtype=dt)
+        do = randn(b, s, h, d, dtype=dt)
+        grads = []
+        for use_kernel in (True, False):
+            packed = qkv.clone().requires_grad_()
+            q, k, v = (t.reshape(b, s, h, d)
+                       for t in packed.split(h * d, dim=-1))
+            if use_kernel:
+                o = fa.flash_attention(q, k, v, causal=True)
+            else:
+                o3, _ = fa.flash_attention_ref(
+                    *(fa._heads(t) for t in (q, k, v)), True,
+                    1.0 / math.sqrt(d))
+                o = fa._unheads(o3, b, h)
+            grads.append(torch.autograd.grad(o, packed, do)[0])
+        torch.cuda.synchronize()
+        got, want = (g.split(h * d, dim=-1) for g in grads)
+        bwd_errs[dname] = {
+            "dq": bwd_err(got[:1], want[:1], dname)[0],
+            "dkv": bwd_err(got[1:], want[1:], dname)[0]}
+        check(bwd_err(got, want, dname)[1],
+              f"flash bwd main shape {dname}: err {bwd_errs[dname]}")
+        del qkv, do, grads, got, want, packed, q, k, v, o
+    emit({"phase": "kernels_vs_plain", "kernel": "flash_dq+flash_dkv",
+          "configs": n_bwd + 2, "shapes_s_d": shapes,
+          "against": ["flash_attention_bwd_ref", "autograd through "
+                      "flash_attention_ref"],
+          "external_delta_checked": True,
+          "main_shape": [b, s, h, d],
+          "main_shape_max_abs_err": bwd_errs,
+          "tol_x_max(1,max|plain|)": FLASH_BWD_TOL})
 
     # ---- 3. narrow model at seq 1024 against the JAX fixture --------------
     fix = np.load(golden.FIXTURE)
@@ -298,6 +427,90 @@ def main():
           "logits_tol": NARROW_TOL, "greedy_tokens_equal": True,
           "greedy_shape": list(toks.shape)})
     del narrow
+
+    # the narrow model trains like the JAX package: the same numpy
+    # weights, fresh AdamW state, golden.TRAIN_STEPS steps, fp32 and bf16
+    # auto_cast, FLAGS_tpp_kernels off and on
+    tfix = np.load(golden.TRAIN_FIXTURE)
+    train_ids = torch.as_tensor(golden.input_ids(), device=dev).long()
+    train_labels = torch.as_tensor(golden.train_labels(), device=dev).long()
+
+    def train_narrow(amp, zero=None):
+        """golden.TRAIN_STEPS steps of the narrow model; `zero` ("dq" or
+        "dkv") zeroes that backward kernel's output (a control run).
+        Returns (losses, kept rows, dQ and dK/dV launches)."""
+        dname = "bfloat16" if amp else "float32"
+        m = GPTForCausalLM(GPTConfig(**golden.NARROW), device=dev)
+        m.load_state_dict(params_from_jax(golden.jax_layout_params()))
+        tr = SpmdTrainer(m, AdamW(learning_rate=golden.TRAIN_LR,
+                                  parameters=m.parameters()),
+                         loss_fn=GPTPretrainLoss())
+        real_bwd = fa._launch_bwd
+
+        def zeroed(*args, **kwargs):
+            dq, dk, dv = real_bwd(*args, **kwargs)
+            if zero == "dq":
+                return torch.zeros_like(dq), dk, dv
+            return dq, torch.zeros_like(dk), torch.zeros_like(dv)
+
+        n0 = (fa.launches[f"flash_dq:{dname}"],
+              fa.launches[f"flash_dkv:{dname}"])
+        losses = []
+        if zero:
+            fa._launch_bwd = zeroed
+        try:
+            for _ in range(golden.TRAIN_STEPS):
+                with auto_cast(amp, dtype="bfloat16"):
+                    losses.append(float(tr.train_step(train_ids,
+                                                      train_labels)))
+        finally:
+            fa._launch_bwd = real_bwd
+        n = (fa.launches[f"flash_dq:{dname}"] - n0[0],
+             fa.launches[f"flash_dkv:{dname}"] - n0[1])
+        return losses, golden.port_kept_rows(dict(m.named_parameters())), n
+
+    narrow_train = {}
+    for tag, amp in (("fp32", False), ("bf16", True)):
+        want_rows = {n: tfix[f"rows_{tag}__{n}"] for n in golden.KEPT_PARAMS}
+        for on in (False, True):
+            set_flags({"tpp_kernels": on})
+            losses, rows, n_launch = train_narrow(amp)
+            n_bwd = 2 * golden.TRAIN_STEPS        # one per layer and step
+            check(n_launch == (n_bwd, n_bwd), f"narrow {tag} training: "
+                  f"{n_bwd} dQ and {n_bwd} dK/dV launches, got {n_launch}")
+            loss_err = float(np.abs(np.asarray(losses)
+                                    - tfix[f"loss_{tag}"]).max())
+            row_err = max(float(np.abs(rows[n] - want_rows[n]).max())
+                          for n in rows)
+            update_err = golden.update_rel_err(rows, want_rows)
+            key = f"{tag}_tpp_{'on' if on else 'off'}"
+            narrow_train[key] = {"losses": losses, "loss_err": loss_err,
+                                 "row_max_abs_err": row_err,
+                                 "update_rel_err": update_err}
+            if amp:
+                ok = loss_err <= TRAIN_BF16_LOSS_TOL \
+                    and update_err <= golden.TRAIN_BF16_UPDATE_RTOL
+            else:
+                ok = loss_err <= TRAIN_FP32_TOL and row_err <= TRAIN_FP32_TOL
+            check(ok, f"narrow training {key} vs JAX: {narrow_train[key]}")
+    set_flags({"tpp_kernels": False})
+    # the controls: a bf16 backward whose dQ or dK/dV is zero must fail
+    # the bf16 row check
+    controls = {}
+    for zero in ("dq", "dkv"):
+        _, rows, _ = train_narrow(True, zero)
+        controls[f"bf16_{zero}_zeroed_update_rel_err"] = golden.update_rel_err(
+            rows, want_rows)
+        check(controls[f"bf16_{zero}_zeroed_update_rel_err"]
+              > golden.TRAIN_BF16_UPDATE_RTOL,
+              f"a zeroed {zero} fails the bf16 row check: {controls}")
+    emit({"phase": "narrow_train_vs_jax_fixture", "steps": golden.TRAIN_STEPS,
+          "lr": golden.TRAIN_LR, **narrow_train, **controls,
+          "jax_losses": {t: tfix[f"loss_{t}"].tolist()
+                         for t in ("fp32", "bf16")},
+          "tol": {"fp32_loss_and_rows": TRAIN_FP32_TOL,
+                  "bf16_loss": TRAIN_BF16_LOSS_TOL,
+                  "bf16_update_rel_err": golden.TRAIN_BF16_UPDATE_RTOL}})
 
     # ---- 4. GPT-2 small, full width: the main path ------------------------
     cfg = GPTConfig.small()
@@ -396,16 +609,103 @@ def main():
     check(toks_bf16.shape == (4, 256)
           and bool(((toks_bf16 >= 0) & (toks_bf16 < cfg.vocab_size)).all()),
           "bf16 generate: [4, 256] ids in the vocabulary")
-    counts = {**fa.launches, **tpp.launches}
+    counts_serve = {**fa.launches, **tpp.launches}
     emit({"phase": "gpt2_small_generate", "batch": 4, "prompt": 128,
           "new_tokens": n_new, "dtype": "bfloat16",
           "seconds_all": gen_s,
           "new_tok_per_s": 4 * n_new / statistics.median(gen_s),
           "fp32_tokens_equal_forward_argmax": int((~mismatch).sum()),
           "fp32_near_tie_mismatches": int(mismatch.sum()),
-          "main_path_launches": counts})
+          "main_path_launches": counts_serve})
     del model, model_bf16
     torch.cuda.empty_cache()
+
+    # ---- 4b. GPT-2 small training, full width: the training main path -----
+    # bench.py's headline workload (bench.py:282-354): SpmdTrainer +
+    # AdamW(lr 1e-4) + GPTPretrainLoss at 16 x 1024, dropout 0, ids and
+    # labels drawn as bench.py draws them, under bf16 auto_cast with
+    # FLAGS_tpp_kernels off and on; and once in fp32 (flag off), which runs
+    # the fp32 variants of the flash kernels on this path. Dropout 0 as in
+    # bench.py (GPTConfig.small()'s 0.1 would route attention to the
+    # naive path, in both packages).
+    cfg = GPTConfig(hidden_size=768, num_layers=12, num_heads=12,
+                    dropout=0.0)
+    rng = np.random.RandomState(0)
+    t_ids = torch.as_tensor(rng.randint(0, cfg.vocab_size, (
+        TRAIN_BATCH, 1024)).astype(np.int32)).long().to(dev)
+    t_labels = torch.as_tensor(rng.randint(0, cfg.vocab_size, (
+        TRAIN_BATCH, 1024)).astype(np.int32)).long().to(dev)
+    L, hdim, V, S = cfg.num_layers, cfg.hidden_size, cfg.vocab_size, 1024
+    # bench.py:246-253: 6 N (N counts the embedding and the tied head
+    # once each) plus the attention matmuls, per token
+    flops_per_token = 6 * (V * hdim + L * 12 * hdim * hdim + hdim * V) \
+        + L * 12 * S * hdim
+    fa.launches.clear()
+    tpp.launches.clear()
+    train = {}
+    for dname, amp, on, n_steps in (("bfloat16", True, False, TRAIN_STEPS),
+                                    ("bfloat16", True, True, TRAIN_STEPS),
+                                    ("float32", False, False, 2)):
+        set_flags({"tpp_kernels": on})
+        torch.cuda.reset_peak_memory_stats()
+        model = GPTForCausalLM(cfg, device=dev,
+                               generator=torch.Generator().manual_seed(0))
+        trainer = SpmdTrainer(model, AdamW(learning_rate=1e-4,
+                                           parameters=model.parameters()),
+                              loss_fn=GPTPretrainLoss())
+        losses = []
+
+        def step():
+            before = {**fa.launches, **tpp.launches}
+            with auto_cast(amp, dtype="bfloat16"):
+                loss = trainer.train_step(t_ids, t_labels)
+            after = {**fa.launches, **tpp.launches}
+            delta = {key: after[key] - before.get(key, 0) for key in after
+                     if after[key] != before.get(key, 0)}
+            want = {f"flash_{kind}:{dname}": L
+                    for kind in ("fwd", "dq", "dkv")}
+            if on:
+                want.update({"tpp_matmul.ln:float32": L,
+                             "tpp_matmul.in_act:float32": L})
+            check(delta == want, f"training step {dname} tpp={on}: "
+                  f"launches {delta}, expected {want}")
+            losses.append(loss.item())
+            return loss
+
+        times = []
+        for i in range(1 + n_steps):                 # one warm-up step
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            if i:
+                times.append((time.perf_counter() - t) * 1e3)
+        _, trace = device_breakdown(step)
+        check(all(math.isfinite(x) for x in losses),
+              f"training {dname} tpp={on}: finite losses {losses}")
+        check(losses[-1] < losses[0],
+              f"training {dname} tpp={on}: loss falls on the memorised "
+              f"batch {losses}")
+        ms = statistics.median(times)
+        tok_s = TRAIN_BATCH * S / (ms / 1e3)
+        peak = PEAK_FLOPS[dname]
+        key = f"{dname}{'_amp' if amp else ''}_tpp_{'on' if on else 'off'}"
+        train[key] = {
+            "step_ms": ms, "step_ms_all": times, "tokens_per_s": tok_s,
+            "mfu": tok_s * flops_per_token / peak,
+            "mfu_peak": f"{peak / 1e12:.0f} TFLOP/s {dname} dense",
+            "losses": losses, "profiled": trace,
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 2 ** 30,
+            "trainer_stats": trainer.stats()}
+        del model, trainer
+        torch.cuda.empty_cache()
+    set_flags({"tpp_kernels": False})
+    counts_train = {**fa.launches, **tpp.launches}
+    emit({"phase": "gpt2_small_train", "batch": TRAIN_BATCH, "seq": S,
+          "optimizer": "AdamW lr 1e-4", "flops_per_token": flops_per_token,
+          "warmup_steps": 1, "train": train,
+          "main_path_launches": counts_train})
 
     # ---- 5. times at the main path's shapes -------------------------------
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > L2
@@ -432,85 +732,165 @@ def main():
         return max(t_ops, t_mem) * 1e3, \
             "operations" if t_ops >= t_mem else "bytes"
 
+    def launch_counts(key):
+        """Launches of `key` on each main path (counts zeroed just before
+        the path, read just after), and their sum."""
+        by_path = {"serve": counts_serve.get(key, 0),
+                   "train": counts_train.get(key, 0)}
+        return {"launches": sum(by_path.values()),
+                "launches_by_path": by_path}
+
     kernels = []
-    b, s, h, d = 4, 1024, 12, 64
+    s, h, d = 1024, 12, 64
+    scale = 1.0 / math.sqrt(d)
     pairs = s * (s + 1) // 2                        # causal (q, k) pairs
     for dname, dt in dtypes.items():
+        item = torch.finfo(dt).bits // 8
+        fwd_rows = {}
+        for b in (4, TRAIN_BATCH):       # serving and training shapes
+            qkv = randn(b, s, 3 * h * d, dtype=dt)
+            q, k, v = (t.reshape(b, s, h, d)
+                       for t in qkv.split(h * d, dim=-1))
+            heads = [fa._heads(t).contiguous() for t in (q, k, v)]
+            bhsd = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+            bms, by = bound(4.0 * b * h * pairs * d,
+                            4 * b * h * s * d * item + b * h * s * 4, dname)
+            with torch.no_grad():
+                fwd_rows[b] = {
+                    "ms": time_ms(lambda: fa.flash_attention(q, k, v,
+                                                             causal=True)),
+                    "plain_ms": time_ms(lambda: fa.flash_attention_ref(
+                        *heads, True, scale)),
+                    "bound_ms": bms, "bound_by": by,
+                    "library_ms": time_ms(
+                        lambda: torch.nn.functional
+                        .scaled_dot_product_attention(*bhsd, is_causal=True)),
+                    "shape": [b, s, h, d]}
+            del qkv, q, k, v, heads, bhsd
+        kernels.append({
+            "name": f"flash_fwd[{dname}]", "route": "cuda",
+            "source": "paddle_tpu_torch/ops/csrc/flash_fwd.cu",
+            "replaces": "paddle_tpu/ops/flash_attention.py:196",
+            **launch_counts(f"flash_fwd:{dname}"),
+            "max_abs_err": flash_err[dname][4], **fwd_rows[4], "causal": True,
+            "train_shape": {**fwd_rows[TRAIN_BATCH],
+                            "max_abs_err": flash_err[dname][TRAIN_BATCH]}})
+
+        # the backward pair at the training shape, from the forward
+        # kernel's o and lse; delta computed once, as the wrapper does
+        b = TRAIN_BATCH
         qkv = randn(b, s, 3 * h * d, dtype=dt)
         q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
-        heads = [t.transpose(1, 2).reshape(b * h, s, d).contiguous()
-                 for t in (q, k, v)]
-        bhsd = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
-        item = torch.finfo(dt).bits // 8
-        bms, by = bound(4.0 * b * h * pairs * d,
-                        4 * b * h * s * d * item + b * h * s * 4, dname)
+        do = randn(b, s, h, d, dtype=dt)
         with torch.no_grad():
+            o, lse = fa._launch(q, k, v, True, scale, None)
+            delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
+                .reshape(b * h, s).contiguous()
+            heads = [fa._heads(t).contiguous() for t in (q, k, v, o, do)]
+            plain_ms = time_ms(lambda: fa.flash_attention_bwd_ref(
+                *heads[:4], lse, heads[4], True, scale))
+        del heads
+        bq, bk, bv = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            bq, bk, bv, is_causal=True)
+        bdo = do.transpose(1, 2).contiguous()
+        library_ms = time_ms(lambda: torch.autograd.grad(
+            out, (bq, bk, bv), bdo, retain_graph=True))
+        del out, bq, bk, bv, bdo
+        for kind, line, flops_per_pair, n_out, fn in (
+                ("dq", 282, 6, 1, lambda: fa._launch_dq(
+                    q, k, v, do, lse, delta, True, scale, None)),
+                ("dkv", 319, 8, 2, lambda: fa._launch_dkv(
+                    q, k, v, do, lse, delta, True, scale, None))):
+            bms, by = bound(float(flops_per_pair) * d * b * h * pairs,
+                            (4 + n_out) * b * h * s * d * item
+                            + 2 * b * h * s * 4, dname)
             kernels.append({
-                "name": f"flash_fwd[{dname}]", "route": "cuda",
-                "source": "paddle_tpu_torch/ops/csrc/flash_fwd.cu",
-                "replaces": "paddle_tpu/ops/flash_attention.py:196",
-                "launches": counts.get(f"flash_fwd:{dname}", 0),
-                "max_abs_err": flash_err[dname],
-                "ms": time_ms(lambda: fa.flash_attention(q, k, v,
-                                                         causal=True)),
-                "plain_ms": time_ms(lambda: fa.flash_attention_ref(
-                    *heads, True, 1.0 / math.sqrt(d))),
-                "bound_ms": bms, "bound_by": by,
-                "library_ms": time_ms(
-                    lambda: torch.nn.functional.scaled_dot_product_attention(
-                        *bhsd, is_causal=True)),
+                "name": f"flash_{kind}[{dname}]", "route": "cuda",
+                "source": "paddle_tpu_torch/ops/csrc/flash_bwd.cu",
+                "replaces": f"paddle_tpu/ops/flash_attention.py:{line}",
+                **launch_counts(f"flash_{kind}:{dname}"),
+                "max_abs_err": bwd_errs[dname][kind], "ms": time_ms(fn),
+                "plain_ms": plain_ms,
+                "plain_covers": "dq, dk and dv: one plain backward",
+                "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
+                "library_covers": "dq, dk and dv: one backward of "
+                                  "scaled_dot_product_attention",
                 "shape": [b, s, h, d], "causal": True})
+        del qkv, q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
 
     tpp_plain = {}
     for dname, dt in dtypes.items():
         item = torch.finfo(dt).bits // 8
-        x = randn(M, H, dtype=dt)
-        pre = randn(M, I, dtype=dt)
-        fc1 = randn(I, H, dtype=dt, std=0.02)
-        fc2 = randn(H, I, dtype=dt, std=0.02)
-        b1 = randn(I, dtype=dt, std=0.02)
-        b2 = randn(H, dtype=dt, std=0.02)
-        gamma = 1.0 + randn(H, dtype=dt, std=0.1)
-        beta = randn(H, dtype=dt, std=0.1)
-        flops = 2.0 * M * H * I       # the multiply-adds; LN and gelu add
-        #                               under 0.2% at these widths
-        bms, by = bound(flops, (M * H + H * I + M * I + I + 2 * H) * item,
-                        dname)
-        kernels.append({
-            "name": f"tpp_matmul.ln_prologue[{dname}]", "route": "cuda",
-            "source": "paddle_tpu_torch/ops/csrc/tpp_matmul.cu",
-            "replaces": "paddle_tpu/ops/tpp.py:458",
-            "launches": counts.get(f"tpp_matmul.ln:{dname}", 0),
-            "max_abs_err": tpp_errs[dname]["ln"],
-            "ms": time_ms(lambda: tpp.ln_matmul(x, gamma, beta, fc1.t(), b1)),
-            "plain_ms": time_ms(lambda: tpp._matmul_ref(
-                x, fc1.t(), b1, gamma=gamma, beta=beta)),
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "shape": [M, H, I]})
-        bms, by = bound(flops, (M * I + I * H + M * H + H) * item, dname)
-        kernels.append({
-            "name": f"tpp_matmul.gelu_in_bias[{dname}]", "route": "cuda",
-            "source": "paddle_tpu_torch/ops/csrc/tpp_matmul.cu",
-            "replaces": "paddle_tpu/ops/tpp.py:458",
-            "launches": counts.get(f"tpp_matmul.in_act:{dname}", 0),
-            "max_abs_err": tpp_errs[dname]["gelu_in"],
-            "ms": time_ms(lambda: tpp._fused_tail(pre, fc2.t(), b2, False)),
-            "plain_ms": time_ms(lambda: tpp._matmul_ref(
-                pre, fc2.t(), b2, "gelu")),
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "shape": [M, I, H]})
-        # the plain variant (not on the main path) beside torch.addmm
-        bms, by = bound(flops, (M * H + H * I + M * I + I) * item, dname)
-        tpp_plain[dname] = {
-            "ms": time_ms(lambda: tpp.matmul(x, fc1.t(), b1)),
-            "plain_ms": time_ms(lambda: tpp._matmul_ref(x, fc1.t(), b1)),
-            "library_ms": time_ms(lambda: torch.addmm(b1, x, fc1.t())),
-            "bound_ms": bms, "bound_by": by, "shape": [M, H, I]}
+        rows = {"ln": {}, "gelu": {}}
+        for m_rows in (M, M_TRAIN):             # serving, training shapes
+            x = randn(m_rows, H, dtype=dt)
+            pre = randn(m_rows, I, dtype=dt)
+            fc1 = randn(I, H, dtype=dt, std=0.02)
+            fc2 = randn(H, I, dtype=dt, std=0.02)
+            b1 = randn(I, dtype=dt, std=0.02)
+            b2 = randn(H, dtype=dt, std=0.02)
+            gamma = 1.0 + randn(H, dtype=dt, std=0.1)
+            beta = randn(H, dtype=dt, std=0.1)
+            flops = 2.0 * m_rows * H * I  # the multiply-adds; LN and gelu
+            #                               add under 0.2% at these widths
+            with torch.no_grad():
+                bms, by = bound(flops, (m_rows * H + H * I + m_rows * I + I
+                                        + 2 * H) * item, dname)
+                rows["ln"][m_rows] = {
+                    "ms": time_ms(lambda: tpp.ln_matmul(x, gamma, beta,
+                                                        fc1.t(), b1)),
+                    "plain_ms": time_ms(lambda: tpp._matmul_ref(
+                        x, fc1.t(), b1, gamma=gamma, beta=beta)),
+                    "bound_ms": bms, "bound_by": by, "library_ms": None,
+                    "shape": [m_rows, H, I]}
+                bms, by = bound(flops, (m_rows * I + I * H + m_rows * H
+                                        + H) * item, dname)
+                rows["gelu"][m_rows] = {
+                    "ms": time_ms(lambda: tpp._fused_tail(pre, fc2.t(), b2,
+                                                          False)),
+                    "plain_ms": time_ms(lambda: tpp._matmul_ref(
+                        pre, fc2.t(), b2, "gelu")),
+                    "bound_ms": bms, "bound_by": by, "library_ms": None,
+                    "shape": [m_rows, I, H]}
+                if m_rows == M:
+                    # the plain variant (not on a main path) beside addmm
+                    bms, by = bound(flops, (M * H + H * I + M * I + I)
+                                    * item, dname)
+                    tpp_plain[dname] = {
+                        "ms": time_ms(lambda: tpp.matmul(x, fc1.t(), b1)),
+                        "plain_ms": time_ms(lambda: tpp._matmul_ref(
+                            x, fc1.t(), b1)),
+                        "library_ms": time_ms(lambda: torch.addmm(
+                            b1, x, fc1.t())),
+                        "bound_ms": bms, "bound_by": by, "shape": [M, H, I]}
+            del x, pre
+        for variant, key, err in (("ln_prologue", "ln", "ln"),
+                                  ("gelu_in_bias", "in_act", "gelu_in")):
+            part = rows["ln" if key == "ln" else "gelu"]
+            kernels.append({
+                "name": f"tpp_matmul.{variant}[{dname}]", "route": "cuda",
+                "source": "paddle_tpu_torch/ops/csrc/tpp_matmul.cu",
+                "replaces": "paddle_tpu/ops/tpp.py:458",
+                **launch_counts(f"tpp_matmul.{key}:{dname}"),
+                "max_abs_err": tpp_errs[dname][f"{err}@{M}"], **part[M],
+                "train_shape": {**part[M_TRAIN],
+                                "max_abs_err":
+                                    tpp_errs[dname][f"{err}@{M_TRAIN}"]}})
     emit({"phase": "times", "method": "CUDA events, 3 warm-up, median of "
           "20, 64 MB written between launches to flush L2",
           "tpp_matmul.plain": tpp_plain})
     for kern in kernels:
-        check(kern["launches"] > 0, f"{kern['name']} ran on the main path")
+        check(kern["launches"] > 0, f"{kern['name']} ran on a main path")
+    for name in ("flash_fwd[bfloat16]", "flash_dq[bfloat16]",
+                 "flash_dkv[bfloat16]", "flash_dq[float32]",
+                 "flash_dkv[float32]", "tpp_matmul.ln_prologue[float32]",
+                 "tpp_matmul.gelu_in_bias[float32]"):
+        kern = next(k for k in kernels if k["name"] == name)
+        check(kern["launches_by_path"]["train"] > 0,
+              f"{name} ran on the training path")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

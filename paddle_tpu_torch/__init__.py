@@ -6,12 +6,16 @@ its docstring; each Pallas kernel on a ported path is a hand-written CUDA
 kernel under ops/csrc/, beside a plain PyTorch version of the same
 function. The port imports neither jax nor paddle_tpu.
 
-This slice serves GPT-2: the eval forward (flash-attention and TPP matmul
-kernels) and KV-cache ``generate``. Entry points run on ``cuda`` unless
-the caller passes ``device="cpu"``.
+Two slices so far. Serving GPT-2: the eval forward (flash-attention and
+TPP matmul kernels) and KV-cache ``generate``. Training GPT-2 on one
+device: the flash-attention backward kernels, the TPP ops as autograd
+Functions, the hard-label cross-entropy, AdamW, bf16 ``amp.auto_cast``
+and ``distributed.SpmdTrainer``. Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``.
 """
-from . import models
+from . import amp, distributed, models, optimizer
 from .core.generator import seed
 from .flags import get_flag, get_flags, set_flags
 
-__all__ = ["get_flag", "get_flags", "models", "seed", "set_flags"]
+__all__ = ["amp", "distributed", "get_flag", "get_flags", "models",
+           "optimizer", "seed", "set_flags"]

@@ -3,7 +3,8 @@
 Ports paddle_tpu/flags.py: the same define_flag / get_flag / set_flags /
 get_flags semantics (FLAGS_xxx environment seeding, an error on a
 conflicting re-definition, provisional entries made by set_flags before a
-flag is defined), with only the flags the serving path reads.
+flag is defined), with only the flags the ported serving and training
+paths read.
 """
 import os
 
@@ -79,3 +80,12 @@ define_flag("flash_attention_block", 0,
             "force the flash-attention block size (128/256/512) that "
             "ops/flash_attention.py _block_for reports; 0 = auto (largest "
             "of 512/256/128 dividing seq)")
+define_flag("check_nan_inf", False,
+            "scan op outputs for NaN/Inf (flags.cc:44); SpmdTrainer builds "
+            "its step with an on-device loss/grad finiteness check and "
+            "SKIPS the update on a non-finite step (docs/ROBUSTNESS.md)")
+define_flag("max_skip_steps", 3,
+            "with FLAGS_check_nan_inf: how many CONSECUTIVE non-finite "
+            "train steps may be skipped before train_step raises "
+            "FloatingPointError (a transient loss spike recovers; a "
+            "diverged run fails loudly)")

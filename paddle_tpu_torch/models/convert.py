@@ -1,11 +1,12 @@
-"""Carry the JAX package's GPT weights into the port (no counterpart in
-paddle_tpu/).
+"""Carry the JAX package's GPT weights and optimizer state into the port
+(no counterpart in paddle_tpu/).
 
 The reference's ``nn.Linear`` stores its weight as [in, out] (used as
 ``h @ w``); the port's layers are ``torch.nn.Linear``, whose weight is
-[out, in]. So every Linear weight is transposed on the way across;
-embeddings ([rows, h]), LayerNorm parameters and biases are taken as they
-are. Names do not change.
+[out, in]. So every Linear weight is transposed on the way across, and so
+are the optimizer moments kept beside it; embeddings ([rows, h]),
+LayerNorm parameters and biases are taken as they are. Names do not
+change.
 """
 import re
 
@@ -30,4 +31,27 @@ def params_from_jax(named):
                                  f"shape {arr.shape}")
             arr = arr.T
         out[name] = torch.tensor(arr)
+    return out
+
+
+def opt_state_from_jax(named_state, device="cpu"):
+    """named_state: the reference optimizer's ``functional_init`` /
+    ``functional_apply`` state as numpy arrays, ``{param name: {slot:
+    array}, "__step__": array}`` (an SpmdTrainer's ``opt_state``). Returns
+    the port optimizer's state in the same layout, as tensors on `device`:
+    moments of Linear weights transposed like their weights, scalar slots
+    (``beta1_pow``, ``beta2_pow``) and ``__step__`` as they are."""
+    out = {}
+    for name, slots in named_state.items():
+        if name == "__step__":
+            out[name] = torch.tensor(np.asarray(slots), dtype=torch.int32,
+                                     device=device)
+            continue
+        out[name] = {}
+        for slot, arr in slots.items():
+            arr = np.asarray(arr)
+            if arr.ndim == 2 and _LINEAR_WEIGHT.search(name):
+                arr = arr.T
+            out[name][slot] = torch.tensor(np.ascontiguousarray(arr),
+                                           device=device)
     return out

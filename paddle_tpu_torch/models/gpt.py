@@ -1,10 +1,18 @@
-"""GPT-2 style causal LM: the eval forward and KV-cache ``generate``.
+"""GPT-2 style causal LM: the forward, the pretraining loss and KV-cache
+``generate``.
 
 Ports paddle_tpu/models/gpt.py: ``GPTConfig``, ``GPTAttention`` (GQA and
 sliding window), ``GPTMLP``, ``GPTBlock`` with its ``_tpp_mlp`` hook,
-``GPTModel``, ``GPTForCausalLM`` with the tied head ``h @ wte^T``, and the
-decode path (``_decode_fns``, ``_check_decode_config``,
-``_decode_compute_dtype``, ``_decode_setup``, ``_gpt_generate``).
+``GPTModel``, ``GPTForCausalLM`` with the tied head ``h @ wte^T`` and its
+``loss``, ``GPTPretrainLoss``, and the decode path (``_decode_fns``,
+``_check_decode_config``, ``_decode_compute_dtype``, ``_decode_setup``,
+``_gpt_generate``).
+
+The forward is differentiable on every path: the flash and TPP kernels sit
+in autograd Functions whose backward is a kernel (flash) or the
+reference's plain math (TPP). Dropout (``model.train()`` with
+``dropout > 0``) draws its masks from a ``torch.Generator`` (the default
+generator of the activations' device), never from torch's global RNG.
 
 Attention goes through ``scaled_dot_product_attention``, which sends a
 CUDA tensor at seq >= 1024 to the flash kernel; with FLAGS_tpp_kernels set
@@ -30,6 +38,8 @@ from torch import nn
 from .. import flags as _flags
 from ..core import generator as _generator
 from ..core.device import resolve_device
+from ..nn.functional.common import dropout as _dropout
+from ..nn.functional.loss import cross_entropy
 from ..nn.functional.transformer import scaled_dot_product_attention
 from ..ops import tpp
 
@@ -98,6 +108,18 @@ class GPTConfig:
                          num_heads=4, max_seq_len=128, dropout=0.0)
 
 
+class Dropout(nn.Module):
+    """nn.Dropout drawing its mask from a torch.Generator (the reference's
+    ``nn.Dropout``: upscale_in_train, identity in eval mode)."""
+
+    def __init__(self, p):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return _dropout(x, self.p, training=self.training)
+
+
 class GPTAttention(nn.Module):
     def __init__(self, cfg):
         super().__init__()
@@ -152,7 +174,7 @@ class GPTBlock(nn.Module):
         self.attn = GPTAttention(cfg)
         self.ln2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
         self.mlp = GPTMLP(cfg)
-        self.drop = nn.Dropout(cfg.dropout)
+        self.drop = Dropout(cfg.dropout)
 
     def forward(self, x):
         x = x + self.drop(self.attn(self.ln1(x)))
@@ -177,7 +199,7 @@ class GPTModel(nn.Module):
         self.cfg = cfg
         self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.wpe = nn.Embedding(cfg.max_seq_len, cfg.hidden_size)
-        self.drop = nn.Dropout(cfg.dropout)
+        self.drop = Dropout(cfg.dropout)
         self.blocks = nn.ModuleList(
             [GPTBlock(cfg) for _ in range(cfg.num_layers)])
         self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
@@ -233,6 +255,15 @@ class GPTForCausalLM(nn.Module):
         h = self.gpt(torch.as_tensor(input_ids, device=self.device))
         return F.linear(h, self.gpt.wte.weight)   # tied head: h @ wte^T
 
+    def loss(self, input_ids, labels):
+        """Mean hard-label cross-entropy of the logits against `labels`
+        [b, s] (no shift: the caller aligns them)."""
+        logits = self.forward(input_ids)
+        b, s, v = logits.shape
+        return cross_entropy(logits.reshape(b * s, v),
+                             torch.as_tensor(labels, device=self.device)
+                             .reshape(b * s))
+
     def generate(self, input_ids, max_new_tokens=32, temperature=1.0,
                  top_k=None, top_p=None, seed=None, eos_token_id=None,
                  num_beams=1, length_penalty=1.0, dtype=None,
@@ -266,6 +297,15 @@ class GPTForCausalLM(nn.Module):
                              cache_dtype=None, tp_mesh=None,
                              eos_token_id=None):
         raise NotImplementedError("speculative decoding is not ported yet")
+
+
+class GPTPretrainLoss(nn.Module):
+    """loss_fn for SpmdTrainer: logits [b, s, v] and labels [b, s] -> the
+    mean cross-entropy over the b * s rows."""
+
+    def forward(self, logits, labels):
+        b, s, v = logits.shape
+        return cross_entropy(logits.reshape(b * s, v), labels.reshape(b * s))
 
 
 # ---------------------------------------------------------------------------

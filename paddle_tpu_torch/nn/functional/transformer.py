@@ -1,16 +1,18 @@
 """Attention functionals.
 
 Ports paddle_tpu/nn/functional/transformer.py: one attention entry point
-that routes to the flash-attention kernel (ops/flash_attention.py) when
-the shapes allow it and the tensors lie on a CUDA device, and to the naive
-softmax(QK^T)V otherwise, with the same causal, window and mask handling.
+that routes to the flash-attention kernels (ops/flash_attention.py, forward
+and backward) when the shapes allow it and the tensors lie on a CUDA
+device, and to the naive softmax(QK^T)V otherwise, with the same causal,
+window and mask handling. Gradients flow through both paths; attention
+dropout draws its mask from a torch.Generator.
 """
 import math
 
 import torch
-import torch.nn.functional as F
 
 from ...ops import flash_attention as fa
+from .common import dropout
 
 _NEG = -1e30
 
@@ -54,5 +56,5 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         scores = scores.masked_fill(~keep, _NEG)
     probs = torch.softmax(scores, dim=-1)
     if dropout_p and training:
-        probs = F.dropout(probs, p=dropout_p, training=True)
+        probs = dropout(probs, p=dropout_p, training=True)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v).transpose(1, 2)

@@ -1,17 +1,20 @@
-"""Flash-attention forward: the CUDA kernel and its plain PyTorch version.
+"""Flash attention: the CUDA kernels, their plain PyTorch versions, and the
+autograd Function around them.
 
-Ports paddle_tpu/ops/flash_attention.py, forward only (the backward
-kernels `_dq_kernel` and `_dkv_kernel` come with training). The Pallas
-`_fwd_kernel` becomes ``csrc/flash_fwd.cu`` (the design notes are there):
-one thread block per (b*h, 64-row query tile) looping over the kv tiles,
-fp32 online softmax in registers and shared memory, causal and window
-tiles skipped whole and masked per element on their edges.
+Ports paddle_tpu/ops/flash_attention.py. The Pallas `_fwd_kernel` becomes
+``csrc/flash_fwd.cu`` and the backward pair `_dq_kernel` / `_dkv_kernel`
+becomes ``csrc/flash_bwd.cu`` (the design notes are in each source): one
+thread block per (b*h, 64-row tile) looping over the other side's tiles,
+fp32 math in registers and shared memory, causal and window tiles skipped
+whole and masked per element on their edges. ``flash_attention`` is a
+``torch.autograd.Function`` (the reference's ``jax.custom_vjp``): it saves
+q, k, v, o and lse, and its backward returns dq, dk, dv in q's dtype.
 
 A tensor on a CUDA device launches the kernel or raises; a tensor on the
-CPU takes the plain version, ``flash_attention_ref``. The kernel is
-forward-only, so the CUDA path refuses inputs that need a gradient.
-``launches`` counts kernel launches by ``"flash_fwd:<dtype>"``, where the
-kernel is launched and nowhere else.
+CPU takes the plain version, ``flash_attention_ref`` forward and
+``flash_attention_bwd_ref`` backward. ``launches`` counts kernel launches
+by ``"flash_fwd:<dtype>"``, ``"flash_dq:<dtype>"`` and
+``"flash_dkv:<dtype>"``, where each kernel is launched and nowhere else.
 """
 import collections
 import ctypes
@@ -21,15 +24,17 @@ import operator
 import torch
 
 from .. import flags as _flags
+from ..amp.auto_cast import disabled as _autocast_off
 from . import _build
 
 _NEG = -1e30
 
-#: kernel launches by "flash_fwd:<dtype>"
+#: kernel launches by "flash_fwd:<dtype>", "flash_dq:<dtype>" and
+#: "flash_dkv:<dtype>"
 launches = collections.Counter()
 
-#: the head dims csrc/flash_fwd.cu has a tiling for; a wider head's fp32
-#: tiles do not fit in a block's shared memory
+#: the head dims csrc/flash_fwd.cu and csrc/flash_bwd.cu have a tiling for;
+#: a wider head's fp32 tiles do not fit in a block's shared memory
 KERNEL_HEAD_DIMS = (64, 128, 192, 256)
 
 
@@ -90,6 +95,17 @@ def _check_window(window, causal):
     return window
 
 
+def _keep_mask(s_q, s_k, window, device):
+    """The reference's `_causal_mask` rule as a [s_q, s_k] keep-mask:
+    k_pos <= q_pos, and q_pos - k_pos < window."""
+    qp = torch.arange(s_q, device=device)[:, None]
+    kp = torch.arange(s_k, device=device)[None, :]
+    keep = kp <= qp
+    if window is not None:
+        keep &= (qp - kp) < window
+    return keep
+
+
 def flash_attention_ref(q3, k3, v3, causal, scale, window=None):
     """Plain PyTorch forward over q3/k3/v3 [bh, s, d]: fp32 scores
     (q * scale) k^T, the reference's mask (keep k_pos <= q_pos, and
@@ -98,13 +114,8 @@ def flash_attention_ref(q3, k3, v3, causal, scale, window=None):
     qf = q3.float() * scale
     scores = qf @ k3.float().transpose(-1, -2)              # [bh, s, s]
     if causal:
-        s_q, s_k = scores.shape[-2:]
-        qp = torch.arange(s_q, device=q3.device)[:, None]
-        kp = torch.arange(s_k, device=q3.device)[None, :]
-        keep = kp <= qp
-        if window is not None:
-            keep &= (qp - kp) < window
-        scores = scores.masked_fill(~keep, _NEG)
+        scores = scores.masked_fill(
+            ~_keep_mask(*scores.shape[-2:], window, q3.device), _NEG)
     m = scores.amax(-1, keepdim=True)
     p = torch.exp(scores - m)
     l = p.sum(-1, keepdim=True)
@@ -112,25 +123,46 @@ def flash_attention_ref(q3, k3, v3, causal, scale, window=None):
     return o.to(q3.dtype), (m + torch.log(l)).squeeze(-1)
 
 
-_FN = []
+def flash_attention_bwd_ref(q3, k3, v3, o3, lse, do3, causal, scale,
+                            delta=None, window=None):
+    """Plain PyTorch backward over [bh, s, d] arrays, the reference
+    kernels' math in fp32: P = exp((q * scale) k^T - lse) under the
+    forward's mask, dP = dO v^T, dS = P (dP - delta) with delta =
+    rowsum(dO o) unless given, dq = scale dS k, dk = dS^T (q * scale),
+    dv = P^T dO. Returns (dq, dk, dv) in q3's dtype."""
+    qf = q3.float() * scale
+    kf, vf, dof = k3.float(), v3.float(), do3.float()
+    if delta is None:
+        delta = (dof * o3.float()).sum(-1)                  # [bh, s]
+    p = torch.exp(qf @ kf.transpose(-1, -2) - lse[..., None])
+    if causal:
+        p = p.masked_fill(~_keep_mask(*p.shape[-2:], window, q3.device), 0.0)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
+    dq = (ds @ kf) * scale
+    dk = ds.transpose(-1, -2) @ qf
+    dv = p.transpose(-1, -2) @ dof
+    return dq.to(q3.dtype), dk.to(q3.dtype), dv.to(q3.dtype)
 
 
-def _kernel():
-    if not _FN:
-        lib = _build.load("flash_fwd")
-        fn = lib.flash_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * 12
-                       + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _FN.append((lib, fn))
-    return _FN[0]
+def _check_operands(operands, dtype, shape, device):
+    """Every kernel operand (name, tensor) must lie on `device` with q's
+    dtype and [B, S, H, D] shape, and a contiguous head_dim."""
+    for name, t in operands:
+        if not t.is_cuda or t.device != device:
+            raise ValueError(f"flash kernel: {name} must lie on {device}, "
+                             f"got {t.device}")
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"flash kernel: {name} is {t.dtype} {tuple(t.shape)}, "
+                f"expected {dtype} {shape}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"flash kernel: {name} needs a contiguous "
+                             f"head_dim, got strides {t.stride()}")
 
 
-def _launch(q, k, v, causal, scale, window):
-    """Run the kernel on [B, S, H, D] views (any strides over b, s, h; d
-    contiguous). Returns (o [B, S, H, D] contiguous, lse [B*H, S] fp32)."""
+def _check_shape(q):
+    """The kernels' tilings: fp32/bf16, head_dim in KERNEL_HEAD_DIMS, seq a
+    multiple of 64, b*h within the grid. Returns q's dtype name."""
     B, S, H, D = q.shape
     dtype = _dtype_name(q.dtype)
     if dtype not in ("float32", "bfloat16") or D not in KERNEL_HEAD_DIMS \
@@ -139,33 +171,124 @@ def _launch(q, k, v, causal, scale, window):
             f"flash kernel takes fp32/bf16, head_dim in {KERNEL_HEAD_DIMS}, "
             f"seq a multiple of 64 and b*h <= 65535; got {dtype} "
             f"{(B, S, H, D)}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"flash kernel: {name} must lie on {q.device}, "
-                             f"got {t.device}")
-        if t.dtype != q.dtype or tuple(t.shape) != (B, S, H, D):
-            raise ValueError(
-                f"flash kernel: {name} is {t.dtype} {tuple(t.shape)}, "
-                f"expected {q.dtype} {(B, S, H, D)}")
-        if t.stride(-1) != 1:
-            raise ValueError(f"flash kernel: {name} needs a contiguous "
-                             f"head_dim, got strides {t.stride()}")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "the CUDA flash kernel is forward-only (its backward "
-                "kernels come with training): call it under "
-                "torch.no_grad()")
+    return dtype
+
+
+_FN = {}
+
+
+def _kernel(name):
+    """(library, C entry) of kernel `name`: flash_fwd, flash_dq or
+    flash_dkv, with its ctypes signature (pointers, then B, H, S, D, then
+    (b, s, h) strides per tensor, then causal, scale, window, dtype,
+    stream)."""
+    if name not in _FN:
+        n_ptr, n_strided = {"flash_fwd": (5, 4), "flash_dq": (7, 5),
+                            "flash_dkv": (8, 6)}[name]
+        lib = _build.load("flash_fwd" if name == "flash_fwd" else "flash_bwd")
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4
+                       + [ctypes.c_longlong] * (3 * n_strided)
+                       + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FN[name] = (lib, fn)
+    return _FN[name]
+
+
+def _strides(*ts):
+    return [st for t in ts for st in t.stride()[:3]]
+
+
+def _tail(q, causal, scale, window, dtype):
+    return (int(causal), float(scale), int(window or 0),
+            0 if dtype == "float32" else 1,
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _launch(q, k, v, causal, scale, window):
+    """Run the forward kernel on [B, S, H, D] views (any strides over b, s,
+    h; d contiguous). Returns (o [B, S, H, D] contiguous, lse [B*H, S]
+    fp32)."""
+    dtype = _check_shape(q)
+    B, S, H, D = q.shape
+    _check_operands((("q", q), ("k", k), ("v", v)), q.dtype, (B, S, H, D),
+                    q.device)
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
-    lib, fn = _kernel()
+    lib, fn = _kernel("flash_fwd")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             lse.data_ptr(), B, H, S, D, *q.stride()[:3], *k.stride()[:3],
-             *v.stride()[:3], *o.stride()[:3], int(causal), float(scale),
-             int(window or 0), 0 if dtype == "float32" else 1,
-             torch.cuda.current_stream(q.device).cuda_stream)
+             lse.data_ptr(), B, H, S, D, *_strides(q, k, v, o),
+             *_tail(q, causal, scale, window, dtype))
     _build.check(lib, "flash_fwd", err)
     launches[f"flash_fwd:{dtype}"] += 1
     return o, lse
+
+
+def _check_rows(q, lse, delta):
+    B, S, H, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.device != q.device or t.dtype != torch.float32 \
+                or tuple(t.shape) != (B * H, S) or not t.is_contiguous():
+            raise ValueError(
+                f"flash kernel: {name} must be a contiguous float32 "
+                f"[{B * H}, {S}] array on {q.device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+
+
+def _launch_dq(q, k, v, do, lse, delta, causal, scale, window):
+    """Run the dQ kernel on [B, S, H, D] views of q, k, v, dO and the
+    [B*H, S] fp32 rows lse and delta. Returns dq [B, S, H, D]."""
+    dtype = _check_shape(q)
+    B, S, H, D = q.shape
+    _check_operands((("q", q), ("k", k), ("v", v), ("dout", do)), q.dtype,
+                    (B, S, H, D), q.device)
+    _check_rows(q, lse, delta)
+    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    lib, fn = _kernel("flash_dq")
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, S, D,
+             *_strides(q, k, v, do, dq),
+             *_tail(q, causal, scale, window, dtype))
+    _build.check(lib, "flash_bwd", err)
+    launches[f"flash_dq:{dtype}"] += 1
+    return dq
+
+
+def _launch_dkv(q, k, v, do, lse, delta, causal, scale, window):
+    """Run the dK/dV kernel on the same operands as _launch_dq. Returns
+    (dk, dv), each [B, S, H, D]."""
+    dtype = _check_shape(q)
+    B, S, H, D = q.shape
+    _check_operands((("q", q), ("k", k), ("v", v), ("dout", do)), q.dtype,
+                    (B, S, H, D), q.device)
+    _check_rows(q, lse, delta)
+    dk = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    lib, fn = _kernel("flash_dkv")
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             B, H, S, D, *_strides(q, k, v, do, dk, dv),
+             *_tail(q, causal, scale, window, dtype))
+    _build.check(lib, "flash_bwd", err)
+    launches[f"flash_dkv:{dtype}"] += 1
+    return dk, dv
+
+
+def _launch_bwd(q, k, v, o, lse, do, causal, scale, window, delta=None):
+    """Both backward kernels on [B, S, H, D] views. delta [B*H, S] fp32 =
+    rowsum(dO o) is computed here with torch ops unless given, as the
+    reference computes it outside Pallas. Returns (dq, dk, dv)."""
+    if do.stride(-1) != 1:
+        do = do.contiguous()      # the kernels read d contiguously
+    if delta is None:
+        B, S, H, _ = q.shape
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
+            .reshape(B * H, S)
+    delta = delta.contiguous()
+    dq = _launch_dq(q, k, v, do, lse, delta, causal, scale, window)
+    dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal, scale, window)
+    return dq, dk, dv
 
 
 def _flash_fwd(q3, k3, v3, causal, scale, window=None):
@@ -181,20 +304,75 @@ def _flash_fwd(q3, k3, v3, causal, scale, window=None):
     return o.squeeze(2), lse
 
 
+def _flash_bwd(q3, k3, v3, o3, lse, do3, causal, scale, delta=None,
+               window=None):
+    """[bh, s, d] arrays and the forward's lse [bh, s] -> (dq, dk, dv) in
+    q3's dtype. delta [bh, s] fp32 = rowsum(dO o) may be passed in (ring
+    attention computes it once for every hop); otherwise it is computed
+    here."""
+    if window is not None and not causal:
+        raise ValueError("window requires causal=True")
+    _block_for(q3.shape[1])
+    if not q3.is_cuda:
+        return flash_attention_bwd_ref(q3, k3, v3, o3, lse, do3, causal,
+                                       scale, delta=delta, window=window)
+    grads = _launch_bwd(q3.unsqueeze(2), k3.unsqueeze(2), v3.unsqueeze(2),
+                        o3.unsqueeze(2), lse, do3.unsqueeze(2), causal, scale,
+                        window, delta=delta)
+    return tuple(g.squeeze(2) for g in grads)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``_flash`` custom_vjp: forward saves (q, k, v, o,
+    lse), backward runs the dQ and dK/dV kernels (or their plain version
+    on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        b, s, h, d = q.shape
+        scale = 1.0 / math.sqrt(d)
+        with _autocast_off():
+            if q.is_cuda:
+                o, lse = _launch(q, k, v, causal, scale, window)
+            else:
+                o3, lse = flash_attention_ref(_heads(q), _heads(k),
+                                              _heads(v), causal, scale,
+                                              window)
+                o = _unheads(o3, b, h)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale, ctx.window = causal, scale, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        b, _, h, _ = q.shape
+        with _autocast_off():
+            if q.is_cuda:
+                return (*_launch_bwd(q, k, v, o, lse, do, ctx.causal,
+                                     ctx.scale, ctx.window), None, None)
+            grads = flash_attention_bwd_ref(
+                _heads(q), _heads(k), _heads(v), _heads(o), lse, _heads(do),
+                ctx.causal, ctx.scale, window=ctx.window)
+        return (*(_unheads(g, b, h) for g in grads), None, None)
+
+
+def _heads(t):
+    """[b, s, h, d] -> [b*h, s, d]."""
+    b, s, h, d = t.shape
+    return t.transpose(1, 2).reshape(b * h, s, d)
+
+
+def _unheads(t, b, h):
+    """[b*h, s, d] -> [b, s, h, d]."""
+    return t.reshape(b, h, *t.shape[1:]).transpose(1, 2)
+
+
 def flash_attention(q, k, v, causal=False, window=None):
     """q, k, v: [b, s, h, d] -> [b, s, h, d] (the reference's layout).
-    window=W (requires causal=True) keeps only the last W tokens; kv tiles
-    wholly outside the band are skipped by the kernel."""
+    Differentiable (a torch.autograd.Function over the forward and
+    backward kernels). window=W (requires causal=True) keeps only the last
+    W tokens; tiles wholly outside the band are skipped by the kernels."""
     window = _check_window(window, causal)
-    b, s, h, d = q.shape
-    _block_for(s)
-    scale = 1.0 / math.sqrt(d)
-    if q.is_cuda:
-        return _launch(q, k, v, causal, scale, window)[0]
-
-    def heads(t):
-        return t.transpose(1, 2).reshape(b * h, s, d)
-
-    o, _ = flash_attention_ref(heads(q), heads(k), heads(v), causal, scale,
-                               window)
-    return o.reshape(b, h, s, d).transpose(1, 2)
+    _block_for(q.shape[1])
+    return _FlashAttention.apply(q, k, v, causal, window)

@@ -1,23 +1,31 @@
-"""TPP blocked matmul: the CUDA kernel, its plain PyTorch version, and the
-GPT block hook.
+"""TPP blocked matmul: the CUDA kernel, its plain PyTorch version, the
+autograd Functions around it, and the GPT block hook.
 
 Ports the matmul family of paddle_tpu/ops/tpp.py: ``pick_block``,
 ``supported_2d``, ``ln_matmul_supported``, ``matmul``, ``ln_matmul``,
-``_fused_tail`` and ``gpt_block_mlp``. The Pallas ``_matmul_kernel``
-becomes ``csrc/tpp_matmul.cu`` (the design notes are there): one kernel
-computes ``act(in_act(LN?(x)) @ w + bias)`` with an fp32 accumulator, the
-LayerNorm prologue (``ln_matmul``) and the gelu-on-load + bias variant
-(``_fused_tail``) being two of its modes. The other Pallas kernels of the
-reference module (paged attention, bias_act, softmax_rows, masked_reduce)
-are not on the serving path and are still to be ported.
+``fused_mlp``, ``_fused_tail`` and ``gpt_block_mlp``. The Pallas
+``_matmul_kernel`` becomes ``csrc/tpp_matmul.cu`` (the design notes are
+there): one kernel computes ``act(in_act(LN?(x)) @ w + bias)`` with an fp32
+accumulator, the LayerNorm prologue (``ln_matmul``) and the gelu-on-load +
+bias variant (``_fused_tail``) being two of its modes. The other Pallas
+kernels of the reference module (paged attention, bias_act, softmax_rows,
+masked_reduce) are on no ported path and are still to be ported.
+
+``ln_matmul``, ``fused_mlp`` and ``_fused_tail`` are
+``torch.autograd.Function``s, the counterparts of the reference's
+custom_vjps: the forward runs the kernel, the backward is plain PyTorch —
+autograd of the op's fp32 reference math (``_matmul_ref`` with the LN
+prologue or the gelu on its input, and ``_mlp_ref``), as the reference's
+backward is ``jax.vjp`` of its ``_ln_matmul_ref`` / ``_mlp_ref`` /
+``_fused_tail_ref``, with grads cast back to the input dtypes.
+Both run with autocast off, so an enclosing bf16 autocast never turns
+that fp32 math into bf16 products. ``matmul`` alone has no backward, as
+in the reference.
 
 A tensor on a CUDA device launches the kernel or raises; a tensor on the
-CPU takes the plain version, ``_matmul_ref``. This slice is forward-only:
-the CUDA path refuses inputs that need a gradient (the autograd Function
-with a plain-PyTorch backward, the counterpart of the reference's
-custom_vjps, comes with training). ``launches`` counts kernel launches by
-``"tpp_matmul.<variant>:<dtype>"`` (variant ``plain``, ``ln`` or
-``in_act``), where the kernel is launched and nowhere else.
+CPU takes the plain version, ``_matmul_ref``. ``launches`` counts kernel
+launches by ``"tpp_matmul.<variant>:<dtype>"`` (variant ``plain``, ``ln``
+or ``in_act``), where the kernel is launched and nowhere else.
 """
 import collections
 import ctypes
@@ -25,6 +33,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..amp.auto_cast import disabled as _autocast_off
 from . import _build
 
 _LN_EPS = 1e-5   # nn.LayerNorm's default epsilon (the only one GPT uses)
@@ -137,11 +146,6 @@ def _launch(x, w, bias, in_act, act, gamma=None, beta=None):
             raise ValueError(
                 f"tpp kernel: {name} is {t.dtype} {tuple(t.shape)}, "
                 f"expected {x.dtype} {shape}")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                "the CUDA TPP kernel is forward-only (its autograd "
-                "Function comes with training): call it under "
-                "torch.no_grad()")
         if name != "w" and not t.is_contiguous():
             raise ValueError(f"tpp kernel: {name} must be contiguous")
     if w.stride(0) != 1 and w.stride(1) != 1:
@@ -185,25 +189,123 @@ def matmul(x, w, bias=None, in_act="none", act="none"):
         raise ValueError(
             f"tpp.matmul cannot tile [{m},{k}]@[{k},{n}] {x.dtype} — "
             "gate on supported_2d() and fall back to the dense path")
+    if x.is_cuda and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, bias)):
+        raise NotImplementedError(
+            "tpp.matmul has no backward (as in the reference): use "
+            "ln_matmul, fused_mlp or _fused_tail, or call it under "
+            "torch.no_grad()")
     return _run(x, w, bias, in_act, act)
+
+
+def _mlp_ref(x, w1, b1, w2, b2, approx):
+    """The reference's ``_mlp_ref``: ``gelu(x @ w1 + b1) @ w2 + b2`` in
+    fp32, cast to x's dtype."""
+    act = "gelu_tanh" if approx else "gelu"
+    h = _apply_act(x.float() @ w1.float() + b1.float(), act)
+    return (h @ w2.float() + b2.float()).to(x.dtype)
+
+
+def _vjp(ref, inputs, g):
+    """The grads of ``ref(*inputs)`` against cotangent g, by autograd of
+    the plain math (the reference's ``jax.vjp`` of its ``*_ref``): fp32
+    inside, each grad in its input's dtype, autocast off."""
+    with torch.enable_grad(), _autocast_off():
+        leaves = [None if t is None else t.detach().requires_grad_()
+                  for t in inputs]
+        out = ref(*leaves)
+        grads = iter(torch.autograd.grad(
+            out, [t for t in leaves if t is not None], g))
+    return tuple(None if t is None else next(grads) for t in leaves)
+
+
+class _LnMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, w, bias):
+        ctx.save_for_backward(x, gamma, beta, w, bias)
+        with _autocast_off():
+            return _run(x, w, bias, "none", "none", gamma, beta)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _vjp(lambda x, gamma, beta, w, bias: _matmul_ref(
+            x, w, bias, gamma=gamma, beta=beta), ctx.saved_tensors, g)
+
+
+class _FusedMlp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, approx):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        ctx.approx = approx
+        act = "gelu_tanh" if approx else "gelu"
+        with _autocast_off():
+            # leg 1: x @ w1 + b1, the one intermediate in device memory;
+            # leg 2: gelu on the second matmul's loads, + b2 on the way out
+            h = _run(x, w1, b1, "none", "none")
+            return _run(h, w2, b2, act, "none")
+
+    @staticmethod
+    def backward(ctx, g):
+        approx = ctx.approx
+        grads = _vjp(lambda *a: _mlp_ref(*a, approx), ctx.saved_tensors, g)
+        return (*grads, None)
+
+
+class _FusedTail(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pre, w2, b2, approx):
+        ctx.save_for_backward(pre, w2, b2)
+        ctx.approx = approx
+        with _autocast_off():
+            return _run(pre, w2, b2, "gelu_tanh" if approx else "gelu",
+                        "none")
+
+    @staticmethod
+    def backward(ctx, g):
+        approx = ctx.approx
+        act = "gelu_tanh" if approx else "gelu"
+        grads = _vjp(lambda pre, w2, b2: _matmul_ref(pre, w2, b2, act),
+                     ctx.saved_tensors, g)
+        return (*grads, None)
 
 
 def ln_matmul(x, gamma, beta, w, bias):
     """Fused layernorm -> matmul prologue: ``LN(x; gamma, beta) @ w +
     bias``, the normalized rows living only in the kernel's tiles.
-    x [m, k], w [k, n]; m and n must tile (:func:`ln_matmul_supported`)."""
+    Differentiable (reference-math backward). x [m, k], w [k, n]; m and n
+    must tile (:func:`ln_matmul_supported`)."""
     m, k = x.shape
     n = w.shape[1]
     if not ln_matmul_supported(m, k, n, x.dtype):
         raise ValueError(f"tpp.ln_matmul cannot tile [{m},{k}]@[{k},{n}] "
                          f"{x.dtype}")
-    return _run(x, w, bias, "none", "none", gamma, beta)
+    return _LnMatmul.apply(x, gamma, beta, w, bias)
+
+
+def fused_mlp(x, w1, b1, w2, b2, approx=False):
+    """The GPT MLP block ``gelu(x @ w1 + b1) @ w2 + b2`` through two
+    kernel launches, gelu fused into the second one's loads.
+    Differentiable (reference-math backward). x [m, k]; both matmuls must
+    tile (:func:`supported_2d`)."""
+    m, k = x.shape
+    inter, n = w1.shape[1], w2.shape[1]
+    if supported_2d(m, k, inter, x.dtype) is None \
+            or supported_2d(m, inter, n, x.dtype) is None:
+        raise ValueError(f"tpp.fused_mlp cannot tile [{m},{k}]@[{k},"
+                         f"{inter}]@[{inter},{n}] {x.dtype}")
+    return _FusedMlp.apply(x, w1, b1, w2, b2, approx)
 
 
 def _fused_tail(pre, w2, b2, approx):
     """gelu + projection half of the MLP block: gelu applied to the
-    pre-activation hidden as its tiles load, then ``@ w2 + b2``."""
-    return matmul(pre, w2, bias=b2, in_act="gelu_tanh" if approx else "gelu")
+    pre-activation hidden as its tiles load, then ``@ w2 + b2``.
+    Differentiable (reference-math backward)."""
+    m, k = pre.shape
+    n = w2.shape[1]
+    if supported_2d(m, k, n, pre.dtype) is None:
+        raise ValueError(f"tpp.matmul cannot tile [{m},{k}]@[{k},{n}] "
+                         f"{pre.dtype}")
+    return _FusedTail.apply(pre, w2, b2, approx)
 
 
 def gpt_block_mlp(x, ln, mlp):

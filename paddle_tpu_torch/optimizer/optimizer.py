@@ -1,0 +1,208 @@
+"""Optimizer base, Adam and AdamW.
+
+Ports paddle_tpu/optimizer/optimizer.py: ``Optimizer`` (``step``,
+``clear_grad``, ``state_dict``, ``set_state_dict``, ``functional_init``,
+``functional_apply``), ``Adam`` and ``AdamW`` with the reference's update
+rules (operators/optimizers/adam_op.cc, adamw.py), which differ from
+``torch.optim.AdamW``:
+
+- bias correction goes into the step size, lr_t = lr * sqrt(1 - beta2^t) /
+  (1 - beta1^t), and epsilon is added to the *uncorrected* sqrt(v);
+- AdamW decays first, p <- p * (1 - lr * wd), then takes the Adam step;
+- the decay applies to every parameter, biases and LayerNorm weights too
+  (the reference stores ``apply_decay_param_fun`` and never reads it).
+
+The rules are plain torch ops in fp32 (moments and beta powers are fp32
+whatever the parameter's dtype). Unlike the reference, whose rules are
+pure functions returning new arrays, the port updates parameters and
+optimizer state IN PLACE: ``step`` and ``functional_apply`` mutate the
+tensors they are given and return them.
+
+A float learning rate and a float weight decay only: ``LRScheduler``
+learning rates, regularizer objects (``L2Decay`` / ``L1Decay``) and
+``grad_clip`` are not ported yet and raise NotImplementedError.
+"""
+import torch
+
+
+def _scalar(value, device):
+    return torch.tensor(float(value), dtype=torch.float32, device=device)
+
+
+class Optimizer:
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None):
+        if isinstance(learning_rate, bool) \
+                or not isinstance(learning_rate, (int, float)):
+            raise NotImplementedError(
+                f"learning_rate={learning_rate!r}: only a float learning "
+                "rate is ported (LRScheduler is not ported yet)")
+        if grad_clip is not None:
+            raise NotImplementedError("grad_clip is not ported yet")
+        if weight_decay is not None and (
+                isinstance(weight_decay, bool)
+                or not isinstance(weight_decay, (int, float))):
+            raise NotImplementedError(
+                f"weight_decay={weight_decay!r}: only a float weight decay "
+                "is ported (regularizer objects are not ported yet)")
+        self._lr = float(learning_rate)
+        self._parameters = list(parameters) if parameters is not None \
+            else []
+        self._wd = float(weight_decay or 0.0)
+        self._state = {}        # id(param) -> state dict (step())
+        self._step_count = 0
+
+    # -- learning rate ---------------------------------------------------
+    def get_lr(self):
+        return self._lr
+
+    def set_lr(self, value):
+        self._lr = float(value)
+
+    # -- state -----------------------------------------------------------
+    def _get_state(self, p):
+        k = id(p)
+        if k not in self._state:
+            self._state[k] = self._init_state(p)
+        return self._state[k]
+
+    def _init_state(self, p):
+        return {}
+
+    # -- update rule (in place; overridden per optimizer) ----------------
+    def _rule(self, p, g, state, lr):
+        raise NotImplementedError
+
+    def _rule_with_decay(self, p, g, state, lr, wd):
+        # L2 regularization folded into the grad (paddle regularizer
+        # semantics); decoupled decay (AdamW) overrides this
+        self._rule(p, g + wd.to(g.dtype) * p, state, lr)
+
+    # -- public API ------------------------------------------------------
+    @torch.no_grad()
+    def step(self):
+        """One update of every parameter that has a grad, in place."""
+        self._step_count += 1
+        scalars = {}
+        for p in self._parameters:
+            if p.grad is None or not p.requires_grad:
+                continue
+            if p.device not in scalars:
+                scalars[p.device] = (_scalar(self.get_lr(), p.device),
+                                     _scalar(self._wd, p.device))
+            lr, wd = scalars[p.device]
+            self._rule_with_decay(p, p.grad.to(p.dtype), self._get_state(p),
+                                  lr, wd)
+
+    def clear_grad(self, set_to_zero=True):
+        for p in self._parameters:
+            p.grad = None
+
+    def _key(self, i, p):
+        return f"{getattr(p, 'name', None) or i}"
+
+    def state_dict(self):
+        """{"LR_Scheduler": {}, "<param>_<slot>": tensor, ..., "step": n}
+        with the reference's keys (a parameter without a ``name`` is keyed
+        by its index). The tensors are copies."""
+        out = {"LR_Scheduler": {}}
+        for i, p in enumerate(self._parameters):
+            for k, v in self._state.get(id(p), {}).items():
+                out[f"{self._key(i, p)}_{k}"] = v.detach().clone()
+        out["step"] = self._step_count
+        return out
+
+    @torch.no_grad()
+    def set_state_dict(self, state):
+        self._step_count = state.get("step", 0)
+        for i, p in enumerate(self._parameters):
+            st = self._init_state(p)
+            loaded = False
+            for k in st:
+                key = f"{self._key(i, p)}_{k}"
+                if key in state:
+                    st[k].copy_(torch.as_tensor(state[key]))
+                    loaded = True
+            if loaded:
+                self._state[id(p)] = st
+
+    # -- functional view (the trainer's step) ----------------------------
+    def functional_init(self, params):
+        """params: dict name -> tensor. Returns the state dict {name: slot
+        dict, "__step__": int32 0}."""
+        states = {n: self._init_state(p) for n, p in params.items()}
+        device = next(iter(params.values())).device if params else "cpu"
+        states["__step__"] = torch.zeros((), dtype=torch.int32,
+                                         device=device)
+        return states
+
+    @torch.no_grad()
+    def functional_apply(self, params, grads, states, lr=None):
+        """Update every parameter from its grad, IN PLACE (parameters and
+        states are mutated), and advance ``__step__``. Returns (params,
+        states), the same dicts."""
+        lr = self.get_lr() if lr is None else lr
+        scalars = {}
+        for n, p in params.items():
+            if p.device not in scalars:
+                scalars[p.device] = (_scalar(lr, p.device),
+                                     _scalar(self._wd, p.device))
+            g = grads[n]
+            g = torch.zeros_like(p) if g is None else g.to(p.dtype)
+            self._rule_with_decay(p, g, states[n], *scalars[p.device])
+        states["__step__"] += 1
+        return params, states
+
+
+class Adam(Optimizer):
+    """operators/optimizers/adam_op.cc parity (bias-corrected via beta-pow
+    state)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 name=None):
+        self._beta1 = beta1
+        self._beta2 = beta2
+        self._eps = epsilon
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+
+    def _init_state(self, p):
+        z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return {"moment1": z, "moment2": torch.zeros_like(z),
+                "beta1_pow": torch.ones((), dtype=torch.float32,
+                                        device=p.device),
+                "beta2_pow": torch.ones((), dtype=torch.float32,
+                                        device=p.device)}
+
+    def _rule(self, p, g, state, lr):
+        b1, b2, eps = self._beta1, self._beta2, self._eps
+        state["beta1_pow"].mul_(b1)
+        state["beta2_pow"].mul_(b2)
+        m, v = state["moment1"], state["moment2"]
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * (g * g))
+        lr_t = lr * torch.sqrt(1 - state["beta2_pow"]) \
+            / (1 - state["beta1_pow"])
+        p.sub_((lr_t * m / (torch.sqrt(v) + eps)).to(p.dtype))
+
+
+class AdamW(Adam):
+    """python/paddle/optimizer/adamw.py parity: decoupled weight decay on
+    every parameter, applied before the Adam step."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=0.01,
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 lazy_mode=False, multi_precision=False, name=None):
+        if lr_ratio is not None:
+            raise NotImplementedError("AdamW(lr_ratio=) is not ported yet")
+        # apply_decay_param_fun is accepted and never read: the reference
+        # stores it and decays every parameter all the same
+        super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
+                         weight_decay, grad_clip)
+
+    def _rule_with_decay(self, p, g, state, lr, wd):
+        # decoupled: p -= lr*wd*p before the Adam update
+        p.mul_(1.0 - lr.to(p.dtype) * wd.to(p.dtype))
+        self._rule(p, g, state, lr)

@@ -4,14 +4,16 @@ JAX package's, whose Pallas kernels run in interpret mode on the CPU
 
 Inputs come from a numpy seed and go to both packages. Tolerance: atol
 1e-5 in fp32 — the same function, the Pallas kernel summing over K
-blocks and the plain version in one product. Tests marked ``cuda`` hold
-the CUDA kernel against the plain version on a card, and skip without
-one.
+blocks and the plain version in one product; the same for the grads of
+the autograd Functions against ``jax.vjp`` of the reference's custom_vjps.
+Tests marked ``cuda`` hold the CUDA kernel against the plain version on a
+card, and skip without one.
 """
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import paddle_tpu as paddle
@@ -19,6 +21,7 @@ from paddle_tpu.models.gpt import GPTConfig as JConfig
 from paddle_tpu.models.gpt import GPTMLP as JMLP
 from paddle_tpu.ops import tpp as jtpp
 
+import paddle_tpu_torch as pt
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTMLP
 from paddle_tpu_torch.ops import tpp
 
@@ -174,6 +177,98 @@ def test_cpu_tensors_take_the_plain_version(data):
         tpp._launch(T(data["x"]), T(data["w1"]), None, "none", "none")
 
 
+def _grads_both(jfn, tfn, arrays, g):
+    """(port grads, reference grads) of fn(*arrays) against cotangent g:
+    torch autograd through the port's Function, jax.vjp of the
+    reference's custom_vjp."""
+    _, vjp = jax.vjp(jfn, *(J(a) for a in arrays))
+    want = vjp(J(g))
+    leaves = [T(a).clone().requires_grad_() for a in arrays]
+    got = torch.autograd.grad(tfn(*leaves), leaves, T(g))
+    return got, want
+
+
+def _assert_grads(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL,
+                                   rtol=0)
+
+
+def test_ln_matmul_grads_match_jax_vjp(data):
+    g = np.random.RandomState(4).randn(24, 128).astype(np.float32)
+    arrays = [data[k] for k in ("x", "gamma", "beta", "w1", "b1")]
+    _assert_grads(*_grads_both(jtpp.ln_matmul, tpp.ln_matmul, arrays, g))
+
+
+@pytest.mark.parametrize("approx", [False, True], ids=["erf", "tanh"])
+def test_fused_tail_grads_match_jax_vjp(data, approx):
+    g = np.random.RandomState(5).randn(24, 32).astype(np.float32)
+    arrays = [data[k] for k in ("pre", "w2", "b2")]
+    _assert_grads(*_grads_both(
+        lambda *a: jtpp._fused_tail(*a, approx),
+        lambda *a: tpp._fused_tail(*a, approx), arrays, g))
+
+
+@pytest.mark.parametrize("approx", [False, True], ids=["erf", "tanh"])
+def test_fused_mlp_and_its_grads_match_jax(data, approx):
+    arrays = [data[k] for k in ("x", "w1", "b1", "w2", "b2")]
+    want = jtpp.fused_mlp(*(J(a) for a in arrays), approx)
+    got = tpp.fused_mlp(*(T(a) for a in arrays), approx)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=ATOL, rtol=0)
+    g = np.random.RandomState(6).randn(24, 32).astype(np.float32)
+    _assert_grads(*_grads_both(
+        lambda *a: jtpp.fused_mlp(*a, approx),
+        lambda *a: tpp.fused_mlp(*a, approx), arrays, g))
+
+
+@pytest.mark.parametrize("gelu_approx", [False, True], ids=["erf", "tanh"])
+def test_gpt_block_mlp_grads_match_jax_vjp(gelu_approx):
+    """The hook's grads (x, the LayerNorm's and both Linears' parameters)
+    against jax.vjp of the reference hook's two ops."""
+    (jln, jmlp), (tln, tmlp) = _mlp_pair(gelu_approx=gelu_approx)
+    x = np.random.RandomState(7).randn(2, 8, 32).astype(np.float32)
+    g = np.random.RandomState(8).randn(2, 8, 32).astype(np.float32)
+    jparams = [np.asarray(p._data) for p in (
+        jln.weight, jln.bias, jmlp.fc1.weight, jmlp.fc1.bias,
+        jmlp.fc2.weight, jmlp.fc2.bias)]
+
+    def jhook(x_, gm, bt, w1, b1, w2, b2):
+        pre = jtpp.ln_matmul(x_.reshape(16, 32), gm, bt, w1, b1)
+        return jtpp._fused_tail(pre, w2, b2, gelu_approx).reshape(2, 8, 32)
+
+    _, vjp = jax.vjp(jhook, J(x), *(J(a) for a in jparams))
+    want = vjp(J(g))
+    tx = T(x).clone().requires_grad_()
+    out = tpp.gpt_block_mlp(tx, tln, tmlp)
+    tparams = [tln.weight, tln.bias, tmlp.fc1.weight, tmlp.fc1.bias,
+               tmlp.fc2.weight, tmlp.fc2.bias]
+    got = list(torch.autograd.grad(out, [tx] + tparams, T(g)))
+    got[3], got[5] = got[3].t(), got[5].t()     # nn.Linear [out, in]
+    _assert_grads(got, want)
+
+
+def test_backward_runs_in_fp32_under_auto_cast(data):
+    """The Functions' plain backward runs with autocast off: under a bf16
+    auto_cast the fp32 grads are bit-identical to those without it."""
+    def grads():
+        leaves = [T(data[k]).clone().requires_grad_()
+                  for k in ("x", "gamma", "beta", "w1", "b1", "w2", "b2")]
+        x, gm, bt, w1, b1, w2, b2 = leaves
+        out = tpp._fused_tail(tpp.ln_matmul(x, gm, bt, w1, b1), w2, b2,
+                              False)
+        return out, torch.autograd.grad(out.square().sum(), leaves)
+
+    plain_out, plain = grads()
+    with pt.amp.auto_cast(True, dtype="bfloat16"):
+        amp_out, amp = grads()
+    assert amp_out.dtype == torch.float32
+    assert torch.equal(amp_out, plain_out)
+    for a, b in zip(amp, plain):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+
+
 # ---- on the card -----------------------------------------------------------
 
 @pytest.fixture
@@ -208,3 +303,41 @@ def test_kernel_matches_plain_on_card(cuda, dtype, tol, variant):
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     assert err <= tol * max(1.0, want.float().abs().max().item())
+
+
+@pytest.mark.cuda
+def test_matmul_refuses_grad_on_card(cuda):
+    """tpp.matmul has no backward (as in the reference); the ops the GPT
+    hook uses do."""
+    x = torch.randn(64, 64, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        tpp.matmul(x, torch.randn(64, 64, device=cuda))
+
+
+@pytest.mark.cuda
+def test_functions_launch_the_kernel_and_match_plain_grads_on_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+
+    def rn(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device=cuda) * std
+
+    x, gm, bt = rn(512, 256), 1.0 + rn(256, std=0.1), rn(256, std=0.1)
+    w1, b1 = rn(256, 1024, std=0.05), rn(1024, std=0.05)
+    w2, b2 = rn(1024, 256, std=0.05), rn(256, std=0.05)
+    leaves = [t.requires_grad_() for t in (x, gm, bt, w1, b1, w2, b2)]
+    n = dict(tpp.launches)
+    out = tpp._fused_tail(tpp.ln_matmul(*leaves[:5]), *leaves[5:], False)
+    got = torch.autograd.grad(out.square().sum(), leaves)
+    torch.cuda.synchronize()
+    assert tpp.launches["tpp_matmul.ln:float32"] == \
+        n.get("tpp_matmul.ln:float32", 0) + 1
+    assert tpp.launches["tpp_matmul.in_act:float32"] == \
+        n.get("tpp_matmul.in_act:float32", 0) + 1
+    ref = [t.detach().clone().requires_grad_() for t in leaves]
+    x_, gm_, bt_, w1_, b1_, w2_, b2_ = ref
+    pre = tpp._matmul_ref(x_, w1_, b1_, gamma=gm_, beta=bt_)
+    want = torch.autograd.grad(
+        tpp._matmul_ref(pre, w2_, b2_, "gelu").square().sum(), ref)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= \
+            1e-3 * max(1.0, b.abs().max().item())
