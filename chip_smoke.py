@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's GPT-2 serving and training paths on one
-GPU.
+"""Drive the PyTorch/CUDA port's GPT-2 serving and training paths, its
+PP-YOLOE detection serving path and the TPP row primitives on one GPU.
 
 Run from the repository root, on a machine with a CUDA device and nvcc:
 
@@ -8,16 +8,21 @@ Run from the repository root, on a machine with a CUDA device and nvcc:
 
 It builds the port's CUDA kernels from paddle_tpu_torch/ops/csrc/, holds
 each kernel (flash-attention forward, its dQ and dK/dV backward kernels,
-the TPP matmul) against its plain PyTorch version, checks a narrow model's
-eval forward, greedy ``generate`` and three AdamW training steps against
-the JAX package's committed outputs, drives GPT-2 small (vocab 50304,
-hidden 768, 12 layers, 12 heads, random weights from a seed) through the
-serving path (eval forward at 4 x 1024 and greedy ``generate``) and the
-training path (SpmdTrainer + AdamW at 16 x 1024, bf16 auto_cast with
-FLAGS_tpp_kernels off and on, and fp32), each configuration once under
-torch.profiler for the device time by kernel and the device's idle share,
-and times every kernel. Each phase prints one JSON line; then a
-``kernels`` line, the card's name and power limit, and last
+the TPP matmul, the greedy-NMS kernel, the TPP bias_act, softmax_rows and
+masked_reduce kernels) against its plain PyTorch version, checks a narrow
+GPT's eval forward, greedy ``generate`` and three AdamW training steps and
+a narrow PP-YOLOE's head outputs and detections against the JAX package's
+committed outputs, drives GPT-2 small (vocab 50304, hidden 768, 12
+layers, 12 heads, random weights from a seed) through the serving path
+(eval forward at 4 x 1024 and greedy ``generate``) and the training path
+(SpmdTrainer + AdamW at 16 x 1024, bf16 auto_cast with FLAGS_tpp_kernels
+off and on, and fp32), drives PP-YOLOE (80 classes, width 64, depth 2:
+bench.py's config) through forward, decode and multiclass-NMS
+postprocess at 8 x 640 x 640 in fp32 and under bf16 auto_cast, calls the
+TPP row primitives at GPT-2 small's shapes, profiles each configuration
+once for the device time by kernel and the device's idle share, and
+times every kernel. Each phase prints one JSON line; then a ``kernels``
+line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits nonzero and prints no result; it also exits nonzero at once when
 torch.cuda.is_available() is false. It imports neither jax nor the JAX
@@ -71,6 +76,32 @@ TRAIN_BF16_LOSS_TOL = 2.0 ** -5
 # GPT-2 small training (bench.py's headline workload): batch 16, seq 1024,
 # AdamW lr 1e-4; 1 warm-up step, then this many timed steps per cell.
 TRAIN_BATCH, TRAIN_STEPS = 16, 5
+# PP-YOLOE serving as bench.py runs it (bench.py:475-491, :548-580, batch
+# 8 at :1200): forward + decode + multiclass-NMS postprocess, 1 warm-up
+# call, then this many timed calls.
+DET_CONFIG = dict(num_classes=80, width=64, depth=2)
+DET_BATCH, DET_SIZE, DET_CALLS = 8, 640, 5
+# The TPP row primitives at GPT-2 small's shapes: bias_act on the fc1
+# output of a 16 x 1024 training batch, softmax_rows and masked_reduce on
+# the attention-score rows of b4 h12 s1024. fp32 math in both dtypes;
+# sums in another order, and a bf16 output may land one bf16 step away.
+ROWS_BIAS_ACT = (16384, 3072)
+ROWS_SCORES = (49152, 1024)
+ROW_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# the NMS kernel against its plain version on random, overlapping
+# [problems, boxes]; (640, 400) is the full-width serving call's shape
+NMS_RANDOM = ((640, 400), (8, 100), (4, 401), (1, 8192))
+# operations per element beyond the add, for bias_act's bound
+ACT_OPS = {"none": 0, "relu": 1, "gelu": 6, "gelu_tanh": 9}
+# operations of one NMS IoU evaluation (two boxes' overlap, union and
+# quotient, the areas computed once per box: 5 each)
+IOU_OPS, AREA_OPS = 14, 5
+
+
+def torch_dtypes():
+    import torch
+
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def emit(obj):
@@ -80,6 +111,23 @@ def emit(obj):
 def check(cond, what):
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def det_group(name):
+    """The detection serving path's kernel groups."""
+    n = name.lower()
+    if "nms_kernel" in n:
+        return "nms_kernel"
+    if any(t in n for t in ("conv", "fprop", "implicit", "winograd", "cudnn",
+                            "xmma", "gemm", "nchwtonhwc", "nhwctonchw",
+                            "cutlass", "nvjet")):
+        return "convolution"
+    if any(t in n for t in ("sort", "radix", "topk", "gather", "scatter",
+                            "index", "cub::")):
+        return "sort_topk_gather"
+    if any(t in n for t in ("elementwise", "vectorized", "unrolled")):
+        return "bn_elementwise"
+    return "rest"
 
 
 def kernel_group(name):
@@ -97,7 +145,7 @@ def kernel_group(name):
     return "other"
 
 
-def device_breakdown(fn):
+def device_breakdown(fn, group=kernel_group):
     """Run fn() once under torch.profiler. Returns (its result, {host wall
     ms under the profiler, device kernel ms by group, the device's busy ms
     (the union of kernel intervals), its span (first kernel start to last
@@ -120,7 +168,7 @@ def device_breakdown(fn):
     groups, other = {}, {}
     busy, cur_start, cur_end = 0.0, None, None
     for start, end, name in spans:
-        g = kernel_group(name)
+        g = group(name)
         groups[g] = groups.get(g, 0.0) + (end - start) / 1e3
         if g == "other":
             other[name[:60]] = other.get(name[:60], 0.0) + (end - start) / 1e3
@@ -142,6 +190,363 @@ def device_breakdown(fn):
         "idle_share_of_span": 1.0 - busy / 1e3 / span,
         "idle_share_of_profiled_wall": 1.0 - busy / 1e3 / wall_ms,
         "top_other": sorted(other.items(), key=lambda kv: -kv[1])[:3]}
+
+
+def row_err(got, want, dname):
+    """Max-abs error of a row kernel against its plain version, checked
+    against ROW_TOL x max(1, max|plain|) over the finite entries (a fully
+    masked max row reads -inf in both)."""
+    import torch
+
+    fin = torch.isfinite(want)
+    check(torch.equal(fin, torch.isfinite(got)) and got.dtype == want.dtype,
+          f"row kernel {dname}: same dtype and non-finite entries")
+    err = (got.float() - want.float())[fin].abs().max().item()
+    scale = max(1.0, want.float()[fin].abs().max().item())
+    check(err <= ROW_TOL[dname] * scale, f"row kernel {dname}: err {err}")
+    return err
+
+
+def causal_rows(shape, device):
+    """A bool [rows, s] mask whose row r keeps columns j <= r % s: the
+    causal mask of attention-score rows laid out as [b*h*s, s]."""
+    import torch
+
+    rows, s = shape
+    r = torch.arange(rows, device=device)[:, None] % s
+    return torch.arange(s, device=device)[None, :] <= r
+
+
+def nms_iou_evaluations(boxes, keep, thr):
+    """The IoU evaluations greedy NMS needs on these problems: for each
+    kept box i, the later boxes j still kept when i's step comes (j is
+    dropped at the step of the first kept box that suppresses it)."""
+    import torch
+
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    area = torch.clamp_min(x2 - x1, 0.0) * torch.clamp_min(y2 - y1, 0.0)
+    iw = torch.clamp_min(torch.minimum(x2[:, :, None], x2[:, None])
+                         - torch.maximum(x1[:, :, None], x1[:, None]), 0.0)
+    ih = torch.clamp_min(torch.minimum(y2[:, :, None], y2[:, None])
+                         - torch.maximum(y1[:, :, None], y1[:, None]), 0.0)
+    inter = iw * ih
+    iou = inter / torch.clamp_min(area[:, None] + area[:, :, None] - inter,
+                                  1e-9)                    # [P, i, j]
+    n = keep.shape[1]
+    ar = torch.arange(n, device=boxes.device)
+    later = ar[None, :] > ar[:, None]                      # [i, j]: j > i
+    supp = keep[:, :, None] & (iou > thr) & later
+    first = torch.where(supp, ar[None, :, None], n).amin(dim=1)   # [P, j]
+    alive = (first[:, None, :] >= ar[None, :, None]) & later
+    return int((alive & keep[:, :, None]).sum())
+
+
+def serve_detector(dev, gen):
+    """The detection phases: the NMS kernel against its plain version on
+    random problems, the narrow detector against the JAX fixture, and
+    PP-YOLOE serving at full width (fp32 and under bf16 auto_cast, timed
+    and profiled), whose NMS launches are counted from zero. Returns
+    {"counts": the serving path's launches, "problems": the full-width
+    call's NMS problems, "evals": the IoU evaluations they need,
+    "mismatches": keep entries where the kernel and the plain version
+    differ over every problem compared, "launches_per_call": NMS
+    launches per serving call}."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.models import ppyoloe_params_from_jax
+    from paddle_tpu_torch.ops import nms_pallas
+    from paddle_tpu_torch.testing import golden
+    from paddle_tpu_torch.vision.models import PPYOLOE, ppyoloe_tiny
+    from paddle_tpu_torch.vision.ops import _sorted_desc, multiclass_nms
+
+    post = dict(score_threshold=golden.DET_SCORE_THRESHOLD,
+                keep_top_k=golden.DET_KEEP_TOP_K)
+    thr = golden.DET_NMS_THRESHOLD
+    torch.backends.cudnn.allow_tf32 = False
+
+    # the NMS kernel against its plain version: random problems, ragged n
+    # up to the cap, and an IoU exactly at the threshold; masks bit-equal
+    nms_checked, mismatches = [], 0
+    for p_, n_ in NMS_RANDOM:
+        size = 40.0 + n_ / 20
+        xy = torch.rand(p_, n_, 2, generator=gen, device=dev) * size
+        wh = torch.rand(p_, n_, 2, generator=gen, device=dev) * 30.0 + 1.0
+        b = torch.cat([xy, xy + wh], dim=-1)
+        keep = nms_pallas.nms_keep_mask(b, thr)
+        torch.cuda.synchronize()
+        ref = nms_pallas.nms_keep_mask_ref(b, thr)
+        mismatches += int((keep != ref).sum())
+        check(torch.equal(keep, ref), f"nms kernel vs plain [{p_}, {n_}]")
+        nms_checked.append({"shape": [p_, n_], "kept": int(keep.sum())})
+    pair = torch.tensor([[0, 0, 2, 1], [0, 0, 1, 1]], dtype=torch.float32,
+                        device=dev)                       # IoU exactly 0.5
+    check(nms_pallas.nms_keep_mask(pair, 0.5).tolist() == [True, True]
+          and nms_pallas.nms_keep_mask(pair, 0.49).tolist() == [True, False],
+          "nms kernel: an IoU equal to the threshold does not suppress")
+
+    # the narrow detector against the JAX package's committed outputs
+    dfix = np.load(golden.DET_FIXTURE)
+    det = ppyoloe_tiny(num_classes=golden.DET_CLASSES, device=dev)
+    det.load_state_dict(ppyoloe_params_from_jax(golden.detector_state()))
+    det.eval()
+    n0 = nms_pallas.launches["nms:float32"]
+    with torch.no_grad():
+        outs = det(torch.as_tensor(golden.detector_images(), device=dev))
+        boxes, scores = det.decode(outs)
+        out, valid = det.postprocess(outs, **post)
+    check(nms_pallas.launches["nms:float32"] - n0 == 1,
+          "narrow detector postprocess: one NMS launch")
+    head_err = max(float(np.abs(t.cpu().numpy()
+                                - dfix[f"{kind}_{i}"]).max())
+                   for i, level in enumerate(outs)
+                   for kind, t in zip(("cls", "reg"), level))
+    check(head_err <= golden.DET_HEAD_TOL,
+          f"narrow detector head outputs vs JAX: err {head_err}")
+    margins = golden.detection_margins(boxes.cpu(), scores.cpu(), out.cpu())
+    golden.check_well_posed(margins)
+    same, det_err = golden.same_detections(out.cpu(), dfix["out"],
+                                           golden.DET_OUT_TOL)
+    check(same and np.array_equal(valid.cpu().numpy(), dfix["valid"]),
+          f"narrow detector detections vs JAX: err {det_err}")
+    # given the JAX package's decoded boxes and scores, the kernel's
+    # multiclass NMS gives the JAX output bit for bit
+    jout, jvalid = multiclass_nms(
+        torch.as_tensor(dfix["boxes"], device=dev),
+        torch.as_tensor(dfix["scores"], device=dev), nms_threshold=thr,
+        background_label=-1, **post)
+    check(np.array_equal(jout.cpu().numpy(), dfix["out"])
+          and np.array_equal(jvalid.cpu().numpy(), dfix["valid"]),
+          "multiclass_nms on the JAX decode == the JAX output, exactly")
+    emit({"phase": "ppyoloe_narrow_vs_jax_fixture",
+          "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+          "head_max_abs_err": head_err, "head_tol": golden.DET_HEAD_TOL,
+          "detections_max_abs_err": det_err, "out_tol": golden.DET_OUT_TOL,
+          "valid": valid.tolist(), "margins": margins,
+          "nms_on_jax_decode_exact": True,
+          "nms_kernel_vs_plain": nms_checked,
+          "nms_iou_at_threshold_kept": True})
+    del det, outs, boxes, scores, out, valid, jout, jvalid
+
+    # the full-width serving path: bench.py's model, batch and images
+    model = PPYOLOE(**DET_CONFIG, device=dev,
+                    generator=torch.Generator().manual_seed(0)).eval()
+    images = torch.as_tensor(np.random.RandomState(0).rand(
+        DET_BATCH, 3, DET_SIZE, DET_SIZE).astype(np.float32), device=dev)
+
+    def serve():
+        with torch.no_grad():
+            return model.postprocess(model(images), **post)
+
+    nms_pallas.launches.clear()
+    torch.cuda.reset_peak_memory_stats()
+    out32, valid32 = serve()                                # warm-up
+    times = []
+    for _ in range(DET_CALLS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out, valid = serve()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        check(torch.equal(out, out32) and torch.equal(valid, valid32),
+              "detection serving is deterministic from call to call")
+    with auto_cast(True, dtype="bfloat16"):                 # as bench.py
+        out_amp, valid_amp = serve()
+    check(out_amp.dtype == torch.float32 and torch.equal(out_amp, out32)
+          and torch.equal(valid_amp, valid32),
+          "detections under bf16 auto_cast == the fp32 run's")
+    _, trace = device_breakdown(serve, det_group)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = dict(nms_pallas.launches)
+    n_calls = DET_CALLS + 3
+    check(counts == {"nms:float32": n_calls},
+          f"detection serving: one NMS launch per call, got {counts} over "
+          f"{n_calls} calls")
+    check(tuple(out32.shape) == (DET_BATCH, golden.DET_KEEP_TOP_K, 6)
+          and bool(torch.isfinite(out32).all())
+          and bool(((valid32 >= 0) & (valid32 <= golden.DET_KEEP_TOP_K))
+                   .all())
+          and bool(((out32[..., 0] >= -1)
+                    & (out32[..., 0] < DET_CONFIG["num_classes"])).all()),
+          "detections: finite [8, 100, 6], labels in range, valid counts")
+    # the call's NMS problems ([images x classes, nms_top_k]), kernel vs
+    # plain, and the IoU evaluations this data needs (for the bound)
+    with torch.no_grad():
+        boxes, scores = model.decode(model(images))
+    k = min(400, scores.shape[-1])
+    top_i = _sorted_desc(scores)[1][..., :k]
+    problems = torch.gather(
+        boxes[:, None].expand(-1, scores.shape[1], -1, -1), 2,
+        top_i[..., None].expand(-1, -1, -1, 4)).reshape(-1, k, 4).contiguous()
+    keep = nms_pallas.nms_keep_mask(problems, thr)
+    torch.cuda.synchronize()
+    keep_ref = nms_pallas.nms_keep_mask_ref(problems, thr)
+    mismatches += int((keep != keep_ref).sum())
+    check(torch.equal(keep, keep_ref),
+          f"nms kernel vs plain on the full-width call's "
+          f"{list(problems.shape[:2])} problems")
+    evals = nms_iou_evaluations(problems, keep_ref, thr)
+    ms = statistics.median(times)
+    emit({"phase": "ppyoloe_serving", "config": DET_CONFIG,
+          "batch": DET_BATCH, "size": DET_SIZE, "dtype": "float32",
+          "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+          "score_threshold": post["score_threshold"],
+          "keep_top_k": post["keep_top_k"], "call_ms": ms,
+          "call_ms_all": times, "imgs_per_s": DET_BATCH / (ms / 1e3),
+          "bf16_auto_cast_identical": True, "profiled": trace,
+          "max_memory_allocated_gb": peak,
+          "nms_launches_per_call": counts["nms:float32"] / n_calls,
+          "valid": valid32.tolist(),
+          "nms_problems": list(problems.shape[:2]),
+          "nms_kept": int(keep.sum()), "nms_iou_evaluations": evals,
+          "nms_kernel_equals_plain": True})
+    del model, images, boxes, scores
+    torch.cuda.empty_cache()
+    return {"counts": counts, "problems": problems, "evals": evals,
+            "mismatches": mismatches,
+            "launches_per_call": counts["nms:float32"] / n_calls}
+
+
+def call_row_primitives(randn):
+    """The TPP row primitives' path: each entry point called once at its
+    main shape in each dtype, counted from zero, its output held against
+    the plain version. Returns {"counts": launches, "errs": max-abs
+    errors by kernel}."""
+    from paddle_tpu_torch.ops import tpp
+
+    tpp.launches.clear()
+    errs = {}
+    for dname, dt in torch_dtypes().items():
+        x = randn(*ROWS_BIAS_ACT, dtype=dt)
+        b = randn(ROWS_BIAS_ACT[1], dtype=dt, std=0.02)
+        for act in tpp._ACTS:
+            errs[f"bias_act.{act}[{dname}]"] = row_err(
+                tpp.bias_act(x, b, act), tpp._bias_act_ref(x, b, act), dname)
+        sc = randn(*ROWS_SCORES, dtype=dt, std=3.0)
+        errs[f"softmax_rows[{dname}]"] = row_err(
+            tpp.softmax_rows(sc), tpp._softmax_rows_ref(sc), dname)
+        mask = causal_rows(ROWS_SCORES, sc.device)
+        for kind in ("sum", "max"):
+            errs[f"masked_reduce.{kind}[{dname}]"] = row_err(
+                tpp.masked_reduce(sc, mask, kind),
+                tpp._masked_reduce_ref(sc, mask, kind), dname)
+        del x, b, sc, mask
+    counts = dict(tpp.launches)
+    want = {f"tpp_bias_act:{act}:{d}": 1 for act in tpp._ACTS
+            for d in torch_dtypes()}
+    want.update({f"tpp_softmax_rows:{d}": 1 for d in torch_dtypes()})
+    want.update({f"tpp_masked_reduce:{kind}:{d}": 1
+                 for kind in ("sum", "max") for d in torch_dtypes()})
+    check(counts == want, f"TPP row primitives: one launch per entry point "
+          f"call, got {counts}")
+    emit({"phase": "kernels_vs_plain", "kernel": "tpp_rowwise",
+          "shapes": {"bias_act": ROWS_BIAS_ACT, "softmax_rows": ROWS_SCORES,
+                     "masked_reduce": ROWS_SCORES},
+          "max_abs_err": errs, "tol_x_max(1,max|plain|)": ROW_TOL,
+          "main_path_launches": counts})
+    return {"counts": counts, "errs": errs}
+
+
+def time_new_kernels(det, rows, randn, time_ms, bound, launch_counts):
+    """The `kernels` entries of the NMS kernel (on the full-width call's
+    problems) and the three row kernels (at their main shapes)."""
+    import torch
+
+    from paddle_tpu_torch.ops import nms_pallas, tpp
+    from paddle_tpu_torch.testing import golden
+
+    masked_library = {"sum": torch.masked.sum, "max": torch.masked.amax}
+    thr = golden.DET_NMS_THRESHOLD
+    problems = det["problems"]
+    p_, n_ = problems.shape[:2]
+    bms, by = bound(IOU_OPS * det["evals"] + AREA_OPS * p_ * n_,
+                    p_ * n_ * 16 + p_ * n_, "float32")
+    kernels = [{
+        "name": "nms[float32]", "route": "cuda",
+        "source": "paddle_tpu_torch/ops/csrc/nms.cu",
+        "replaces": "paddle_tpu/ops/nms_pallas.py:21",
+        **launch_counts("nms:float32"), "max_abs_err": det["mismatches"],
+        "max_abs_err_is": "keep entries that differ from the plain "
+                          "version's, over every problem compared",
+        "ms": time_ms(lambda: nms_pallas.nms_keep_mask(problems, thr)),
+        "plain_ms": time_ms(lambda: nms_pallas.nms_keep_mask_ref(
+            problems, thr), reps=5, warmup=1),
+        "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "library_covers": "none: PyTorch has no NMS call",
+        "shape": [p_, n_], "iou_evaluations": det["evals"],
+        "launches_per_serving_call": det["launches_per_call"]}]
+
+    errs = rows["errs"]
+    m_b, n_b = ROWS_BIAS_ACT
+    m_s, n_s = ROWS_SCORES
+    for dname, dt in torch_dtypes().items():
+        item = torch.finfo(dt).bits // 8
+        x = randn(m_b, n_b, dtype=dt)
+        b = randn(n_b, dtype=dt, std=0.02)
+        acts = {}
+        for act in tpp._ACTS:
+            bms, by = bound(m_b * n_b * (1 + ACT_OPS[act]),
+                            (2 * m_b * n_b + n_b) * item, "float32")
+            acts[act] = {
+                "max_abs_err": errs[f"bias_act.{act}[{dname}]"],
+                "ms": time_ms(lambda: tpp.bias_act(x, b, act)),
+                "plain_ms": time_ms(lambda: tpp._bias_act_ref(x, b, act)),
+                "bound_ms": bms, "bound_by": by,
+                "library_ms": time_ms(lambda: x + b) if act == "none"
+                else None}
+        kernels.append({
+            "name": f"tpp_bias_act[{dname}]", "route": "cuda",
+            "source": "paddle_tpu_torch/ops/csrc/tpp_rowwise.cu",
+            "replaces": "paddle_tpu/ops/tpp.py:580",
+            **launch_counts("tpp_bias_act:", dname), **acts["none"],
+            "act": "none", "library_covers": "x + b",
+            "other_acts": {a: acts[a] for a in tpp._ACTS if a != "none"},
+            "shape": [m_b, n_b]})
+        del x, b
+        sc = randn(m_s, n_s, dtype=dt, std=3.0)
+        bms, by = bound(5 * m_s * n_s, 2 * m_s * n_s * item, "float32")
+        kernels.append({
+            "name": f"tpp_softmax_rows[{dname}]", "route": "cuda",
+            "source": "paddle_tpu_torch/ops/csrc/tpp_rowwise.cu",
+            "replaces": "paddle_tpu/ops/tpp.py:625",
+            **launch_counts(f"tpp_softmax_rows:{dname}"),
+            "max_abs_err": errs[f"softmax_rows[{dname}]"],
+            "ms": time_ms(lambda: tpp.softmax_rows(sc)),
+            "plain_ms": time_ms(lambda: tpp._softmax_rows_ref(sc)),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": time_ms(lambda: torch.softmax(sc, -1)),
+            "library_covers": "torch.softmax(x, -1)", "shape": [m_s, n_s]})
+        mask = causal_rows(ROWS_SCORES, sc.device)
+        kinds = {}
+        for kind in ("sum", "max"):
+            bms, by = bound(m_s * n_s, m_s * n_s * (item + 1) + m_s * item,
+                            "float32")
+            lib = masked_library[kind]
+            kinds[kind] = {
+                "max_abs_err": errs[f"masked_reduce.{kind}[{dname}]"],
+                "ms": time_ms(lambda: tpp.masked_reduce(sc, mask, kind)),
+                "plain_ms": time_ms(lambda: tpp._masked_reduce_ref(
+                    sc, mask, kind)),
+                "bound_ms": bms, "bound_by": by,
+                "library_ms": time_ms(lambda: lib(sc, -1, keepdim=True,
+                                                  mask=mask)),
+                "library_covers": f"torch.masked.{lib.__name__}(x, -1, "
+                                  f"keepdim=True, mask=mask)",
+                "library_max_abs_diff": (lib(sc, -1, keepdim=True, mask=mask)
+                                         .float() - tpp._masked_reduce_ref(
+                                             sc, mask, kind).float())
+                .nan_to_num(0.0).abs().max().item()}
+        kernels.append({
+            "name": f"tpp_masked_reduce[{dname}]", "route": "cuda",
+            "source": "paddle_tpu_torch/ops/csrc/tpp_rowwise.cu",
+            "replaces": "paddle_tpu/ops/tpp.py:672",
+            **launch_counts("tpp_masked_reduce:", dname), **kinds["sum"],
+            "kind": "sum",
+            "other_kinds": {"max": kinds["max"]},
+            "mask": "bool, causal", "shape": [m_s, n_s]})
+        del sc, mask
+    return kernels
 
 
 def main():
@@ -171,7 +576,7 @@ def main():
           "matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
           "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32})
     dev = torch.device("cuda")
-    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    dtypes = torch_dtypes()
 
     # ---- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -707,6 +1112,11 @@ def main():
           "warmup_steps": 1, "train": train,
           "main_path_launches": counts_train})
 
+    # ---- 4c. PP-YOLOE detection serving; 4d. the TPP row primitives -----
+    det_path = serve_detector(dev, gen)
+    rows_path = call_row_primitives(randn)
+    counts_detect, counts_rows = det_path["counts"], rows_path["counts"]
+
     # ---- 5. times at the main path's shapes -------------------------------
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > L2
 
@@ -732,11 +1142,20 @@ def main():
         return max(t_ops, t_mem) * 1e3, \
             "operations" if t_ops >= t_mem else "bytes"
 
-    def launch_counts(key):
+    def launch_counts(key, dname=None):
         """Launches of `key` on each main path (counts zeroed just before
-        the path, read just after), and their sum."""
-        by_path = {"serve": counts_serve.get(key, 0),
-                   "train": counts_train.get(key, 0)}
+        the path, read just after), and their sum. With `dname`, every key
+        that starts with `key` and ends with that dtype."""
+        def count(counts):
+            if dname is None:
+                return counts.get(key, 0)
+            return sum(n for k, n in counts.items()
+                       if k.startswith(key) and k.endswith(":" + dname))
+
+        by_path = {"gpt_serve": count(counts_serve),
+                   "gpt_train": count(counts_train),
+                   "detect_serve": count(counts_detect),
+                   "tpp_rows": count(counts_rows)}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
@@ -879,8 +1298,11 @@ def main():
                 "train_shape": {**part[M_TRAIN],
                                 "max_abs_err":
                                     tpp_errs[dname][f"{err}@{M_TRAIN}"]}})
+    kernels += time_new_kernels(det_path, rows_path, randn, time_ms, bound,
+                                launch_counts)
     emit({"phase": "times", "method": "CUDA events, 3 warm-up, median of "
-          "20, 64 MB written between launches to flush L2",
+          "20 (the plain NMS: 1 warm-up, median of 5), 64 MB written "
+          "between launches to flush L2",
           "tpp_matmul.plain": tpp_plain})
     for kern in kernels:
         check(kern["launches"] > 0, f"{kern['name']} ran on a main path")
@@ -889,7 +1311,7 @@ def main():
                  "flash_dkv[float32]", "tpp_matmul.ln_prologue[float32]",
                  "tpp_matmul.gelu_in_bias[float32]"):
         kern = next(k for k in kernels if k["name"] == name)
-        check(kern["launches_by_path"]["train"] > 0,
+        check(kern["launches_by_path"]["gpt_train"] > 0,
               f"{name} ran on the training path")
 
     smi = subprocess.run(

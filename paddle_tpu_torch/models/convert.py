@@ -1,5 +1,6 @@
-"""Carry the JAX package's GPT weights and optimizer state into the port
-(no counterpart in paddle_tpu/).
+"""Carry the JAX package's GPT weights and optimizer state, and its
+PP-YOLOE weights and BatchNorm statistics, into the port (no counterpart
+in paddle_tpu/).
 
 The reference's ``nn.Linear`` stores its weight as [in, out] (used as
 ``h @ w``); the port's layers are ``torch.nn.Linear``, whose weight is
@@ -55,3 +56,14 @@ def opt_state_from_jax(named_state, device="cpu"):
             out[name][slot] = torch.tensor(np.ascontiguousarray(arr),
                                            device=device)
     return out
+
+
+def ppyoloe_params_from_jax(state):
+    """state: ``{n: np.asarray(t._data) for n, t in
+    model.state_dict().items()}`` of a paddle_tpu PPYOLOE (parameters and
+    the BatchNorm buffers ``_mean``/``_variance``: 202 entries for
+    ``ppyoloe_tiny``). Returns the port's state dict (CPU tensors) for
+    ``PPYOLOE.load_state_dict``: the conv weights are [out, in/groups, kh,
+    kw] in both packages, so nothing is transposed and no name changes."""
+    return {name: torch.tensor(np.asarray(arr)) for name, arr in
+            state.items()}

@@ -1,13 +1,17 @@
-"""Common functionals: dropout.
+"""Common functionals: dropout and interpolate.
 
-Ports ``dropout`` of paddle_tpu/nn/functional/common.py. The reference
-draws its keep-mask from the framework's PRNG key; here the mask comes
-from a ``torch.Generator`` — the caller's, or the default generator of
-the tensor's device (``paddle_tpu_torch.seed`` reseeds those) — never
-from torch's global RNG. The two frameworks draw different masks from
-the same seed.
+Ports ``dropout`` and ``interpolate`` (:121) of
+paddle_tpu/nn/functional/common.py. The reference draws its dropout
+keep-mask from the framework's PRNG key; here the mask comes from a
+``torch.Generator`` — the caller's, or the default generator of the
+tensor's device (``paddle_tpu_torch.seed`` reseeds those) — never from
+torch's global RNG. The two frameworks draw different masks from the
+same seed. ``interpolate`` is ported for nearest-neighbour upsampling by
+an integer ``scale_factor`` in NCHW (what the detector's neck calls);
+every other mode, size or layout raises.
 """
 import torch
+import torch.nn.functional as F
 
 from ...core import generator as _generator
 
@@ -31,3 +35,26 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     if mode == "upscale_in_train":
         x = x / (1.0 - p)
     return torch.where(keep, x, torch.zeros_like(x))
+
+
+def interpolate(x, size=None, scale_factor=None, mode="nearest",
+                align_corners=False, align_mode=0, data_format="NCHW",
+                name=None):
+    """Nearest-neighbour upsampling of [N, C, H, W] by an integer
+    scale_factor: output pixel i reads input pixel i // scale_factor, as
+    ``jax.image.resize(method="nearest")`` does at an integer factor."""
+    if mode != "nearest" or size is not None or data_format != "NCHW" \
+            or x.ndim != 4:
+        raise NotImplementedError(
+            f"interpolate(mode={mode!r}, size={size!r}, data_format="
+            f"{data_format!r}) on a {x.ndim}-D input is not ported: only "
+            "nearest NCHW 4-D with an integer scale_factor")
+    factors = scale_factor if isinstance(scale_factor, (list, tuple)) \
+        else [scale_factor] * 2
+    if len(factors) != 2 or not all(
+            isinstance(f, (int, float)) and f >= 1 and float(f).is_integer()
+            for f in factors):
+        raise NotImplementedError(f"interpolate scale_factor={scale_factor!r}"
+                                  " is not ported (positive integers only)")
+    return F.interpolate(x, scale_factor=tuple(float(f) for f in factors),
+                         mode="nearest")

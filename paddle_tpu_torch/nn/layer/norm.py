@@ -1,0 +1,55 @@
+"""Norm layers: ``BatchNorm2D``.
+
+Ports ``BatchNorm2D`` (:57) and ``_BatchNormBase`` (:10) of
+paddle_tpu/nn/layer/norm.py, under the reference's names: the parameters
+``weight`` (ones) and ``bias`` (zeros), and the fp32 buffers ``_mean``
+(zeros) and ``_variance`` (ones) that hold the running statistics
+(norm.py:29-30). In eval mode the forward normalises by those buffers;
+training mode needs batch statistics, which ``nn.functional.batch_norm``
+does not port yet (it raises).
+"""
+import torch
+from torch import nn
+
+from ..functional.norm import batch_norm
+
+
+class BatchNorm2D(nn.Module):
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 use_global_stats=None, name=None):
+        super().__init__()
+        if weight_attr not in (None, False) or bias_attr not in (None, False):
+            raise NotImplementedError("BatchNorm2D weight/bias attributes "
+                                      "are not ported (None or False only)")
+        self._num_features = num_features
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._data_format = data_format
+        self._use_global_stats = use_global_stats
+        self.weight = None if weight_attr is False \
+            else nn.Parameter(torch.empty(num_features))
+        self.bias = None if bias_attr is False \
+            else nn.Parameter(torch.empty(num_features))
+        self.register_buffer("_mean", torch.empty(num_features))
+        self.register_buffer("_variance", torch.empty(num_features))
+        self.reset_parameters()
+
+    def reset_parameters(self):
+        """The reference's initial values. A no-op on the meta device."""
+        if self._mean.is_meta:
+            return
+        with torch.no_grad():
+            if self.weight is not None:
+                self.weight.fill_(1.0)
+            if self.bias is not None:
+                self.bias.zero_()
+            self._mean.zero_()
+            self._variance.fill_(1.0)
+
+    def forward(self, x):
+        return batch_norm(x, self._mean, self._variance, self.weight,
+                          self.bias, training=self.training,
+                          momentum=self._momentum, epsilon=self._epsilon,
+                          data_format=self._data_format,
+                          use_global_stats=self._use_global_stats)

@@ -1,15 +1,19 @@
-"""TPP blocked matmul: the CUDA kernel, its plain PyTorch version, the
-autograd Functions around it, and the GPT block hook.
+"""TPP micro-kernels: the blocked matmul with the autograd Functions
+around it and the GPT block hook, and the row primitives; each CUDA
+kernel beside its plain PyTorch version.
 
-Ports the matmul family of paddle_tpu/ops/tpp.py: ``pick_block``,
-``supported_2d``, ``ln_matmul_supported``, ``matmul``, ``ln_matmul``,
-``fused_mlp``, ``_fused_tail`` and ``gpt_block_mlp``. The Pallas
-``_matmul_kernel`` becomes ``csrc/tpp_matmul.cu`` (the design notes are
-there): one kernel computes ``act(in_act(LN?(x)) @ w + bias)`` with an fp32
-accumulator, the LayerNorm prologue (``ln_matmul``) and the gelu-on-load +
-bias variant (``_fused_tail``) being two of its modes. The other Pallas
-kernels of the reference module (paged attention, bias_act, softmax_rows,
-masked_reduce) are on no ported path and are still to be ported.
+Ports paddle_tpu/ops/tpp.py: ``pick_block``, ``supported_2d``,
+``ln_matmul_supported``, ``matmul``, ``ln_matmul``, ``fused_mlp``,
+``_fused_tail``, ``gpt_block_mlp``, ``bias_act``, ``softmax_rows`` and
+``masked_reduce``. The Pallas ``_matmul_kernel`` becomes
+``csrc/tpp_matmul.cu`` (the design notes are there): one kernel computes
+``act(in_act(LN?(x)) @ w + bias)`` with an fp32 accumulator, the
+LayerNorm prologue (``ln_matmul``) and the gelu-on-load + bias variant
+(``_fused_tail``) being two of its modes. The row primitives'
+``_bias_act_kernel``, ``_softmax_kernel`` and ``_masked_reduce_kernel``
+become the three kernels of ``csrc/tpp_rowwise.cu``. None of the three has
+a backward in the reference, so none has one here. The reference module's
+paged attention kernel is still to be ported.
 
 ``ln_matmul``, ``fused_mlp`` and ``_fused_tail`` are
 ``torch.autograd.Function``s, the counterparts of the reference's
@@ -23,9 +27,12 @@ that fp32 math into bf16 products. ``matmul`` alone has no backward, as
 in the reference.
 
 A tensor on a CUDA device launches the kernel or raises; a tensor on the
-CPU takes the plain version, ``_matmul_ref``. ``launches`` counts kernel
+CPU takes the plain version (``_matmul_ref``, ``_bias_act_ref``,
+``_softmax_rows_ref``, ``_masked_reduce_ref``). ``launches`` counts kernel
 launches by ``"tpp_matmul.<variant>:<dtype>"`` (variant ``plain``, ``ln``
-or ``in_act``), where the kernel is launched and nowhere else.
+or ``in_act``), ``"tpp_bias_act:<act>:<dtype>"``,
+``"tpp_softmax_rows:<dtype>"`` and ``"tpp_masked_reduce:<kind>:<dtype>"``,
+where each kernel is launched and nowhere else.
 """
 import collections
 import ctypes
@@ -328,3 +335,163 @@ def gpt_block_mlp(x, ln, mlp):
     pre = ln_matmul(x.reshape(m, h), ln.weight, ln.bias, w1, b1)
     out = _fused_tail(pre, w2, b2, getattr(mlp, "_gelu_approx", False))
     return out.reshape(b, s, h)
+
+
+# ---- the row primitives (csrc/tpp_rowwise.cu) ------------------------------
+
+_ROW_FN = {}
+_KINDS = ("sum", "max")
+
+
+def _row_kernel(name):
+    """(library, C entry) of csrc/tpp_rowwise.cu's `name`, argtypes set."""
+    if name not in _ROW_FN:
+        lib = _build.load("tpp_rowwise")
+        fn = getattr(lib, name)
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = {
+            "tpp_bias_act": [vp, vp, vp, ctypes.c_longlong, i, i, i, i, vp],
+            "tpp_softmax_rows": [vp, vp, i, i, i, vp],
+            "tpp_masked_reduce": [vp, vp, vp, i, i, i, i, i, vp]}[name]
+        fn.restype = ctypes.c_int
+        _ROW_FN[name] = (lib, fn)
+    return _ROW_FN[name]
+
+
+def _check_rows(what, x, *others):
+    """Raise unless x is a contiguous fp32/bf16 2-D CUDA tensor and the
+    others lie on its device. Returns x's dtype name."""
+    dtype = _dtype_name(x.dtype)
+    if x.ndim != 2 or dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"tpp.{what} kernel takes a 2-D fp32 or bf16 x, "
+                         f"got {dtype} {tuple(x.shape)}")
+    for t in (x, *others):
+        if not t.is_cuda or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"tpp.{what} kernel: operands must be "
+                             f"contiguous and lie on {x.device}")
+    return dtype
+
+
+def _bias_act_ref(x, bias, act):
+    """Plain version: ``act(x + bias)`` in fp32, cast to x's dtype."""
+    return _apply_act(x.float() + bias.float(), act).to(x.dtype)
+
+
+def _launch_bias_act(x, bias, act):
+    bias = bias.float().contiguous()
+    dtype = _check_rows("bias_act", x, bias)
+    m, n = x.shape
+    if tuple(bias.shape) != (n,):
+        raise ValueError(f"tpp.bias_act: bias must be [{n}], got "
+                         f"{tuple(bias.shape)}")
+    out = torch.empty_like(x)
+    vec = 4 if dtype == "float32" else 8
+    use_vec = n % vec == 0 and x.data_ptr() % 16 == 0 \
+        and out.data_ptr() % 16 == 0
+    lib, fn = _row_kernel("tpp_bias_act")
+    err = fn(x.data_ptr(), bias.data_ptr(), out.data_ptr(), m * n, n,
+             _ACTS.index(act), 0 if dtype == "float32" else 1, int(use_vec),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, "tpp_rowwise", err)
+    launches[f"tpp_bias_act:{act}:{dtype}"] += 1
+    return out
+
+
+def bias_act(x, bias, act="gelu"):
+    """Fused ``act(x + bias)``. x [m, n], bias [n]; raises where the
+    reference's registry could not tile [m, n]."""
+    _check_act(act)
+    m, n = x.shape
+    if pick_block(m) is None or pick_block(n) is None:
+        raise ValueError(f"tpp.bias_act cannot tile [{m},{n}]")
+    if x.is_cuda:
+        return _launch_bias_act(x, bias, act)
+    return _bias_act_ref(x, bias, act)
+
+
+def _softmax_rows_ref(x):
+    """Plain version: the stable row softmax in fp32 (max and sum over the
+    full row), cast to x's dtype."""
+    xf = x.float()
+    ex = torch.exp(xf - xf.max(dim=-1, keepdim=True).values)
+    return (ex / ex.sum(dim=-1, keepdim=True)).to(x.dtype)
+
+
+def _launch_softmax_rows(x):
+    dtype = _check_rows("softmax_rows", x)
+    m, n = x.shape
+    out = torch.empty_like(x)
+    lib, fn = _row_kernel("tpp_softmax_rows")
+    err = fn(x.data_ptr(), out.data_ptr(), m, n,
+             0 if dtype == "float32" else 1,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, "tpp_rowwise", err)
+    launches[f"tpp_softmax_rows:{dtype}"] += 1
+    return out
+
+
+def softmax_rows(x):
+    """Stable row softmax (fp32 max and sum over each full row). x [m, n];
+    raises where the reference's registry could not tile m."""
+    m, n = x.shape
+    if pick_block(m) is None:
+        raise ValueError(f"tpp.softmax_rows cannot tile {m} rows")
+    if x.is_cuda:
+        return _launch_softmax_rows(x)
+    return _softmax_rows_ref(x)
+
+
+def _mask_keep(mask):
+    """The reference's ``mask.astype(int32) != 0``: a fractional float
+    mask truncates toward zero first."""
+    if mask.dtype == torch.bool:
+        return mask
+    return mask.to(torch.int32) != 0
+
+
+def _masked_reduce_ref(x, mask, kind):
+    """Plain version: the row sum (0 where no column is kept) or max (-inf
+    where none is) of x over the columns kept by the mask, in fp32, as
+    [m, 1] in x's dtype."""
+    xf, keep = x.float(), _mask_keep(mask)
+    if kind == "sum":
+        out = torch.where(keep, xf, 0.0).sum(dim=-1, keepdim=True)
+    else:
+        out = torch.where(keep, xf, float("-inf")).amax(dim=-1, keepdim=True)
+    return out.to(x.dtype)
+
+
+def _launch_masked_reduce(x, mask, kind):
+    m, n = x.shape
+    if tuple(mask.shape) != (m, n):
+        raise ValueError(f"tpp.masked_reduce: mask must be [{m}, {n}], got "
+                         f"{tuple(mask.shape)}")
+    if mask.dtype in (torch.bool, torch.uint8):
+        mask_dtype = 0
+    else:                       # the reference's cast, then the int32 path
+        mask = mask if mask.dtype == torch.int32 else mask.to(torch.int32)
+        mask_dtype = 1
+    dtype = _check_rows("masked_reduce", x, mask)
+    out = torch.empty((m, 1), dtype=x.dtype, device=x.device)
+    lib, fn = _row_kernel("tpp_masked_reduce")
+    err = fn(x.data_ptr(), mask.data_ptr(), out.data_ptr(), m, n,
+             _KINDS.index(kind), 0 if dtype == "float32" else 1, mask_dtype,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, "tpp_rowwise", err)
+    launches[f"tpp_masked_reduce:{kind}:{dtype}"] += 1
+    return out
+
+
+def masked_reduce(x, mask, kind="sum"):
+    """Row-wise masked ``sum``/``max``: reduce x[i, j] over the columns
+    where mask[i, j] != 0 (the mask taken as int32, as the reference takes
+    it). x [m, n] -> [m, 1] in x's dtype; raises where the reference's
+    registry could not tile m."""
+    if kind not in _KINDS:
+        raise ValueError(f"kind must be sum|max, got {kind!r}")
+    m, n = x.shape
+    if pick_block(m) is None:
+        raise ValueError(f"tpp.masked_reduce cannot tile {m} rows")
+    if x.is_cuda:
+        return _launch_masked_reduce(x, mask, kind)
+    return _masked_reduce_ref(x, mask, kind)

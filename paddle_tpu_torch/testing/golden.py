@@ -1,4 +1,5 @@
-"""The narrow GPT whose JAX-package outputs are committed as fixtures.
+"""The narrow models whose JAX-package outputs are committed as fixtures:
+a GPT and a PP-YOLOE detector.
 
 ``chip_smoke.py`` runs the port's eval forward and greedy ``generate`` of
 this model on the card and holds them against
@@ -18,6 +19,17 @@ Weights and ids come from a numpy seed, in the JAX package's layout
 (Linear weights [in, out]) and under its parameter names, so both
 packages load the same numbers: the JAX model through ``set_value``, the
 port through ``models.convert.params_from_jax``.
+
+The narrow detector is ``ppyoloe_tiny`` (80 classes, width 16, depth 1)
+at batch DET_BATCH, DET_SIZE x DET_SIZE, its weights and BatchNorm
+statistics drawn by ``detector_state`` and its images by
+``detector_images``; ``fixtures/ppyoloe_tiny_128.npz`` holds the JAX
+package's head outputs, decoded boxes and scores and its
+``multiclass_nms`` output and counts at bench.py's ``score_threshold``
+and ``keep_top_k`` (``python tests/test_torch_ppyolo.py --write-fixture``
+rewrites it; tests/test_torch_ppyolo.py checks it still matches). The
+seed is one whose detections are well posed at DET_HEAD_TOL
+(``detection_margins``), and the detections include suppressed boxes.
 """
 from pathlib import Path
 
@@ -131,3 +143,141 @@ def port_kept_rows(params):
             t = t.t()
         out[n] = t[:KEPT_ROWS].numpy()
     return out
+
+
+# ---- the narrow detector ----------------------------------------------------
+
+DET_SEED = 83
+DET_IMAGE_SEED = 1
+DET_BATCH = 2
+DET_SIZE = 128
+DET_CLASSES = 80
+DET_SCORE_THRESHOLD = 0.3      # bench.py:561
+DET_KEEP_TOP_K = 100
+DET_NMS_THRESHOLD = 0.5        # PPYOLOE.postprocess's default
+DET_FIXTURE = FIXTURE.with_name("ppyoloe_tiny_128.npz")
+DET_CLS_BIAS = -7.5   # few anchors score above 0.3
+DET_BOX_BIAS = 2.0    # boxes of tens of pixels, which overlap
+#: head outputs of the port against the JAX package's, fp32 (|x| up to
+#: ~14): the convolutions sum in another order (XLA's against oneDNN's on
+#: the CPU, cuDNN's on the card). The CPU reads ~6e-6 against the JAX
+#: package's compiled run, which itself lies 6e-6 from its eager run.
+#: Detections are compared exactly where every score lies more than 10x
+#: this from the score threshold and from its neighbour in the output, and
+#: every IoU that NMS decides on more than 10x this from the IoU threshold.
+DET_HEAD_TOL = 1e-4
+#: decoded boxes and scores given the same head outputs: the two
+#: libraries' exp, log1p and sigmoid round the last bit differently
+#: (softplus of an fp32 input differs by up to 4.8e-7 absolute at |x| ~
+#: 16 on the CPU); boxes reach ~200 px, where an fp32 ulp is 1.5e-5.
+DET_DECODE_TOL = 5e-5
+#: detections reached from the images: boxes are pixels, a head difference
+#: scaled by a stride of up to 32 (3.2e-3) plus the decode's last bits
+DET_OUT_TOL = 5e-3
+
+
+def detector_shapes():
+    """{name: shape} of ppyoloe_tiny's state dict (parameters and
+    BatchNorm buffers; the names and layouts of both packages)."""
+    from ..vision.models import ppyoloe_tiny
+
+    return {n: tuple(t.shape) for n, t in
+            ppyoloe_tiny(device="cpu").state_dict().items()}
+
+
+def detector_state(seed=DET_SEED):
+    """{name: float32 array}: conv weights N(0, 2/fan_in), the 1x1
+    prediction convs N(0, 144/fan_in) with biases near DET_CLS_BIAS and
+    DET_BOX_BIAS, BatchNorm weights near 1, biases near 0,
+    _mean ~ N(0, 0.1) and _variance ~ U(0.5, 1.5), so that no BatchNorm is
+    the identity. Drawn in detector_shapes() order."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for name, shape in detector_shapes().items():
+        if name.endswith("._mean"):
+            a = 0.1 * rng.standard_normal(shape)
+        elif name.endswith("._variance"):
+            a = rng.uniform(0.5, 1.5, shape)
+        elif name.endswith("bn.weight"):
+            a = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif name.endswith("bn.bias"):
+            a = 0.1 * rng.standard_normal(shape)
+        elif "_preds." in name and name.endswith(".bias"):
+            a = (DET_CLS_BIAS if "cls_preds" in name else DET_BOX_BIAS) \
+                + 0.1 * rng.standard_normal(shape)
+        else:
+            gain = 12.0 if "_preds." in name else np.sqrt(2.0)
+            a = rng.standard_normal(shape) * gain \
+                / np.sqrt(np.prod(shape[1:]))
+        out[name] = a.astype(np.float32)
+    return out
+
+
+def detector_images(seed=DET_IMAGE_SEED):
+    """[DET_BATCH, 3, DET_SIZE, DET_SIZE] float32 in [0, 1)."""
+    return np.random.RandomState(seed).rand(
+        DET_BATCH, 3, DET_SIZE, DET_SIZE).astype(np.float32)
+
+
+def _iou(a, b):
+    """IoU of xyxy boxes a [n, 4] against b [m, 4], in float64."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    area = lambda x: np.maximum(x[:, 2] - x[:, 0], 0) \
+        * np.maximum(x[:, 3] - x[:, 1], 0)
+    lt = np.maximum(a[:, None, :2], b[None, :, :2])
+    rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
+    wh = np.maximum(rb - lt, 0)
+    inter = wh[..., 0] * wh[..., 1]
+    return inter / np.maximum(area(a)[:, None] + area(b)[None, :] - inter,
+                              1e-9)
+
+
+def detection_margins(boxes, scores, out, score_threshold=DET_SCORE_THRESHOLD,
+                      iou_threshold=DET_NMS_THRESHOLD):
+    """How far multiclass_nms's decisions lie from flipping, given decoded
+    boxes [B, A, 4], scores [B, C, A] and its output [B, K, 6]: the least
+    distance of any score from score_threshold, of any kept score from the
+    next kept score of its image, and of the IoU of any two boxes of one
+    image and class that both pass score_threshold (only those can
+    suppress each other) from iou_threshold. None where there is no such
+    pair."""
+    boxes, scores, out = (np.asarray(t) for t in (boxes, scores, out))
+    m = {"score_vs_threshold": float(np.abs(scores - score_threshold).min()),
+         "kept_score_gap": None, "iou_vs_threshold": None}
+    for i in range(out.shape[0]):
+        kept = out[i, :, 1][out[i, :, 1] > 0]
+        if len(kept) > 1:
+            gap = float(np.abs(np.diff(kept)).min())
+            m["kept_score_gap"] = min(gap, m["kept_score_gap"] or gap)
+        for c in range(scores.shape[1]):
+            idx = np.nonzero(scores[i, c] > score_threshold)[0]
+            if len(idx) > 1:
+                iou = _iou(boxes[i, idx], boxes[i, idx])
+                d = float(np.abs(iou[np.triu_indices(len(idx), 1)]
+                                 - iou_threshold).min())
+                m["iou_vs_threshold"] = min(d, m["iou_vs_threshold"] or d)
+    return m
+
+
+def check_well_posed(margins, tol=DET_HEAD_TOL):
+    """Raise unless every margin of detection_margins exceeds 10 x tol."""
+    bad = {k: v for k, v in margins.items()
+           if v is not None and v <= 10 * tol}
+    if bad:
+        raise ValueError(f"detections are not well posed at tolerance {tol}:"
+                         f" {bad} (choose another DET_SEED)")
+
+
+def same_detections(got, want, tol):
+    """Whether two multiclass_nms outputs [B, K, 6] hold the same
+    detections: the same padded rows, labels and order, with scores and
+    boxes within tol. Returns (bool, the largest value difference)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        return False, float("inf")
+    pad_g, pad_w = got[..., 1] < 0, want[..., 1] < 0
+    if not np.array_equal(pad_g, pad_w) \
+            or not np.array_equal(got[..., 0], want[..., 0]):
+        return False, float("inf")
+    err = float(np.abs(got - want).max())
+    return err <= tol, err

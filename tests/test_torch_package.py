@@ -153,7 +153,8 @@ class TestFlags:
 
 
 def test_build_lists_the_kernel_sources(monkeypatch, tmp_path):
-    assert _build.sources() == ["flash_bwd", "flash_fwd", "tpp_matmul"]
+    assert _build.sources() == ["flash_bwd", "flash_fwd", "nms", "tpp_matmul",
+                                "tpp_rowwise"]
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(FileNotFoundError):
         _build.build(["no_such_kernel"])

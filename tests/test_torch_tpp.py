@@ -269,6 +269,116 @@ def test_backward_runs_in_fp32_under_auto_cast(data):
         assert a.dtype == torch.float32 and torch.equal(a, b)
 
 
+# ---- the row primitives ----------------------------------------------------
+
+#: fp32: the same function, sums taken in another order and erf/tanh/exp
+#: rounding their last bit differently; bf16 outputs may also land one bf16
+#: step (2^-8 relative) apart from such a difference
+ROW_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+ROW_DTYPES = ["float32", "bfloat16"]
+
+
+def _rows(m=48, n=96, seed=9):
+    rng = np.random.RandomState(seed)
+    return rng.randn(m, n).astype(np.float32), \
+        rng.randn(n).astype(np.float32), rng.rand(m, n) > 0.4
+
+
+def _assert_rows(got, want, dname):
+    want = np.asarray(want.astype(jnp.float32))
+    got = got.float().numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=ROW_TOL[dname]
+                               * max(1.0, float(np.abs(want[np.isfinite(
+                                   want)]).max())), rtol=0)
+
+
+@pytest.mark.parametrize("dname", ROW_DTYPES)
+@pytest.mark.parametrize("act", tpp._ACTS)
+def test_bias_act_matches_jax(act, dname):
+    x, b, _ = _rows()
+    want = jtpp.bias_act(jnp.asarray(x, dname), J(b), act)
+    got = tpp.bias_act(T(x).to(getattr(torch, dname)), T(b), act)
+    assert got.dtype == getattr(torch, dname)
+    _assert_rows(got, want, dname)
+
+
+@pytest.mark.parametrize("dname", ROW_DTYPES)
+def test_softmax_rows_matches_jax(dname):
+    x, _, _ = _rows()
+    x[5] *= 40.0                               # a row the max must steady
+    want = jtpp.softmax_rows(jnp.asarray(x, dname))
+    got = tpp.softmax_rows(T(x).to(getattr(torch, dname)))
+    assert got.dtype == getattr(torch, dname)
+    _assert_rows(got, want, dname)
+
+
+@pytest.mark.parametrize("dname", ROW_DTYPES)
+@pytest.mark.parametrize("kind", ["sum", "max"])
+def test_masked_reduce_matches_jax(kind, dname):
+    x, _, mask = _rows()
+    mask[7] = False                            # a row with nothing kept
+    want = jtpp.masked_reduce(jnp.asarray(x, dname), J(mask), kind)
+    got = tpp.masked_reduce(T(x).to(getattr(torch, dname)), T(mask), kind)
+    assert got.shape == (48, 1) and got.dtype == getattr(torch, dname)
+    _assert_rows(got, want, dname)
+    assert got[7, 0].item() == (0.0 if kind == "sum" else float("-inf"))
+    assert np.asarray(want, np.float32)[7, 0] == got[7, 0].item()
+
+
+def test_masked_reduce_takes_the_mask_as_int32():
+    """A float mask is cast to int32 first, as the reference casts it:
+    0.5 drops its column, -1.0 and 2.0 keep theirs."""
+    x = np.arange(8, dtype=np.float32).reshape(1, 8) + 1.0
+    x = np.repeat(x, 8, 0)
+    mask = np.tile(np.array([0.5, -1.0, 2.0, 0.0, 1.0, 0.9, 0.0, 3.0],
+                            np.float32), (8, 1))
+    want = jtpp.masked_reduce(J(x), J(mask), "sum")
+    got = tpp.masked_reduce(T(x), T(mask), "sum")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got[0, 0].item() == 2.0 + 3.0 + 5.0 + 8.0
+
+
+@pytest.mark.parametrize("call", [
+    lambda m: m.bias_act(m_x(7, 16), m_b(16)),
+    lambda m: m.bias_act(m_x(16, 12), m_b(12)),
+    lambda m: m.softmax_rows(m_x(9, 16)),
+    lambda m: m.masked_reduce(m_x(10, 16), m_x(10, 16))],
+    ids=["bias_act_rows", "bias_act_cols", "softmax_rows", "masked_reduce"])
+def test_row_primitives_refuse_untileable_shapes_like_jax(call):
+    for mod in (jtpp, tpp):
+        with pytest.raises(ValueError, match="cannot tile"):
+            call(mod)
+
+
+def m_x(m, n):
+    return np.zeros((m, n), np.float32)
+
+
+def m_b(n):
+    return np.zeros((n,), np.float32)
+
+
+def test_row_primitive_argument_errors_match_jax():
+    x, b, mask = _rows()
+    for mod, arr in ((jtpp, J), (tpp, T)):
+        with pytest.raises(ValueError, match="act must be one of"):
+            mod.bias_act(arr(x), arr(b), act="silu")
+        with pytest.raises(ValueError, match="kind must be sum"):
+            mod.masked_reduce(arr(x), arr(mask), kind="mean")
+
+
+def test_row_primitives_on_cpu_launch_nothing():
+    x, b, mask = _rows()
+    tpp.launches.clear()
+    tpp.bias_act(T(x), T(b))
+    tpp.softmax_rows(T(x))
+    tpp.masked_reduce(T(x), T(mask), "max")
+    assert sum(tpp.launches.values()) == 0
+    with pytest.raises(ValueError, match="must be contiguous and lie on"):
+        tpp._launch_softmax_rows(T(x))
+
+
 # ---- on the card -----------------------------------------------------------
 
 @pytest.fixture
@@ -341,3 +451,40 @@ def test_functions_launch_the_kernel_and_match_plain_grads_on_card(cuda):
     for a, b in zip(got, want):
         assert (a - b).abs().max().item() <= \
             1e-3 * max(1.0, b.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(256, 3072), (48, 96), (40, 100)],
+                         ids=["wide", "narrow", "unvectorised"])
+def test_row_kernels_match_plain_on_card(cuda, dtype, shape):
+    """Each row kernel against its plain version, with the launch counted;
+    n = 100 is not a multiple of the bias_act vector, so it takes the
+    scalar path (the registry gate is bypassed through the launchers)."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(*shape, generator=g, device=cuda).to(dtype)
+    b = torch.randn(shape[1], generator=g, device=cuda)
+    mask = torch.rand(*shape, generator=g, device=cuda) > 0.3
+    mask[3] = False
+    dname = tpp._dtype_name(dtype)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    checks = [(tpp._launch_bias_act(x, b, act), tpp._bias_act_ref(x, b, act),
+               f"tpp_bias_act:{act}:{dname}") for act in tpp._ACTS]
+    checks.append((tpp._launch_softmax_rows(x), tpp._softmax_rows_ref(x),
+                   f"tpp_softmax_rows:{dname}"))
+    for kind in ("sum", "max"):
+        for m in (mask, mask.to(torch.int32), mask.float() * 1.7):
+            checks.append((tpp._launch_masked_reduce(x, m, kind),
+                           tpp._masked_reduce_ref(x, m, kind),
+                           f"tpp_masked_reduce:{kind}:{dname}"))
+    torch.cuda.synchronize()
+    for got, want, key in checks:
+        assert tpp.launches[key] > 0
+        assert got.dtype == want.dtype and got.shape == want.shape
+        fin = torch.isfinite(want)
+        assert torch.equal(fin, torch.isfinite(got)), key
+        err = (got.float() - want.float())[fin].abs().max().item() \
+            if fin.any() else 0.0
+        assert err <= tol * max(1.0, want.float()[fin].abs().max().item()
+                                if fin.any() else 1.0), (key, err)
