@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's GPT-2 serving and training paths, its
-PP-YOLOE detection serving path and the TPP row primitives on one GPU.
+PP-YOLOE detection serving path, the TPP row primitives and the
+continuous-batching ServingEngine (dense and paged) on one GPU.
 
 Run from the repository root, on a machine with a CUDA device and nvcc:
 
@@ -9,7 +10,8 @@ Run from the repository root, on a machine with a CUDA device and nvcc:
 It builds the port's CUDA kernels from paddle_tpu_torch/ops/csrc/, holds
 each kernel (flash-attention forward, its dQ and dK/dV backward kernels,
 the TPP matmul, the greedy-NMS kernel, the TPP bias_act, softmax_rows and
-masked_reduce kernels) against its plain PyTorch version, checks a narrow
+masked_reduce kernels, the paged-attention kernel) against its plain
+PyTorch version, checks a narrow
 GPT's eval forward, greedy ``generate`` and three AdamW training steps and
 a narrow PP-YOLOE's head outputs and detections against the JAX package's
 committed outputs, drives GPT-2 small (vocab 50304, hidden 768, 12
@@ -19,9 +21,13 @@ layers, 12 heads, random weights from a seed) through the serving path
 off and on, and fp32), drives PP-YOLOE (80 classes, width 64, depth 2:
 bench.py's config) through forward, decode and multiclass-NMS
 postprocess at 8 x 640 x 640 in fp32 and under bf16 auto_cast, calls the
-TPP row primitives at GPT-2 small's shapes, profiles each configuration
-once for the device time by kernel and the device's idle share, and
-times every kernel. Each phase prints one JSON line; then a ``kernels``
+TPP row primitives at GPT-2 small's shapes, serves GPT-2 small through
+the ServingEngine as bench.py's run_serve and run_serve_mixed do (the
+greedy drain on the dense and the paged engine, whose outputs must be
+equal; the mixed drain; a paged run on a shared 512-token prefix with
+cold pages) and runs the paged-attention kernel on the paged engine's
+live pool, profiles each configuration once for the device time by
+kernel and the device's idle share, and times every kernel. Each phase prints one JSON line; then a ``kernels``
 line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits nonzero and prints no result; it also exits nonzero at once when
@@ -96,6 +102,30 @@ ACT_OPS = {"none": 0, "relu": 1, "gelu": 6, "gelu_tanh": 9}
 # operations of one NMS IoU evaluation (two boxes' overlap, union and
 # quotient, the areas computed once per box: 5 each)
 IOU_OPS, AREA_OPS = 14, 5
+# GPT-2 small through the continuous-batching ServingEngine, as bench.py
+# runs it (run_serve :680, run_serve_mixed :730, dispatch :1112-1150): 8
+# slots, 24 requests with prompts of 32-127 tokens, 128 new tokens each,
+# bf16 params and cache, greedy; the paged engine with 16-column frames.
+SERVE_SLOTS, SERVE_NEW, PAGE_BLOCK = 8, 128, 16
+SERVE_REQUESTS = 3 * SERVE_SLOTS
+SERVE_CHUNK = 128                     # run_serve_mixed's prefill_chunk
+# the paged-attention kernel runs on the paged engine's live pool after
+# this many decode steps of the drain
+PAGED_STEPS = 64
+# a 512-token shared prefix, 8 requests with 32-token suffixes and 64 new
+# tokens each, prefix frames compressed after this many idle steps
+PREFIX_LEN, PREFIX_SUFFIX, PREFIX_NEW, PREFIX_COLD_STEPS = 512, 32, 64, 4
+# first-token logits of a suffix prefilled on the pool's shared prefix
+# frames against the whole prompt's: bf16 K/V of a 512-token prefill and
+# of a 544-token one differ in rounding (other GEMM shapes)
+PREFIX_LOGIT_TOL = 0.05
+# paged attention kernel vs plain, same inputs: fp32 differs by summation
+# order; a bf16 output may round to the neighbouring bf16 value
+PAGED_TOL_F32 = 2e-5
+PAGED_BF16_REL, PAGED_BF16_ABS = 2.0 ** -7, 1e-6
+# the reference's paged_attention audit shape (ops/tpp.py:248): B, H, hd,
+# bs, maxb, and its test's pool of B + 3 frames
+AUDIT_SHAPES = ((16, 8, 128, 32, 16, 19),)
 
 
 def torch_dtypes():
@@ -546,6 +576,532 @@ def time_new_kernels(det, rows, randn, time_ms, bound, launch_counts):
             "other_kinds": {"max": kinds["max"]},
             "mask": "bool, causal", "shape": [m_s, n_s]})
         del sc, mask
+    return kernels
+
+
+def gpt2_serving_engines(dev):
+    """bench.py's serving workloads on GPT-2 small at full width, through
+    the port's ServingEngine: the greedy drain on the dense and the paged
+    engine (their outputs must be equal), the mixed drain (staggered
+    arrivals, a third sampling, chunked prefill), and a paged run on a
+    shared prefix with cold pages. After PAGED_STEPS decode steps of the
+    paged drain, the paged-attention kernel runs once a layer on the live
+    pool (bf16 and fp32 q, and int8 pages from the row codec): that is its
+    main path, counted from zero. Returns {"counts", "live" (the inputs of
+    those calls), "errs"}."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.distributed import compress
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.ops import tpp
+    from paddle_tpu_torch.serving import paging
+
+    cfg = GPTConfig(vocab_size=50304, hidden_size=768, num_layers=12,
+                    num_heads=12, max_seq_len=1024, dropout=0.0)
+    model = GPTForCausalLM(cfg, device=dev,
+                           generator=torch.Generator().manual_seed(0)).eval()
+    L, H = cfg.num_layers, cfg.num_heads
+    hd = cfg.hidden_size // H
+    rng = np.random.RandomState(0)
+    lens = [int(rng.randint(32, 128)) for _ in range(SERVE_REQUESTS)]
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in lens]
+
+    def engine(paged, **kw):
+        set_flags({"paged_kv": paged})
+        return ServingEngine(model, max_batch=SERVE_SLOTS, dtype="bfloat16",
+                             **kw)
+
+    def warm(eng):
+        # bench.py's warm-up: one 2-token request per prompt bucket
+        seen = set()
+        for p in prompts:
+            if eng._bucket(len(p)) not in seen:
+                seen.add(eng._bucket(len(p)))
+                eng.submit(p, max_new_tokens=2)
+        eng.run_until_complete()
+
+    def drain(eng, at_step=None):
+        """The timed greedy drain: host clock around each step (a step
+        ends in its tokens' copy to the host). Runs at_step(eng) once
+        after PAGED_STEPS decode steps, off the clock."""
+        torch.cuda.reset_peak_memory_stats()
+        rids = [eng.submit(p, max_new_tokens=SERVE_NEW) for p in prompts]
+        step_ms, trace, n = [], None, 0
+        while eng.has_work():
+            if n == 32:              # all slots decoding: one profiled step
+                _, trace = device_breakdown(eng.step)
+                profiled_ms = trace["profiled_wall_ms"]
+            else:
+                t = time.perf_counter()
+                eng.step()
+                step_ms.append((time.perf_counter() - t) * 1e3)
+            n += 1
+            if n == PAGED_STEPS and at_step is not None:
+                at_step(eng)
+        res = {r: eng.get_request(r) for r in rids}
+        check(all(res[r].finish_reason == "length"
+                  and len(res[r].output_ids) == SERVE_NEW for r in rids),
+              "serving drain: every request ends at max_new_tokens")
+        out = [list(res[r].output_ids) for r in rids]
+        check(all(0 <= t < cfg.vocab_size for o in out for t in o),
+              "serving drain: tokens in the vocabulary")
+        total_s = (sum(step_ms) + profiled_ms) / 1e3
+        return out, {
+            "new_tok_per_s": SERVE_REQUESTS * SERVE_NEW / total_s,
+            "new_tok_per_s_is": "all new tokens over the steps' host time "
+                                "(the profiled step's included)",
+            "steps": n, "timed_s": total_s,
+            "step_ms_median": statistics.median(step_ms),
+            "step_ms_range": [min(step_ms), max(step_ms)],
+            "profiled_step_32": trace,
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 2 ** 30,
+            "stats_steps": eng.stats()["steps"]}
+
+    # ---- the greedy drain: dense, then paged ---------------------------
+    eng = engine(False)
+    warm(eng)
+    dense_out, dense = drain(eng)
+    del eng
+    torch.cuda.empty_cache()
+
+    live = {}
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def paged_kernel_path(eng):
+        """The kernel on the live pool, one call a layer (bf16 q on the
+        bf16 pool; fp32 q on an fp32 copy; fp32 q on int8 pages made by
+        the row codec), counted from zero."""
+        pool = eng._pool
+        active = [s for s in range(SERVE_SLOTS) if eng._slot_req[s]]
+        check(len(active) == SERVE_SLOTS,
+              f"{SERVE_SLOTS} live sessions after {PAGED_STEPS} steps")
+        lengths = torch.tensor(eng._pos, device=dev)     # int32 [B]
+        kp16, vp16 = pool.kp.clone(), pool.vp.clone()
+        kq, ks = compress.quantize_rows(kp16)
+        vq, vs = compress.quantize_rows(vp16)
+        live.update(tables=pool.tables_device(), lengths=lengths,
+                    pages={"bfloat16": (kp16, vp16),
+                           "float32": (kp16.float(), vp16.float()),
+                           "int8": (kq, vq, ks, vs)},
+                    q={d: torch.randn(SERVE_SLOTS, H, hd, generator=gen,
+                                      device=dev).to(dt)
+                       for d, dt in torch_dtypes().items()},
+                    stats=eng.stats()["paging"], out={})
+        for l in range(L):
+            for variant, dname in (("dense", "bfloat16"),
+                                   ("dense", "float32"), ("int8", "float32")):
+                if variant == "dense":
+                    kp, vp = live["pages"][dname]
+                    scales = (None, None)
+                else:
+                    kp, vp, ks_, vs_ = live["pages"]["int8"]
+                    scales = (ks_[:, l], vs_[:, l])
+                live["out"][variant, dname, l] = tpp.paged_attention(
+                    live["q"][dname], kp[:, l], vp[:, l], live["tables"],
+                    lengths, *scales)
+        torch.cuda.synchronize()
+
+    eng = engine(True, page_block=PAGE_BLOCK)
+    warm(eng)
+    tpp.launches.clear()                 # the paged serving path: from 0
+    paged_out, paged = drain(eng, at_step=paged_kernel_path)
+    live["counts"] = dict(tpp.launches)
+    check(set(live["counts"]) == {
+        f"tpp_paged_attention.{v}:{d}" for v, d in (
+            ("dense", "bfloat16"), ("dense", "float32"), ("int8", "float32"))},
+        f"paged serving path: paged-attention launches only, got "
+        f"{live['counts']}")
+    paged["pool"] = eng.stats()["paging"]
+    check(paged_out == dense_out,
+          f"paged engine: all {SERVE_REQUESTS} outputs equal the dense "
+          "engine's, token for token")
+    del eng
+    torch.cuda.empty_cache()
+    emit({"phase": "gpt2_small_serve", "config": "bench.py run_serve",
+          "slots": SERVE_SLOTS, "requests": SERVE_REQUESTS,
+          "prompt_lens": lens, "new_tokens": SERVE_NEW, "dtype": "bfloat16",
+          "dense": dense, "paged": paged, "page_block": PAGE_BLOCK,
+          "paged_live_pool_after_64_steps": live["stats"],
+          "paged_outputs_equal_dense": True})
+
+    # ---- the mixed drain: staggered arrivals, sampling, chunked prefill --
+    rng = np.random.RandomState(1)
+    mlens = [int(rng.randint(32, 128)) for _ in range(SERVE_REQUESTS)]
+    mprompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+                for n in mlens]
+    kwargs = [({"temperature": 0.8, "top_k": 50, "seed": i}
+               if i % 3 == 0 else {}) for i in range(SERVE_REQUESTS)]
+    eng = engine(False, prefill_chunk=SERVE_CHUNK)
+    eng.submit(mprompts[0], max_new_tokens=2)
+    eng.submit(mprompts[-1], max_new_tokens=2, temperature=0.8, top_k=50,
+               seed=0)
+    eng.run_until_complete()
+    tracked, counts, last_emit, inter_ms, ttft_ms = {}, {}, {}, [], []
+    pending = list(zip(mprompts, kwargs))
+    step_i = 0
+    t0 = time.perf_counter()
+    while pending or eng.has_work():
+        if step_i % 3 == 0:    # 2 arrivals every 3 steps
+            for _ in range(2):
+                if pending:
+                    p, kw = pending.pop(0)
+                    rid = eng.submit(p, max_new_tokens=SERVE_NEW, **kw)
+                    tracked[rid] = (eng.get_request(rid),
+                                    time.perf_counter())
+                    counts[rid] = 0
+        eng.step()
+        now = time.perf_counter()
+        for rid, (req, t_submit) in tracked.items():
+            n = len(req.output_ids)
+            if n > counts[rid]:
+                if counts[rid] == 0:
+                    ttft_ms.append((now - t_submit) * 1e3)
+                else:
+                    inter_ms.append((now - last_emit[rid]) * 1e3)
+                last_emit[rid] = now
+                counts[rid] = n
+        step_i += 1
+    mixed_s = time.perf_counter() - t0
+    reqs = [tracked[r][0] for r in sorted(tracked)]
+    check(all(r.finish_reason == "length"
+              and len(r.output_ids) == SERVE_NEW for r in reqs),
+          "mixed drain: every request ends at max_new_tokens")
+    mixed_stats = eng.stats()
+    # greedy rows do not depend on arrival times or sampling neighbours:
+    # the same greedy requests submitted at once give the same tokens
+    greedy = [i for i in range(SERVE_REQUESTS) if not kwargs[i]]
+    grids = [eng.submit(mprompts[i], max_new_tokens=SERVE_NEW)
+             for i in greedy]
+    eng.run_until_complete()
+    check(all(list(eng.get_request(g).output_ids) == reqs[i].output_ids
+              for g, i in zip(grids, greedy)),
+          "mixed drain: greedy rows equal a greedy-only drain's")
+    del eng
+    emit({"phase": "gpt2_small_serve_mixed",
+          "config": "bench.py run_serve_mixed", "prefill_chunk": SERVE_CHUNK,
+          "sampling": "every 3rd request: temperature 0.8, top_k 50",
+          "new_tok_per_s": sum(counts.values()) / mixed_s,
+          "inter_token_ms_p50": float(np.percentile(inter_ms, 50)),
+          "inter_token_ms_p99": float(np.percentile(inter_ms, 99)),
+          "ttft_ms_p50": float(np.percentile(ttft_ms, 50)),
+          "ttft_ms_p99": float(np.percentile(ttft_ms, 99)),
+          "steps": mixed_stats["steps"],
+          "greedy_rows_equal_greedy_only_drain": True})
+
+    # ---- paged, a shared prefix with cold pages -------------------------
+    rng = np.random.RandomState(2)
+    prefix = rng.randint(0, cfg.vocab_size, (PREFIX_LEN,)).astype(np.int32)
+    sufs = [rng.randint(0, cfg.vocab_size, (PREFIX_SUFFIX,)).astype(np.int32)
+            for _ in range(SERVE_SLOTS)]
+    eng = engine(True, page_block=PAGE_BLOCK,
+                 page_cold_steps=PREFIX_COLD_STEPS)
+    pid = eng.register_prefix(prefix)
+    pool = eng._pool
+    frames = pool.prefix_frames(pid)
+    table = torch.zeros((1, pool.maxb), dtype=torch.int32, device=dev)
+    table[0, :len(frames)] = torch.as_tensor(frames)
+    kc_p, vc_p = paging.gather_dense(pool.kp, pool.vp, table)
+    logit_err = 0.0
+    with torch.no_grad():
+        for s in sufs:
+            kc, vc = kc_p.clone(), vc_p.clone()
+            got = eng._logits1(eng._prefill_cols(s, PREFIX_LEN, kc, vc))
+            kc, vc = eng._cache_row()
+            want = eng._logits1(eng._prefill_cols(
+                np.concatenate([prefix, s]), 0, kc, vc))
+            logit_err = max(logit_err, (got - want).abs().max().item())
+    check(logit_err <= PREFIX_LOGIT_TOL,
+          f"first-token logits on the shared prefix frames vs the whole "
+          f"prompt: {logit_err}")
+
+    def prefix_round(use_prefix):
+        rids = [eng.submit(s, max_new_tokens=PREFIX_NEW, prefix_id=pid)
+                if use_prefix else
+                eng.submit(np.concatenate([prefix, s]),
+                           max_new_tokens=PREFIX_NEW) for s in sufs]
+        eng.step()
+        live_pg = eng.stats()["paging"]
+        eng.run_until_complete()
+        check(all(eng.get_request(r).finish_reason == "length"
+                  for r in rids), "prefix run: requests end at length")
+        return [eng.get_request(r).output_ids for r in rids], live_pg
+
+    hot, hot_pg = prefix_round(True)
+    for _ in range(PREFIX_COLD_STEPS + 1):
+        eng.step()                   # idle steps: the sweep runs
+    cold_pg = eng.stats()["paging"]
+    check(cold_pg["cold_pages"] == PREFIX_LEN // PAGE_BLOCK,
+          f"every prefix frame compressed after {PREFIX_COLD_STEPS} idle "
+          f"sweeps: {cold_pg}")
+    cold, _ = prefix_round(True)
+    full, full_pg = prefix_round(False)
+
+    def agree(a, b):
+        return sum(x == y for u, v in zip(a, b) for x, y in zip(u, v)) \
+            / sum(len(u) for u in a)
+
+    emit({"phase": "gpt2_small_serve_prefix", "paged": True,
+          "prefix": PREFIX_LEN, "suffix": PREFIX_SUFFIX,
+          "requests": SERVE_SLOTS, "new_tokens": PREFIX_NEW,
+          "page_cold_steps": PREFIX_COLD_STEPS,
+          "first_token_logits_max_abs_err": logit_err,
+          "logits_tol": PREFIX_LOGIT_TOL,
+          "kv_bytes_per_session": hot_pg["kv_bytes_per_session"],
+          "dense_bytes_per_session": hot_pg["dense_bytes_per_session"],
+          "full_prompt_kv_bytes_per_session": full_pg["kv_bytes_per_session"],
+          "pool_live_on_prefix": hot_pg, "pool_after_idle_sweeps": cold_pg,
+          "token_agreement_prefix_vs_full_prompt": agree(hot, full),
+          "token_agreement_cold_prefix_vs_full_prompt": agree(cold, full),
+          "prefix_cache": eng.stats()["prefix_cache"]})
+    set_flags({"paged_kv": False})
+    del eng, model, kc_p, vc_p
+    torch.cuda.empty_cache()
+
+    # ---- the kernel's main-path calls against the plain version ---------
+    errs = {}
+    tables, lengths = live["tables"], live["lengths"]
+    for (variant, dname, l), got in live["out"].items():
+        q = live["q"][dname]
+        if variant == "dense":
+            kp, vp = live["pages"][dname]
+            want = tpp.paged_attention_ref(q, kp[:, l], vp[:, l], tables,
+                                           lengths)
+        else:
+            kq, vq, ks, vs = live["pages"]["int8"]
+            want = tpp.paged_attention_ref(q, kq[:, l], vq[:, l], tables,
+                                           lengths, ks[:, l], vs[:, l])
+        key = f"{variant}[{dname}]"
+        errs[key] = max(errs.get(key, 0.0), paged_err(got, want, dname))
+    return {"counts": live["counts"], "live": live, "errs": errs,
+            "int8_vs_dense": int8_vs_dense(live)}
+
+
+def paged_err(got, want, dname):
+    """Max-abs error of the paged-attention kernel against its plain
+    version, checked against PAGED_TOL_F32 (fp32 out) or one bf16 step,
+    |got - want| <= 2^-7 |want| + 1e-6 (bf16 out)."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          "paged attention: same dtype and shape as plain")
+    diff = (got.float() - want.float()).abs()
+    if dname == "float32":
+        ok = diff.max().item() <= PAGED_TOL_F32
+    else:
+        ok = bool((diff <= PAGED_BF16_REL * want.float().abs()
+                   + PAGED_BF16_ABS).all())
+    check(ok, f"paged attention {dname} vs plain: err {diff.max().item()}")
+    return diff.max().item()
+
+
+def int8_vs_dense(live):
+    """The int8-page kernel outputs against exact (f64) attention on the
+    unquantized fp32 pool, element by element, within a band derived from
+    the row codec. The codec puts each element of a K or V row within half
+    its row's step, a / 254 (a the row's absmax; checked here). Each score
+    s_c then moves by d_c = |q . dK_c| / sqrt(hd), so each weight p_c moves
+    by a factor within e^(+-R_c), R_c = d_c + log sum_j p_j e^(d_j), and
+    each output element o_i by at most
+    sum_c p_c (e^R_c - 1) |V_ci| + sum_c p_c e^R_c |dV_ci|,
+    plus PAGED_TOL_F32 for the kernel's fp32 arithmetic. Returns the
+    largest error, band and error / band."""
+    import torch
+
+    from paddle_tpu_torch.ops import tpp
+
+    tables, lengths = live["tables"], live["lengths"]
+    kp, vp = live["pages"]["float32"]
+    kq, vq, ks, vs = live["pages"]["int8"]
+    q = live["q"]["float32"].double()
+    T = tables.shape[1] * kp.shape[3]
+    dead = (torch.arange(T, device=q.device)[None, :]
+            >= lengths.long()[:, None])[:, None, :]         # [B, 1, T]
+    err = band_max = ratio = 0.0
+    for (variant, _, l), got in live["out"].items():
+        if variant != "int8":
+            continue
+        k, v, dk, dv = (tpp.gather_pages(x, tables).double()
+                        for x in (kp[:, l], vp[:, l], kq[:, l], vq[:, l]))
+        for x, d, sc in ((k, dk, ks[:, l]), (v, dv, vs[:, l])):
+            step = tpp.gather_pages(sc, tables).double()    # [B, H, T, 1]
+            d.mul_(step).sub_(x)                 # the codec's error
+            check(bool((d.abs() <= step * (0.5 + 1e-4)).all()),
+                  "row codec: every element within a / 254 of its value")
+        scale = q.shape[-1] ** -0.5
+        s = torch.einsum("bhd,bhTd->bhT", q, k).mul_(scale) \
+            .masked_fill_(dead, -math.inf)
+        p = torch.softmax(s, dim=-1)
+        d = torch.einsum("bhd,bhTd->bhT", q, dk).abs_().mul_(scale) \
+            .masked_fill_(dead, 0.0)
+        R = d + (p * d.exp()).sum(-1, keepdim=True).log()
+        band = (torch.einsum("bhT,bhTd->bhd", p * R.expm1(), v.abs())
+                + torch.einsum("bhT,bhTd->bhd", p * R.exp(), dv.abs())
+                + PAGED_TOL_F32)
+        diff = (got.double() - torch.einsum("bhT,bhTd->bhd", p, v)).abs()
+        check(bool((diff <= band).all()),
+              f"int8 pages vs dense, layer {l}: err / band "
+              f"{(diff / band).max().item()} > 1")
+        err = max(err, diff.max().item())
+        band_max = max(band_max, band.max().item())
+        ratio = max(ratio, (diff / band).max().item())
+    return {"max_abs_err": err, "band_max": band_max,
+            "max_err_over_band": ratio,
+            "band_is": "per element: the codec's a/254 step through each "
+                       "score's own |q.dK| and each output's own weights"}
+
+
+def paged_cases(B, H, hd, bs, maxb, NB, gen, full=False):
+    """Random pages (fp32 and their int8 codes), tables of distinct random
+    frames per row (frame 0 never used) and lengths: every row at maxb*bs
+    (full), else random in [1, maxb*bs] but row 0's, which is 0."""
+    import torch
+
+    from paddle_tpu_torch.distributed import compress
+
+    dev = gen.device
+    kp = torch.randn(NB, H, bs, hd, generator=gen, device=dev)
+    vp = torch.randn(NB, H, bs, hd, generator=gen, device=dev)
+    lengths = torch.randint(1, maxb * bs + 1, (B,), generator=gen,
+                            device=dev).int()
+    if full:
+        lengths[:] = maxb * bs
+    else:
+        lengths[0] = 0
+    tables = torch.zeros(B, maxb, dtype=torch.int32, device=dev)
+    for b in range(B):
+        n = -(-int(lengths[b]) // bs)
+        tables[b, :n] = torch.randperm(NB - 1, generator=gen,
+                                       device=dev)[:n].int() + 1
+    (kq, ks), (vq, vs) = compress.quantize_rows(kp), compress.quantize_rows(vp)
+    return {"kp": kp, "vp": vp, "int8": (kq, vq, ks, vs), "tables": tables,
+            "lengths": lengths}
+
+
+def check_paged_sources(gen):
+    """The paged-attention kernel against its plain version off the main
+    path: a full-length case (8 rows x 1024 columns over a 513-frame pool)
+    and the reference's audit shape with a zero-length row, bf16 and fp32
+    q, dense and int8 pages. Returns {case: max-abs error} and the
+    full-length inputs (for timing)."""
+    import torch
+
+    from paddle_tpu_torch.ops import tpp
+
+    errs = {}
+    full = paged_cases(SERVE_SLOTS, 12, 64, PAGE_BLOCK, 1024 // PAGE_BLOCK,
+                       513, gen, full=True)        # the engine's full length
+    audit = paged_cases(*next(iter(AUDIT_SHAPES)), gen)
+    for name, c in (("full_length", full), ("audit", audit)):
+        for dname, dt in torch_dtypes().items():
+            q = torch.randn(c["tables"].shape[0], c["kp"].shape[1],
+                            c["kp"].shape[3], generator=gen,
+                            device=gen.device).to(dt)
+            for variant in ("dense", "int8"):
+                if variant == "dense":
+                    args = (c["kp"].to(dt), c["vp"].to(dt), c["tables"],
+                            c["lengths"])
+                else:
+                    kq, vq, ks, vs = c["int8"]
+                    args = (kq, vq, c["tables"], c["lengths"], ks, vs)
+                got = tpp.paged_attention(q, *args)
+                torch.cuda.synchronize()
+                want = tpp.paged_attention_ref(q, *args)
+                errs[f"{name}.{variant}[{dname}]"] = paged_err(got, want,
+                                                               dname)
+                if name == "audit":
+                    check(bool((got[0] == 0).all()),
+                          "paged attention: a zero-length row gives zeros")
+    emit({"phase": "kernels_vs_plain", "kernel": "paged_attention",
+          "full_length": [SERVE_SLOTS, 12, 64, PAGE_BLOCK, 1024 // PAGE_BLOCK,
+                          513], "audit_shape_B_H_hd_bs_maxb": AUDIT_SHAPES[0],
+          "zero_length_row_zeros": True, "max_abs_err": errs,
+          "tol": {"float32": PAGED_TOL_F32,
+                  "bfloat16": f"|d| <= {PAGED_BF16_REL} |plain| + "
+                              f"{PAGED_BF16_ABS}"}})
+    return errs, full
+
+
+def time_paged_attention(serve, full, full_errs, time_ms, bound,
+                         launch_counts):
+    """The `kernels` entries of the paged-attention kernel: one layer of
+    the live pool (the main path's call), and the full-length case. ms
+    times the launch alone, wrapper_ms the entry point with its checks;
+    the bound counts what the function needs: the K and V rows (and their
+    scales) of the columns below each length, the table entries of the
+    frames those columns lie in, q, out and lengths. library_ms: SDPA on
+    the pre-gathered dense layout with the length mask (the gather
+    excluded)."""
+    import torch
+
+    from paddle_tpu_torch.ops import tpp
+
+    def entry(q, kp, vp, tables, lengths, scales, dname):
+        B, H, hd = q.shape
+        bs, maxb = kp.shape[2], tables.shape[1]
+        cols = int(lengths.long().sum())
+        nblk = int(((lengths.long() + bs - 1) // bs).sum())
+        item = q.element_size()
+        nbytes = (2 * H * hd * kp.element_size() * cols
+                  + (2 * H * 4 * cols if scales[0] is not None else 0)
+                  + 2 * B * H * hd * item + 4 * nblk + 4 * B)
+        bms, by = bound(4.0 * H * hd * cols, nbytes, "float32")
+        k = tpp.gather_pages(kp, tables, scales[0]).to(q.dtype)
+        v = tpp.gather_pages(vp, tables, scales[1]).to(q.dtype)
+        mask = (torch.arange(k.shape[2], device=q.device)[None, :]
+                < lengths[:, None])[:, None, None, :]
+        tables, lengths = tables.int().contiguous(), lengths.int()
+        return {
+            "ms": time_ms(lambda: tpp._paged_kernel_call(
+                q, kp, vp, tables, lengths, *scales)),
+            "wrapper_ms": time_ms(lambda: tpp.paged_attention(
+                q, kp, vp, tables, lengths, *scales)),
+            "wrapper_is": "paged_attention(): the launch after its checks, "
+                          "whose table-range check waits for the device",
+            "plain_ms": time_ms(lambda: tpp.paged_attention_ref(
+                q, kp, vp, tables, lengths, *scales)),
+            "bound_ms": bms, "bound_by": by,
+            "library_ms": time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q[:, :, None], k, v, attn_mask=mask)),
+            "library_covers": "scaled_dot_product_attention on the "
+                              "pre-gathered dense layout with the length "
+                              "mask (gather excluded)",
+            "bytes": nbytes, "shape_B_H_hd_bs_maxb": [B, H, hd, bs, maxb],
+            "lengths": lengths.tolist()}
+
+    live = serve["live"]
+    kernels = []
+    for variant, dname in (("dense", "bfloat16"), ("dense", "float32"),
+                           ("int8", "float32")):
+        q = live["q"][dname]
+        if variant == "dense":
+            kp, vp = live["pages"][dname]
+            scales, fscales = (None, None), (None, None)
+            fk, fv = full["kp"].to(q.dtype), full["vp"].to(q.dtype)
+        else:
+            kq, vq, ks, vs = live["pages"]["int8"]
+            kp, vp, scales = kq, vq, (ks[:, 0], vs[:, 0])
+            fk, fv, fks, fvs = full["int8"]
+            fscales = (fks, fvs)
+        fq = torch.randn(full["tables"].shape[0], full["kp"].shape[1],
+                         full["kp"].shape[3], device=q.device).to(q.dtype)
+        kernels.append({
+            "name": f"paged_attention.{variant}[{dname}]", "route": "cuda",
+            "source": "paddle_tpu_torch/ops/csrc/paged_attention.cu",
+            "replaces": "paddle_tpu/ops/tpp.py:251",
+            **launch_counts(f"tpp_paged_attention.{variant}:{dname}"),
+            "max_abs_err": serve["errs"][f"{variant}[{dname}]"],
+            **entry(q, kp[:, 0], vp[:, 0], live["tables"], live["lengths"],
+                    scales, dname),
+            "call": "one layer of the paged engine's live pool after "
+                    f"{PAGED_STEPS} decode steps",
+            "full_length": {
+                **entry(fq, fk, fv, full["tables"], full["lengths"], fscales,
+                        dname),
+                "max_abs_err": full_errs[f"full_length.{variant}[{dname}]"]}})
     return kernels
 
 
@@ -1117,6 +1673,15 @@ def main():
     rows_path = call_row_primitives(randn)
     counts_detect, counts_rows = det_path["counts"], rows_path["counts"]
 
+    # ---- 4e. GPT-2 small through the ServingEngine, dense and paged -------
+    serve = gpt2_serving_engines(dev)
+    counts_paged = serve["counts"]
+    emit({"phase": "kernels_vs_plain", "kernel": "paged_attention",
+          "source": "the paged engine's live pool, 12 layers",
+          "max_abs_err": serve["errs"], "int8_vs_dense": serve["int8_vs_dense"],
+          "main_path_launches": counts_paged})
+    paged_errs, paged_full = check_paged_sources(gen)
+
     # ---- 5. times at the main path's shapes -------------------------------
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > L2
 
@@ -1155,7 +1720,8 @@ def main():
         by_path = {"gpt_serve": count(counts_serve),
                    "gpt_train": count(counts_train),
                    "detect_serve": count(counts_detect),
-                   "tpp_rows": count(counts_rows)}
+                   "tpp_rows": count(counts_rows),
+                   "gpt_paged_serving": count(counts_paged)}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
@@ -1300,6 +1866,8 @@ def main():
                                     tpp_errs[dname][f"{err}@{M_TRAIN}"]}})
     kernels += time_new_kernels(det_path, rows_path, randn, time_ms, bound,
                                 launch_counts)
+    kernels += time_paged_attention(serve, paged_full, paged_errs, time_ms,
+                                    bound, launch_counts)
     emit({"phase": "times", "method": "CUDA events, 3 warm-up, median of "
           "20 (the plain NMS: 1 warm-up, median of 5), 64 MB written "
           "between launches to flush L2",

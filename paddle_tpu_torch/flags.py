@@ -89,3 +89,13 @@ define_flag("max_skip_steps", 3,
             "train steps may be skipped before train_step raises "
             "FloatingPointError (a transient loss spike recovers; a "
             "diverged run fails loudly)")
+define_flag("paged_kv", False,
+            "paged KV cache for the continuous-batching ServingEngine "
+            "(serving/paging.py): the dense [max_batch, max_seq] cache is "
+            "replaced by a pool of fixed-size frames with per-slot block "
+            "tables, whole-budget reservation at admission "
+            "(PagePoolFullError requeues the request), refcounted "
+            "shared-prefix frames with copy-on-write boundary blocks, and "
+            "int8 cold pages (page_cold_steps=). Read at ENGINE "
+            "CONSTRUCTION; disarming it under a live paged engine raises "
+            "at the next step")

@@ -14,6 +14,8 @@ import re
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
+
 #: the Linear weights of the GPT model (and an untied head's, if present)
 _LINEAR_WEIGHT = re.compile(
     r"(attn\.qkv|attn\.proj|mlp\.fc1|mlp\.fc2|lm_head)\.weight$")
@@ -35,13 +37,16 @@ def params_from_jax(named):
     return out
 
 
-def opt_state_from_jax(named_state, device="cpu"):
+def opt_state_from_jax(named_state, device=None):
     """named_state: the reference optimizer's ``functional_init`` /
     ``functional_apply`` state as numpy arrays, ``{param name: {slot:
     array}, "__step__": array}`` (an SpmdTrainer's ``opt_state``). Returns
-    the port optimizer's state in the same layout, as tensors on `device`:
-    moments of Linear weights transposed like their weights, scalar slots
-    (``beta1_pow``, ``beta2_pow``) and ``__step__`` as they are."""
+    the port optimizer's state in the same layout, as tensors on `device`
+    (``cuda`` unless the caller names another; raises without a CUDA
+    device): moments of Linear weights transposed like their weights,
+    scalar slots (``beta1_pow``, ``beta2_pow``) and ``__step__`` as they
+    are."""
+    device = resolve_device(device)
     out = {}
     for name, slots in named_state.items():
         if name == "__step__":

@@ -4,9 +4,10 @@
 Ports paddle_tpu/models/gpt.py: ``GPTConfig``, ``GPTAttention`` (GQA and
 sliding window), ``GPTMLP``, ``GPTBlock`` with its ``_tpp_mlp`` hook,
 ``GPTModel``, ``GPTForCausalLM`` with the tied head ``h @ wte^T`` and its
-``loss``, ``GPTPretrainLoss``, and the decode path (``_decode_fns``,
+``loss``, ``GPTPretrainLoss``, the decode path (``_decode_fns``,
 ``_check_decode_config``, ``_decode_compute_dtype``, ``_decode_setup``,
-``_gpt_generate``).
+``_gpt_generate``), and ``GPTDecodeModel``, the family's adapter for the
+serving engine, registered at import.
 
 The forward is differentiable on every path: the flash and TPP kernels sit
 in autograd Functions whose backward is a kernel (flash) or the
@@ -18,9 +19,11 @@ Attention goes through ``scaled_dot_product_attention``, which sends a
 CUDA tensor at seq >= 1024 to the flash kernel; with FLAGS_tpp_kernels set
 each block's ln2 + MLP goes through the TPP matmul kernel. The decode path
 runs no kernel of its own, as in the reference: its attention is a plain
-einsum over the cache. The reference compiles generate as one jit(scan);
-here it is an eager loop over the new tokens against a pre-allocated cache
-that is updated in place.
+einsum over the cache. It computes in the dtype its params and cache hold
+(fp32, or bf16 with ``dtype="bfloat16"``) whatever ``amp.auto_cast``
+says, as the reference's raw ``jnp`` decode math does. The reference
+compiles generate as one jit(scan); here it is an eager loop over the new
+tokens against a pre-allocated cache that is updated in place.
 
 Linear layers are ``torch.nn.Linear`` (weight [out, in]); the reference's
 ``nn.Linear`` stores [in, out], which ``models/convert.py`` transposes.
@@ -36,12 +39,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import flags as _flags
+from ..amp.auto_cast import disabled as _autocast_off
 from ..core import generator as _generator
 from ..core.device import resolve_device
 from ..nn.functional.common import dropout as _dropout
 from ..nn.functional.loss import cross_entropy
 from ..nn.functional.transformer import scaled_dot_product_attention
 from ..ops import tpp
+from ..serving import decode_model as _decode_model
 
 
 class GPTConfig:
@@ -318,7 +323,13 @@ def _decode_fns(cfg):
     fwd(p, tok_ids [B, t], pos, kc, vc) runs the block stack with its first
     column at cache column `pos` and writes K/V into the cache
     [L, B, KVh, T, hd] IN PLACE (the reference's dynamic_update_slice
-    returns a new array; here the pre-allocated cache is mutated)."""
+    returns a new array; here the pre-allocated cache is mutated). `pos` is
+    an int (the whole batch at one frontier) or a [B] tensor (each row at
+    its own frontier: continuous batching). fwd and logits_of run with
+    autocast off: they compute in the dtype of their params and cache.
+    The reference's quantized caches (cache_dtype), tensor-parallel heads
+    (tp_axis), left-padded rows (key_valid, pos_ids) and per-row LoRA
+    deltas (lora) are not ported."""
     L, Hh = cfg.num_layers, cfg.num_heads
     hd = cfg.hidden_size // Hh
     scale = 1.0 / math.sqrt(hd)
@@ -336,7 +347,23 @@ def _decode_fns(cfg):
         var = ((x - mu) ** 2).mean(-1, keepdim=True)
         return (x - mu) / torch.sqrt(var + 1e-5) * w + bb
 
-    def block(p, i, x, kc, vc, pos):
+    def store(c, i, val, pos, per_row):
+        """val [B, KVh, t, hd] into layer i at column pos (per row: row b
+        at its own pos[b])."""
+        t = val.shape[2]
+        if not per_row:
+            c[i, :, :, pos:pos + t] = val
+            return
+        # a start past T - t is clamped, as dynamic_update_slice clamps it:
+        # a slot finished at "capacity" keeps pos == T until its next
+        # admission, and its junk write stays inside its own (freed) row
+        T = c.shape[3]
+        cols = pos.clamp(max=T - t)[:, None] + torch.arange(
+            t, device=pos.device)
+        rows = torch.arange(val.shape[0], device=pos.device)[:, None]
+        c[i][rows, :, cols] = val.transpose(1, 2)
+
+    def block(p, i, x, kc, vc, pos, per_row):
         pre = f"gpt.blocks.{i}."
         bb, t = x.shape[0], x.shape[1]
         T = kc.shape[3]
@@ -348,24 +375,28 @@ def _decode_fns(cfg):
             bb, t, KVh, hd).transpose(1, 2)
         v = flat[..., (Hh + KVh) * hd:].reshape(
             bb, t, KVh, hd).transpose(1, 2)
-        kc[i, :, :, pos:pos + t] = k     # in place
-        vc[i, :, :, pos:pos + t] = v
+        store(kc, i, k, pos, per_row)      # in place
+        store(vc, i, v, pos, per_row)
         # causal over cache columns: query row r (column pos + r) sees
-        # cache column c iff c <= pos + r
-        rows = pos + torch.arange(t, device=x.device)[:, None]
-        cols = torch.arange(T, device=x.device)[None, :]
-        mask = cols <= rows                                   # [t, T]
+        # cache column c iff c <= pos + r; one mask [1-or-B, t, T] serves
+        # a scalar pos and a per-row [B] pos
+        pos_b = pos[:, None, None] if per_row else pos
+        rows = pos_b + torch.arange(t, device=x.device)[None, :, None]
+        cols = torch.arange(T, device=x.device)[None, None, :]
+        mask = cols <= rows
         if win is not None:  # sliding window: the forward's band
             mask &= (rows - cols) < win
         if g == 1:
             att = torch.einsum("bhtd,bhTd->bhtT", q, kc[i]) * scale
-            att = torch.softmax(att.masked_fill(~mask, -math.inf), dim=-1)
+            att = torch.softmax(att.masked_fill(~mask[:, None], -math.inf),
+                                dim=-1)
             out = torch.einsum("bhtT,bhTd->bhtd", att, vc[i])
         else:
             # grouped queries share their kv head: [B, KVh, g, t, *]
             qg = q.reshape(bb, KVh, g, t, hd)
             att = torch.einsum("bkgtd,bkTd->bkgtT", qg, kc[i]) * scale
-            att = torch.softmax(att.masked_fill(~mask, -math.inf), dim=-1)
+            att = torch.softmax(
+                att.masked_fill(~mask[:, None, None], -math.inf), dim=-1)
             out = torch.einsum("bkgtT,bkTd->bkgtd", att, vc[i]).reshape(
                 bb, Hh, t, hd)
         out = out.transpose(1, 2).reshape(bb, t, Hh * hd)
@@ -377,14 +408,26 @@ def _decode_fns(cfg):
         return x + mlp + p[pre + "mlp.fc2.bias"]
 
     def logits_of(p, x_last):
-        h = ln(x_last, p["gpt.ln_f.weight"], p["gpt.ln_f.bias"])
-        return F.linear(h, p["gpt.wte.weight"])
+        with _autocast_off():
+            h = ln(x_last, p["gpt.ln_f.weight"], p["gpt.ln_f.bias"])
+            return F.linear(h, p["gpt.wte.weight"])
 
     def fwd(p, tok_ids, pos, kc, vc):
         t = tok_ids.shape[1]
-        x = p["gpt.wte.weight"][tok_ids] + p["gpt.wpe.weight"][pos:pos + t]
-        for i in range(L):
-            x = block(p, i, x, kc, vc, pos)
+        wpe = p["gpt.wpe.weight"]
+        per_row = torch.is_tensor(pos) and pos.ndim == 1
+        with _autocast_off():
+            if per_row:
+                # per-row positions need per-row pe; an inactive row past
+                # the table (pos == T after a capacity finish) reads the
+                # last row instead of the reference's NaN fill
+                ids = (pos[:, None] + torch.arange(t, device=pos.device)) \
+                    .clamp(max=wpe.shape[0] - 1)
+                x = p["gpt.wte.weight"][tok_ids] + wpe[ids]
+            else:
+                x = p["gpt.wte.weight"][tok_ids] + wpe[pos:pos + t]
+            for i in range(L):
+                x = block(p, i, x, kc, vc, pos, per_row)
         return x
 
     return fwd, logits_of, cache_init
@@ -481,3 +524,61 @@ def _gpt_generate(model, input_ids, max_new_tokens, temperature, top_k,
                 done = done | (tok == eos_token_id)
             toks.append(tok)
         return torch.cat([ids, torch.stack(toks, dim=1)], dim=1)
+
+
+def _not_ported(what):
+    raise NotImplementedError(f"{what} is not ported yet")
+
+
+class GPTDecodeModel(_decode_model.DecodeModel):
+    """The gpt family's DecodeModel adapter (serving/decode_model.py): the
+    serving engine reaches this module's decode helpers only through it,
+    so an engine's outputs equal those of the helpers called directly."""
+
+    name = "gpt"
+
+    def check_config(self, cfg):
+        _check_decode_config(cfg)
+
+    def compute_dtype(self, dtype):
+        return _decode_compute_dtype(dtype)
+
+    def extract_params(self, model, who):
+        """({name: detached param}, aux): the port's head is always tied,
+        so aux carries nothing."""
+        return {n: p.detach() for n, p in model.named_parameters()}, None
+
+    def decode_fns(self, cfg, aux, cache_dtype=None, tp_axis=None,
+                   tp_size=1):
+        if cache_dtype is not None:
+            _not_ported(f"cache_dtype={cache_dtype!r} (quantized KV caches)")
+        if tp_axis is not None or tp_size != 1:
+            _not_ported("tensor-parallel serving")
+        return _decode_fns(cfg)
+
+    def tp_setup(self, tp_mesh, cfg, params):
+        _not_ported("tensor-parallel serving")
+
+    def tp_wrap(self, run, tp_mesh, tp_specs, n_extra_in, out_specs,
+                in_specs=None, donate=()):
+        _not_ported("tensor-parallel serving")
+
+    def cache_spec(self, cfg):
+        return {"kind": "kv_pair",
+                "layout": "[L, B, KVh, T, hd]",
+                "axes": {"L": cfg.num_layers, "KVh": cfg.num_kv_heads,
+                         "T": cfg.max_seq_len,
+                         "hd": cfg.hidden_size // cfg.num_heads},
+                "quantized": None}
+
+    def lora_init(self, cfg, n_slots, rank, dtype=None):
+        _not_ported("multi-LoRA serving")
+
+    def lora_pack(self, cfg, exported, rank):
+        _not_ported("multi-LoRA serving")
+
+    def matches(self, model):
+        return isinstance(model, GPTForCausalLM)
+
+
+_decode_model.register_decode_model(GPTDecodeModel())

@@ -5,15 +5,17 @@ kernel beside its plain PyTorch version.
 Ports paddle_tpu/ops/tpp.py: ``pick_block``, ``supported_2d``,
 ``ln_matmul_supported``, ``matmul``, ``ln_matmul``, ``fused_mlp``,
 ``_fused_tail``, ``gpt_block_mlp``, ``bias_act``, ``softmax_rows`` and
-``masked_reduce``. The Pallas ``_matmul_kernel`` becomes
+``masked_reduce``, and ``_PAGED_AUDIT_SHAPES``, ``paged_attention`` and
+``paged_attention_ref``. The Pallas ``_matmul_kernel`` becomes
 ``csrc/tpp_matmul.cu`` (the design notes are there): one kernel computes
 ``act(in_act(LN?(x)) @ w + bias)`` with an fp32 accumulator, the
 LayerNorm prologue (``ln_matmul``) and the gelu-on-load + bias variant
 (``_fused_tail``) being two of its modes. The row primitives'
 ``_bias_act_kernel``, ``_softmax_kernel`` and ``_masked_reduce_kernel``
 become the three kernels of ``csrc/tpp_rowwise.cu``. None of the three has
-a backward in the reference, so none has one here. The reference module's
-paged attention kernel is still to be ported.
+a backward in the reference, so none has one here. The block-table decode
+attention ``_paged_attention_kernel`` becomes ``csrc/paged_attention.cu``
+(dense pages, or int8 pages with f32 row scales).
 
 ``ln_matmul``, ``fused_mlp`` and ``_fused_tail`` are
 ``torch.autograd.Function``s, the counterparts of the reference's
@@ -28,11 +30,12 @@ in the reference.
 
 A tensor on a CUDA device launches the kernel or raises; a tensor on the
 CPU takes the plain version (``_matmul_ref``, ``_bias_act_ref``,
-``_softmax_rows_ref``, ``_masked_reduce_ref``). ``launches`` counts kernel
-launches by ``"tpp_matmul.<variant>:<dtype>"`` (variant ``plain``, ``ln``
-or ``in_act``), ``"tpp_bias_act:<act>:<dtype>"``,
-``"tpp_softmax_rows:<dtype>"`` and ``"tpp_masked_reduce:<kind>:<dtype>"``,
-where each kernel is launched and nowhere else.
+``_softmax_rows_ref``, ``_masked_reduce_ref``, ``paged_attention_ref``).
+``launches`` counts kernel launches by ``"tpp_matmul.<variant>:<dtype>"``
+(variant ``plain``, ``ln`` or ``in_act``), ``"tpp_bias_act:<act>:<dtype>"``,
+``"tpp_softmax_rows:<dtype>"``, ``"tpp_masked_reduce:<kind>:<dtype>"`` and
+``"tpp_paged_attention.<dense|int8>:<q dtype>"``, where each kernel is
+launched and nowhere else.
 """
 import collections
 import ctypes
@@ -495,3 +498,165 @@ def masked_reduce(x, mask, kind="sum"):
     if x.is_cuda:
         return _launch_masked_reduce(x, mask, kind)
     return _masked_reduce_ref(x, mask, kind)
+
+
+# ---- paged attention (csrc/paged_attention.cu) -----------------------------
+
+#: the reference's paged_attention audit shapes: (B, H, hd, bs, maxb)
+_PAGED_AUDIT_SHAPES = ((16, 8, 128, 32, 16),)
+
+_PAGED_MAX_HD = _PAGED_MAX_BS = 256   # the kernel's shared-memory arrays
+
+_PAGED_FN = []
+
+
+def _paged_kernel():
+    if not _PAGED_FN:
+        lib = _build.load("paged_attention")
+        fn = lib.paged_attention
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [vp] * 8 + [i] * 5 + [ll, ll, ctypes.c_float, i, i, vp]
+        fn.restype = ctypes.c_int
+        _PAGED_FN.append((lib, fn))
+    return _PAGED_FN[0]
+
+
+def _launch_paged_attention(q, kp, vp, tables, lengths, k_scales, v_scales):
+    B, H, hd = q.shape
+    NB, _, bs, _ = kp.shape
+    maxb = tables.shape[1]
+    quantized = k_scales is not None
+    dtype = _dtype_name(q.dtype)
+    if dtype not in ("float32", "bfloat16") or not q.is_contiguous():
+        raise ValueError(f"paged_attention kernel takes a contiguous fp32 or "
+                         f"bf16 q, got {dtype}")
+    page_dt = torch.int8 if quantized else q.dtype
+    if kp.dtype != page_dt or vp.dtype != page_dt:
+        raise ValueError(f"paged_attention kernel: {dtype} q takes "
+                         f"{_dtype_name(page_dt)} pages, got "
+                         f"{kp.dtype} / {vp.dtype}")
+    if hd > _PAGED_MAX_HD or bs > _PAGED_MAX_BS:
+        raise ValueError(f"paged_attention kernel takes hd and bs up to "
+                         f"{_PAGED_MAX_HD}, got hd {hd}, bs {bs}")
+    if vp.shape != kp.shape or vp.stride() != kp.stride() \
+            or kp.stride()[1:] != (bs * hd, hd, 1):
+        raise ValueError(
+            f"paged_attention kernel: kp and vp must have one shape and "
+            f"strides, their last three dims contiguous; got strides "
+            f"{kp.stride()} / {vp.stride()}")
+    operands = [q, kp, vp]
+    if quantized:
+        for name, s in (("k_scales", k_scales), ("v_scales", v_scales)):
+            if s.dtype != torch.float32 or tuple(s.shape) != (NB, H, bs, 1) \
+                    or s.stride()[1:3] != (bs, 1):
+                raise ValueError(
+                    f"paged_attention kernel: {name} must be float32 "
+                    f"[{NB}, {H}, {bs}, 1] with its last dims contiguous, "
+                    f"got {s.dtype} {tuple(s.shape)} {s.stride()}")
+        if k_scales.stride(0) != v_scales.stride(0):
+            raise ValueError("paged_attention kernel: k_scales and v_scales "
+                             "must share a frame stride")
+        operands += [k_scales, v_scales]
+    tables = tables.to(device=q.device, dtype=torch.int32).contiguous()
+    lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    if tuple(lengths.shape) != (B,) or tables.shape[0] != B:
+        raise ValueError(f"paged_attention: tables [{B}, maxb] and lengths "
+                         f"[{B}] expected, got {tuple(tables.shape)} / "
+                         f"{tuple(lengths.shape)}")
+    # the kernel reads tables[b, j] for j < ceil(lengths[b] / bs): every
+    # entry in range and every length within the table, or no launch
+    bad = ((tables < 0) | (tables >= NB)).any() \
+        | ((lengths < 0) | (lengths > maxb * bs)).any()
+    if bool(bad):
+        raise ValueError(f"paged_attention: a table entry outside [0, {NB}) "
+                         f"or a length outside [0, {maxb * bs}]")
+    for t in operands:
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"paged_attention kernel: operands must lie on "
+                             f"{q.device}, got {t.device}")
+    return _paged_kernel_call(q, kp, vp, tables, lengths, k_scales, v_scales)
+
+
+def _paged_kernel_call(q, kp, vp, tables, lengths, k_scales, v_scales):
+    """The launch itself, on operands _launch_paged_attention has checked
+    (int32 contiguous tables and lengths on q's device)."""
+    B, H, hd = q.shape
+    bs, maxb = kp.shape[2], tables.shape[1]
+    quantized = k_scales is not None
+    dtype = _dtype_name(q.dtype)
+    out = torch.empty_like(q)
+    lib, fn = _paged_kernel()
+    err = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+             k_scales.data_ptr() if quantized else None,
+             v_scales.data_ptr() if quantized else None,
+             tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+             B, H, hd, bs, maxb, kp.stride(0),
+             k_scales.stride(0) if quantized else 0, 1.0 / (hd ** 0.5),
+             0 if dtype == "float32" else 1, int(quantized),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, "paged_attention", err)
+    launches[f"tpp_paged_attention.{'int8' if quantized else 'dense'}:"
+             f"{dtype}"] += 1
+    return out
+
+
+def paged_attention(q, kp, vp, tables, lengths, k_scales=None,
+                    v_scales=None):
+    """Block-table decode attention (one layer, one query a row).
+
+    ``q`` [B, H, hd]; ``kp``/``vp`` [NB, H, bs, hd] frames of the KV pool
+    (on the card, a view with the last three dims contiguous, such as one
+    layer ``pool.kp[:, l]`` of the serving pool, goes in without a copy);
+    ``tables`` int [B, maxb] frame indices; ``lengths`` int [B]: row b
+    attends columns ``0..lengths[b]-1`` of its logical cache, column
+    ``j * bs + r`` living at ``[tables[b, j], :, r]``. With ``k_scales`` /
+    ``v_scales`` (float32 [NB, H, bs, 1]) the frames hold int8 pages of the
+    row codec (distributed/compress.py) and dequantize on load. f32
+    accumulation; the output takes q's dtype; a row of length 0 gives
+    zeros."""
+    B, H, hd = q.shape
+    NB, Hk, bs, hd_k = kp.shape
+    if Hk != H or hd_k != hd:
+        raise ValueError(
+            f"paged_attention serves H == KVh (got q heads {H}, kv heads "
+            f"{Hk}) and matching head dim (got {hd} vs {hd_k}) — grouped "
+            "queries reshape outside the kernel")
+    quantized = k_scales is not None
+    if quantized != (v_scales is not None):
+        raise ValueError("pass both k_scales and v_scales, or neither")
+    if q.is_cuda:
+        return _launch_paged_attention(q, kp, vp, tables, lengths, k_scales,
+                                       v_scales)
+    return paged_attention_ref(q, kp, vp, tables, lengths, k_scales,
+                               v_scales)
+
+
+def gather_pages(pool, tables, scales=None):
+    """One layer's frames ``pool`` [NB, H, bs, hd] read through ``tables``
+    int [B, maxb] into the dense layout [B, H, maxb * bs, hd], in f32 (int8
+    pages times their ``scales`` [NB, H, bs, 1])."""
+    tables = tables.long()
+    g = pool[tables].float()                      # [B, maxb, H, bs, hd]
+    if scales is not None:
+        g = g * scales[tables].float()
+    B, maxb, H, bs, hd = g.shape
+    return g.transpose(1, 2).reshape(B, H, maxb * bs, hd)
+
+
+def paged_attention_ref(q, kp, vp, tables, lengths, k_scales=None,
+                        v_scales=None):
+    """Plain version of :func:`paged_attention`: gather the pool through
+    the tables into the dense layout, then masked softmax attention in
+    f32 (a row with no column gives zeros), cast to q's dtype."""
+    hd = q.shape[-1]
+    with _autocast_off():
+        k = gather_pages(kp, tables, k_scales)
+        v = gather_pages(vp, tables, v_scales)
+        s = torch.einsum("bhd,bhTd->bhT", q.float(), k) * (1.0 / (hd ** 0.5))
+        cols = torch.arange(k.shape[2], device=q.device)[None, None, :]
+        s = s.masked_fill(cols >= lengths.long()[:, None, None], -torch.inf)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
+        denom = p.sum(dim=-1, keepdim=True)
+        p = p / torch.where(denom == 0.0, 1.0, denom)
+        return torch.einsum("bhT,bhTd->bhd", p, v).to(q.dtype)

@@ -173,6 +173,40 @@ class TestGenerate:
         first = row.index(eos)
         assert all(t == eos for t in row[first:])
 
+    def test_decode_ignores_auto_cast(self):
+        """The reference's decode math is raw jnp that no amp state
+        reaches: generate under auto_cast gives the tokens it gives
+        without, and the decode logits and cache stay in the params' dtype
+        (fp32), bit for bit, in both packages."""
+        from paddle_tpu_torch.amp import auto_cast
+
+        jm, tm = _pair(TINY)
+        ids = _ids(TINY, s=7)
+        want = np.asarray(jm.generate(paddle.to_tensor(ids),
+                                      max_new_tokens=9,
+                                      temperature=0.0)._data)
+        with paddle.amp.auto_cast(True, dtype="bfloat16"):
+            jamp = np.asarray(jm.generate(paddle.to_tensor(ids),
+                                          max_new_tokens=9,
+                                          temperature=0.0)._data)
+        np.testing.assert_array_equal(jamp, want)
+        t = torch.from_numpy(ids).long()
+        with auto_cast(True, dtype="bfloat16"):
+            got = tm.generate(t, max_new_tokens=9, temperature=0.0)
+        np.testing.assert_array_equal(got.numpy(), want)
+        fwd, logits_of, cache_init = pgpt._decode_fns(tm.cfg)
+        p = {n: q.detach() for n, q in tm.named_parameters()}
+        out = []
+        for amp in (False, True):
+            kc, vc = cache_init(2, 16, torch.float32, "cpu")
+            with torch.no_grad(), auto_cast(amp, dtype="bfloat16"):
+                x = fwd(p, t, 0, kc, vc)
+                out.append((logits_of(p, x[:, -1]), x, kc))
+        (base, bx, bkc), (lg, x, kc) = out
+        assert lg.dtype == x.dtype == kc.dtype == torch.float32
+        assert torch.equal(lg, base) and torch.equal(x, bx) \
+            and torch.equal(kc, bkc)
+
     def test_bf16_serving_dtype(self):
         _, tm = _pair(TINY)
         ids = torch.from_numpy(_ids(TINY, s=5)).long()

@@ -180,7 +180,7 @@ def test_opt_state_from_jax_resumes_a_jax_run():
     tt = SpmdTrainer(tm, AdamW(learning_rate=1e-3,
                                parameters=tm.parameters()),
                      loss_fn=GPTPretrainLoss())
-    tt.opt_state = opt_state_from_jax(state)
+    tt.opt_state = opt_state_from_jax(state, device="cpu")
     assert int(tt.opt_state["__step__"]) == 2
     w = "gpt.blocks.0.attn.qkv.weight"
     np.testing.assert_array_equal(tt.opt_state[w]["moment1"].numpy(),

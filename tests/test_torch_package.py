@@ -10,6 +10,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -17,7 +18,8 @@ import paddle_tpu_torch as pt
 from paddle_tpu_torch import flags
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.core.generator import default_generator
-from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM, \
+    opt_state_from_jax
 from paddle_tpu_torch.ops import _build
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -90,6 +92,10 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu():
         GPTForCausalLM(GPTConfig.tiny())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         default_generator()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        opt_state_from_jax({"__step__": np.int32(1)})
+    assert opt_state_from_jax({"__step__": np.int32(1)},
+                              device="cpu")["__step__"].device.type == "cpu"
     m = GPTForCausalLM(GPTConfig.tiny(), device="cpu")
     assert m.device.type == "cpu"
     out = m.eval().generate(torch.zeros((1, 3), dtype=torch.long),
@@ -153,7 +159,8 @@ class TestFlags:
 
 
 def test_build_lists_the_kernel_sources(monkeypatch, tmp_path):
-    assert _build.sources() == ["flash_bwd", "flash_fwd", "nms", "tpp_matmul",
+    assert _build.sources() == ["flash_bwd", "flash_fwd", "nms",
+                                "paged_attention", "tpp_matmul",
                                 "tpp_rowwise"]
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(FileNotFoundError):
