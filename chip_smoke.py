@@ -7,9 +7,13 @@ Run from the repository root, on a machine with a CUDA device and nvcc:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from paddle_tpu_torch/ops/csrc/, holds
+It builds the port's CUDA kernels from paddle_tpu_torch/ops/csrc/
+(printing ptxas's registers and spills and the tensor-core instructions
+in each library's SASS, and failing if the bf16 TPP or flash forward has
+none or either spills), holds
 each kernel (flash-attention forward, its dQ and dK/dV backward kernels,
-the TPP matmul, the greedy-NMS kernel, the TPP bias_act, softmax_rows and
+the TPP matmul and its LN row-statistics pre-pass, the greedy-NMS
+kernel, the TPP bias_act, softmax_rows and
 masked_reduce kernels, the paged-attention kernel) against its plain
 PyTorch version, checks a narrow
 GPT's eval forward, greedy ``generate`` and three AdamW training steps and
@@ -123,6 +127,12 @@ PREFIX_LOGIT_TOL = 0.05
 # order; a bf16 output may round to the neighbouring bf16 value
 PAGED_TOL_F32 = 2e-5
 PAGED_BF16_REL, PAGED_BF16_ABS = 2.0 ** -7, 1e-6
+# time_ms's device sleep before each timed call with the host's enqueue
+# hidden (device_ms; ~0.5 ms at 1.98 GHz)
+SLEEP_CYCLES = 1_000_000
+# GPT-2 small forwards timed a cell, after one warm-up (the first forward
+# after a flag or dtype change pays one-time host costs)
+FORWARD_SAMPLES = 5
 # the reference's paged_attention audit shape (ops/tpp.py:248): B, H, hd,
 # bs, maxb, and its test's pool of B + 3 frames
 AUDIT_SHAPES = ((16, 8, 128, 32, 16, 19),)
@@ -160,16 +170,36 @@ def det_group(name):
     return "rest"
 
 
+def tpp_routes_checked(path):
+    """The TPP matmul launches since tpp.routes was cleared, by the kernel
+    the C entry chose; checks that every bf16 launch ran on the tensor
+    cores (wgmma) and every fp32 one on the CUDA cores (simt)."""
+    from paddle_tpu_torch.ops import tpp
+
+    want = {"bfloat16": "wgmma", "float32": "simt"}
+    routed = {k: n for k, n in tpp.routes.items() if n}
+    launched = sum(n for k, n in tpp.launches.items()
+                   if k.startswith("tpp_matmul."))
+    wrong = {k: n for k, n in routed.items()
+             if k.rsplit(":", 1)[1] != want[k.split(":")[1]]}
+    check(not wrong and sum(routed.values()) == launched,
+          f"{path}: TPP matmul launches by route {routed} ({launched} "
+          f"launches), bf16 all on wgmma and fp32 on simt")
+    return routed
+
+
 def kernel_group(name):
     n = name.lower()
-    if "flash_fwd_kernel" in n:
+    if "flash_fwd_kernel" in n or "flash_fwd_mma_kernel" in n:
         return "flash_fwd"
     if "flash_dq_kernel" in n:
         return "flash_dq"
     if "flash_dkv_kernel" in n:
         return "flash_dkv"
-    if "tpp_matmul_kernel" in n:
+    if "tpp_wgmma_kernel" in n or "tpp_simt_kernel" in n:
         return "tpp_matmul"
+    if "tpp_row_stats_kernel" in n:
+        return "tpp_row_stats"
     if any(t in n for t in ("gemm", "nvjet", "cutlass", "xmma")):
         return "library_gemm"
     return "other"
@@ -1137,11 +1167,17 @@ def main():
     # ---- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
     seconds = _build.build()
-    ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
-                    if "Used" in ln or "spill" in ln]
-             for name in _build.sources()}
-    emit({"phase": "build", "wall_s": time.perf_counter() - t0,
-          "nvcc_s": seconds, "ptxas": ptxas})
+    wall = time.perf_counter() - t0
+    ptxas = {name: _build.ptxas_report(name) for name in _build.sources()}
+    sass = {name: _build.sass_counts(name) for name in _build.sources()}
+    emit({"phase": "build", "wall_s": wall, "nvcc_s": seconds,
+          "ptxas": ptxas, "sass_tensor_core_instructions": sass})
+    # the redesigned kernels run on the tensor cores (wgmma in the bf16
+    # TPP, mma.sync in the bf16 flash forward) and spill nothing
+    for name, op in (("tpp_matmul", "HGMMA"), ("flash_fwd", "HMMA")):
+        check(sass[name][op] > 0, f"{name}: {op} instructions in its SASS")
+        spills = {k: r for k, r in ptxas[name].items() if r["spill_bytes"]}
+        check(not spills, f"{name}: no register spills ({spills})")
 
     # ---- 2. every kernel against its plain version ------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1271,11 +1307,34 @@ def main():
                 got = tpp._launch(xs, ws, bs, in_act, act)
                 tpp_err(got, tpp._matmul_ref(xs, ws, bs, in_act, act), dname,
                         f"ragged in_act={in_act} act={act}")
+        # the new tiles' edges: M not a multiple of 128, N not one of the
+        # column tile, K a multiple of 8 (TMA in bf16) or not (the CUDA-core
+        # path), w k-major and n-major, the LN prologue on each
+        for m_e, k_e, n_e in ((300, 776, 1000), (130, 100, 300)):
+            xe = randn(m_e, k_e, dtype=dt)
+            lin = randn(n_e, k_e, dtype=dt, std=0.05)
+            be = randn(n_e, dtype=dt, std=0.05)
+            ge, bte = 1.0 + randn(k_e, dtype=dt, std=0.1), \
+                randn(k_e, dtype=dt, std=0.1)
+            for w_e in (lin.t(), lin.t().contiguous()):
+                got = tpp._launch(xe, w_e, be, "gelu", "none", ge, bte)
+                tpp_err(got, tpp._matmul_ref(xe, w_e, be, "gelu", "none", ge,
+                                             bte), dname,
+                        f"edges [{m_e},{k_e}]@[{k_e},{n_e}] strides "
+                        f"{w_e.stride()}")
+        # the LN pre-pass against its plain version
+        stats, want = tpp._row_stats(x), tpp._row_stats_ref(x)
+        errs["row_stats"] = max(
+            (stats[0] - want[0]).abs().max().item(),
+            ((stats[1] - want[1]) / want[1]).abs().max().item())
+        check(errs["row_stats"] <= 1e-5, f"tpp row stats {dname}: "
+              f"{errs['row_stats']}")
         torch.cuda.synchronize()
         tpp_errs[dname] = errs
     emit({"phase": "kernels_vs_plain", "kernel": "tpp_matmul",
           "shapes": [[M, H, I], [M, I, H], [M_TRAIN, H, I], [M_TRAIN, I, H],
-                     [200, 72, 136]],
+                     [200, 72, 136], [300, 776, 1000], [130, 100, 300]],
+          "row_stats_tol": "1e-5 (mean abs, rstd relative)",
           "max_abs_err": tpp_errs,
           "tol_x_max(1,max|plain|)": TPP_TOL})
 
@@ -1365,15 +1424,26 @@ def main():
     narrow.eval()
     ids = torch.as_tensor(golden.input_ids(), device=dev).long()
     narrow_out = {}
+
+    def tpp_counts():
+        """(TPP matmul launches, LN pre-pass launches) so far."""
+        return (sum(n for k, n in tpp.launches.items()
+                    if k.startswith("tpp_matmul.")),
+                sum(n for k, n in tpp.launches.items()
+                    if k.startswith("tpp_row_stats:")))
+
     for on in (False, True):
         set_flags({"tpp_kernels": on})
-        f0, t0_ = sum(fa.launches.values()), sum(tpp.launches.values())
+        f0, t0_ = sum(fa.launches.values()), tpp_counts()
         with torch.no_grad():
             rows = narrow(ids)[0, -golden.LOGIT_ROWS:].cpu().numpy()
         check(sum(fa.launches.values()) - f0 == 2,
               "narrow forward: 2 flash launches (one per layer)")
-        check(sum(tpp.launches.values()) - t0_ == (4 if on else 0),
+        t1_ = tpp_counts()
+        check(t1_[0] - t0_[0] == (4 if on else 0),
               "narrow forward: 4 TPP launches with the flag on, 0 off")
+        check(t1_[1] - t0_[1] == (2 if on else 0),
+              "narrow forward: 2 LN pre-pass launches with the flag on")
         err = float(np.abs(rows - fix["logits_rows"]).max())
         check(err <= NARROW_TOL,
               f"narrow logits vs JAX (tpp={on}): err {err}")
@@ -1490,6 +1560,7 @@ def main():
 
     fa.launches.clear()
     tpp.launches.clear()
+    tpp.routes.clear()
     fwd = {}
     logits_ref = None
     for dname, m in (("float32", model), ("bfloat16", model_bf16)):
@@ -1500,6 +1571,7 @@ def main():
                 f0 = fa.launches[f"flash_fwd:{dname}"]
                 l0 = tpp.launches[f"tpp_matmul.ln:{dname}"]
                 g0 = tpp.launches[f"tpp_matmul.in_act:{dname}"]
+                r0 = tpp.launches[f"tpp_row_stats:{dname}"]
                 with torch.no_grad():
                     out = m(ids)
                 check(fa.launches[f"flash_fwd:{dname}"] - f0 == 12,
@@ -1507,16 +1579,19 @@ def main():
                 n_tpp = 12 if on else 0
                 check(tpp.launches[f"tpp_matmul.ln:{dname}"] - l0 == n_tpp
                       and tpp.launches[f"tpp_matmul.in_act:{dname}"] - g0
-                      == n_tpp, f"{dname} forward: {2 * n_tpp} TPP launches")
+                      == n_tpp and tpp.launches[f"tpp_row_stats:{dname}"]
+                      - r0 == n_tpp, f"{dname} forward: {2 * n_tpp} TPP "
+                      f"launches and {n_tpp} of the LN pre-pass")
                 return out
 
             times = []
-            for _ in range(3):
+            for i in range(1 + FORWARD_SAMPLES):     # one warm-up forward
                 torch.cuda.synchronize()
                 t = time.perf_counter()
                 logits = forward()
                 torch.cuda.synchronize()
-                times.append((time.perf_counter() - t) * 1e3)
+                if i:
+                    times.append((time.perf_counter() - t) * 1e3)
             del logits
             logits, trace = device_breakdown(forward)
             check(tuple(logits.shape) == (4, 1024, cfg.vocab_size)
@@ -1577,7 +1652,8 @@ def main():
           "new_tok_per_s": 4 * n_new / statistics.median(gen_s),
           "fp32_tokens_equal_forward_argmax": int((~mismatch).sum()),
           "fp32_near_tie_mismatches": int(mismatch.sum()),
-          "main_path_launches": counts_serve})
+          "main_path_launches": counts_serve,
+          "tpp_routes": tpp_routes_checked("serving path")})
     del model, model_bf16
     torch.cuda.empty_cache()
 
@@ -1603,6 +1679,7 @@ def main():
         + L * 12 * S * hdim
     fa.launches.clear()
     tpp.launches.clear()
+    tpp.routes.clear()
     train = {}
     for dname, amp, on, n_steps in (("bfloat16", True, False, TRAIN_STEPS),
                                     ("bfloat16", True, True, TRAIN_STEPS),
@@ -1627,7 +1704,8 @@ def main():
                     for kind in ("fwd", "dq", "dkv")}
             if on:
                 want.update({"tpp_matmul.ln:float32": L,
-                             "tpp_matmul.in_act:float32": L})
+                             "tpp_matmul.in_act:float32": L,
+                             "tpp_row_stats:float32": L})
             check(delta == want, f"training step {dname} tpp={on}: "
                   f"launches {delta}, expected {want}")
             losses.append(loss.item())
@@ -1666,7 +1744,8 @@ def main():
     emit({"phase": "gpt2_small_train", "batch": TRAIN_BATCH, "seq": S,
           "optimizer": "AdamW lr 1e-4", "flops_per_token": flops_per_token,
           "warmup_steps": 1, "train": train,
-          "main_path_launches": counts_train})
+          "main_path_launches": counts_train,
+          "tpp_routes": tpp_routes_checked("training path")})
 
     # ---- 4c. PP-YOLOE detection serving; 4d. the TPP row primitives -----
     det_path = serve_detector(dev, gen)
@@ -1685,7 +1764,7 @@ def main():
     # ---- 5. times at the main path's shapes -------------------------------
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > L2
 
-    def time_ms(fn, reps=20, warmup=3):
+    def time_ms(fn, reps=20, warmup=3, hide_enqueue=False):
         for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
@@ -1694,6 +1773,10 @@ def main():
             flush.zero_()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            if hide_enqueue:
+                # the device spins ~0.5 ms first, so the host's enqueue of
+                # fn (Python, ctypes) overlaps it and stays out of the window
+                torch.cuda._sleep(SLEEP_CYCLES)
             start.record()
             fn()
             end.record()
@@ -1706,6 +1789,18 @@ def main():
         t_mem = nbytes / HBM_BYTES_PER_S
         return max(t_ops, t_mem) * 1e3, \
             "operations" if t_ops >= t_mem else "bytes"
+
+    def rates(row, flops, fn, library=None):
+        """row, plus fn's time with the host's enqueue hidden (device_ms;
+        library_device_ms for `library`), and the achieved TFLOP/s and the
+        share of the bound from ms and from device_ms."""
+        row = {**row, "device_ms": time_ms(fn, hide_enqueue=True)}
+        if library is not None:
+            row["library_device_ms"] = time_ms(library, hide_enqueue=True)
+        for t, pre in (("ms", ""), ("device_ms", "device_")):
+            row[f"{pre}tflops"] = flops / (row[t] * 1e-3) / 1e12
+            row[f"{pre}share_of_bound"] = row["bound_ms"] / row[t]
+        return row
 
     def launch_counts(key, dname=None):
         """Launches of `key` on each main path (counts zeroed just before
@@ -1740,17 +1835,22 @@ def main():
             bhsd = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
             bms, by = bound(4.0 * b * h * pairs * d,
                             4 * b * h * s * d * item + b * h * s * 4, dname)
+            def kern():
+                return fa.flash_attention(q, k, v, causal=True)
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    *bhsd, is_causal=True)
+
             with torch.no_grad():
-                fwd_rows[b] = {
-                    "ms": time_ms(lambda: fa.flash_attention(q, k, v,
-                                                             causal=True)),
+                fwd_rows[b] = rates({
+                    "ms": time_ms(kern),
                     "plain_ms": time_ms(lambda: fa.flash_attention_ref(
                         *heads, True, scale)),
                     "bound_ms": bms, "bound_by": by,
-                    "library_ms": time_ms(
-                        lambda: torch.nn.functional
-                        .scaled_dot_product_attention(*bhsd, is_causal=True)),
-                    "shape": [b, s, h, d]}
+                    "library_ms": time_ms(sdpa),
+                    "shape": [b, s, h, d]}, 4.0 * b * h * pairs * d, kern,
+                    sdpa)
             del qkv, q, k, v, heads, bhsd
         kernels.append({
             "name": f"flash_fwd[{dname}]", "route": "cuda",
@@ -1809,7 +1909,7 @@ def main():
     tpp_plain = {}
     for dname, dt in dtypes.items():
         item = torch.finfo(dt).bits // 8
-        rows = {"ln": {}, "gelu": {}}
+        rows = {"ln": {}, "gelu": {}, "stats": {}}
         for m_rows in (M, M_TRAIN):             # serving, training shapes
             x = randn(m_rows, H, dtype=dt)
             pre = randn(m_rows, I, dtype=dt)
@@ -1821,36 +1921,68 @@ def main():
             beta = randn(H, dtype=dt, std=0.1)
             flops = 2.0 * m_rows * H * I  # the multiply-adds; LN and gelu
             #                               add under 0.2% at these widths
+            def ln_mm():
+                return tpp.ln_matmul(x, gamma, beta, fc1.t(), b1)
+
+            def gelu_mm():
+                return tpp._fused_tail(pre, fc2.t(), b2, False)
+
+            def stats():
+                return tpp._row_stats(x)
+
+            def var_mean():
+                return torch.var_mean(x.float(), -1, correction=0)
+
             with torch.no_grad():
                 bms, by = bound(flops, (m_rows * H + H * I + m_rows * I + I
                                         + 2 * H) * item, dname)
-                rows["ln"][m_rows] = {
-                    "ms": time_ms(lambda: tpp.ln_matmul(x, gamma, beta,
-                                                        fc1.t(), b1)),
+                # the LN mode's time covers both of its launches: the row
+                # statistics pre-pass and the matmul
+                rows["ln"][m_rows] = rates({
+                    "ms": time_ms(ln_mm),
                     "plain_ms": time_ms(lambda: tpp._matmul_ref(
                         x, fc1.t(), b1, gamma=gamma, beta=beta)),
                     "bound_ms": bms, "bound_by": by, "library_ms": None,
-                    "shape": [m_rows, H, I]}
+                    "shape": [m_rows, H, I]}, flops, ln_mm)
                 bms, by = bound(flops, (m_rows * I + I * H + m_rows * H
                                         + H) * item, dname)
-                rows["gelu"][m_rows] = {
-                    "ms": time_ms(lambda: tpp._fused_tail(pre, fc2.t(), b2,
-                                                          False)),
+                rows["gelu"][m_rows] = rates({
+                    "ms": time_ms(gelu_mm),
                     "plain_ms": time_ms(lambda: tpp._matmul_ref(
                         pre, fc2.t(), b2, "gelu")),
                     "bound_ms": bms, "bound_by": by, "library_ms": None,
-                    "shape": [m_rows, I, H]}
+                    "shape": [m_rows, I, H]}, flops, gelu_mm)
+                # the pre-pass alone: two fp32 passes over x (bytes bind it)
+                bms, by = bound(4.0 * m_rows * H, m_rows * H * item
+                                + 2 * m_rows * 4, "float32")
+                rows["stats"][m_rows] = rates({
+                    "ms": time_ms(stats),
+                    "plain_ms": time_ms(lambda: tpp._row_stats_ref(x)),
+                    "bound_ms": bms, "bound_by": by,
+                    "library_ms": time_ms(var_mean),
+                    "library_covers": "torch.var_mean(x.float(), -1, "
+                                      "correction=0): the variance, not "
+                                      "rstd (in bf16 the cast included)",
+                    "shape": [m_rows, H]}, 4.0 * m_rows * H, stats,
+                    var_mean)
                 if m_rows == M:
                     # the plain variant (not on a main path) beside addmm
                     bms, by = bound(flops, (M * H + H * I + M * I + I)
                                     * item, dname)
-                    tpp_plain[dname] = {
-                        "ms": time_ms(lambda: tpp.matmul(x, fc1.t(), b1)),
+
+                    def plain_mm():
+                        return tpp.matmul(x, fc1.t(), b1)
+
+                    def addmm():
+                        return torch.addmm(b1, x, fc1.t())
+
+                    tpp_plain[dname] = rates({
+                        "ms": time_ms(plain_mm),
                         "plain_ms": time_ms(lambda: tpp._matmul_ref(
                             x, fc1.t(), b1)),
-                        "library_ms": time_ms(lambda: torch.addmm(
-                            b1, x, fc1.t())),
-                        "bound_ms": bms, "bound_by": by, "shape": [M, H, I]}
+                        "library_ms": time_ms(addmm),
+                        "bound_ms": bms, "bound_by": by, "shape": [M, H, I]},
+                        flops, plain_mm, addmm)
             del x, pre
         for variant, key, err in (("ln_prologue", "ln", "ln"),
                                   ("gelu_in_bias", "in_act", "gelu_in")):
@@ -1864,20 +1996,31 @@ def main():
                 "train_shape": {**part[M_TRAIN],
                                 "max_abs_err":
                                     tpp_errs[dname][f"{err}@{M_TRAIN}"]}})
+        kernels.append({
+            "name": f"tpp_row_stats[{dname}]", "route": "cuda",
+            "source": "paddle_tpu_torch/ops/csrc/tpp_matmul.cu",
+            "replaces": "paddle_tpu/ops/tpp.py:458",
+            "replaces_part": "the LN prologue's row statistics",
+            **launch_counts(f"tpp_row_stats:{dname}"),
+            "max_abs_err": tpp_errs[dname]["row_stats"],
+            **rows["stats"][M], "train_shape": rows["stats"][M_TRAIN]})
     kernels += time_new_kernels(det_path, rows_path, randn, time_ms, bound,
                                 launch_counts)
     kernels += time_paged_attention(serve, paged_full, paged_errs, time_ms,
                                     bound, launch_counts)
     emit({"phase": "times", "method": "CUDA events, 3 warm-up, median of "
           "20 (the plain NMS: 1 warm-up, median of 5), 64 MB written "
-          "between launches to flush L2",
+          "between launches to flush L2; device_ms (flash forward, TPP): "
+          "the same with a ~0.5 ms device sleep before the start event, "
+          "so the host's enqueue of the call is not timed",
           "tpp_matmul.plain": tpp_plain})
     for kern in kernels:
         check(kern["launches"] > 0, f"{kern['name']} ran on a main path")
     for name in ("flash_fwd[bfloat16]", "flash_dq[bfloat16]",
                  "flash_dkv[bfloat16]", "flash_dq[float32]",
                  "flash_dkv[float32]", "tpp_matmul.ln_prologue[float32]",
-                 "tpp_matmul.gelu_in_bias[float32]"):
+                 "tpp_matmul.gelu_in_bias[float32]",
+                 "tpp_row_stats[float32]"):
         kern = next(k for k in kernels if k["name"] == name)
         check(kern["launches_by_path"]["gpt_train"] > 0,
               f"{name} ran on the training path")

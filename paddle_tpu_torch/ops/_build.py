@@ -7,16 +7,20 @@ its own shared library with a plain C interface, and loaded with ctypes::
          -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so csrc/<name>.cu
 
 The library lands in ``paddle_tpu_torch/_build/`` (git-ignored), named by
-a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads at once. ``build()`` starts one nvcc per source, all
-together, and waits for all of them. A missing nvcc or a failed compile
+a hash of the source, every header under csrc/ it includes (``#include
+"x.cuh"``, followed through the headers' own includes) and the flags, so an
+edited source or header rebuilds and an unchanged one loads at once.
+``build()`` starts one nvcc per source, all together, and waits for all of
+them. A missing nvcc or a failed compile
 raises: nothing falls back to a kernel's plain version. ptxas's register
 and shared-memory report for each build is kept beside the library
-(``build_log``).
+(``build_log``), and ``sass_counts`` reads the built library's machine
+code (``cuobjdump --dump-sass``) for its tensor-core instructions.
 """
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -55,11 +59,30 @@ def nvcc_path():
         "/usr/local/cuda/bin): the port's CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _local_headers(src):
+    """Every file under csrc/ that `src` includes with quotes, directly or
+    through another such header, in the order first reached."""
+    seen, todo = [], [src]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop(0).read_text()):
+            path = (CSRC / inc).resolve()
+            if path.is_file() and path not in seen:
+                seen.append(path)
+                todo.append(path)
+    return seen
+
+
 def _target(name):
     src = CSRC / f"{name}.cu"
     if not src.is_file():
         raise FileNotFoundError(f"no kernel source {src}")
     h = hashlib.sha256(src.read_bytes())
+    for header in _local_headers(src):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return src, BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -107,6 +130,50 @@ def build_log(name):
     return log.read_text() if log.is_file() else ""
 
 
+def ptxas_report(name):
+    """{kernel: {"registers": n, "spill_bytes": stores + loads}} from
+    ptxas's report in `name`'s build log, kernels by their mangled names
+    ({} if it was built elsewhere)."""
+    report, kernel = {}, None
+    for line in build_log(name).splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            kernel = entry.group(1)
+            report[kernel] = {"registers": None, "spill_bytes": 0}
+            continue
+        if kernel is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            report[kernel]["spill_bytes"] = int(spill.group(1)) \
+                + int(spill.group(2))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            report[kernel]["registers"] = int(used.group(1))
+    return report
+
+
+#: tensor-core instructions in SASS: Hopper's warpgroup MMA, and mma.sync
+TENSOR_CORE_OPS = ("HGMMA", "HMMA")
+
+
+def sass_counts(name):
+    """{opcode: count} of the tensor-core instructions (TENSOR_CORE_OPS) in
+    the machine code of kernel source `name`'s built library, read with
+    the cuobjdump beside nvcc. Raises RuntimeError if it cannot run."""
+    so = _target(name)[1]
+    if not so.is_file():
+        raise RuntimeError(f"{name} is not built")
+    cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "--dump-sass", str(so)],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump on {so.name} failed: {out.stderr}")
+    return {op: len(re.findall(rf"\b{op}\.", out.stdout))
+            for op in TENSOR_CORE_OPS}
+
+
 def load(name):
     """The ctypes library of kernel source `name`, built first if needed."""
     with _LOCK:
@@ -115,6 +182,15 @@ def load(name):
             build([name])
             lib = _LIBS[name] = ctypes.CDLL(str(_target(name)[1]))
         return lib
+
+
+def stream(t):
+    """The raw handle of the current CUDA stream on tensor t's device, as
+    ``torch.cuda.current_stream(t.device).cuda_stream`` gives it, without
+    building a Stream object on every launch."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(lib, name, err):

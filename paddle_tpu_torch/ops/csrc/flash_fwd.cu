@@ -4,59 +4,63 @@
 // Replaces: paddle_tpu/ops/flash_attention.py `_fwd_kernel`, the Pallas TPU
 // kernel that `_flash_fwd` launches. Same function: FlashAttention-2
 // forward with an online softmax whose running max, running sum and output
-// accumulator stay in fp32; causal and sliding-window masking; writes the
-// output in the input type and the per-row logsumexp `lse` in fp32 (the
-// backward kernels recompute P = exp(S * scale - lse) from it).
+// accumulator stay in fp32; causal and sliding-window masking by the
+// reference's `_causal_mask` rule (keep k_pos <= q_pos and q_pos - k_pos <
+// window); writes the output in the input type and the per-row logsumexp
+// `lse` in fp32 (the backward kernels recompute P = exp(S * scale - lse)
+// from it).
 //
-// Block structure. The TPU kernel walks a sequential (b*h, q-block,
-// kv-block) grid and carries (acc, m, l) in VMEM scratch from one kv step
-// to the next. Thread blocks on the card run in no order, so here one
-// block owns one (b*h, 64-row query tile) and loops over the kv tiles
-// itself: K and V tiles are staged in shared memory, S = Q K^T and
-// P = exp(S - m) for the tile live in shared memory, and each thread keeps
-// a 4 x D/16 slice of the fp32 output accumulator in registers. Whole kv
-// tiles above the diagonal (causal) or entirely outside the window are
-// never loaded; the tiles that straddle the diagonal or the window edge
-// are masked per element, with the reference's `_causal_mask` rule (keep
-// k_pos <= q_pos and q_pos - k_pos < window), so a window smaller than a
-// tile gives the same result as the reference's exact masking.
+// The TPU kernel walks a sequential (b*h, q-block, kv-block) grid and
+// carries (acc, m, l) in VMEM scratch from one kv step to the next. Thread
+// blocks on the card run in no order, so here a block owns one query tile
+// of one (b, h) and loops over the kv tiles itself. Whole kv tiles above
+// the diagonal (causal) or entirely outside the window are never computed;
+// the tiles that straddle the diagonal or the window edge are masked per
+// element, so a window smaller than a tile is exact.
 //
-// What bounds it: at the serving shapes (s = 1024, d = 64) the work is
-// 4 * s^2 * d / 2 FLOPs per head against 4 * s * d elements moved, so the
-// card's limit is the arithmetic. This first version does that arithmetic
-// as scalar fp32 FMAs out of shared memory (no tensor cores: no mma.sync,
-// wgmma or TMA), so it runs far below the bf16 tensor-core bound; its
-// times stand in PERF.md.
+// What bounds it: 4 * d FLOPs a visible (q, k) pair against 4 * s * d
+// elements a head; at s 1024, d 64 in bf16 the bytes bind at b4 (7.6 us)
+// and the tensor cores come close (b16: 30 us either way).
 //
-// Types: fp32 or bf16 in and out (bf16 converts through the intrinsics),
-// fp32 math; head_dim 64, 128, 192 or 256 (at 256 the fp32 tiles take
-// 209.5 KB of the 227 KB of shared memory a block may have, so a wider head
-// needs another tiling); seq a multiple of 64. q, k, v and o are
-// [B, S, H, D] views with any element strides over (b, s, h) and a
-// contiguous d; lse is a contiguous [B * H, S] fp32 array.
+// bf16, `flash_fwd_mma_kernel`: FlashAttention-2 on the tensor cores. A
+// block owns a 128-row query tile, each warp 32 rows at d 64 (two 16-row
+// blocks sharing every K and V fragment) or 16 above (4 or 8 warps), and
+// the tiles launch heaviest first (the last causal tile first). K and V
+// tiles (64 rows at d <= 128, 32 at d 192/256) are double-buffered in shared
+// memory by cp.async 16-byte copies, the next tile's copy in flight while
+// this one computes; rows are XOR-swizzled in 16-byte chunks so ldmatrix
+// reads them without bank conflicts. S = Q K^T is mma.sync.m16n8k16 (bf16
+// in, fp32 accumulate; Q and K through ldmatrix); the scale is applied to
+// S in fp32, folded into the SFU's exp2 with log2(e); the row max and sum
+// reduce over the quad that shares a row by shuffles. P is rounded to bf16 in
+// registers and used directly as the A operand of P V (the accumulator
+// fragment of m16n8 is the A fragment of m16n8k16), V read through
+// ldmatrix.trans. mma.sync and not wgmma: P stays in registers between the
+// two products, which with wgmma needs FA3's layout exchange. q, k, v and
+// o are [B, S, H, D] views with any 16-byte-aligned strides over (b, s, h)
+// (the GPT path's q, k, v are slices of one packed qkv tensor), read and
+// written without a copy; a warp stages its rows of o in its own rows of
+// the Q tile and stores them as 16-byte chunks.
+//
+// fp32, `flash_fwd_kernel`: fp32 stays fp32 (no TF32): scalar fp32 FMAs
+// out of shared memory, one block a (b*h, 64-row query tile), a 4 x D/16
+// slice of the accumulator a thread. It is 1.5x from SDPA on this card and
+// not yet redesigned.
+//
+// Head dims 64, 128, 192 and 256 (at 256 the fp32 tiles take 209.5 KB of
+// the 227 KB of shared memory a block may have); seq a multiple of 64;
+// lse is a contiguous [B * H, S] fp32 array.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // kv rows per tile
 constexpr int NT = 256;       // threads per block: a 16 x 16 grid
 constexpr float NEG = -1e30f; // the reference's masked score (_NEG)
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 struct Strides {  // element strides of a [B, S, H, D] view (d contiguous)
   long long b, s, h;
@@ -229,7 +233,300 @@ __global__ void __launch_bounds__(NT)
   if (tid < BQ) lse[(long long)bh * S + q0 + tid] = m_s[tid] + logf(l_s[tid]);
 }
 
-template <typename T, int D>
+// ---- bf16: FlashAttention-2 on the tensor cores ---------------------------
+
+constexpr int MQ = 128;  // query rows a block
+
+// MB 16-row blocks a warp: MQ / (16 MB) warps a block
+template <int MB> __host__ __device__ constexpr int mma_threads() {
+  return 32 * MQ / (16 * MB);
+}
+template <int D> __host__ __device__ constexpr int mma_bkv() {
+  return D <= 128 ? 64 : 32;
+}
+template <int D> __host__ __device__ constexpr int mma_smem_bytes() {
+  return (MQ + 4 * mma_bkv<D>()) * D * 2;  // Q, then K and V twice each
+}
+
+// 2^x on the SFU (relative error 2^-22, subnormal results flushed to 0:
+// a probability that small adds nothing to an fp32 sum that holds a 1)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// byte offset of 16-byte chunk c of row r in a [rows][D] bf16 tile whose
+// chunks are XOR-swizzled by the row's low three bits
+template <int D>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return r * (D * 2) + ((c ^ (r & 7)) << 4);
+}
+
+// rows [0, n) of a [B, S, H, D] view at sequence position s0 into a
+// swizzled tile by `threads` threads; rows at or past S are zero-filled
+template <int D, int THREADS>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* base,
+                                          long long stride_s, int s0, int n,
+                                          int S, int tid) {
+  constexpr int CH = D / 8;
+  for (int idx = tid; idx < n * CH; idx += THREADS) {
+    const int r = idx / CH, c = idx % CH;
+    const int sp = s0 + r;
+    cp_async16(dst + swz<D>(r, c),
+               base + (long long)(sp < S ? sp : S - 1) * stride_s + c * 8,
+               sp < S);
+  }
+}
+
+template <int D, int MB>
+__global__ void __launch_bounds__(mma_threads<MB>(), 1)
+    flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         __nv_bfloat16* __restrict__ o,
+                         float* __restrict__ lse, int H, int S, Strides sq,
+                         Strides sk, Strides sv, Strides so, int causal,
+                         float scale, int window) {
+  constexpr int BKV = mma_bkv<D>();
+  constexpr int NTH = mma_threads<MB>();
+  constexpr int KV_TILE = BKV * D * 2;  // bytes of one K or V tile
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t q_s = smem_u32(smem_raw);
+  const uint32_t k_s = q_s + MQ * D * 2;     // two K tiles
+  const uint32_t v_s = k_s + 2 * KV_TILE;    // two V tiles
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * MQ;  // heaviest tile first
+  const __nv_bfloat16* qb = q + b * sq.b + h * sq.h;
+  const __nv_bfloat16* kb = k + b * sk.b + h * sk.h;
+  const __nv_bfloat16* vb = v + b * sv.b + h * sv.h;
+
+  // kv tiles with any visible key for some row of this query tile
+  const int q_last = (q0 + MQ < S ? q0 + MQ : S) - 1;
+  int kt_begin = 0, kt_end = S / BKV;
+  if (causal) {
+    kt_end = q_last / BKV + 1;
+    if (window > 0) {
+      const int first_key = q0 - (window - 1);
+      kt_begin = first_key > 0 ? first_key / BKV : 0;
+    }
+  }
+
+  load_tile<D, NTH>(q_s, qb, sq.s, q0, MQ, S, tid);
+  load_tile<D, NTH>(k_s, kb, sk.s, kt_begin * BKV, BKV, S, tid);
+  load_tile<D, NTH>(v_s, vb, sv.s, kt_begin * BKV, BKV, S, tid);
+  cp_async_commit();
+
+  constexpr int WR = 16 * MB;               // query rows a warp
+  const int wr0 = WR * warp;                // the warp's first row in Q
+  const int wq0 = q0 + wr0;                 // and in the sequence
+  const float sl2 = scale * 1.4426950408889634f;  // scale * log2(e)
+  // per 16-row block i: accumulator, running max and sum of rows g and
+  // g + 8 ([i][0] and [i][1])
+  float acc[MB][D / 8][4];
+  float m_r[MB][2], l_r[MB][2];
+#pragma unroll
+  for (int i = 0; i < MB; ++i) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    m_r[i][0] = m_r[i][1] = -INFINITY;
+    l_r[i][0] = l_r[i][1] = 0.f;
+  }
+
+  // ldmatrix lane roles: A (Q) and V^T fragments address row lane % 16,
+  // chunk lane / 16; K fragments row lane % 8 (+8 for lanes 16-31), chunk
+  // (lane / 8) % 2
+  const int a_r = lane & 15, a_c = lane >> 4;
+  const int k_r = (lane & 7) + ((lane >> 4) << 3), k_c = (lane >> 3) & 1;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int buf = (kt - kt_begin) & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt has landed; every warp is done with kt - 1
+    if (kt + 1 < kt_end) {
+      load_tile<D, NTH>(k_s + (buf ^ 1) * KV_TILE, kb, sk.s, (kt + 1) * BKV,
+                        BKV, S, tid);
+      load_tile<D, NTH>(v_s + (buf ^ 1) * KV_TILE, vb, sv.s, (kt + 1) * BKV,
+                        BKV, S, tid);
+    }
+    cp_async_commit();
+    const int k0 = kt * BKV;
+    // a tile this warp's rows see nothing of
+    if (wq0 >= S || (causal && k0 > wq0 + WR - 1) ||
+        (window > 0 && k0 + BKV - 1 < wq0 - window + 1))
+      continue;
+    const uint32_t kbuf = k_s + buf * KV_TILE, vbuf = v_s + buf * KV_TILE;
+
+    // S = Q K^T: BKV / 8 accumulator fragments of 16 x 8 a row block; each
+    // K fragment serves the warp's MB row blocks
+    float sc[MB][BKV / 8][4];
+#pragma unroll
+    for (int i = 0; i < MB; ++i)
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[i][j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[MB][4];
+#pragma unroll
+      for (int i = 0; i < MB; ++i)
+        ldmatrix_x4(qa[i], q_s + swz<D>(wr0 + 16 * i + a_r, 2 * kk + a_c));
+#pragma unroll
+      for (int nb = 0; nb < BKV / 16; ++nb) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, kbuf + swz<D>(16 * nb + k_r, 2 * kk + k_c));
+#pragma unroll
+        for (int i = 0; i < MB; ++i) {
+          mma_bf16(sc[i][2 * nb], qa[i], kf[0], kf[1]);
+          mma_bf16(sc[i][2 * nb + 1], qa[i], kf[2], kf[3]);
+        }
+      }
+    }
+
+    // the causal diagonal or the window edge crosses this tile: mask
+    if (causal && (k0 + BKV - 1 > wq0 ||
+                   (window > 0 && k0 < wq0 + WR - 1 - window + 1))) {
+#pragma unroll
+      for (int i = 0; i < MB; ++i)
+#pragma unroll
+        for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qp = wq0 + 16 * i + g + 8 * (e >> 1);
+            const int kp = k0 + 8 * j + 2 * t + (e & 1);
+            if (kp > qp || (window > 0 && qp - kp >= window))
+              sc[i][j][e] = -INFINITY;
+          }
+    }
+
+    // online softmax, row by row (r 0: row g, r 1: row g + 8 of block i):
+    // each row's max over the quad that holds it
+#pragma unroll
+    for (int i = 0; i < MB; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m_r[i][r];
+#pragma unroll
+        for (int j = 0; j < BKV / 8; ++j)
+          mx = fmaxf(mx, fmaxf(sc[i][j][2 * r], sc[i][j][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        // a row with nothing visible yet keeps max -inf: subtract 0
+        const float base = mx == -INFINITY ? 0.f : mx * sl2;
+        const float alpha = exp2_approx(m_r[i][r] * sl2 - base);
+        m_r[i][r] = mx;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < BKV / 8; ++j) {
+          sc[i][j][2 * r] = exp2_approx(fmaf(sc[i][j][2 * r], sl2, -base));
+          sc[i][j][2 * r + 1] =
+              exp2_approx(fmaf(sc[i][j][2 * r + 1], sl2, -base));
+          sum += sc[i][j][2 * r] + sc[i][j][2 * r + 1];
+        }
+        l_r[i][r] = l_r[i][r] * alpha + sum;  // this thread's part
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          acc[i][j][2 * r] *= alpha;
+          acc[i][j][2 * r + 1] *= alpha;
+        }
+      }
+
+    // O += P V: P's accumulator fragments, rounded to bf16, are the A
+    // fragments of the k16 steps over this tile's keys; each V fragment
+    // serves the warp's MB row blocks
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      uint32_t pa[MB][4];
+#pragma unroll
+      for (int i = 0; i < MB; ++i) {
+        pa[i][0] = pack_bf16(sc[i][2 * kk][0], sc[i][2 * kk][1]);
+        pa[i][1] = pack_bf16(sc[i][2 * kk][2], sc[i][2 * kk][3]);
+        pa[i][2] = pack_bf16(sc[i][2 * kk + 1][0], sc[i][2 * kk + 1][1]);
+        pa[i][3] = pack_bf16(sc[i][2 * kk + 1][2], sc[i][2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int db = 0; db < D / 16; ++db) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, vbuf + swz<D>(16 * kk + a_r, 2 * db + a_c));
+#pragma unroll
+        for (int i = 0; i < MB; ++i) {
+          mma_bf16(acc[i][2 * db], pa[i], vf[0], vf[1]);
+          mma_bf16(acc[i][2 * db + 1], pa[i], vf[2], vf[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // o / l, staged in this warp's own rows of the Q tile (no other warp
+  // reads them), then stored as 16-byte chunks, a row's chunks contiguous
+  float* lrow = lse + (long long)bh * S;
+#pragma unroll
+  for (int i = 0; i < MB; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_r[i][r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int lr = wr0 + 16 * i + g + 8 * r;  // row in the tile
+      const float inv = 1.f / l;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(smem_raw + swz<D>(lr, j) + 4 * t) =
+            pack_bf16(acc[i][j][2 * r] * inv, acc[i][j][2 * r + 1] * inv);
+      if (t == 0 && q0 + lr < S) lrow[q0 + lr] = m_r[i][r] * scale + logf(l);
+    }
+  __syncwarp();
+  __nv_bfloat16* ob = o + b * so.b + h * so.h;
+  constexpr int CH = D / 8;
+#pragma unroll
+  for (int idx = lane; idx < WR * CH; idx += 32) {
+    const int r = idx / CH, c = idx % CH;
+    if (wq0 + r < S)
+      *reinterpret_cast<uint4*>(ob + (wq0 + r) * so.s + c * 8) =
+          *reinterpret_cast<const uint4*>(smem_raw + swz<D>(wr0 + r, c));
+  }
+}
+
+// rows a warp: 32 at d 64 (two 16-row blocks share each K and V
+// fragment: half the ldmatrix traffic a FLOP), 16 above, where the
+// accumulators of 32 rows would not fit in 255 registers
+template <int D> constexpr int mma_mb() { return D == 64 ? 2 : 1; }
+
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
+                       float* lse, int B, int H, int S, Strides sq,
+                       Strides sk, Strides sv, Strides so, int causal,
+                       float scale, int window, cudaStream_t stream) {
+  constexpr int MB = mma_mb<D>();
+  constexpr int bytes = mma_smem_bytes<D>();
+  static bool attr_set = false;  // dynamic shared memory above 48 KB
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_mma_kernel<D, MB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  using bf = __nv_bfloat16;
+  dim3 grid(B * H, (S + MQ - 1) / MQ);
+  flash_fwd_mma_kernel<D, MB><<<grid, mma_threads<MB>(), bytes, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k),
+      static_cast<const bf*>(v), static_cast<bf*>(o), lse, H, S, sq, sk, sv,
+      so, causal, scale, window);
+  return cudaGetLastError();
+}
+
+// ---- fp32 ------------------------------------------------------------------
+
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int H, int S, Strides sq, Strides sk,
                    Strides sv, Strides so, int causal, float scale, int window,
@@ -238,47 +535,47 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   static bool attr_set = false;  // dynamic shared memory above 48 KB
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
+        flash_fwd_kernel<float, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
   dim3 grid(S / BQ, B * H);
-  flash_fwd_kernel<T, D><<<grid, NT, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, H, S, sq, sk, sv, so,
-      causal, scale, window);
+  flash_fwd_kernel<float, D><<<grid, NT, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, S, sq, sk,
+      sv, so, causal, scale, window);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
-                     float* lse, int B, int H, int S, int D, Strides sq,
-                     Strides sk, Strides sv, Strides so, int causal,
-                     float scale, int window, cudaStream_t st) {
-  switch (D) {
-    case 64:
-      return launch<T, 64>(q, k, v, o, lse, B, H, S, sq, sk, sv, so, causal,
-                           scale, window, st);
-    case 128:
-      return launch<T, 128>(q, k, v, o, lse, B, H, S, sq, sk, sv, so, causal,
-                            scale, window, st);
-    case 192:
-      return launch<T, 192>(q, k, v, o, lse, B, H, S, sq, sk, sv, so, causal,
-                            scale, window, st);
-    case 256:
-      return launch<T, 256>(q, k, v, o, lse, B, H, S, sq, sk, sv, so, causal,
-                            scale, window, st);
-  }
-  return cudaErrorInvalidValue;  // a head_dim the kernel has no tiling for
+template <int D>
+cudaError_t launch_dtype(int dtype, const void* q, const void* k,
+                         const void* v, void* o, float* lse, int B, int H,
+                         int S, Strides sq, Strides sk, Strides sv, Strides so,
+                         int causal, float scale, int window,
+                         cudaStream_t st) {
+  if (dtype == 0)
+    return launch<D>(q, k, v, o, lse, B, H, S, sq, sk, sv, so, causal, scale,
+                     window, st);
+  return launch_mma<D>(q, k, v, o, lse, B, H, S, sq, sk, sv, so, causal, scale,
+                       window, st);
+}
+
+// a 16-byte-aligned pointer, and 16-byte steps along every dimension of
+// more than one element
+bool aligned16(const void* p, const Strides& st, int B, int H) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 &&
+         (B == 1 || st.b % 8 == 0) && st.s % 8 == 0 &&
+         (H == 1 || st.h % 8 == 0);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. window <= 0 means no window. Returns
-// a cudaError_t: cudaErrorInvalidValue for arguments the kernel does not
+// dtype: 0 = float32, 1 = bfloat16. window <= 0 means no window. bf16
+// pointers and (b, s, h) strides must be 16-byte aligned. Returns a
+// cudaError_t: cudaErrorInvalidValue for arguments the kernel does not
 // take, else the launch's own error.
 int flash_fwd(const void* q, const void* k, const void* v, void* o,
               void* lse, int B, int H, int S, int D, long long q_sb,
@@ -291,13 +588,27 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
     return cudaErrorInvalidValue;
   const Strides sq{q_sb, q_ss, q_sh}, sk{k_sb, k_ss, k_sh},
       sv{v_sb, v_ss, v_sh}, so{o_sb, o_ss, o_sh};
+  if (dtype == 1 &&
+      !(aligned16(q, sq, B, H) && aligned16(k, sk, B, H) &&
+        aligned16(v, sv, B, H) && aligned16(o, so, B, H)))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (dtype == 0)
-    return launch_d<float>(q, k, v, o, l, B, H, S, D, sq, sk, sv, so, causal,
-                           scale, window, st);
-  return launch_d<__nv_bfloat16>(q, k, v, o, l, B, H, S, D, sq, sk, sv, so,
-                                 causal, scale, window, st);
+  switch (D) {
+    case 64:
+      return launch_dtype<64>(dtype, q, k, v, o, l, B, H, S, sq, sk, sv, so,
+                              causal, scale, window, st);
+    case 128:
+      return launch_dtype<128>(dtype, q, k, v, o, l, B, H, S, sq, sk, sv, so,
+                               causal, scale, window, st);
+    case 192:
+      return launch_dtype<192>(dtype, q, k, v, o, l, B, H, S, sq, sk, sv, so,
+                               causal, scale, window, st);
+    case 256:
+      return launch_dtype<256>(dtype, q, k, v, o, l, B, H, S, sq, sk, sv, so,
+                               causal, scale, window, st);
+  }
+  return cudaErrorInvalidValue;  // a head_dim the kernel has no tiling for
 }
 
 const char* flash_fwd_error_string(int err) {

@@ -4,9 +4,12 @@ autograd Function around them.
 Ports paddle_tpu/ops/flash_attention.py. The Pallas `_fwd_kernel` becomes
 ``csrc/flash_fwd.cu`` and the backward pair `_dq_kernel` / `_dkv_kernel`
 becomes ``csrc/flash_bwd.cu`` (the design notes are in each source): one
-thread block per (b*h, 64-row tile) looping over the other side's tiles,
-fp32 math in registers and shared memory, causal and window tiles skipped
-whole and masked per element on their edges. ``flash_attention`` is a
+thread block per (b*h, query or key tile) looping over the other side's
+tiles, causal and window tiles skipped whole and masked per element on
+their edges. The bf16 forward runs on the tensor cores (mma.sync, 128-row
+query tiles, K and V double-buffered by cp.async, fp32 softmax state); the
+fp32 forward and the backward pair use 64-row tiles and fp32 FMAs out of
+shared memory. ``flash_attention`` is a
 ``torch.autograd.Function`` (the reference's ``jax.custom_vjp``): it saves
 q, k, v, o and lse, and its backward returns dq, dk, dv in q's dtype.
 
@@ -34,15 +37,17 @@ _NEG = -1e30
 launches = collections.Counter()
 
 #: the head dims csrc/flash_fwd.cu and csrc/flash_bwd.cu have a tiling for;
-#: a wider head's fp32 tiles do not fit in a block's shared memory
+#: a wider head's fp32 tiles do not fit in a block's shared memory (the
+#: bf16 forward takes 32-row K and V tiles at 192 and 256)
 KERNEL_HEAD_DIMS = (64, 128, 192, 256)
 
 
 def _block_for(s):
     """Largest of 512/256/128 that tiles seq exactly, or the size
     FLAGS_flash_attention_block forces. This is the reference's block; the
-    CUDA kernel tiles by 64 rows whatever it says, so here it only keeps
-    the reference's validation of seq and of the flag."""
+    CUDA kernels tile by their own rows (128 query rows in the bf16
+    forward, 64 elsewhere) whatever it says, so here it only keeps the
+    reference's validation of seq and of the flag."""
     forced = _flags.get_flag("flash_attention_block", 0)
     if forced:
         if forced not in (128, 256, 512) or s % forced:
@@ -160,6 +165,19 @@ def _check_operands(operands, dtype, shape, device):
                              f"head_dim, got strides {t.stride()}")
 
 
+def _check_aligned(operands):
+    """The bf16 forward copies 16-byte chunks: every operand's pointer and
+    its step along each dimension of more than one element (b, s, h) must
+    be 16-byte aligned."""
+    for name, t in operands:
+        steps = [st for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+        if t.data_ptr() % 16 or any(st * t.element_size() % 16
+                                    for st in steps):
+            raise ValueError(
+                f"flash kernel: bf16 {name} must be 16-byte aligned, its "
+                f"pointer and its (b, s, h) strides {t.stride()[:3]}")
+
+
 def _check_shape(q):
     """The kernels' tilings: fp32/bf16, head_dim in KERNEL_HEAD_DIMS, seq a
     multiple of 64, b*h within the grid. Returns q's dtype name."""
@@ -203,23 +221,27 @@ def _strides(*ts):
 def _tail(q, causal, scale, window, dtype):
     return (int(causal), float(scale), int(window or 0),
             0 if dtype == "float32" else 1,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            _build.stream(q))
 
 
 def _launch(q, k, v, causal, scale, window):
     """Run the forward kernel on [B, S, H, D] views (any strides over b, s,
-    h; d contiguous). Returns (o [B, S, H, D] contiguous, lse [B*H, S]
-    fp32)."""
+    h, 16-byte aligned in bf16; d contiguous). Returns (o [B, S, H, D]
+    contiguous, lse [B*H, S] fp32)."""
     dtype = _check_shape(q)
     B, S, H, D = q.shape
-    _check_operands((("q", q), ("k", k), ("v", v)), q.dtype, (B, S, H, D),
-                    q.device)
+    operands = (("q", q), ("k", k), ("v", v))
+    _check_operands(operands, q.dtype, (B, S, H, D), q.device)
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
     lib, fn = _kernel("flash_fwd")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              lse.data_ptr(), B, H, S, D, *_strides(q, k, v, o),
              *_tail(q, causal, scale, window, dtype))
+    if err and dtype == "bfloat16":
+        # the C entry refuses a view it cannot copy in 16-byte chunks;
+        # say which operand
+        _check_aligned(operands)
     _build.check(lib, "flash_fwd", err)
     launches[f"flash_fwd:{dtype}"] += 1
     return o, lse
@@ -331,14 +353,14 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window):
         b, s, h, d = q.shape
         scale = 1.0 / math.sqrt(d)
-        with _autocast_off():
-            if q.is_cuda:
-                o, lse = _launch(q, k, v, causal, scale, window)
-            else:
+        if q.is_cuda:      # the launch runs no autocast-affected op
+            o, lse = _launch(q, k, v, causal, scale, window)
+        else:
+            with _autocast_off():
                 o3, lse = flash_attention_ref(_heads(q), _heads(k),
                                               _heads(v), causal, scale,
                                               window)
-                o = _unheads(o3, b, h)
+            o = _unheads(o3, b, h)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale, ctx.window = causal, scale, window
         return o
@@ -375,4 +397,10 @@ def flash_attention(q, k, v, causal=False, window=None):
     W tokens; tiles wholly outside the band are skipped by the kernels."""
     window = _check_window(window, causal)
     _block_for(q.shape[1])
+    if q.is_cuda and not (torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad)):
+        # inference: the kernel without the autograd Function around it,
+        # which costs the host time per call
+        return _launch(q, k, v, causal, 1.0 / math.sqrt(q.shape[-1]),
+                       window)[0]
     return _FlashAttention.apply(q, k, v, causal, window)

@@ -90,7 +90,7 @@ def _launch(b, iou_threshold):
     keep = torch.empty((p, n), dtype=torch.bool, device=b.device)
     lib, fn = _kernel()
     err = fn(b.data_ptr(), keep.data_ptr(), p, n, float(iou_threshold),
-             torch.cuda.current_stream(b.device).cuda_stream)
+             _build.stream(b))
     _build.check(lib, "nms_keep_mask", err)
     launches["nms:float32"] += 1
     return keep

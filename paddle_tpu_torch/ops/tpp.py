@@ -7,10 +7,13 @@ Ports paddle_tpu/ops/tpp.py: ``pick_block``, ``supported_2d``,
 ``_fused_tail``, ``gpt_block_mlp``, ``bias_act``, ``softmax_rows`` and
 ``masked_reduce``, and ``_PAGED_AUDIT_SHAPES``, ``paged_attention`` and
 ``paged_attention_ref``. The Pallas ``_matmul_kernel`` becomes
-``csrc/tpp_matmul.cu`` (the design notes are there): one kernel computes
+``csrc/tpp_matmul.cu`` (the design notes are there): one C entry computes
 ``act(in_act(LN?(x)) @ w + bias)`` with an fp32 accumulator, the
 LayerNorm prologue (``ln_matmul``) and the gelu-on-load + bias variant
-(``_fused_tail``) being two of its modes. The row primitives'
+(``_fused_tail``) being two of its modes. In bf16 it runs on the tensor
+cores (TMA and wgmma, 128-row tiles, 128 to 256 columns), in fp32 on the
+CUDA cores (128 x 128 tiles); the LN mode's row mean and rstd come from a
+small pre-pass kernel of the same source. The row primitives'
 ``_bias_act_kernel``, ``_softmax_kernel`` and ``_masked_reduce_kernel``
 become the three kernels of ``csrc/tpp_rowwise.cu``. None of the three has
 a backward in the reference, so none has one here. The block-table decode
@@ -29,13 +32,16 @@ that fp32 math into bf16 products. ``matmul`` alone has no backward, as
 in the reference.
 
 A tensor on a CUDA device launches the kernel or raises; a tensor on the
-CPU takes the plain version (``_matmul_ref``, ``_bias_act_ref``,
+CPU takes the plain version (``_matmul_ref``, ``_row_stats_ref``,
+``_bias_act_ref``,
 ``_softmax_rows_ref``, ``_masked_reduce_ref``, ``paged_attention_ref``).
 ``launches`` counts kernel launches by ``"tpp_matmul.<variant>:<dtype>"``
-(variant ``plain``, ``ln`` or ``in_act``), ``"tpp_bias_act:<act>:<dtype>"``,
+(variant ``plain``, ``ln`` or ``in_act``), ``"tpp_row_stats:<dtype>"``
+(the LN pre-pass), ``"tpp_bias_act:<act>:<dtype>"``,
 ``"tpp_softmax_rows:<dtype>"``, ``"tpp_masked_reduce:<kind>:<dtype>"`` and
 ``"tpp_paged_attention.<dense|int8>:<q dtype>"``, where each kernel is
-launched and nowhere else.
+launched and nowhere else; ``routes`` splits the TPP matmul's launches
+by the kernel the C entry chose (``wgmma`` or ``simt``).
 """
 import collections
 import ctypes
@@ -48,12 +54,20 @@ from . import _build
 
 _LN_EPS = 1e-5   # nn.LayerNorm's default epsilon (the only one GPT uses)
 
-#: kernel launches by "tpp_matmul.<variant>:<dtype>"
+#: kernel launches by "tpp_matmul.<variant>:<dtype>", "tpp_row_stats:<dtype>"
+#: and the row primitives' keys
 launches = collections.Counter()
 
-#: candidate block edges of the reference registry; the CUDA kernel tiles
-#: by 64 x 64 and masks ragged edges, so these only gate which shapes the
-#: hook sends to it, exactly as the reference gates its own kernel
+#: TPP matmul launches by "tpp_matmul.<variant>:<dtype>:<route>", route
+#: "wgmma" (the tensor-core kernel) or "simt" (the CUDA-core one), as the
+#: C entry reports the kernel it launched
+routes = collections.Counter()
+_ROUTES = {1: "wgmma", 2: "simt"}
+
+#: candidate block edges of the reference registry; the CUDA kernels tile
+#: by 128 rows (128 to 256 columns) and mask ragged edges, so these only
+#: gate which shapes the hook sends to them, exactly as the reference gates
+#: its own kernel
 _BLOCK_EDGES = (256, 128, 64, 32, 16, 8)
 
 _ACTS = ("none", "gelu", "gelu_tanh", "relu")
@@ -126,21 +140,56 @@ _FN = []
 
 
 def _kernel():
+    """(library, matmul entry, row-statistics entry), argtypes set."""
     if not _FN:
         lib = _build.load("tpp_matmul")
         fn = lib.tpp_matmul
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                        + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
-        _FN.append((lib, fn))
+        stats = lib.tpp_row_stats
+        stats.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
+        stats.restype = ctypes.c_int
+        _FN.append((lib, fn, stats))
     return _FN[0]
+
+
+def _row_stats_ref(x):
+    """Plain version of the LN pre-pass: each row's mean and rstd (eps
+    1e-5) over its full row in fp32, as a float32 [2, m] array."""
+    xf = x.float()
+    mu = xf.mean(-1)
+    var = ((xf - mu[:, None]) * (xf - mu[:, None])).mean(-1)
+    return torch.stack([mu, torch.rsqrt(var + _LN_EPS)])
+
+
+def _row_stats(x):
+    """The LN prologue's pre-pass: each row's mean and rstd over its full
+    K row in fp32, as a float32 [2, m] array (mean, then rstd)."""
+    if not x.is_cuda:
+        return _row_stats_ref(x)
+    m, k = x.shape
+    dtype = _dtype_name(x.dtype)
+    stats = torch.empty((2, m), dtype=torch.float32, device=x.device)
+    lib, _, fn = _kernel()
+    err = fn(x.data_ptr(), stats.data_ptr(), m, k,
+             0 if dtype == "float32" else 1, _build.stream(x))
+    _build.check(lib, "tpp_matmul", err)
+    launches[f"tpp_row_stats:{dtype}"] += 1
+    return stats
 
 
 def _launch(x, w, bias, in_act, act, gamma=None, beta=None):
     """Run the kernel: x a contiguous [m, k] array, w [k, n] with either
     dimension contiguous (a [k, n] array, or an nn.Linear weight [n, k]
-    seen through .t()), bias [n], gamma/beta [k]."""
+    seen through .t()), bias [n], gamma/beta [k]. With gamma the C entry
+    launches the row statistics pre-pass first, into a scratch allocated
+    here (one host call for both launches). bf16 takes the tensor-core kernel
+    where TMA can read the operands (k and w's strided step multiples of
+    8; x, w, gamma and beta 16-byte aligned), else the CUDA-core one, as
+    fp32 does."""
     m, k = x.shape
     n = w.shape[1]
     operands = [("x", x, (m, k)), ("w", w, (k, n))]
@@ -164,27 +213,37 @@ def _launch(x, w, bias, in_act, act, gamma=None, beta=None):
     dtype = _dtype_name(x.dtype)
     if dtype not in ("float32", "bfloat16"):
         raise ValueError(f"tpp kernel takes fp32 or bf16, got {dtype}")
+    stats = None if gamma is None else \
+        torch.empty((2, m), dtype=torch.float32, device=x.device)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    lib, fn = _kernel()
+    lib, fn, _ = _kernel()
     swk, swn = w.stride()
+    route = ctypes.c_int(0)
     err = fn(x.data_ptr(), w.data_ptr(),
              None if bias is None else bias.data_ptr(),
              None if gamma is None else gamma.data_ptr(),
-             None if beta is None else beta.data_ptr(), out.data_ptr(),
+             None if beta is None else beta.data_ptr(),
+             None if stats is None else stats.data_ptr(), out.data_ptr(),
              m, n, k, swk, swn, _ACTS.index(in_act), _ACTS.index(act),
              int(gamma is not None), 0 if dtype == "float32" else 1,
-             torch.cuda.current_stream(x.device).cuda_stream)
+             _build.stream(x), ctypes.byref(route))
     _build.check(lib, "tpp_matmul", err)
     variant = "ln" if gamma is not None else \
         "in_act" if in_act != "none" else "plain"
+    if gamma is not None:
+        launches[f"tpp_row_stats:{dtype}"] += 1
     launches[f"tpp_matmul.{variant}:{dtype}"] += 1
+    routes[f"tpp_matmul.{variant}:{dtype}:{_ROUTES[route.value]}"] += 1
     return out
 
 
 def _run(x, w, bias, in_act, act, gamma=None, beta=None):
+    """The kernel on a CUDA tensor (no autocast-affected op runs there),
+    else the plain version with autocast off."""
     if x.is_cuda:
         return _launch(x, w, bias, in_act, act, gamma, beta)
-    return _matmul_ref(x, w, bias, in_act, act, gamma, beta)
+    with _autocast_off():
+        return _matmul_ref(x, w, bias, in_act, act, gamma, beta)
 
 
 def matmul(x, w, bias=None, in_act="none", act="none"):
@@ -199,8 +258,7 @@ def matmul(x, w, bias=None, in_act="none", act="none"):
         raise ValueError(
             f"tpp.matmul cannot tile [{m},{k}]@[{k},{n}] {x.dtype} — "
             "gate on supported_2d() and fall back to the dense path")
-    if x.is_cuda and torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, w, bias)):
+    if x.is_cuda and _grad_needed(x, w, bias):
         raise NotImplementedError(
             "tpp.matmul has no backward (as in the reference): use "
             "ln_matmul, fused_mlp or _fused_tail, or call it under "
@@ -214,6 +272,14 @@ def _mlp_ref(x, w1, b1, w2, b2, approx):
     act = "gelu_tanh" if approx else "gelu"
     h = _apply_act(x.float() @ w1.float() + b1.float(), act)
     return (h @ w2.float() + b2.float()).to(x.dtype)
+
+
+def _grad_needed(*ts):
+    """Would autograd record a graph through these tensors? Where it would
+    not (inference), the CUDA path launches the kernel without the
+    autograd Function around it, which costs the host time per call."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
 
 
 def _vjp(ref, inputs, g):
@@ -233,8 +299,7 @@ class _LnMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, w, bias):
         ctx.save_for_backward(x, gamma, beta, w, bias)
-        with _autocast_off():
-            return _run(x, w, bias, "none", "none", gamma, beta)
+        return _run(x, w, bias, "none", "none", gamma, beta)
 
     @staticmethod
     def backward(ctx, g):
@@ -248,11 +313,10 @@ class _FusedMlp(torch.autograd.Function):
         ctx.save_for_backward(x, w1, b1, w2, b2)
         ctx.approx = approx
         act = "gelu_tanh" if approx else "gelu"
-        with _autocast_off():
-            # leg 1: x @ w1 + b1, the one intermediate in device memory;
-            # leg 2: gelu on the second matmul's loads, + b2 on the way out
-            h = _run(x, w1, b1, "none", "none")
-            return _run(h, w2, b2, act, "none")
+        # leg 1: x @ w1 + b1, the one intermediate in device memory;
+        # leg 2: gelu on the second matmul's loads, + b2 on the way out
+        h = _run(x, w1, b1, "none", "none")
+        return _run(h, w2, b2, act, "none")
 
     @staticmethod
     def backward(ctx, g):
@@ -266,9 +330,7 @@ class _FusedTail(torch.autograd.Function):
     def forward(ctx, pre, w2, b2, approx):
         ctx.save_for_backward(pre, w2, b2)
         ctx.approx = approx
-        with _autocast_off():
-            return _run(pre, w2, b2, "gelu_tanh" if approx else "gelu",
-                        "none")
+        return _run(pre, w2, b2, "gelu_tanh" if approx else "gelu", "none")
 
     @staticmethod
     def backward(ctx, g):
@@ -289,6 +351,8 @@ def ln_matmul(x, gamma, beta, w, bias):
     if not ln_matmul_supported(m, k, n, x.dtype):
         raise ValueError(f"tpp.ln_matmul cannot tile [{m},{k}]@[{k},{n}] "
                          f"{x.dtype}")
+    if x.is_cuda and not _grad_needed(x, gamma, beta, w, bias):
+        return _launch(x, w, bias, "none", "none", gamma, beta)
     return _LnMatmul.apply(x, gamma, beta, w, bias)
 
 
@@ -315,6 +379,8 @@ def _fused_tail(pre, w2, b2, approx):
     if supported_2d(m, k, n, pre.dtype) is None:
         raise ValueError(f"tpp.matmul cannot tile [{m},{k}]@[{k},{n}] "
                          f"{pre.dtype}")
+    if pre.is_cuda and not _grad_needed(pre, w2, b2):
+        return _launch(pre, w2, b2, "gelu_tanh" if approx else "gelu", "none")
     return _FusedTail.apply(pre, w2, b2, approx)
 
 
@@ -394,7 +460,7 @@ def _launch_bias_act(x, bias, act):
     lib, fn = _row_kernel("tpp_bias_act")
     err = fn(x.data_ptr(), bias.data_ptr(), out.data_ptr(), m * n, n,
              _ACTS.index(act), 0 if dtype == "float32" else 1, int(use_vec),
-             torch.cuda.current_stream(x.device).cuda_stream)
+             _build.stream(x))
     _build.check(lib, "tpp_rowwise", err)
     launches[f"tpp_bias_act:{act}:{dtype}"] += 1
     return out
@@ -427,7 +493,7 @@ def _launch_softmax_rows(x):
     lib, fn = _row_kernel("tpp_softmax_rows")
     err = fn(x.data_ptr(), out.data_ptr(), m, n,
              0 if dtype == "float32" else 1,
-             torch.cuda.current_stream(x.device).cuda_stream)
+             _build.stream(x))
     _build.check(lib, "tpp_rowwise", err)
     launches[f"tpp_softmax_rows:{dtype}"] += 1
     return out
@@ -479,7 +545,7 @@ def _launch_masked_reduce(x, mask, kind):
     lib, fn = _row_kernel("tpp_masked_reduce")
     err = fn(x.data_ptr(), mask.data_ptr(), out.data_ptr(), m, n,
              _KINDS.index(kind), 0 if dtype == "float32" else 1, mask_dtype,
-             torch.cuda.current_stream(x.device).cuda_stream)
+             _build.stream(x))
     _build.check(lib, "tpp_rowwise", err)
     launches[f"tpp_masked_reduce:{kind}:{dtype}"] += 1
     return out
@@ -593,7 +659,7 @@ def _paged_kernel_call(q, kp, vp, tables, lengths, k_scales, v_scales):
              B, H, hd, bs, maxb, kp.stride(0),
              k_scales.stride(0) if quantized else 0, 1.0 / (hd ** 0.5),
              0 if dtype == "float32" else 1, int(quantized),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             _build.stream(q))
     _build.check(lib, "paged_attention", err)
     launches[f"tpp_paged_attention.{'int8' if quantized else 'dense'}:"
              f"{dtype}"] += 1

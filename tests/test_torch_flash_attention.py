@@ -234,6 +234,38 @@ def test_kernel_matches_plain_on_card(cuda, d, dtype, tol, causal, window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["fp32", "bf16"])
+def test_packed_qkv_views_with_a_small_window_on_card(cuda, d, dtype, tol):
+    """q, k, v as strided slices of one packed qkv tensor (row stride
+    3 * h * d), read without a copy, at every head dim, with a window (17)
+    below every kv and query tile."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    b, s, h = 2, 1024, 3
+    qkv = torch.randn(b, s, 3 * h * d, generator=g, device=cuda).to(dtype)
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    with torch.no_grad():
+        o = tfa.flash_attention(q, k, v, causal=True, window=17)
+    ro, _ = tfa.flash_attention_ref(*(tfa._heads(t) for t in (q, k, v)),
+                                    True, 1.0 / math.sqrt(d), 17)
+    torch.cuda.synchronize()
+    err = (o.float() - tfa._unheads(ro, b, h).float()).abs().max().item()
+    assert err <= tol
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_raises_on_a_misaligned_view_on_card(cuda):
+    """The bf16 kernel copies 16-byte chunks: a view whose rows start off
+    a 16-byte boundary raises rather than falling back."""
+    qkv = torch.randn(1, 1024, 2 * 64 + 1, device=cuda).to(torch.bfloat16)
+    q = qkv[..., 1:65].reshape(1, 1024, 1, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._launch(q, q, q, True, 0.125, None)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [192, 256])
 def test_sdpa_launches_wide_heads_on_card(cuda, d):
     q = torch.randn(1, 1024, 2, d, device=cuda)
@@ -248,3 +280,53 @@ def test_sdpa_raises_for_a_head_the_kernel_cannot_tile_on_card(cuda):
     q = torch.randn(1, 1024, 2, 320, device=cuda)
     with pytest.raises(ValueError, match="head_dim in"):
         scaled_dot_product_attention(q, q, q, is_causal=True)
+
+
+# ---- the bf16 tensor-core kernel's rounding ---------------------------------
+
+#: chip_smoke.py's band for the bf16 kernel's o against the fp32-math
+#: plain version (FLASH_TOL["bfloat16"] there), and for lse in both types
+BF16_TOL, LSE_TOL = 2e-2, 2e-4
+
+
+def _tensor_core_rounding(q3, k3, v3, causal, scale, window=None):
+    """Where the bf16 mma.sync kernel rounds, in plain torch: S = Q K^T of
+    the bf16 inputs accumulated in fp32, the scale applied to S in fp32,
+    the softmax's max and sum in fp32, P rounded to bf16 before an
+    fp32-accumulated P V, o / l rounded to bf16."""
+    s = (q3.float() @ k3.float().transpose(-1, -2)) * scale
+    if causal:
+        s = s.masked_fill(~tfa._keep_mask(*s.shape[-2:], window, s.device),
+                          float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = (p.to(torch.bfloat16).float() @ v3.float()) / l
+    return o.to(torch.bfloat16), (m + torch.log(l)).squeeze(-1)
+
+
+@pytest.mark.parametrize("d,window", [(64, None), (64, 100), (128, None),
+                                      (256, None)],
+                         ids=["d64", "d64_window100", "d128", "d256"])
+def test_bf16_tensor_core_rounding_within_band_of_plain(d, window):
+    """At s 1024, causal, d 64 / 128 / 256: rounding P to bf16 before P V,
+    with the scale applied to S in fp32, as the mma.sync kernel must,
+    stays within the bf16 band of the fp32-math plain version; and on the
+    same inputs the plain version matches the JAX package."""
+    rng = np.random.RandomState(13)
+    q, k, v = (torch.from_numpy(rng.randn(2, 1024, d).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    scale = 1.0 / math.sqrt(d)
+    po, plse = tfa.flash_attention_ref(q, k, v, True, scale, window)
+    ro, rlse = _tensor_core_rounding(q, k, v, True, scale, window)
+    assert (ro.float() - po.float()).abs().max().item() <= BF16_TOL
+    assert (rlse - plse).abs().max().item() <= LSE_TOL
+
+    # the plain version against the JAX package, fp32 on the same values
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    jo, jlse = jfa._flash_fwd(*(jnp.asarray(t.numpy()) for t in (qf, kf, vf)),
+                              True, scale, True, window=window)
+    to, tlse = tfa._flash_fwd(qf, kf, vf, True, scale, window)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), atol=ATOL,
+                               rtol=0)

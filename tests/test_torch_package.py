@@ -58,7 +58,7 @@ def test_importing_every_module_loads_no_jax_and_no_paddle_tpu():
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py", "ab_forward.py"]))
 def test_source_imports_no_jax_and_no_paddle_tpu(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
@@ -165,6 +165,38 @@ def test_build_lists_the_kernel_sources(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(FileNotFoundError):
         _build.build(["no_such_kernel"])
+
+
+def test_build_hash_covers_every_included_header(monkeypatch, tmp_path):
+    """An edit to a header a source includes, directly or through another
+    header, names a new library: a stale one is never loaded."""
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda.h>\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [h.name for h in _build._local_headers(tmp_path / "k.cu")] == \
+        ["a.cuh", "b.cuh"]
+    before = _build._target("k")[1]
+    (tmp_path / "b.cuh").write_text("// two\n")
+    assert _build._target("k")[1] != before
+    assert _build._target("k")[1] == _build._target("k")[1]
+
+
+def test_ptxas_report_reads_registers_and_spills(monkeypatch):
+    log = ("ptxas info    : Compiling entry function '_Z1kv' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _Z1kv\n"
+           "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 128 registers, used 1 barriers\n"
+           "ptxas info    : Compiling entry function '_Z1jv' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _Z1jv\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 40 registers, used 0 barriers\n")
+    monkeypatch.setattr(_build, "build_log", lambda name: log)
+    assert _build.ptxas_report("k") == {
+        "_Z1kv": {"registers": 128, "spill_bytes": 8},
+        "_Z1jv": {"registers": 40, "spill_bytes": 0}}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

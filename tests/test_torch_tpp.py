@@ -167,12 +167,29 @@ def test_errors_match_reference(data):
             mod.matmul(arr(data["x"][:7]), arr(data["w1"]))
 
 
+def test_row_stats_plain_version_is_the_ln_statistics(data):
+    """The LN pre-pass's plain version: each row's mean and 1/sqrt(var +
+    1e-5), the statistics _matmul_ref normalises by; a CPU tensor takes
+    it and launches nothing."""
+    x = data["x"].astype(np.float64)
+    mu = x.mean(-1)
+    rstd = 1.0 / np.sqrt(((x - mu[:, None]) ** 2).mean(-1) + 1e-5)
+    tpp.launches.clear()
+    got = tpp._row_stats(T(data["x"]))
+    assert got.shape == (2, 24) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.stack([mu, rstd]), atol=1e-6,
+                               rtol=1e-6)
+    assert sum(tpp.launches.values()) == 0
+
+
 def test_cpu_tensors_take_the_plain_version(data):
     tpp.launches.clear()
+    tpp.routes.clear()
     tpp.ln_matmul(T(data["x"]), T(data["gamma"]), T(data["beta"]),
                   T(data["w1"]), T(data["b1"]))
     tpp.matmul(T(data["x"]), T(data["w1"]), in_act="gelu")
     assert sum(tpp.launches.values()) == 0
+    assert sum(tpp.routes.values()) == 0
     with pytest.raises(ValueError, match="must lie on"):
         tpp._launch(T(data["x"]), T(data["w1"]), None, "none", "none")
 
@@ -402,6 +419,7 @@ def test_kernel_matches_plain_on_card(cuda, dtype, tol, variant):
     k, n = (3072, 768) if variant == "gelu_in" else (768, 3072)
     x, w, b = rn(4096, k), rn(n, k, std=0.02).t(), rn(n, std=0.02)
     gamma, beta = 1.0 + rn(k, std=0.1), rn(k, std=0.1)
+    tpp.routes.clear()
     if variant == "ln":
         got = tpp.ln_matmul(x, gamma, beta, w, b)
         want = tpp._matmul_ref(x, w, b, gamma=gamma, beta=beta)
@@ -413,6 +431,55 @@ def test_kernel_matches_plain_on_card(cuda, dtype, tol, variant):
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     assert err <= tol * max(1.0, want.float().abs().max().item())
+    # the GPT MLP's shapes: bf16 on the tensor cores, fp32 on the CUDA cores
+    dname = tpp._dtype_name(dtype)
+    route = "wgmma" if dtype == torch.bfloat16 else "simt"
+    key = "ln" if variant == "ln" else \
+        "in_act" if variant == "gelu_in" else "plain"
+    assert dict(tpp.routes) == {f"tpp_matmul.{key}:{dname}:{route}": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("layout", ["linear_t", "k_n"])
+@pytest.mark.parametrize("m,k,n", [(200, 100, 264), (200, 776, 1000)],
+                         ids=["k_not_8", "k_8"])
+def test_tile_edges_on_card(cuda, dtype, tol, layout, m, k, n):
+    """The new tiles' edges through the public ops: M (200) not a multiple
+    of the 128-row tile, N (264, 1000) not one of any column tile, K a
+    multiple of 8 (TMA in bf16) or not (100: the CUDA-core path), w an
+    nn.Linear weight seen through .t() or a [k, n] array."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g, device=cuda) * std).to(dtype)
+
+    x, lin, b = rn(m, k), rn(n, k, std=0.05), rn(n, std=0.05)
+    w = lin.t() if layout == "linear_t" else lin.t().contiguous()
+    gamma, beta = 1.0 + rn(k, std=0.1), rn(k, std=0.1)
+    dname = tpp._dtype_name(dtype)
+    n_ln = tpp.launches[f"tpp_matmul.ln:{dname}"]
+    tpp.routes.clear()
+    with torch.no_grad():
+        # ln_matmul does not gate K; matmul's registry gate refuses K 100,
+        # so that case goes to the launcher itself
+        got = [tpp.ln_matmul(x, gamma, beta, w, b),
+               tpp.matmul(x, w, b, in_act="gelu", act="relu") if k % 8 == 0
+               else tpp._launch(x, w, b, "gelu", "relu")]
+    want = [tpp._matmul_ref(x, w, b, gamma=gamma, beta=beta),
+            tpp._matmul_ref(x, w, b, "gelu", "relu")]
+    torch.cuda.synchronize()
+    assert tpp.launches[f"tpp_matmul.ln:{dname}"] == n_ln + 1
+    # bf16 takes the tensor cores wherever TMA can read K; fp32, and bf16
+    # at K 100, the CUDA cores
+    route = "wgmma" if dtype == torch.bfloat16 and k % 8 == 0 else "simt"
+    assert dict(tpp.routes) == {f"tpp_matmul.ln:{dname}:{route}": 1,
+                                f"tpp_matmul.in_act:{dname}:{route}": 1}
+    for a, ref in zip(got, want):
+        err = (a.float() - ref.float()).abs().max().item()
+        assert err <= tol * max(1.0, ref.float().abs().max().item())
 
 
 @pytest.mark.cuda
@@ -488,3 +555,63 @@ def test_row_kernels_match_plain_on_card(cuda, dtype, shape):
             if fin.any() else 0.0
         assert err <= tol * max(1.0, want.float()[fin].abs().max().item()
                                 if fin.any() else 1.0), (key, err)
+
+
+# ---- the bf16 tensor-core kernel's rounding ---------------------------------
+
+#: chip_smoke.py's band for a bf16 kernel against its fp32-math plain
+#: version, scaled by max(1, max|plain|) (TPP_TOL["bfloat16"] there)
+BF16_TOL = 2e-2
+
+
+def _tensor_core_rounding(x, w, bias, in_act, gamma=None, beta=None):
+    """Where the bf16 tensor-core kernel rounds, in plain torch: the x tile
+    after the LN (fp32 row statistics) and the input activation, both in
+    fp32, is rounded to bf16 before an fp32-accumulated product; bias in
+    fp32; the output rounded to bf16."""
+    xf = x.float()
+    if gamma is not None:
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) * (xf - mu)).mean(-1, keepdim=True)
+        xf = (xf - mu) * torch.rsqrt(var + tpp._LN_EPS) * gamma.float() \
+            + beta.float()
+    a = tpp._apply_act(xf, in_act).to(torch.bfloat16).float()
+    return (a @ w.float() + bias.float()).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("variant", ["ln", "gelu_in"])
+def test_bf16_tensor_core_rounding_within_band_of_plain(variant):
+    """At GPT-2 small's MLP widths (LN + fc1: K 768, N 3072; gelu + fc2:
+    K 3072, N 768), 192 rows: rounding the transformed x tile to bf16, as
+    the wgmma kernel must, stays within the bf16 band of the fp32-math
+    plain version; and on the same inputs the plain version matches the
+    JAX package."""
+    rng = np.random.RandomState(12)
+    k, n = (768, 3072) if variant == "ln" else (3072, 768)
+    f = np.float32
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)   # noqa: E731
+    x = bf(rng.randn(192, k).astype(f))
+    w = bf((rng.randn(k, n) * 0.02).astype(f))
+    b = bf((rng.randn(n) * 0.02).astype(f))
+    gamma = bf((1.0 + 0.1 * rng.randn(k)).astype(f))
+    beta = bf((0.1 * rng.randn(k)).astype(f))
+    if variant == "ln":
+        plain = tpp._matmul_ref(x, w, b, gamma=gamma, beta=beta)
+        rounded = _tensor_core_rounding(x, w, b, "none", gamma, beta)
+    else:
+        plain = tpp._matmul_ref(x, w, b, "gelu")
+        rounded = _tensor_core_rounding(x, w, b, "gelu")
+    err = (rounded.float() - plain.float()).abs().max().item()
+    assert err <= BF16_TOL * max(1.0, plain.float().abs().max().item())
+
+    # the plain version against the JAX package, fp32 on the same values
+    xs, ws, bs, gs, bts = (t.float() for t in (x, w, b, gamma, beta))
+    if variant == "ln":
+        got = tpp.ln_matmul(xs, gs, bts, ws, bs)
+        want = jtpp.ln_matmul(*(J(t.numpy()) for t in (xs, gs, bts, ws, bs)))
+    else:
+        got = tpp._fused_tail(xs, ws, bs, False)
+        want = jtpp._fused_tail(J(xs.numpy()), J(ws.numpy()), J(bs.numpy()),
+                                False)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=ATOL, rtol=0)

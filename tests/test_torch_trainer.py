@@ -522,7 +522,8 @@ def cuda():
 def test_bf16_training_step_launches_bf16_flash_and_fp32_tpp_on_card(cuda):
     """A bf16 auto_cast step of the narrow model (seq 1024) runs the bf16
     flash forward, dQ and dK/dV kernels once per layer, and the TPP kernel
-    in fp32 only (the reference hands it the fp32 residual stream)."""
+    (with its LN row-statistics pre-pass) in fp32 only (the reference
+    hands it the fp32 residual stream)."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     pt.set_flags({"tpp_kernels": True})
@@ -542,7 +543,8 @@ def test_bf16_training_step_launches_bf16_flash_and_fp32_tpp_on_card(cuda):
                      "flash_dq:bfloat16": layers,
                      "flash_dkv:bfloat16": layers,
                      "tpp_matmul.ln:float32": layers,
-                     "tpp_matmul.in_act:float32": layers}
+                     "tpp_matmul.in_act:float32": layers,
+                     "tpp_row_stats:float32": layers}
     assert bool(torch.isfinite(loss))
 
 
