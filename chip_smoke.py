@@ -9,18 +9,22 @@ Run from the repository root, on a machine with a CUDA device and nvcc:
 
 It builds the port's CUDA kernels from paddle_tpu_torch/ops/csrc/
 (printing ptxas's registers and spills and the tensor-core instructions
-in each library's SASS, and failing if the bf16 TPP or flash forward has
-none or either spills), holds
-each kernel (flash-attention forward, its dQ and dK/dV backward kernels,
-the TPP matmul and its LN row-statistics pre-pass, the greedy-NMS
-kernel, the TPP bias_act, softmax_rows and
+in each library's SASS, and failing if the bf16 TPP, flash forward or
+flash backward has none or spills), holds
+each kernel (flash-attention forward, its dQ and dK/dV backward kernels
+and their delta pre-pass, the TPP matmul and its LN row-statistics
+pre-pass, the greedy-NMS kernel, the TPP bias_act, softmax_rows and
 masked_reduce kernels, the paged-attention kernel) against its plain
-PyTorch version, checks a narrow
+PyTorch version (the backward also for bit-equal grads over two calls
+and, on the GPT paths, every bf16 launch on the tensor cores), checks a
+narrow
 GPT's eval forward, greedy ``generate`` and three AdamW training steps and
 a narrow PP-YOLOE's head outputs and detections against the JAX package's
 committed outputs, drives GPT-2 small (vocab 50304, hidden 768, 12
 layers, 12 heads, random weights from a seed) through the serving path
-(eval forward at 4 x 1024 and greedy ``generate``) and the training path
+(eval forward at 4 x 1024 and greedy ``generate``; and at seq 512, SDPA's
+naive path under auto_cast with and without its autocast guard) and the
+training path
 (SpmdTrainer + AdamW at 16 x 1024, bf16 auto_cast with FLAGS_tpp_kernels
 off and on, and fp32), drives PP-YOLOE (80 classes, width 64, depth 2:
 bench.py's config) through forward, decode and multiclass-NMS
@@ -41,6 +45,7 @@ package.
 import copy
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -74,6 +79,20 @@ TIE_GAP = 1e-4
 # 2048 terms; bf16 outputs may also round to the neighbouring bf16 value
 # (2^-7 relative), so 2e-2 allows ~2 ulps.
 FLASH_BWD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# The backward's delta pre-pass (rowsum(dO o) in fp32) against the torch
+# expression on the same inputs: fp32 sums of 64 terms in another order.
+DELTA_TOL = 1e-5
+# The scalar backward instantiations (kernel, dtype, head_dim) that ptxas
+# builds with spills: the dK/dV kernel's per-thread dK and dV accumulators
+# at d 192 / 256 in both types (56-128 bytes) and in fp32 at 448 / 512
+# (8 bytes), the fp32 dQ kernel at 256 (32 bytes). Every other kernel of
+# flash_bwd, the tensor-core pair and the delta pre-pass among them, is
+# held to no spill.
+BWD_SCALAR_SPILLS = {
+    ("flash_dkv_kernel", "bfloat16", 192), ("flash_dkv_kernel", "float32", 192),
+    ("flash_dkv_kernel", "bfloat16", 256), ("flash_dkv_kernel", "float32", 256),
+    ("flash_dkv_kernel", "float32", 448), ("flash_dkv_kernel", "float32", 512),
+    ("flash_dq_kernel", "float32", 256)}
 # The narrow model's 3 training steps against the JAX package's. fp32:
 # summation order only. bf16: both packages round the loss to bf16, whose
 # step is 2^-5 at the losses' magnitude (4-8), so a loss may land one step
@@ -133,6 +152,9 @@ SLEEP_CYCLES = 1_000_000
 # GPT-2 small forwards timed a cell, after one warm-up (the first forward
 # after a flag or dtype change pays one-time host costs)
 FORWARD_SAMPLES = 5
+# GPT-2 small's forward through SDPA's naive path (seq below 1024) under
+# auto_cast, with and without the repair of its autocast guard
+NAIVE_SEQ = 512
 # the reference's paged_attention audit shape (ops/tpp.py:248): B, H, hd,
 # bs, maxb, and its test's pool of B + 3 frames
 AUDIT_SHAPES = ((16, 8, 128, 32, 16, 19),)
@@ -188,14 +210,48 @@ def tpp_routes_checked(path):
     return routed
 
 
+def flash_routes_checked(path):
+    """The flash launches since flash_attention.routes was cleared, by the
+    kernel the C entry chose; checks that every bf16 launch (forward, dQ,
+    dK/dV; head_dim 64 on the GPT paths) ran on the tensor cores (mma) and
+    every fp32 one on the scalar kernels (simt)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    want = {"bfloat16": "mma", "float32": "simt"}
+    routed = {k: n for k, n in fa.routes.items() if n}
+    launched = sum(n for k, n in fa.launches.items()
+                   if k.split(":")[0] in ("flash_fwd", "flash_dq",
+                                          "flash_dkv"))
+    wrong = {k: n for k, n in routed.items()
+             if k.rsplit(":", 1)[1] != want[k.split(":")[1]]}
+    check(not wrong and sum(routed.values()) == launched,
+          f"{path}: flash launches by route {routed} ({launched} launches), "
+          f"bf16 all on mma and fp32 on simt")
+    return routed
+
+
+def scalar_bwd_instance(mangled):
+    """(kernel, dtype, head_dim) of a scalar flash_dq_kernel /
+    flash_dkv_kernel instantiation from its mangled name, else None."""
+    m = re.search(r"\d(flash_d(?:q|kv)_kernel)I(f|13__nv_bfloat16)Li(\d+)E",
+                  mangled)
+    if m is None:
+        return None
+    return m[1], "float32" if m[2] == "f" else "bfloat16", int(m[3])
+
+
 def kernel_group(name):
     n = name.lower()
     if "flash_fwd_kernel" in n or "flash_fwd_mma_kernel" in n:
         return "flash_fwd"
-    if "flash_dq_kernel" in n:
+    # the scalar and the tensor-core (flash_*_mma_kernel) backward kernels,
+    # and the backward's delta pre-pass
+    if "flash_dq_" in n:
         return "flash_dq"
-    if "flash_dkv_kernel" in n:
+    if "flash_dkv_" in n:
         return "flash_dkv"
+    if "flash_delta_kernel" in n:
+        return "flash_delta"
     if "tpp_wgmma_kernel" in n or "tpp_simt_kernel" in n:
         return "tpp_matmul"
     if "tpp_row_stats_kernel" in n:
@@ -1135,6 +1191,44 @@ def time_paged_attention(serve, full, full_errs, time_ms, bound,
     return kernels
 
 
+def naive_sdpa_before_after(model, ids):
+    """GPT-2 small's fp32 model at seq 512 (SDPA's naive path) under
+    auto_cast(bf16), eval and in training mode with its dropout 0.1 (the
+    generator reseeded for each run): the logits with the naive branch's
+    autocast guard (the repair) and without it (as before the repair,
+    when torch's autocast made the CUDA softmax's probabilities fp32).
+    Returns the max-abs difference of the two, for each mode."""
+    import contextlib
+
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.nn.functional import transformer
+
+    guard = transformer._autocast_off
+    out = {"batch": int(ids.shape[0]), "seq": int(ids.shape[1])}
+    for mode in ("eval", "train"):
+        model.train(mode == "train")
+        logits = []
+        for off in (guard, contextlib.nullcontext):
+            transformer._autocast_off = off
+            try:
+                pt.seed(0)
+                with torch.no_grad(), auto_cast(True, dtype="bfloat16"):
+                    logits.append(model(ids).float())
+            finally:
+                transformer._autocast_off = guard
+        check(all(bool(torch.isfinite(t).all()) for t in logits),
+              f"naive SDPA {mode}: finite logits")
+        after, before = logits
+        out[f"{mode}_max_abs_diff_before_vs_after"] = \
+            (after - before).abs().max().item()
+        out[f"{mode}_logits_max_abs"] = after.abs().max().item()
+    model.eval()
+    return out
+
+
 def main():
     import torch
 
@@ -1173,10 +1267,15 @@ def main():
     emit({"phase": "build", "wall_s": wall, "nvcc_s": seconds,
           "ptxas": ptxas, "sass_tensor_core_instructions": sass})
     # the redesigned kernels run on the tensor cores (wgmma in the bf16
-    # TPP, mma.sync in the bf16 flash forward) and spill nothing
-    for name, op in (("tpp_matmul", "HGMMA"), ("flash_fwd", "HMMA")):
+    # TPP, mma.sync in the bf16 flash forward and backward pair) and no
+    # kernel spills, but for the scalar backward instantiations listed in
+    # BWD_SCALAR_SPILLS
+    for name, op in (("tpp_matmul", "HGMMA"), ("flash_fwd", "HMMA"),
+                     ("flash_bwd", "HMMA")):
         check(sass[name][op] > 0, f"{name}: {op} instructions in its SASS")
-        spills = {k: r for k, r in ptxas[name].items() if r["spill_bytes"]}
+        spills = {k: r for k, r in ptxas[name].items() if r["spill_bytes"]
+                  and not (name == "flash_bwd"
+                           and scalar_bwd_instance(k) in BWD_SCALAR_SPILLS)}
         check(not spills, f"{name}: no register spills ({spills})")
 
     # ---- 2. every kernel against its plain version ------------------------
@@ -1188,7 +1287,7 @@ def main():
     flash_err = {}
     n_flash = 0
     shapes = [(s, d) for s in (1024, 2048) for d in (64, 128)] \
-        + [(1024, 192), (1024, 256)]
+        + [(1024, 192), (1024, 256), (1024, 320)]
     for s, d in shapes:
         for dname, dt in dtypes.items():
             for causal, window in ((False, None), (True, None),
@@ -1227,9 +1326,9 @@ def main():
                   f"flash main shape b={b} {dname}: err {err}")
             del qkv, q, k, v, o, ro
     # SDPA sends every shape its gate passes to the kernel: the wide heads
-    # launch it, and a head it has no tiling for raises
+    # launch it, and a head it has no tiling for (above 512) raises
     from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
-    for d in (192, 256):
+    for d in (192, 256, 320):
         q, k, v = (randn(1, 1024, 2, d) for _ in range(3))
         n = sum(fa.launches.values())
         with torch.no_grad():
@@ -1242,19 +1341,19 @@ def main():
         err = (o - ro.reshape(1, 2, 1024, d).transpose(1, 2)).abs().max()
         check(err.item() <= FLASH_TOL["float32"],
               f"SDPA head_dim {d} vs plain: err {err.item()}")
-    q = randn(1, 1024, 2, 320)
+    q = randn(1, 1024, 2, 576)
     try:
         scaled_dot_product_attention(q, q, q, is_causal=True)
         raised = False
     except ValueError:
         raised = True
-    check(raised, "SDPA head_dim 320 on the card raises")
+    check(raised, "SDPA head_dim 576 on the card raises")
     emit({"phase": "kernels_vs_plain", "kernel": "flash_fwd",
           "configs": n_flash + 4, "shapes_s_d": shapes,
           "main_shape_s_h_d": [1024, 12, 64],
           "main_shape_max_abs_err_by_batch": flash_err,
-          "sdpa_head_dim_192_256_launched": True,
-          "sdpa_head_dim_320_raises": True,
+          "sdpa_head_dim_192_256_320_launched": True,
+          "sdpa_head_dim_576_raises": True,
           "tol": {"o": FLASH_TOL, "lse": LSE_TOL}})
 
     def tpp_err(got, want, dname, what):
@@ -1382,13 +1481,15 @@ def main():
     # the training path's call, at its shape: grads of strided q/k/v views
     # of one packed qkv through the autograd Function, against autograd
     # through the plain forward
-    bwd_errs = {}
+    # (twice through the kernels: the grads must be bit-equal), and the
+    # delta pre-pass against the torch expression on the forward's o
+    bwd_errs, delta_errs = {}, {}
     b, s, h, d = TRAIN_BATCH, 1024, 12, 64
     for dname, dt in dtypes.items():
         qkv = randn(b, s, 3 * h * d, dtype=dt)
         do = randn(b, s, h, d, dtype=dt)
         grads = []
-        for use_kernel in (True, False):
+        for use_kernel in (True, True, False):
             packed = qkv.clone().requires_grad_()
             q, k, v = (t.reshape(b, s, h, d)
                        for t in packed.split(h * d, dim=-1))
@@ -1401,13 +1502,25 @@ def main():
                 o = fa._unheads(o3, b, h)
             grads.append(torch.autograd.grad(o, packed, do)[0])
         torch.cuda.synchronize()
-        got, want = (g.split(h * d, dim=-1) for g in grads)
+        check(torch.equal(grads[0], grads[1]),
+              f"flash bwd main shape {dname}: two calls, the same bits")
+        got, want = (g.split(h * d, dim=-1) for g in (grads[0], grads[2]))
         bwd_errs[dname] = {
             "dq": bwd_err(got[:1], want[:1], dname)[0],
             "dkv": bwd_err(got[1:], want[1:], dname)[0]}
         check(bwd_err(got, want, dname)[1],
               f"flash bwd main shape {dname}: err {bwd_errs[dname]}")
-        del qkv, do, grads, got, want, packed, q, k, v, o
+        with torch.no_grad():
+            o = fa.flash_attention(q, k, v, causal=True)
+            delta = fa._launch_delta(o, do)
+            want = (do.float() * o.float()).sum(-1).transpose(1, 2) \
+                .reshape(b * h, s)
+        torch.cuda.synchronize()
+        delta_errs[dname] = (delta - want).abs().max().item()
+        check(delta_errs[dname] <= DELTA_TOL * max(
+            1.0, want.abs().max().item()),
+              f"flash delta pre-pass {dname}: err {delta_errs[dname]}")
+        del qkv, do, grads, got, want, packed, q, k, v, o, delta
     emit({"phase": "kernels_vs_plain", "kernel": "flash_dq+flash_dkv",
           "configs": n_bwd + 2, "shapes_s_d": shapes,
           "against": ["flash_attention_bwd_ref", "autograd through "
@@ -1415,7 +1528,10 @@ def main():
           "external_delta_checked": True,
           "main_shape": [b, s, h, d],
           "main_shape_max_abs_err": bwd_errs,
-          "tol_x_max(1,max|plain|)": FLASH_BWD_TOL})
+          "main_shape_two_calls_bit_equal": True,
+          "delta_prepass_max_abs_err": delta_errs,
+          "tol_x_max(1,max|plain|)": FLASH_BWD_TOL,
+          "delta_tol_x_max(1,max|torch|)": DELTA_TOL})
 
     # ---- 3. narrow model at seq 1024 against the JAX fixture --------------
     fix = np.load(golden.FIXTURE)
@@ -1559,6 +1675,7 @@ def main():
     bf16_ref_max = bf16_ref.abs().max().item()
 
     fa.launches.clear()
+    fa.routes.clear()
     tpp.launches.clear()
     tpp.routes.clear()
     fwd = {}
@@ -1653,7 +1770,10 @@ def main():
           "fp32_tokens_equal_forward_argmax": int((~mismatch).sum()),
           "fp32_near_tie_mismatches": int(mismatch.sum()),
           "main_path_launches": counts_serve,
+          "flash_routes": flash_routes_checked("serving path"),
           "tpp_routes": tpp_routes_checked("serving path")})
+    naive_sdpa = naive_sdpa_before_after(model, ids[:, :NAIVE_SEQ])
+    emit({"phase": "gpt2_small_naive_sdpa_under_auto_cast", **naive_sdpa})
     del model, model_bf16
     torch.cuda.empty_cache()
 
@@ -1678,6 +1798,7 @@ def main():
     flops_per_token = 6 * (V * hdim + L * 12 * hdim * hdim + hdim * V) \
         + L * 12 * S * hdim
     fa.launches.clear()
+    fa.routes.clear()
     tpp.launches.clear()
     tpp.routes.clear()
     train = {}
@@ -1701,7 +1822,7 @@ def main():
             delta = {key: after[key] - before.get(key, 0) for key in after
                      if after[key] != before.get(key, 0)}
             want = {f"flash_{kind}:{dname}": L
-                    for kind in ("fwd", "dq", "dkv")}
+                    for kind in ("fwd", "dq", "dkv", "delta")}
             if on:
                 want.update({"tpp_matmul.ln:float32": L,
                              "tpp_matmul.in_act:float32": L,
@@ -1745,6 +1866,7 @@ def main():
           "optimizer": "AdamW lr 1e-4", "flops_per_token": flops_per_token,
           "warmup_steps": 1, "train": train,
           "main_path_launches": counts_train,
+          "flash_routes": flash_routes_checked("training path"),
           "tpp_routes": tpp_routes_checked("training path")})
 
     # ---- 4c. PP-YOLOE detection serving; 4d. the TPP row primitives -----
@@ -1861,50 +1983,113 @@ def main():
             "train_shape": {**fwd_rows[TRAIN_BATCH],
                             "max_abs_err": flash_err[dname][TRAIN_BATCH]}})
 
-        # the backward pair at the training shape, from the forward
-        # kernel's o and lse; delta computed once, as the wrapper does
-        b = TRAIN_BATCH
-        qkv = randn(b, s, 3 * h * d, dtype=dt)
-        q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
-        do = randn(b, s, h, d, dtype=dt)
-        with torch.no_grad():
-            o, lse = fa._launch(q, k, v, True, scale, None)
-            delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
-                .reshape(b * h, s).contiguous()
-            heads = [fa._heads(t).contiguous() for t in (q, k, v, o, do)]
-            plain_ms = time_ms(lambda: fa.flash_attention_bwd_ref(
-                *heads[:4], lse, heads[4], True, scale))
-        del heads
-        bq, bk, bv = (t.transpose(1, 2).contiguous().requires_grad_()
-                      for t in (q, k, v))
-        out = torch.nn.functional.scaled_dot_product_attention(
-            bq, bk, bv, is_causal=True)
-        bdo = do.transpose(1, 2).contiguous()
-        library_ms = time_ms(lambda: torch.autograd.grad(
-            out, (bq, bk, bv), bdo, retain_graph=True))
-        del out, bq, bk, bv, bdo
-        for kind, line, flops_per_pair, n_out, fn in (
-                ("dq", 282, 6, 1, lambda: fa._launch_dq(
-                    q, k, v, do, lse, delta, True, scale, None)),
-                ("dkv", 319, 8, 2, lambda: fa._launch_dkv(
-                    q, k, v, do, lse, delta, True, scale, None))):
-            bms, by = bound(float(flops_per_pair) * d * b * h * pairs,
-                            (4 + n_out) * b * h * s * d * item
-                            + 2 * b * h * s * 4, dname)
+        # the backward pair at the serving and the training batch, from
+        # the forward kernel's o and lse and the pre-pass's delta; `pair`
+        # is one backward as the autograd Function runs it (pre-pass, dQ,
+        # dK/dV: one call of the C entry)
+        bwd_rows = {}
+        for b in (4, TRAIN_BATCH):
+            qkv = randn(b, s, 3 * h * d, dtype=dt)
+            q, k, v = (t.reshape(b, s, h, d)
+                       for t in qkv.split(h * d, dim=-1))
+            do = randn(b, s, h, d, dtype=dt)
+            with torch.no_grad():
+                o, lse = fa._launch(q, k, v, True, scale, None)
+                delta = fa._launch_delta(o, do)
+                heads = [fa._heads(t).contiguous() for t in (q, k, v, o, do)]
+                plain_ms = time_ms(lambda: fa.flash_attention_bwd_ref(
+                    *heads[:4], lse, heads[4], True, scale))
+                delta_plain_ms = time_ms(lambda: (
+                    do.float() * o.float()).sum(-1).transpose(1, 2)
+                    .reshape(b * h, s).contiguous())
+            del heads
+            bq, bk, bv = (t.transpose(1, 2).contiguous().requires_grad_()
+                          for t in (q, k, v))
+            out = torch.nn.functional.scaled_dot_product_attention(
+                bq, bk, bv, is_causal=True)
+            bdo = do.transpose(1, 2).contiguous()
+
+            def sdpa_bwd():
+                return torch.autograd.grad(out, (bq, bk, bv), bdo,
+                                           retain_graph=True)
+
+            library = {"library_ms": time_ms(sdpa_bwd),
+                       "library_device_ms": time_ms(sdpa_bwd,
+                                                    hide_enqueue=True)}
+            del out, bq, bk, bv, bdo
+
+            def pair():
+                return fa._launch_bwd(q, k, v, o, lse, do, True, scale, None)
+
+            rows = {"pair": {"ms": time_ms(pair),
+                             "device_ms": time_ms(pair, hide_enqueue=True),
+                             "covers": "delta pre-pass + dQ + dK/dV, one "
+                                       "call of the C entry", **library}}
+            rows["pair"]["device_ms_over_library_device_ms"] = \
+                rows["pair"]["device_ms"] / library["library_device_ms"]
+            for kind, flops_per_pair, n_out, fn in (
+                    ("dq", 6, 1, lambda: fa._launch_dq(
+                        q, k, v, do, lse, delta, True, scale, None)),
+                    ("dkv", 8, 2, lambda: fa._launch_dkv(
+                        q, k, v, do, lse, delta, True, scale, None))):
+                flops = float(flops_per_pair) * d * b * h * pairs
+                bms, by = bound(flops, (4 + n_out) * b * h * s * d * item
+                                + 2 * b * h * s * 4, dname)
+                rows[kind] = rates({
+                    "ms": time_ms(fn), "plain_ms": plain_ms,
+                    "plain_covers": "dq, dk and dv: one plain backward",
+                    "bound_ms": bms, "bound_by": by, **library,
+                    "library_covers": "dq, dk and dv: one backward of "
+                                      "scaled_dot_product_attention",
+                    "shape": [b, s, h, d], "causal": True}, flops, fn)
+            # the pre-pass: read o and dO once, write delta (bytes bind it)
+            flops = 2.0 * b * s * h * d
+            bms, by = bound(flops, 2 * b * s * h * d * item + b * h * s * 4,
+                            "float32")
+
+            def delta_lib():
+                # one library call, [B, H, S] (a view of [B*H, S]); in bf16
+                # on fp32 copies, as the kernel's math is fp32
+                if dt == torch.float32:
+                    return torch.einsum("bshd,bshd->bhs", o, do)
+                return torch.einsum("bshd,bshd->bhs", o.float(), do.float())
+
+            rows["delta"] = rates({
+                "ms": time_ms(lambda: fa._launch_delta(o, do)),
+                "plain_ms": delta_plain_ms,
+                "plain_covers": "(dO.float() * o.float()).sum(-1) as "
+                                "[B*H, S]",
+                "bound_ms": bms, "bound_by": by,
+                "library_ms": time_ms(delta_lib),
+                "library_covers": "torch.einsum('bshd,bshd->bhs', o, dO) "
+                                  "(in bf16 on .float() copies, the casts "
+                                  "included)",
+                "shape": [b, s, h, d]}, flops,
+                lambda: fa._launch_delta(o, do), delta_lib)
+            bwd_rows[b] = rows
+            del qkv, q, k, v, do, o, lse, delta
+            torch.cuda.empty_cache()
+        for kind, line in (("dq", 282), ("dkv", 319)):
             kernels.append({
                 "name": f"flash_{kind}[{dname}]", "route": "cuda",
                 "source": "paddle_tpu_torch/ops/csrc/flash_bwd.cu",
                 "replaces": f"paddle_tpu/ops/flash_attention.py:{line}",
                 **launch_counts(f"flash_{kind}:{dname}"),
-                "max_abs_err": bwd_errs[dname][kind], "ms": time_ms(fn),
-                "plain_ms": plain_ms,
-                "plain_covers": "dq, dk and dv: one plain backward",
-                "bound_ms": bms, "bound_by": by, "library_ms": library_ms,
-                "library_covers": "dq, dk and dv: one backward of "
-                                  "scaled_dot_product_attention",
-                "shape": [b, s, h, d], "causal": True})
-        del qkv, q, k, v, do, o, lse, delta
-        torch.cuda.empty_cache()
+                "max_abs_err": bwd_errs[dname][kind],
+                **bwd_rows[TRAIN_BATCH][kind],
+                "pair": bwd_rows[TRAIN_BATCH]["pair"],
+                "serve_shape": {**bwd_rows[4][kind],
+                                "pair": bwd_rows[4]["pair"]}})
+        kernels.append({
+            "name": f"flash_delta[{dname}]", "route": "cuda",
+            "source": "paddle_tpu_torch/ops/csrc/flash_bwd.cu",
+            "replaces": "paddle_tpu/ops/flash_attention.py:370",
+            "replaces_part": "_flash_bwd's delta = rowsum(dO o), which "
+                             "the reference computes outside Pallas",
+            **launch_counts(f"flash_delta:{dname}"),
+            "max_abs_err": delta_errs[dname],
+            **bwd_rows[TRAIN_BATCH]["delta"],
+            "serve_shape": bwd_rows[4]["delta"]})
 
     tpp_plain = {}
     for dname, dt in dtypes.items():
@@ -2010,7 +2195,7 @@ def main():
                                     bound, launch_counts)
     emit({"phase": "times", "method": "CUDA events, 3 warm-up, median of "
           "20 (the plain NMS: 1 warm-up, median of 5), 64 MB written "
-          "between launches to flush L2; device_ms (flash forward, TPP): "
+          "between launches to flush L2; device_ms (flash, TPP): "
           "the same with a ~0.5 ms device sleep before the start event, "
           "so the host's enqueue of the call is not timed",
           "tpp_matmul.plain": tpp_plain})
@@ -2018,7 +2203,8 @@ def main():
         check(kern["launches"] > 0, f"{kern['name']} ran on a main path")
     for name in ("flash_fwd[bfloat16]", "flash_dq[bfloat16]",
                  "flash_dkv[bfloat16]", "flash_dq[float32]",
-                 "flash_dkv[float32]", "tpp_matmul.ln_prologue[float32]",
+                 "flash_dkv[float32]", "flash_delta[bfloat16]",
+                 "flash_delta[float32]", "tpp_matmul.ln_prologue[float32]",
                  "tpp_matmul.gelu_in_bias[float32]",
                  "tpp_row_stats[float32]"):
         kern = next(k for k in kernels if k["name"] == name)

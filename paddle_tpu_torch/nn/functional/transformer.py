@@ -5,12 +5,16 @@ that routes to the flash-attention kernels (ops/flash_attention.py, forward
 and backward) when the shapes allow it and the tensors lie on a CUDA
 device, and to the naive softmax(QK^T)V otherwise, with the same causal,
 window and mask handling. Gradients flow through both paths; attention
-dropout draws its mask from a torch.Generator.
+dropout draws its mask from a torch.Generator. The naive path runs with
+torch's autocast off: the reference's auto_cast reaches only linear and
+matmul, so its scores, softmax and probabilities keep q's dtype (under
+torch's autocast a CUDA softmax would come out fp32).
 """
 import math
 
 import torch
 
+from ...amp.auto_cast import disabled as _autocast_off
 from ...ops import flash_attention as fa
 from .common import dropout
 
@@ -35,6 +39,15 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         return fa.flash_attention(query, key, value, causal=is_causal,
                                   window=window)
 
+    with _autocast_off():
+        return _naive(query, key, value, attn_mask, dropout_p, is_causal,
+                      training, window)
+
+
+def _naive(query, key, value, attn_mask, dropout_p, is_causal, training,
+           window):
+    """softmax(q k^T / sqrt(d)) v in q's dtype, as the reference's
+    `fn_probs` / `fn_out`."""
     q = query.transpose(1, 2)                                # [b, h, s, d]
     k = key.transpose(1, 2)
     v = value.transpose(1, 2)

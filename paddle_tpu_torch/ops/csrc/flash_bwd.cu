@@ -3,76 +3,95 @@
 //
 // Replaces: paddle_tpu/ops/flash_attention.py `_dq_kernel` (:282) and
 // `_dkv_kernel` (:319), the two Pallas TPU kernels that `_flash_bwd`
-// launches. Same function, all in fp32 whatever the input type:
+// launches. Same function, fp32 math whatever the input type:
 //   S  = (Q * scale) K^T, masked with the forward's rule (keep k <= q, and
 //        q - k < window), P = exp(S - lse) from the forward's logsumexp,
 //   dP = dO V^T,  dS = P o (dP - delta),  delta = rowsum(dO o O)
-//        (computed by the wrapper with torch ops, or passed in),
+//        (`flash_delta_kernel`, a pre-pass, unless the caller passes it),
 //   dQ = scale * dS K,  dK = dS^T (Q * scale),  dV = P^T dO,
 // each written once in the input type.
 //
 // Block structure. The TPU kernels walk a sequential grid and carry their
 // accumulators in VMEM across its innermost axis. Thread blocks on the card
 // run in no order, so each block owns one output tile and loops itself:
-//  - flash_dq_kernel: one block per (b*h, query tile); Q, dO, lse and delta
-//    of the tile stay in shared memory, the kernel walks the kv tiles the
-//    tile can see, and each thread keeps its slice of dQ in fp32 registers;
-//  - flash_dkv_kernel: one block per (b*h, kv tile); K and V stay in shared
-//    memory, the kernel walks the query tiles that can see the tile, and
-//    each thread keeps its slices of dK and dV in fp32 registers.
-// Every block writes only its own tile, so there are no atomics and the
-// result does not depend on the order blocks run in. Tiles wholly above
-// the diagonal or outside the window are never loaded; the tiles that
-// straddle the diagonal or the window's edge are masked per element, so a
-// window that is no multiple of the tile (e.g. 100) gives the reference's
-// result.
+// the dQ kernels one block per (b*h, query tile), walking the kv tiles the
+// tile can see; the dK/dV kernels one block per (b*h, kv tile), walking the
+// query tiles that can see it. Every block writes only its own tile, so
+// there are no atomics and two calls give the same bits. The price: S and
+// dP are computed in both kernels (14 d FLOPs a visible (q, k) pair against
+// 10 d for one fused pass). Tiles wholly above the diagonal or outside the
+// window are never loaded; the tiles that straddle the diagonal or the
+// window's edge are masked per element, so a window that is no multiple of
+// the tile (e.g. 100) gives the reference's result.
 //
-// What bounds it: per visited (q, k) pair, dQ does 6 * d FLOPs (S, dP and
-// dS K) and dK/dV 8 * d (S, dP, P^T dO and dS^T Q), against q, k, v and dO
+// What bounds it: per visited (q, k) pair, dQ does 6 d FLOPs (S, dP and
+// dS K) and dK/dV 8 d (S, dP, P^T dO and dS^T Q), against q, k, v and dO
 // read once, lse and delta read once and the outputs written once. At GPT-2
 // small's training shapes (b16 h12 s1024 d64, causal, bf16) that is 38.7
 // GFLOP / 127 MB for dQ and 51.6 GFLOP / 153 MB for dK/dV: the tensor
-// cores' arithmetic bounds both (39 and 52 us at 989 TFLOP/s). This first
-// version does the arithmetic as scalar fp32 FMAs out of shared memory
-// (no mma.sync, wgmma or TMA), as the forward kernel does, so it runs far
-// above that bound; its times stand in PERF.md.
+// cores bind both (39 and 52 us at 989 TFLOP/s).
 //
-// Tiles: 64 rows of queries and of keys for head_dim 64 and 128; 32 rows
-// for head_dim 192 and 256, where five fp32 tiles of 64 rows (Q, dO, K, V
-// and P) would pass the 227 KB of shared memory a block may have. Types:
-// fp32 or bf16 in and out, fp32 math. q, k, v, dO and the outputs are
-// [B, S, H, D] views with any element strides over (b, s, h) and a
-// contiguous d; lse and delta are contiguous [B * H, S] fp32 arrays; seq a
-// multiple of 64.
+// bf16 at head_dim 64 and 128 (`flash_dq_mma_kernel`,
+// `flash_dkv_mma_kernel`): the forward's design (flash_fwd.cu) carried
+// over. A block owns a 128-row tile of one (b, h); a warp owns 32 of its
+// rows at head_dim 64 (two 16-row blocks that share every B fragment read
+// from shared memory: half the ldmatrix traffic a FLOP of 16-row warps,
+// which bounded the first version) and 16 at 128, where the accumulators
+// of 32 rows would not fit in 255 registers. The tiles the block walks are
+// double-buffered in shared memory by cp.async 16-byte copies into
+// XOR-swizzled rows, the next tile in flight while this one computes.
+// Every product is mma.sync.m16n8k16, bf16 in and fp32 accumulate; the
+// exponent folds scale and log2(e) into the SFU's exp2.
+//  - dK/dV: the block's K and V stay resident; it walks 32-row query
+//    tiles. A warp computes S^T = K Q^T and dP^T = V dO^T (Q and dO through
+//    ldmatrix), then P^T and dS^T in fp32 registers, with lse and delta of
+//    the tile's columns from shared memory. P^T and dS^T rounded to bf16
+//    are the A operands of dV += P^T dO and dK += dS^T Q directly (the
+//    m16n8 accumulator fragment is the m16n8k16 A fragment), dO and Q read
+//    through ldmatrix.trans. dK and dV stay in fp32 registers for the walk;
+//    kv tile 0, which every causal query tile sees, launches first.
+//  - dQ: the block's Q and dO stay resident, lse and delta in registers;
+//    it walks kv tiles of 32 rows (64 at head_dim 128). S = Q K^T,
+//    dP = dO V^T, dS in registers, then dQ += dS K with dS in bf16 as the
+//    A operand and K through ldmatrix.trans; dQ is fp32 in registers, times
+//    scale once at the end. The last causal tile (the heaviest) launches
+//    first.
+// Each warp stages its finished rows in its own rows of the resident tiles
+// (no other warp reads them) and stores them as 16-byte chunks. At head_dim
+// 192 the dK and dV accumulators of 16 rows alone would take 192 of a
+// thread's 255 registers (ptxas spills), so the tensor-core kernels stop
+// at 128.
+//
+// fp32, and bf16 from head_dim 192 (`flash_dq_kernel`, `flash_dkv_kernel`):
+// scalar fp32 FMAs out of shared memory, the tiles staged in fp32, a
+// 256-thread 16 x 16 grid; fp32 stays fp32 (no TF32) as in the reference.
+// Tiles of 64 rows at head_dim 64 and 128, 32 at 192 and 256, 16 from 320 to
+// 512 (the dK/dV kernel's K, V, Q and dO tiles take 133.6 KB at 512); the
+// entry refuses a wider head.
+//
+// delta pre-pass (`flash_delta_kernel`): rowsum(dO o O) in fp32, 8 lanes a
+// row, 16-byte loads where the views allow them; the sum's order is fixed.
+//
+// Layout: q, k, v, o, dO and the outputs are [B, S, H, D] views with any
+// element strides over (b, s, h) and a contiguous d (16-byte-aligned
+// pointers and strides for the tensor-core kernels: the GPT path's q, k and
+// v are slices of one packed qkv, read without a copy); lse and delta are
+// contiguous [B * H, S] fp32 arrays; seq a multiple of 64.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash.cuh"
 
 namespace {
 
-constexpr int NT = 256;  // threads per block: a 16 x 16 grid
+using namespace flash;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+constexpr int NT = 256;  // threads per block
 
-struct Strides {  // element strides of a [B, S, H, D] view (d contiguous)
-  long long b, s, h;
-};
+// ---- fp32, and bf16 from head_dim 192: scalar FMAs ------------------------
 
 // Rows of a query tile and of a kv tile for head_dim D.
 template <int D>
 __host__ __device__ constexpr int tile_rows() {
-  return D <= 128 ? 64 : 32;
+  return D <= 128 ? 64 : D <= 256 ? 32 : 16;
 }
 
 // dQ: Q, dO, K, V tiles [BR, D + 1], dS [BR, BR + 1], lse and delta [BR].
@@ -92,9 +111,9 @@ constexpr int dkv_smem_floats() {
 // dst[r][c] = src row (r0 + r), column c, times mul: a [BR, D] tile of a
 // strided view into shared memory with row stride D + 1.
 template <typename T, int D, int BR>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          long long row_stride, int r0,
-                                          float mul) {
+__device__ __forceinline__ void stage_tile(float* dst, const T* src,
+                                           long long row_stride, int r0,
+                                           float mul) {
   for (int idx = threadIdx.x; idx < BR * D; idx += NT) {
     const int r = idx / D, c = idx % D;
     dst[r * (D + 1) + c] = to_f(src[(long long)(r0 + r) * row_stride + c]) * mul;
@@ -126,12 +145,6 @@ __device__ __forceinline__ void tile_dot(const float* A, const float* B,
   }
 }
 
-// The forward's mask (flash_attention.py `_causal_mask`).
-__device__ __forceinline__ bool visible(int qp, int kp, int causal,
-                                        int window) {
-  return !causal || (kp <= qp && (window <= 0 || qp - kp < window));
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
     flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -160,8 +173,8 @@ __global__ void __launch_bounds__(NT)
   const T* kb = k + b * sk.b + h * sk.h;
   const T* vb = v + b * sv.b + h * sv.h;
 
-  load_tile<T, D, BR>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, scale);
-  load_tile<T, D, BR>(dOs, dout + b * sdo.b + h * sdo.h, sdo.s, q0, 1.f);
+  stage_tile<T, D, BR>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, scale);
+  stage_tile<T, D, BR>(dOs, dout + b * sdo.b + h * sdo.h, sdo.s, q0, 1.f);
   if (tid < BR) {
     lse_s[tid] = lse[(long long)bh * S + q0 + tid];
     dl_s[tid] = delta[(long long)bh * S + q0 + tid];
@@ -186,8 +199,8 @@ __global__ void __launch_bounds__(NT)
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BR;
     __syncthreads();  // the previous tile's readers are done with Ks/Vs/dSs
-    load_tile<T, D, BR>(Ks, kb, sk.s, k0, 1.f);
-    load_tile<T, D, BR>(Vs, vb, sv.s, k0, 1.f);
+    stage_tile<T, D, BR>(Ks, kb, sk.s, k0, 1.f);
+    stage_tile<T, D, BR>(Vs, vb, sv.s, k0, 1.f);
     __syncthreads();
 
     float s[R][R], dp[R][R];
@@ -258,8 +271,8 @@ __global__ void __launch_bounds__(NT)
   const T* qb = q + b * sq.b + h * sq.h;
   const T* dob = dout + b * sdo.b + h * sdo.h;
 
-  load_tile<T, D, BR>(Ks, k + b * sk.b + h * sk.h, sk.s, k0, 1.f);
-  load_tile<T, D, BR>(Vs, v + b * sv.b + h * sv.h, sv.s, k0, 1.f);
+  stage_tile<T, D, BR>(Ks, k + b * sk.b + h * sk.h, sk.s, k0, 1.f);
+  stage_tile<T, D, BR>(Vs, v + b * sv.b + h * sv.h, sv.s, k0, 1.f);
 
   // query tiles with any row that sees some key of this kv tile
   int qt_begin = 0, qt_end = S / BR;
@@ -285,8 +298,8 @@ __global__ void __launch_bounds__(NT)
   for (int qt = qt_begin; qt < qt_end; ++qt) {
     const int q0 = qt * BR;
     __syncthreads();  // the previous tile's readers are done with Qs..dl_s
-    load_tile<T, D, BR>(Qs, qb, sq.s, q0, scale);
-    load_tile<T, D, BR>(dOs, dob, sdo.s, q0, 1.f);
+    stage_tile<T, D, BR>(Qs, qb, sq.s, q0, scale);
+    stage_tile<T, D, BR>(dOs, dob, sdo.s, q0, 1.f);
     if (tid < BR) {
       lse_s[tid] = lse[(long long)bh * S + q0 + tid];
       dl_s[tid] = delta[(long long)bh * S + q0 + tid];
@@ -350,29 +363,542 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+// ---- bf16 at head_dim 64 and 128: the tensor cores ------------------------
+
+constexpr int MMA_TILE = 128;  // rows of the tile a block owns
+
+// MB 16-row blocks a warp (two at head_dim 64: every B fragment read from
+// shared memory serves 32 rows, half the ldmatrix traffic a FLOP; one at
+// 128, where the dK and dV accumulators of 32 rows would not fit in 255
+// registers): MMA_TILE / (16 MB) warps a block
+template <int D> __host__ __device__ constexpr int mma_mb() {
+  return D == 64 ? 2 : 1;
+}
+template <int D> __host__ __device__ constexpr int mma_threads() {
+  return 32 * MMA_TILE / (16 * mma_mb<D>());
+}
+// the other side's rows a step: query rows in dK/dV, kv rows in dQ (S and
+// dP of a step take MB * rows / 2 registers each)
+constexpr int DKV_BQ = 32;
+template <int D> __host__ __device__ constexpr int dq_bkv() {
+  return D == 64 ? 32 : 64;
+}
+
+// ldmatrix lane roles (flash_fwd.cu): A fragments and the B fragments of
+// a [k][n] tile (ldmatrix.trans) address row lane % 16, chunk lane / 16;
+// the B fragments of an [n][k] tile row lane % 8 (+8 for lanes 16-31),
+// chunk (lane / 8) % 2
+struct Lanes {
+  int g, t, a_r, a_c, b_r, b_c;
+  __device__ explicit Lanes(int lane)
+      : g(lane >> 2), t(lane & 3), a_r(lane & 15), a_c(lane >> 4),
+        b_r((lane & 7) + ((lane >> 4) << 3)), b_c((lane >> 3) & 1) {}
+};
+
+// the m16n8k16 A fragment of columns [16 kk, 16 kk + 16) of a 16-row fp32
+// accumulator (n-tiles 2 kk and 2 kk + 1), rounded to bf16
+template <int N>
+__device__ __forceinline__ void acc_to_a(const float (&c)[N][4], int kk,
+                                         uint32_t (&a)[4]) {
+  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+}
+
+// X = A B^T and Y = C E^T over D: A and C the warp's MB 16-row blocks of
+// swizzled [rows][D] tiles from row ar0, B and E rows [0, N) of two more
+// ([n][k] fragments, each serving the MB blocks). N / 8 accumulator
+// fragments a block.
+template <int D, int N, int MB>
+__device__ __forceinline__ void two_products(float (&x)[MB][N / 8][4],
+                                             float (&y)[MB][N / 8][4],
+                                             uint32_t a, uint32_t b,
+                                             uint32_t c, uint32_t e, int ar0,
+                                             const Lanes& L) {
+#pragma unroll
+  for (int i = 0; i < MB; ++i)
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) x[i][j][r] = y[i][j][r] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t fa[MB][4], fc[MB][4];
+#pragma unroll
+    for (int i = 0; i < MB; ++i) {
+      ldmatrix_x4(fa[i], a + swz<D>(ar0 + 16 * i + L.a_r, 2 * kk + L.a_c));
+      ldmatrix_x4(fc[i], c + swz<D>(ar0 + 16 * i + L.a_r, 2 * kk + L.a_c));
+    }
+#pragma unroll
+    for (int nb = 0; nb < N / 16; ++nb) {
+      uint32_t fb[4], fe[4];
+      ldmatrix_x4(fb, b + swz<D>(16 * nb + L.b_r, 2 * kk + L.b_c));
+      ldmatrix_x4(fe, e + swz<D>(16 * nb + L.b_r, 2 * kk + L.b_c));
+#pragma unroll
+      for (int i = 0; i < MB; ++i) {
+        mma_bf16(x[i][2 * nb], fa[i], fb[0], fb[1]);
+        mma_bf16(x[i][2 * nb + 1], fa[i], fb[2], fb[3]);
+        mma_bf16(y[i][2 * nb], fc[i], fe[0], fe[1]);
+        mma_bf16(y[i][2 * nb + 1], fc[i], fe[2], fe[3]);
+      }
+    }
+  }
+}
+
+// X += A B and Y += C E over K = 16 KS: A and C fp32 accumulators of the
+// warp's MB blocks (rounded to bf16: the A fragments), B and E rows [0, K)
+// of swizzled [k][D] tiles through ldmatrix.trans
+template <int D, int KS, int MB>
+__device__ __forceinline__ void two_products_t(float (&x)[MB][D / 8][4],
+                                               float (&y)[MB][D / 8][4],
+                                               const float (&a)[MB][2 * KS][4],
+                                               const float (&c)[MB][2 * KS][4],
+                                               uint32_t b, uint32_t e,
+                                               const Lanes& L) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t fa[MB][4], fc[MB][4];
+#pragma unroll
+    for (int i = 0; i < MB; ++i) {
+      acc_to_a(a[i], kk, fa[i]);
+      acc_to_a(c[i], kk, fc[i]);
+    }
+#pragma unroll
+    for (int db = 0; db < D / 16; ++db) {
+      uint32_t fb[4], fe[4];
+      ldmatrix_x4_trans(fb, b + swz<D>(16 * kk + L.a_r, 2 * db + L.a_c));
+      ldmatrix_x4_trans(fe, e + swz<D>(16 * kk + L.a_r, 2 * db + L.a_c));
+#pragma unroll
+      for (int i = 0; i < MB; ++i) {
+        mma_bf16(x[i][2 * db], fa[i], fb[0], fb[1]);
+        mma_bf16(x[i][2 * db + 1], fa[i], fb[2], fb[3]);
+        mma_bf16(y[i][2 * db], fc[i], fe[0], fe[1]);
+        mma_bf16(y[i][2 * db + 1], fc[i], fe[2], fe[3]);
+      }
+    }
+  }
+}
+
+// X += A B over K = 16 KS as two_products_t, for one product
+template <int D, int KS, int MB>
+__device__ __forceinline__ void product_t(float (&x)[MB][D / 8][4],
+                                          const float (&a)[MB][2 * KS][4],
+                                          uint32_t b, const Lanes& L) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t fa[MB][4];
+#pragma unroll
+    for (int i = 0; i < MB; ++i) acc_to_a(a[i], kk, fa[i]);
+#pragma unroll
+    for (int db = 0; db < D / 16; ++db) {
+      uint32_t fb[4];
+      ldmatrix_x4_trans(fb, b + swz<D>(16 * kk + L.a_r, 2 * db + L.a_c));
+#pragma unroll
+      for (int i = 0; i < MB; ++i) {
+        mma_bf16(x[i][2 * db], fa[i], fb[0], fb[1]);
+        mma_bf16(x[i][2 * db + 1], fa[i], fb[2], fb[3]);
+      }
+    }
+  }
+}
+
+// rows [0, 16) of a warp's swizzled bf16 tile (staged at row r0 of the
+// tile) to sequence positions s0.. of a [B, S, H, D] view, 16 bytes a
+// store, a row's chunks contiguous; rows at or past S are not written
+template <int D>
+__device__ __forceinline__ void store_rows16(__nv_bfloat16* base,
+                                             long long stride_s, int s0,
+                                             int S,
+                                             const unsigned char* tile,
+                                             int r0, int lane) {
+  constexpr int CH = D / 8;
+#pragma unroll
+  for (int idx = lane; idx < 16 * CH; idx += 32) {
+    const int r = idx / CH, c = idx % CH;
+    if (s0 + r < S)
+      *reinterpret_cast<uint4*>(base + (s0 + r) * stride_s + c * 8) =
+          *reinterpret_cast<const uint4*>(tile + swz<D>(r0 + r, c));
+  }
+}
+
+// the warp's MB 16-row blocks of fp32 accumulators, times mul, in bf16 into
+// its own rows (from row r0) of a swizzled tile, then to sequence
+// positions s0.. of a [B, S, H, D] view
+template <int D, int MB>
+__device__ __forceinline__ void store_acc(const float (&x)[MB][D / 8][4],
+                                          float mul, unsigned char* tile,
+                                          int r0, __nv_bfloat16* base,
+                                          long long stride_s, int s0, int S,
+                                          const Lanes& L, int lane) {
+#pragma unroll
+  for (int i = 0; i < MB; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int lr = r0 + 16 * i + L.g + 8 * r;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(tile + swz<D>(lr, j) + 4 * L.t) =
+            pack_bf16(x[i][j][2 * r] * mul, x[i][j][2 * r + 1] * mul);
+    }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < MB; ++i)
+    store_rows16<D>(base, stride_s, s0 + 16 * i, S, tile, r0 + 16 * i, lane);
+}
+
+template <int D>
+__host__ __device__ constexpr int dkv_mma_smem_bytes() {
+  // K and V resident; Q and dO twice each; lse and delta twice each
+  return 2 * MMA_TILE * D * 2 + 4 * DKV_BQ * D * 2
+         + 4 * DKV_BQ * 4;
+}
+
+template <int D>
+__global__ void __launch_bounds__(mma_threads<D>())
+    flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int H, int S,
+                         Strides sq, Strides sk, Strides sv, Strides sdo,
+                         Strides sdk, Strides sdv, int causal, float scale,
+                         int window) {
+  constexpr int MB = mma_mb<D>(), NTH = mma_threads<D>();
+  constexpr int WR = 16 * MB;         // kv rows a warp
+  constexpr int BQ = DKV_BQ;
+  constexpr int Q_TILE = BQ * D * 2;  // bytes of one Q or dO tile
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t k_s = smem_u32(smem_raw);
+  const uint32_t v_s = k_s + MMA_TILE * D * 2;
+  const uint32_t q_s = v_s + MMA_TILE * D * 2;  // two Q tiles
+  const uint32_t o_s = q_s + 2 * Q_TILE;        // two dO tiles
+  // lse of two query tiles, then delta of two
+  float* rows_s = reinterpret_cast<float*>(smem_raw + 2 * MMA_TILE * D * 2 +
+                                           4 * Q_TILE);
+  const uint32_t rows_u = smem_u32(rows_s);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const Lanes L(lane);
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * MMA_TILE;  // kv tile 0 (the heaviest) first
+  const __nv_bfloat16* qb = q + b * sq.b + h * sq.h;
+  const __nv_bfloat16* ob = dout + b * sdo.b + h * sdo.h;
+  const float* lse_b = lse + (long long)bh * S;
+  const float* dl_b = delta + (long long)bh * S;
+
+  // query tiles with any row that sees some key of this kv tile
+  const int k_last = (k0 + MMA_TILE < S ? k0 + MMA_TILE : S) - 1;
+  int qt_begin = 0, qt_end = S / BQ;
+  if (causal) {
+    qt_begin = k0 / BQ;
+    if (window > 0) {
+      const long long e = ((long long)k_last + window - 1) / BQ + 1;
+      if (e < qt_end) qt_end = (int)e;
+    }
+  }
+
+  // one query tile's Q, dO, lse and delta into buffer `buf`
+  auto load_q_tile = [&](int qt, int buf) {
+    cp_async_tile<D, NTH>(q_s + buf * Q_TILE, qb, sq.s, qt * BQ, BQ, S, tid);
+    cp_async_tile<D, NTH>(o_s + buf * Q_TILE, ob, sdo.s, qt * BQ, BQ, S, tid);
+    if (tid < BQ / 2) {  // BQ / 4 chunks of lse, then BQ / 4 of delta
+      const int c = tid % (BQ / 4), which = tid / (BQ / 4);
+      const float* src = (which ? dl_b : lse_b) + qt * BQ + 4 * c;
+      cp_async16(rows_u + ((2 * which + buf) * BQ + 4 * c) * 4, src);
+    }
+  };
+
+  cp_async_tile<D, NTH>(k_s, k + b * sk.b + h * sk.h, sk.s, k0, MMA_TILE, S,
+                        tid);
+  cp_async_tile<D, NTH>(v_s, v + b * sv.b + h * sv.h, sv.s, k0, MMA_TILE, S,
+                        tid);
+  if (qt_begin < qt_end) load_q_tile(qt_begin, 0);
+  cp_async_commit();
+
+  const int wr0 = WR * warp;       // the warp's first row in K and V
+  const int wk0 = k0 + wr0;        // and in the sequence
+  const float sl2 = scale * LOG2E;
+  // the warp's rows of dK (unscaled) and dV: block i's rows g and g + 8,
+  // columns 8 j + 2 t and + 1
+  float dka[MB][D / 8][4], dva[MB][D / 8][4];
+#pragma unroll
+  for (int i = 0; i < MB; ++i)
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[i][j][e] = dva[i][j][e] = 0.f;
+
+  for (int qt = qt_begin; qt < qt_end; ++qt) {
+    const int buf = (qt - qt_begin) & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile qt has landed; every warp is done with qt - 1
+    if (qt + 1 < qt_end) load_q_tile(qt + 1, buf ^ 1);
+    cp_async_commit();
+    const int q0 = qt * BQ;
+    // a tile no row of this warp's keys is seen by
+    if (wk0 >= S || (causal && q0 + BQ - 1 < wk0) ||
+        (window > 0 && q0 > wk0 + WR - 1 + window - 1))
+      continue;
+    const uint32_t qbuf = q_s + buf * Q_TILE, obuf = o_s + buf * Q_TILE;
+    const float* lse_t = rows_s + buf * BQ;
+    const float* dl_t = rows_s + (2 + buf) * BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T: rows the warp's keys, columns the
+    // tile's queries
+    float st[MB][BQ / 8][4], dpt[MB][BQ / 8][4];
+    two_products<D, BQ, MB>(st, dpt, k_s, qbuf, v_s, obuf, wr0, L);
+
+    // P^T and dS^T = P^T o (dP^T - delta), masked where the diagonal or
+    // the window's edge crosses the warp's part of the tile
+    const bool edge = causal && (q0 < wk0 + WR - 1 ||
+                                 (window > 0 && q0 + BQ - 1 - wk0 >= window));
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const int c = 8 * j + 2 * L.t;  // this thread's two query columns
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_t + c);
+      const float2 d2 = *reinterpret_cast<const float2*>(dl_t + c);
+      const float nl[2] = {-l2.x * LOG2E, -l2.y * LOG2E};
+      const float dl[2] = {d2.x, d2.y};
+#pragma unroll
+      for (int i = 0; i < MB; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2_approx(fmaf(st[i][j][e], sl2, nl[e & 1]));
+          if (edge && !visible(q0 + c + (e & 1),
+                               wk0 + 16 * i + L.g + 8 * (e >> 1), causal,
+                               window))
+            p = 0.f;
+          st[i][j][e] = p;
+          dpt[i][j][e] = p * (dpt[i][j][e] - dl[e & 1]);
+        }
+    }
+
+    // dV += P^T dO and dK += dS^T Q over the tile's queries: P^T and dS^T
+    // rounded to bf16 are the A fragments; dO and Q through ldmatrix.trans
+    two_products_t<D, BQ / 16, MB>(dva, dka, st, dpt, obuf, qbuf, L);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // K and V landed even if the walk was empty
+
+  // dK * scale and dV, staged in this warp's own rows of the K and V tiles
+  store_acc<D, MB>(dka, scale, smem_raw, wr0, dk + b * sdk.b + h * sdk.h,
+                   sdk.s, wk0, S, L, lane);
+  store_acc<D, MB>(dva, 1.f, smem_raw + MMA_TILE * D * 2, wr0,
+                   dv + b * sdv.b + h * sdv.h, sdv.s, wk0, S, L, lane);
+}
+
+template <int D>
+__host__ __device__ constexpr int dq_mma_smem_bytes() {
+  // Q and dO resident; K and V twice each
+  return 2 * MMA_TILE * D * 2 + 4 * dq_bkv<D>() * D * 2;
+}
+
+template <int D>
+__global__ void __launch_bounds__(mma_threads<D>())
+    flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dq, int H, int S,
+                        Strides sq, Strides sk, Strides sv, Strides sdo,
+                        Strides sdq, int causal, float scale, int window) {
+  constexpr int MB = mma_mb<D>(), NTH = mma_threads<D>();
+  constexpr int WR = 16 * MB;              // query rows a warp
+  constexpr int BKV = dq_bkv<D>();
+  constexpr int KV_TILE = BKV * D * 2;     // bytes of one K or V tile
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t q_s = smem_u32(smem_raw);
+  const uint32_t o_s = q_s + MMA_TILE * D * 2;
+  const uint32_t k_s = o_s + MMA_TILE * D * 2;  // two K tiles
+  const uint32_t v_s = k_s + 2 * KV_TILE;       // two V tiles
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const Lanes L(lane);
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  // the last causal tile (the heaviest) first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * MMA_TILE;
+  const __nv_bfloat16* kb = k + b * sk.b + h * sk.h;
+  const __nv_bfloat16* vb = v + b * sv.b + h * sv.h;
+
+  // kv tiles with any visible key for some row of this query tile
+  const int q_last = (q0 + MMA_TILE < S ? q0 + MMA_TILE : S) - 1;
+  int kt_begin = 0, kt_end = S / BKV;
+  if (causal) {
+    kt_end = q_last / BKV + 1;
+    if (window > 0) {
+      const int first_key = q0 - (window - 1);
+      kt_begin = first_key > 0 ? first_key / BKV : 0;
+    }
+  }
+
+  cp_async_tile<D, NTH>(q_s, q + b * sq.b + h * sq.h, sq.s, q0, MMA_TILE, S,
+                        tid);
+  cp_async_tile<D, NTH>(o_s, dout + b * sdo.b + h * sdo.h, sdo.s, q0,
+                        MMA_TILE, S, tid);
+  cp_async_tile<D, NTH>(k_s, kb, sk.s, kt_begin * BKV, BKV, S, tid);
+  cp_async_tile<D, NTH>(v_s, vb, sv.s, kt_begin * BKV, BKV, S, tid);
+  cp_async_commit();
+
+  const int wr0 = WR * warp;       // the warp's first row in Q and dO
+  const int wq0 = q0 + wr0;        // and in the sequence
+  const float sl2 = scale * LOG2E;
+  // -lse * log2(e) and delta of the thread's rows g and g + 8 of block i
+  float nl[MB][2], dl[MB][2];
+#pragma unroll
+  for (int i = 0; i < MB; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qp = wq0 + 16 * i + L.g + 8 * r;
+      nl[i][r] = qp < S ? -lse[(long long)bh * S + qp] * LOG2E : 0.f;
+      dl[i][r] = qp < S ? delta[(long long)bh * S + qp] : 0.f;
+    }
+  float acc[MB][D / 8][4];
+#pragma unroll
+  for (int i = 0; i < MB; ++i)
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int buf = (kt - kt_begin) & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt has landed; every warp is done with kt - 1
+    if (kt + 1 < kt_end) {
+      cp_async_tile<D, NTH>(k_s + (buf ^ 1) * KV_TILE, kb, sk.s,
+                            (kt + 1) * BKV, BKV, S, tid);
+      cp_async_tile<D, NTH>(v_s + (buf ^ 1) * KV_TILE, vb, sv.s,
+                            (kt + 1) * BKV, BKV, S, tid);
+    }
+    cp_async_commit();
+    const int k0 = kt * BKV;
+    // a tile this warp's rows see nothing of
+    if (wq0 >= S || (causal && k0 > wq0 + WR - 1) ||
+        (window > 0 && k0 + BKV - 1 < wq0 - window + 1))
+      continue;
+    const uint32_t kbuf = k_s + buf * KV_TILE, vbuf = v_s + buf * KV_TILE;
+
+    // S = Q K^T and dP = dO V^T
+    float sc[MB][BKV / 8][4], dp[MB][BKV / 8][4];
+    two_products<D, BKV, MB>(sc, dp, q_s, kbuf, o_s, vbuf, wr0, L);
+
+    // dS = P o (dP - delta), P masked where the diagonal or the window's
+    // edge crosses the warp's part of the tile
+    const bool edge =
+        causal && (k0 + BKV - 1 > wq0 ||
+                   (window > 0 && k0 < wq0 + WR - 1 - window + 1));
+#pragma unroll
+    for (int i = 0; i < MB; ++i)
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float p = exp2_approx(fmaf(sc[i][j][e], sl2, nl[i][r]));
+          if (edge && !visible(wq0 + 16 * i + L.g + 8 * r,
+                               k0 + 8 * j + 2 * L.t + (e & 1), causal,
+                               window))
+            p = 0.f;
+          sc[i][j][e] = p * (dp[i][j][e] - dl[i][r]);
+        }
+
+    // dQ += dS K: dS rounded to bf16 is the A fragment, K through
+    // ldmatrix.trans
+    product_t<D, BKV / 16, MB>(acc, sc, kbuf, L);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // Q landed even if the walk was empty
+
+  // dQ * scale, staged in this warp's own rows of the Q tile
+  store_acc<D, MB>(acc, scale, smem_raw, wr0, dq + b * sdq.b + h * sdq.h,
+                   sdq.s, wq0, S, L, lane);
+}
+
+// ---- delta = rowsum(dO o O), the pre-pass ----------------------------------
+
+constexpr int DELTA_LANES = 8;                     // lanes a row
+constexpr int DELTA_ROWS = NT / DELTA_LANES;       // rows a block
+
+// VEC elements (16 bytes) a load
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec(const T* p, float (&x)[VEC]) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    x[0] = u.x, x[1] = u.y, x[2] = u.z, x[3] = u.w;
+  } else {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = unpack_bf16(w[i]);
+      x[2 * i] = f.x, x[2 * i + 1] = f.y;
+    }
+  }
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(NT)
+    flash_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                       float* __restrict__ delta, int H, int S, int D,
+                       Strides so, Strides sdo) {
+  // B * H * S is a multiple of DELTA_ROWS (S of 64): every lane has a row
+  const long long row =
+      (long long)blockIdx.x * DELTA_ROWS + threadIdx.x / DELTA_LANES;
+  const int part = threadIdx.x % DELTA_LANES;
+  const int bh = (int)(row / S), s = (int)(row % S), b = bh / H, h = bh % H;
+  const T* orow = o + b * so.b + h * so.h + (long long)s * so.s;
+  const T* drow = dout + b * sdo.b + h * sdo.h + (long long)s * sdo.s;
+  float acc = 0.f;
+  for (int c = part * VEC; c < D; c += DELTA_LANES * VEC) {
+    float x[VEC], y[VEC];
+    load_vec<T, VEC>(orow + c, x);
+    load_vec<T, VEC>(drow + c, y);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc = fmaf(x[i], y[i], acc);
+  }
+#pragma unroll
+  for (int off = 1; off < DELTA_LANES; off <<= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (part == 0) delta[row] = acc;
+}
+
+// ---- launches --------------------------------------------------------------
+
 struct Args {  // one backward call's arguments
-  const void *q, *k, *v, *dout;
-  const float *lse, *delta;
+  const void *q, *k, *v, *o, *dout;
+  const float* lse;
+  const float* delta;
   void *dq, *dk, *dv;
   int B, H, S;
-  Strides sq, sk, sv, sdo, sdq, sdk, sdv;
+  Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
   int causal;
   float scale;
   int window;
   cudaStream_t stream;
 };
 
+// dynamic shared memory above 48 KB, set once per kernel
+template <typename K>
+cudaError_t smem_attr(K kernel, int bytes, bool& done) {
+  if (done) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) done = true;
+  return e;
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const Args& a) {
   constexpr int bytes = dq_smem_floats<D>() * sizeof(float);
-  static bool attr_set = false;  // dynamic shared memory above 48 KB
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
+  static bool attr_set = false;
+  if (cudaError_t e = smem_attr(flash_dq_kernel<T, D>, bytes, attr_set))
+    return e;
   dim3 grid(a.S / tile_rows<D>(), a.B * a.H);
   flash_dq_kernel<T, D><<<grid, NT, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
@@ -386,13 +912,8 @@ template <typename T, int D>
 cudaError_t launch_dkv(const Args& a) {
   constexpr int bytes = dkv_smem_floats<D>() * sizeof(float);
   static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
+  if (cudaError_t e = smem_attr(flash_dkv_kernel<T, D>, bytes, attr_set))
+    return e;
   dim3 grid(a.S / tile_rows<D>(), a.B * a.H);
   flash_dkv_kernel<T, D><<<grid, NT, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
@@ -402,101 +923,143 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const Args& a, int D, bool dq) {
-  switch (D) {
-    case 64:
-      return dq ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
-    case 128:
-      return dq ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
-    case 192:
-      return dq ? launch_dq<T, 192>(a) : launch_dkv<T, 192>(a);
-    case 256:
-      return dq ? launch_dq<T, 256>(a) : launch_dkv<T, 256>(a);
-  }
-  return cudaErrorInvalidValue;  // a head_dim the kernels have no tiling for
+template <int D>
+cudaError_t launch_dq_mma(const Args& a) {
+  constexpr int bytes = dq_mma_smem_bytes<D>();
+  static bool attr_set = false;
+  if (cudaError_t e = smem_attr(flash_dq_mma_kernel<D>, bytes, attr_set))
+    return e;
+  using bf = __nv_bfloat16;
+  dim3 grid(a.B * a.H, (a.S + MMA_TILE - 1) / MMA_TILE);
+  flash_dq_mma_kernel<D><<<grid, mma_threads<D>(), bytes, a.stream>>>(
+      static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
+      static_cast<const bf*>(a.v), static_cast<const bf*>(a.dout), a.lse,
+      a.delta, static_cast<bf*>(a.dq), a.H, a.S, a.sq, a.sk, a.sv, a.sdo,
+      a.sdq, a.causal, a.scale, a.window);
+  return cudaGetLastError();
 }
 
-int run(const Args& a, int D, int dtype, bool dq) {
-  if (a.B < 1 || a.H < 1 || a.S < 64 || a.S % 64 != 0 ||
-      a.B * a.H > 65535 || (dtype != 0 && dtype != 1) ||
-      (a.window > 0 && !a.causal))
+template <int D>
+cudaError_t launch_dkv_mma(const Args& a) {
+  constexpr int bytes = dkv_mma_smem_bytes<D>();
+  static bool attr_set = false;
+  if (cudaError_t e = smem_attr(flash_dkv_mma_kernel<D>, bytes, attr_set))
+    return e;
+  using bf = __nv_bfloat16;
+  dim3 grid(a.B * a.H, (a.S + MMA_TILE - 1) / MMA_TILE);
+  flash_dkv_mma_kernel<D><<<grid, mma_threads<D>(), bytes, a.stream>>>(
+      static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
+      static_cast<const bf*>(a.v), static_cast<const bf*>(a.dout), a.lse,
+      a.delta, static_cast<bf*>(a.dk), static_cast<bf*>(a.dv), a.H, a.S,
+      a.sq, a.sk, a.sv, a.sdo, a.sdk, a.sdv, a.causal, a.scale, a.window);
+  return cudaGetLastError();
+}
+
+// o and dO must be 16-byte aligned (the wrapper copies a view that is not)
+template <typename T>
+cudaError_t launch_delta(const Args& a, float* delta, int D) {
+  if (!aligned16(a.o, a.so, a.B, a.H, sizeof(T)) ||
+      !aligned16(a.dout, a.sdo, a.B, a.H, sizeof(T)))
     return cudaErrorInvalidValue;
-  if (dtype == 0) return dispatch<float>(a, D, dq);
-  return dispatch<__nv_bfloat16>(a, D, dq);
+  const unsigned blocks = (unsigned)((long long)a.B * a.H * a.S / DELTA_ROWS);
+  constexpr int VEC = 16 / sizeof(T);
+  flash_delta_kernel<T, VEC><<<blocks, NT, 0, a.stream>>>(
+      static_cast<const T*>(a.o), static_cast<const T*>(a.dout), delta, a.H,
+      a.S, D, a.so, a.sdo);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_simt(const Args& a) {
+  if (a.dq != nullptr)
+    if (cudaError_t e = launch_dq<T, D>(a)) return e;
+  return a.dk != nullptr ? launch_dkv<T, D>(a) : cudaSuccess;
+}
+
+template <int D>
+cudaError_t launch_mma(const Args& a) {
+  // 16-byte copies and stores: pointers and (b, s, h) steps, and the rows
+  // of lse and delta
+  const void* ptrs[] = {a.q, a.k, a.v, a.dout, a.dq, a.dk, a.dv};
+  const Strides strides[] = {a.sq, a.sk, a.sv, a.sdo, a.sdq, a.sdk, a.sdv};
+  for (int i = 0; i < 7; ++i)
+    if (ptrs[i] != nullptr && !aligned16(ptrs[i], strides[i], a.B, a.H))
+      return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(a.lse) |
+       reinterpret_cast<uintptr_t>(a.delta)) & 15)
+    return cudaErrorInvalidValue;
+  if (a.dq != nullptr)
+    if (cudaError_t e = launch_dq_mma<D>(a)) return e;
+  return a.dk != nullptr ? launch_dkv_mma<D>(a) : cudaSuccess;
+}
+
+// the route by type and head dim: bf16 at 64 and 128 on the tensor cores
+template <int D>
+cudaError_t dispatch(const Args& a, int dtype, int* route) {
+  *route = dtype == 1 && D <= 128 ? 1 : 2;
+  if (dtype == 0) return launch_simt<float, D>(a);
+  if constexpr (D <= 128)
+    return launch_mma<D>(a);
+  else
+    return launch_simt<__nv_bfloat16, D>(a);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. window <= 0 means no window. Each
-// tensor's strides are given as (b, s, h) element strides. Returns a
-// cudaError_t: cudaErrorInvalidValue for arguments the kernel does not
-// take, else the launch's own error.
-int flash_dq(const void* q, const void* k, const void* v, const void* dout,
-             const void* lse, const void* delta, void* dq, int B, int H,
-             int S, int D, long long q_sb, long long q_ss, long long q_sh,
-             long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-             long long v_ss, long long v_sh, long long do_sb,
-             long long do_ss, long long do_sh, long long dq_sb,
-             long long dq_ss, long long dq_sh, int causal, float scale,
-             int window, int dtype, void* stream) {
-  Args a{};
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.dout = dout;
-  a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
-  a.dq = dq;
-  a.B = B;
-  a.H = H;
-  a.S = S;
-  a.sq = {q_sb, q_ss, q_sh};
-  a.sk = {k_sb, k_ss, k_sh};
-  a.sv = {v_sb, v_ss, v_sh};
-  a.sdo = {do_sb, do_ss, do_sh};
-  a.sdq = {dq_sb, dq_ss, dq_sh};
-  a.causal = causal;
-  a.scale = scale;
-  a.window = window;
-  a.stream = static_cast<cudaStream_t>(stream);
-  return run(a, D, dtype, true);
-}
-
-int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, void* dk, void* dv, int B,
-              int H, int S, int D, long long q_sb, long long q_ss,
-              long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-              long long v_sb, long long v_ss, long long v_sh,
-              long long do_sb, long long do_ss, long long do_sh,
-              long long dk_sb, long long dk_ss, long long dk_sh,
-              long long dv_sb, long long dv_ss, long long dv_sh, int causal,
-              float scale, int window, int dtype, void* stream) {
-  Args a{};
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.dout = dout;
-  a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<const float*>(delta);
-  a.dk = dk;
-  a.dv = dv;
-  a.B = B;
-  a.H = H;
-  a.S = S;
-  a.sq = {q_sb, q_ss, q_sh};
-  a.sk = {k_sb, k_ss, k_sh};
-  a.sv = {v_sb, v_ss, v_sh};
-  a.sdo = {do_sb, do_ss, do_sh};
-  a.sdk = {dk_sb, dk_ss, dk_sh};
-  a.sdv = {dv_sb, dv_ss, dv_sh};
-  a.causal = causal;
-  a.scale = scale;
-  a.window = window;
-  a.stream = static_cast<cudaStream_t>(stream);
-  return run(a, D, dtype, false);
+// One backward call. With `delta` null, the pre-pass writes rowsum(dO o O)
+// into `delta_buf` (a [B * H, S] fp32 array) first and the kernels read it;
+// else they read `delta` and `o` is not read. Then the dQ kernel runs when
+// `dq` is not null, and the dK/dV kernel when `dk` (and `dv`) is not null;
+// with neither, only the pre-pass (q, k and v unread). `strides` holds the
+// (b, s, h) element strides of q, k, v, o, dout, dq, dk and dv in that
+// order (24 values; those of an absent tensor unread). dtype: 0 = float32,
+// 1 = bfloat16; window <= 0 means no window. *route is set to the kernels
+// launched: 1 mma.sync, 2 scalar. Returns a cudaError_t:
+// cudaErrorInvalidValue for arguments the kernels do not take, else the
+// first launch error.
+int flash_bwd(const void* q, const void* k, const void* v, const void* o,
+              const void* dout, const void* lse, const void* delta,
+              void* delta_buf, void* dq, void* dk, void* dv, int B, int H,
+              int S, int D, const long long* strides, int causal,
+              float scale, int window, int dtype, void* stream, int* route) {
+  if (B < 1 || H < 1 || S < 64 || S % 64 != 0 || B * H > 65535 ||
+      (dtype != 0 && dtype != 1) || (window > 0 && !causal) ||
+      strides == nullptr || route == nullptr ||
+      (dk == nullptr) != (dv == nullptr) ||
+      (delta == nullptr && (o == nullptr || delta_buf == nullptr)))
+    return cudaErrorInvalidValue;
+  const long long* st = strides;
+  auto strided = [st](int i) { return Strides{st[3 * i], st[3 * i + 1],
+                                              st[3 * i + 2]}; };
+  Args a{q, k, v, o, dout, static_cast<const float*>(lse),
+         static_cast<const float*>(delta), dq, dk, dv, B, H, S,
+         strided(0), strided(1), strided(2), strided(3), strided(4),
+         strided(5), strided(6), strided(7), causal, scale, window,
+         static_cast<cudaStream_t>(stream)};
+  *route = 0;
+  if (D < 64 || D > 512 || D % 64 != 0)
+    return cudaErrorInvalidValue;  // a head_dim the kernels have no tiling for
+  if (delta == nullptr) {
+    float* buf = static_cast<float*>(delta_buf);
+    cudaError_t e = dtype == 0 ? launch_delta<float>(a, buf, D)
+                               : launch_delta<__nv_bfloat16>(a, buf, D);
+    if (e != cudaSuccess) return e;
+    a.delta = buf;
+  }
+  if (dq == nullptr && dk == nullptr) return cudaSuccess;
+  switch (D) {
+    case 64: return dispatch<64>(a, dtype, route);
+    case 128: return dispatch<128>(a, dtype, route);
+    case 192: return dispatch<192>(a, dtype, route);
+    case 256: return dispatch<256>(a, dtype, route);
+    case 320: return dispatch<320>(a, dtype, route);
+    case 384: return dispatch<384>(a, dtype, route);
+    case 448: return dispatch<448>(a, dtype, route);
+    case 512: return dispatch<512>(a, dtype, route);
+  }
+  return cudaErrorInvalidValue;
 }
 
 const char* flash_bwd_error_string(int err) {

@@ -42,37 +42,41 @@
 // written without a copy; a warp stages its rows of o in its own rows of
 // the Q tile and stores them as 16-byte chunks.
 //
-// fp32, `flash_fwd_kernel`: fp32 stays fp32 (no TF32): scalar fp32 FMAs
-// out of shared memory, one block a (b*h, 64-row query tile), a 4 x D/16
-// slice of the accumulator a thread. It is 1.5x from SDPA on this card and
-// not yet redesigned.
+// fp32, and bf16 at head_dim 320 to 512, `flash_fwd_kernel`: fp32 stays
+// fp32 (no TF32): scalar fp32 FMAs out of shared memory (the tiles staged
+// in fp32 whatever the input type), one block a (b*h, query tile), an
+// R x D/16 slice of the accumulator a thread. Tiles of 64 rows up to head
+// dim 256 (at 256 they take 209.5 KB of the 227 KB of shared memory a
+// block may have), 32 rows from 320 to 512 (201.5 KB at 512); the entry
+// refuses a wider head. It is 1.5x from SDPA on this card and not yet
+// redesigned.
 //
-// Head dims 64, 128, 192 and 256 (at 256 the fp32 tiles take 209.5 KB of
-// the 227 KB of shared memory a block may have); seq a multiple of 64;
-// lse is a contiguous [B * H, S] fp32 array.
+// The entry reports the kernel it launched (*route: 1 mma.sync, 2 the
+// scalar kernel), which depends only on the type and the head dim. Seq a
+// multiple of 64; lse is a contiguous [B * H, S] fp32 array.
 
-#include "hopper.cuh"
+#include "flash.cuh"
 
 namespace {
 
-using namespace hopper;
+using namespace flash;
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // kv rows per tile
 constexpr int NT = 256;       // threads per block: a 16 x 16 grid
 constexpr float NEG = -1e30f; // the reference's masked score (_NEG)
 
-struct Strides {  // element strides of a [B, S, H, D] view (d contiguous)
-  long long b, s, h;
-};
+// rows of a query tile and of a kv tile in the scalar kernel
+template <int D> __host__ __device__ constexpr int simt_rows() {
+  return D <= 256 ? 64 : 32;
+}
 
 template <int D>
 constexpr int smem_floats() {
-  return BQ * (D + 1)      // Qs: scaled Q tile
-         + BK * (D + 1)    // Ks
-         + BK * D          // Vs
-         + BQ * (BK + 1)   // Ps: scores, then probabilities
-         + 3 * BQ;         // m, l, alpha per row
+  constexpr int BR = simt_rows<D>();
+  return BR * (D + 1)      // Qs: scaled Q tile
+         + BR * (D + 1)    // Ks
+         + BR * D          // Vs
+         + BR * (BR + 1)   // Ps: scores, then probabilities
+         + 3 * BR;         // m, l, alpha per row
 }
 
 template <typename T, int D>
@@ -82,55 +86,58 @@ __global__ void __launch_bounds__(NT)
                      float* __restrict__ lse, int H, int S, Strides sq,
                      Strides sk, Strides sv, Strides so, int causal,
                      float scale, int window) {
+  constexpr int BR = simt_rows<D>();
+  constexpr int R = BR / 16;       // rows (and score columns) a thread
+  constexpr int LPR = NT / BR;     // lanes sharing a row in the softmax
   extern __shared__ float smem[];
   float* Qs = smem;
-  float* Ks = Qs + BQ * (D + 1);
-  float* Vs = Ks + BK * (D + 1);
-  float* Ps = Vs + BK * D;
-  float* m_s = Ps + BQ * (BK + 1);
-  float* l_s = m_s + BQ;
-  float* a_s = l_s + BQ;
+  float* Ks = Qs + BR * (D + 1);
+  float* Vs = Ks + BR * (D + 1);
+  float* Ps = Vs + BR * D;
+  float* m_s = Ps + BR * (BR + 1);
+  float* l_s = m_s + BR;
+  float* a_s = l_s + BR;
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * BR;
   const T* qb = q + b * sq.b + h * sq.h;
   const T* kb = k + b * sk.b + h * sk.h;
   const T* vb = v + b * sv.b + h * sv.h;
   T* ob = o + b * so.b + h * so.h;
 
-  for (int idx = tid; idx < BQ * D; idx += NT) {
+  for (int idx = tid; idx < BR * D; idx += NT) {
     const int r = idx / D, c = idx % D;
     Qs[r * (D + 1) + c] = to_f(qb[(long long)(q0 + r) * sq.s + c]) * scale;
   }
-  if (tid < BQ) {
+  if (tid < BR) {
     m_s[tid] = NEG;
     l_s[tid] = 0.f;
   }
 
   // kv tiles with any visible key for some row of this query tile
-  int kt_begin = 0, kt_end = S / BK;
+  int kt_begin = 0, kt_end = S / BR;
   if (causal) {
-    kt_end = (q0 + BQ - 1) / BK + 1;
+    kt_end = (q0 + BR - 1) / BR + 1;
     if (window > 0) {
       const int first_key = q0 - (window - 1);
-      kt_begin = first_key > 0 ? first_key / BK : 0;
+      kt_begin = first_key > 0 ? first_key / BR : 0;
     }
   }
 
   constexpr int DJ = D / 16;
-  float acc[4][DJ];
+  float acc[R][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
+    const int k0 = kt * BR;
     __syncthreads();  // the previous tile's readers are done with Ks/Vs/Ps
-    for (int idx = tid; idx < BK * D; idx += NT) {
+    for (int idx = tid; idx < BR * D; idx += NT) {
       const int r = idx / D, c = idx % D;
       Ks[r * (D + 1) + c] = to_f(kb[(long long)(k0 + r) * sk.s + c]);
       Vs[r * D + c] = to_f(vb[(long long)(k0 + r) * sv.s + c]);
@@ -138,56 +145,54 @@ __global__ void __launch_bounds__(NT)
     __syncthreads();
 
     // S = (Q * scale) K^T for rows ty + 16 i, columns tx + 16 j
-    float sacc[4][4];
+    float sacc[R][R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sacc[i][j] = 0.f;
+      for (int j = 0; j < R; ++j) sacc[i][j] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
-      float qa[4], ka[4];
+      float qa[R], ka[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = Qs[(ty + 16 * i) * (D + 1) + d];
+      for (int i = 0; i < R; ++i) qa[i] = Qs[(ty + 16 * i) * (D + 1) + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) ka[j] = Ks[(tx + 16 * j) * (D + 1) + d];
+      for (int j = 0; j < R; ++j) ka[j] = Ks[(tx + 16 * j) * (D + 1) + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sacc[i][j] = fmaf(qa[i], ka[j], sacc[i][j]);
+        for (int j = 0; j < R; ++j) sacc[i][j] = fmaf(qa[i], ka[j], sacc[i][j]);
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const int r = ty + 16 * i, c = tx + 16 * j;
         float s = sacc[i][j];
-        if (causal) {
-          const int qp = q0 + r, kp = k0 + c;
-          const bool keep = kp <= qp && (window <= 0 || qp - kp < window);
-          if (!keep) s = NEG;
-        }
-        Ps[r * (BK + 1) + c] = s;
+        if (!visible(q0 + r, k0 + c, causal, window)) s = NEG;
+        Ps[r * (BR + 1) + c] = s;
       }
     __syncthreads();
 
-    // online softmax over the tile: four neighbouring lanes per row
+    // online softmax over the tile: LPR neighbouring lanes per row
     {
-      const int r = tid / 4, part = tid % 4;
-      float* pr = Ps + r * (BK + 1);
+      const int r = tid / LPR, part = tid % LPR;
+      float* pr = Ps + r * (BR + 1);
       float mx = NEG;
-      for (int c = part; c < BK; c += 4) mx = fmaxf(mx, pr[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      for (int c = part; c < BR; c += LPR) mx = fmaxf(mx, pr[c]);
+#pragma unroll
+      for (int off = 1; off < LPR; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_prev = m_s[r];
       const float m_next = fmaxf(m_prev, mx);
       float sum = 0.f;
-      for (int c = part; c < BK; c += 4) {
+      for (int c = part; c < BR; c += LPR) {
         const float p = expf(pr[c] - m_next);
         pr[c] = p;
         sum += p;
       }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+#pragma unroll
+      for (int off = 1; off < LPR; off <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
       if (part == 0) {
         // a row whose every key so far was masked has m = NEG: its garbage
         // (p = 1 per masked key) is wiped by alpha = exp(NEG - m_real) = 0
@@ -202,20 +207,20 @@ __global__ void __launch_bounds__(NT)
 
     // acc = acc * alpha + P V
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
       const float al = a_s[ty + 16 * i];
 #pragma unroll
       for (int j = 0; j < DJ; ++j) acc[i][j] *= al;
     }
 #pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pa[4], va[DJ];
+    for (int c = 0; c < BR; ++c) {
+      float pa[R], va[DJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = Ps[(ty + 16 * i) * (BK + 1) + c];
+      for (int i = 0; i < R; ++i) pa[i] = Ps[(ty + 16 * i) * (BR + 1) + c];
 #pragma unroll
       for (int j = 0; j < DJ; ++j) va[j] = Vs[c * D + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(pa[i], va[j], acc[i][j]);
     }
@@ -223,14 +228,14 @@ __global__ void __launch_bounds__(NT)
   __syncthreads();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int r = ty + 16 * i;
     const float l = l_s[r];
     T* orow = ob + (long long)(q0 + r) * so.s;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) orow[tx + 16 * j] = from_f<T>(acc[i][j] / l);
   }
-  if (tid < BQ) lse[(long long)bh * S + q0 + tid] = m_s[tid] + logf(l_s[tid]);
+  if (tid < BR) lse[(long long)bh * S + q0 + tid] = m_s[tid] + logf(l_s[tid]);
 }
 
 // ---- bf16: FlashAttention-2 on the tensor cores ---------------------------
@@ -246,38 +251,6 @@ template <int D> __host__ __device__ constexpr int mma_bkv() {
 }
 template <int D> __host__ __device__ constexpr int mma_smem_bytes() {
   return (MQ + 4 * mma_bkv<D>()) * D * 2;  // Q, then K and V twice each
-}
-
-// 2^x on the SFU (relative error 2^-22, subnormal results flushed to 0:
-// a probability that small adds nothing to an fp32 sum that holds a 1)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// byte offset of 16-byte chunk c of row r in a [rows][D] bf16 tile whose
-// chunks are XOR-swizzled by the row's low three bits
-template <int D>
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return r * (D * 2) + ((c ^ (r & 7)) << 4);
-}
-
-// rows [0, n) of a [B, S, H, D] view at sequence position s0 into a
-// swizzled tile by `threads` threads; rows at or past S are zero-filled
-template <int D, int THREADS>
-__device__ __forceinline__ void load_tile(uint32_t dst,
-                                          const __nv_bfloat16* base,
-                                          long long stride_s, int s0, int n,
-                                          int S, int tid) {
-  constexpr int CH = D / 8;
-  for (int idx = tid; idx < n * CH; idx += THREADS) {
-    const int r = idx / CH, c = idx % CH;
-    const int sp = s0 + r;
-    cp_async16(dst + swz<D>(r, c),
-               base + (long long)(sp < S ? sp : S - 1) * stride_s + c * 8,
-               sp < S);
-  }
 }
 
 template <int D, int MB>
@@ -316,15 +289,15 @@ __global__ void __launch_bounds__(mma_threads<MB>(), 1)
     }
   }
 
-  load_tile<D, NTH>(q_s, qb, sq.s, q0, MQ, S, tid);
-  load_tile<D, NTH>(k_s, kb, sk.s, kt_begin * BKV, BKV, S, tid);
-  load_tile<D, NTH>(v_s, vb, sv.s, kt_begin * BKV, BKV, S, tid);
+  cp_async_tile<D, NTH>(q_s, qb, sq.s, q0, MQ, S, tid);
+  cp_async_tile<D, NTH>(k_s, kb, sk.s, kt_begin * BKV, BKV, S, tid);
+  cp_async_tile<D, NTH>(v_s, vb, sv.s, kt_begin * BKV, BKV, S, tid);
   cp_async_commit();
 
   constexpr int WR = 16 * MB;               // query rows a warp
   const int wr0 = WR * warp;                // the warp's first row in Q
   const int wq0 = q0 + wr0;                 // and in the sequence
-  const float sl2 = scale * 1.4426950408889634f;  // scale * log2(e)
+  const float sl2 = scale * LOG2E;
   // per 16-row block i: accumulator, running max and sum of rows g and
   // g + 8 ([i][0] and [i][1])
   float acc[MB][D / 8][4];
@@ -350,10 +323,10 @@ __global__ void __launch_bounds__(mma_threads<MB>(), 1)
     cp_async_wait<0>();
     __syncthreads();  // tile kt has landed; every warp is done with kt - 1
     if (kt + 1 < kt_end) {
-      load_tile<D, NTH>(k_s + (buf ^ 1) * KV_TILE, kb, sk.s, (kt + 1) * BKV,
-                        BKV, S, tid);
-      load_tile<D, NTH>(v_s + (buf ^ 1) * KV_TILE, vb, sv.s, (kt + 1) * BKV,
-                        BKV, S, tid);
+      cp_async_tile<D, NTH>(k_s + (buf ^ 1) * KV_TILE, kb, sk.s,
+                            (kt + 1) * BKV, BKV, S, tid);
+      cp_async_tile<D, NTH>(v_s + (buf ^ 1) * KV_TILE, vb, sv.s,
+                            (kt + 1) * BKV, BKV, S, tid);
     }
     cp_async_commit();
     const int k0 = kt * BKV;
@@ -500,11 +473,20 @@ __global__ void __launch_bounds__(mma_threads<MB>(), 1)
 // accumulators of 32 rows would not fit in 255 registers
 template <int D> constexpr int mma_mb() { return D == 64 ? 2 : 1; }
 
+struct Args {  // one forward call's arguments
+  const void *q, *k, *v;
+  void* o;
+  float* lse;
+  int B, H, S;
+  Strides sq, sk, sv, so;
+  int causal;
+  float scale;
+  int window;
+  cudaStream_t stream;
+};
+
 template <int D>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int B, int H, int S, Strides sq,
-                       Strides sk, Strides sv, Strides so, int causal,
-                       float scale, int window, cudaStream_t stream) {
+cudaError_t launch_mma(const Args& a) {
   constexpr int MB = mma_mb<D>();
   constexpr int bytes = mma_smem_bytes<D>();
   static bool attr_set = false;  // dynamic shared memory above 48 KB
@@ -516,57 +498,50 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
     attr_set = true;
   }
   using bf = __nv_bfloat16;
-  dim3 grid(B * H, (S + MQ - 1) / MQ);
-  flash_fwd_mma_kernel<D, MB><<<grid, mma_threads<MB>(), bytes, stream>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k),
-      static_cast<const bf*>(v), static_cast<bf*>(o), lse, H, S, sq, sk, sv,
-      so, causal, scale, window);
+  dim3 grid(a.B * a.H, (a.S + MQ - 1) / MQ);
+  flash_fwd_mma_kernel<D, MB><<<grid, mma_threads<MB>(), bytes, a.stream>>>(
+      static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
+      static_cast<const bf*>(a.v), static_cast<bf*>(a.o), a.lse, a.H, a.S,
+      a.sq, a.sk, a.sv, a.so, a.causal, a.scale, a.window);
   return cudaGetLastError();
 }
 
-// ---- fp32 ------------------------------------------------------------------
+// ---- fp32, and bf16 above head_dim 256 -------------------------------------
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int B, int H, int S, Strides sq, Strides sk,
-                   Strides sv, Strides so, int causal, float scale, int window,
-                   cudaStream_t stream) {
+template <typename T, int D>
+cudaError_t launch_simt(const Args& a) {
   constexpr int bytes = smem_floats<D>() * sizeof(float);
   static bool attr_set = false;  // dynamic shared memory above 48 KB
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<float, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  dim3 grid(S / BQ, B * H);
-  flash_fwd_kernel<float, D><<<grid, NT, bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, H, S, sq, sk,
-      sv, so, causal, scale, window);
+  dim3 grid(a.S / simt_rows<D>(), a.B * a.H);
+  flash_fwd_kernel<T, D><<<grid, NT, bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.H, a.S,
+      a.sq, a.sk, a.sv, a.so, a.causal, a.scale, a.window);
   return cudaGetLastError();
 }
 
+// the route by type and head dim: bf16 up to 256 on the tensor cores
 template <int D>
-cudaError_t launch_dtype(int dtype, const void* q, const void* k,
-                         const void* v, void* o, float* lse, int B, int H,
-                         int S, Strides sq, Strides sk, Strides sv, Strides so,
-                         int causal, float scale, int window,
-                         cudaStream_t st) {
-  if (dtype == 0)
-    return launch<D>(q, k, v, o, lse, B, H, S, sq, sk, sv, so, causal, scale,
-                     window, st);
-  return launch_mma<D>(q, k, v, o, lse, B, H, S, sq, sk, sv, so, causal, scale,
-                       window, st);
-}
-
-// a 16-byte-aligned pointer, and 16-byte steps along every dimension of
-// more than one element
-bool aligned16(const void* p, const Strides& st, int B, int H) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 &&
-         (B == 1 || st.b % 8 == 0) && st.s % 8 == 0 &&
-         (H == 1 || st.h % 8 == 0);
+cudaError_t launch_dtype(int dtype, const Args& a, int* route) {
+  if constexpr (D <= 256) {
+    if (dtype == 1) {
+      *route = 1;
+      if (!(aligned16(a.q, a.sq, a.B, a.H) && aligned16(a.k, a.sk, a.B, a.H) &&
+            aligned16(a.v, a.sv, a.B, a.H) && aligned16(a.o, a.so, a.B, a.H)))
+        return cudaErrorInvalidValue;
+      return launch_mma<D>(a);
+    }
+  }
+  *route = 2;
+  if (dtype == 0) return launch_simt<float, D>(a);
+  return launch_simt<__nv_bfloat16, D>(a);
 }
 
 }  // namespace
@@ -574,39 +549,33 @@ bool aligned16(const void* p, const Strides& st, int B, int H) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. window <= 0 means no window. bf16
-// pointers and (b, s, h) strides must be 16-byte aligned. Returns a
-// cudaError_t: cudaErrorInvalidValue for arguments the kernel does not
-// take, else the launch's own error.
+// pointers and (b, s, h) strides must be 16-byte aligned up to head_dim
+// 256. *route is set to the kernel launched (1 mma.sync, 2 scalar).
+// Returns a cudaError_t: cudaErrorInvalidValue for arguments the kernel
+// does not take, else the launch's own error.
 int flash_fwd(const void* q, const void* k, const void* v, void* o,
               void* lse, int B, int H, int S, int D, long long q_sb,
               long long q_ss, long long q_sh, long long k_sb, long long k_ss,
               long long k_sh, long long v_sb, long long v_ss, long long v_sh,
               long long o_sb, long long o_ss, long long o_sh, int causal,
-              float scale, int window, int dtype, void* stream) {
-  if (B < 1 || H < 1 || S < BQ || S % BQ != 0 || B * H > 65535 ||
-      (dtype != 0 && dtype != 1) || (window > 0 && !causal))
+              float scale, int window, int dtype, void* stream, int* route) {
+  if (B < 1 || H < 1 || S < 64 || S % 64 != 0 || B * H > 65535 ||
+      (dtype != 0 && dtype != 1) || (window > 0 && !causal) ||
+      route == nullptr)
     return cudaErrorInvalidValue;
-  const Strides sq{q_sb, q_ss, q_sh}, sk{k_sb, k_ss, k_sh},
-      sv{v_sb, v_ss, v_sh}, so{o_sb, o_ss, o_sh};
-  if (dtype == 1 &&
-      !(aligned16(q, sq, B, H) && aligned16(k, sk, B, H) &&
-        aligned16(v, sv, B, H) && aligned16(o, so, B, H)))
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
+  const Args a{q, k, v, o, static_cast<float*>(lse), B, H, S,
+               {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh},
+               {o_sb, o_ss, o_sh}, causal, scale, window,
+               static_cast<cudaStream_t>(stream)};
   switch (D) {
-    case 64:
-      return launch_dtype<64>(dtype, q, k, v, o, l, B, H, S, sq, sk, sv, so,
-                              causal, scale, window, st);
-    case 128:
-      return launch_dtype<128>(dtype, q, k, v, o, l, B, H, S, sq, sk, sv, so,
-                               causal, scale, window, st);
-    case 192:
-      return launch_dtype<192>(dtype, q, k, v, o, l, B, H, S, sq, sk, sv, so,
-                               causal, scale, window, st);
-    case 256:
-      return launch_dtype<256>(dtype, q, k, v, o, l, B, H, S, sq, sk, sv, so,
-                               causal, scale, window, st);
+    case 64: return launch_dtype<64>(dtype, a, route);
+    case 128: return launch_dtype<128>(dtype, a, route);
+    case 192: return launch_dtype<192>(dtype, a, route);
+    case 256: return launch_dtype<256>(dtype, a, route);
+    case 320: return launch_dtype<320>(dtype, a, route);
+    case 384: return launch_dtype<384>(dtype, a, route);
+    case 448: return launch_dtype<448>(dtype, a, route);
+    case 512: return launch_dtype<512>(dtype, a, route);
   }
   return cudaErrorInvalidValue;  // a head_dim the kernel has no tiling for
 }

@@ -6,18 +6,22 @@ Ports paddle_tpu/ops/flash_attention.py. The Pallas `_fwd_kernel` becomes
 becomes ``csrc/flash_bwd.cu`` (the design notes are in each source): one
 thread block per (b*h, query or key tile) looping over the other side's
 tiles, causal and window tiles skipped whole and masked per element on
-their edges. The bf16 forward runs on the tensor cores (mma.sync, 128-row
-query tiles, K and V double-buffered by cp.async, fp32 softmax state); the
-fp32 forward and the backward pair use 64-row tiles and fp32 FMAs out of
-shared memory. ``flash_attention`` is a
+their edges. In bf16 the forward (head_dim up to 256) and the backward
+pair (64 and 128) run on the tensor cores (mma.sync, cp.async
+double-buffering, fp32 softmax state and accumulators); fp32, and bf16
+at the other head dims, take scalar kernels of fp32 FMAs out of shared
+memory. The backward's C entry computes delta = rowsum(dO o) by a
+pre-pass kernel unless the caller passes it. ``flash_attention`` is a
 ``torch.autograd.Function`` (the reference's ``jax.custom_vjp``): it saves
 q, k, v, o and lse, and its backward returns dq, dk, dv in q's dtype.
 
 A tensor on a CUDA device launches the kernel or raises; a tensor on the
 CPU takes the plain version, ``flash_attention_ref`` forward and
 ``flash_attention_bwd_ref`` backward. ``launches`` counts kernel launches
-by ``"flash_fwd:<dtype>"``, ``"flash_dq:<dtype>"`` and
-``"flash_dkv:<dtype>"``, where each kernel is launched and nowhere else.
+by ``"flash_fwd:<dtype>"``, ``"flash_dq:<dtype>"``, ``"flash_dkv:<dtype>"``
+and ``"flash_delta:<dtype>"``, where each kernel is launched and nowhere
+else; ``routes`` splits the forward, dQ and dK/dV launches by the kernel
+the C entry chose (``mma`` or ``simt``).
 """
 import collections
 import ctypes
@@ -32,14 +36,23 @@ from . import _build
 
 _NEG = -1e30
 
-#: kernel launches by "flash_fwd:<dtype>", "flash_dq:<dtype>" and
-#: "flash_dkv:<dtype>"
+#: kernel launches by "flash_fwd:<dtype>", "flash_dq:<dtype>",
+#: "flash_dkv:<dtype>" and "flash_delta:<dtype>" (the backward's pre-pass)
 launches = collections.Counter()
 
-#: the head dims csrc/flash_fwd.cu and csrc/flash_bwd.cu have a tiling for;
-#: a wider head's fp32 tiles do not fit in a block's shared memory (the
-#: bf16 forward takes 32-row K and V tiles at 192 and 256)
-KERNEL_HEAD_DIMS = (64, 128, 192, 256)
+#: forward, dQ and dK/dV launches by "<kernel>:<dtype>:<route>", route
+#: "mma" (the tensor-core kernel) or "simt" (the scalar one), as the C
+#: entry reports the kernel it launched: bf16 takes "mma" at head_dim 64
+#: and 128, and in the forward also at 192 and 256
+routes = collections.Counter()
+_ROUTES = {1: "mma", 2: "simt"}
+
+#: the head dims csrc/flash_fwd.cu and csrc/flash_bwd.cu have a tiling for
+#: (scalar fp32 tiles of 16 or 32 rows from 320 up); a wider head raises.
+#: Shared memory alone would allow a little more: the backward's four
+#: 16-row fp32 tiles take 4 * 16 * (d + 1) * 4 bytes (150 KB at 576), the
+#: forward's 32-row tiles 226 KB at 576 and too much at 640
+KERNEL_HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512)
 
 
 def _block_for(s):
@@ -69,7 +82,7 @@ def supported(q_shape, dtype_str, device="cuda"):
     """Does SDPA route q [batch, seq, heads, head_dim] to the kernel? The
     reference's gate (head_dim % 64 == 0, seq % 128 == 0, seq >= 1024,
     fp32 or bf16) with "on TPU" replaced by "on a CUDA device". A shape it
-    passes that the kernel has no tiling for (head_dim above 256) raises
+    passes that the kernel has no tiling for (head_dim above 512) raises
     in the kernel's wrapper; it never falls back to the plain version."""
     if len(q_shape) != 4:
         return False
@@ -165,14 +178,27 @@ def _check_operands(operands, dtype, shape, device):
                              f"head_dim, got strides {t.stride()}")
 
 
+def _aligned(t):
+    """t's pointer and its step along each dimension of more than one
+    element (b, s, h) are 16-byte aligned."""
+    steps = [st for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+    return t.data_ptr() % 16 == 0 and all(
+        st * t.element_size() % 16 == 0 for st in steps)
+
+
+def _aligned_copy(t):
+    """t where its head_dim is contiguous and it is `_aligned`, else a fresh
+    contiguous copy (which is: its rows are multiples of 64 elements)."""
+    if t.stride(-1) == 1 and _aligned(t):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _check_aligned(operands):
-    """The bf16 forward copies 16-byte chunks: every operand's pointer and
-    its step along each dimension of more than one element (b, s, h) must
-    be 16-byte aligned."""
+    """The bf16 tensor-core kernels copy 16-byte chunks: every operand
+    must be `_aligned`."""
     for name, t in operands:
-        steps = [st for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
-        if t.data_ptr() % 16 or any(st * t.element_size() % 16
-                                    for st in steps):
+        if not _aligned(t):
             raise ValueError(
                 f"flash kernel: bf16 {name} must be 16-byte aligned, its "
                 f"pointer and its (b, s, h) strides {t.stride()[:3]}")
@@ -196,19 +222,23 @@ _FN = {}
 
 
 def _kernel(name):
-    """(library, C entry) of kernel `name`: flash_fwd, flash_dq or
-    flash_dkv, with its ctypes signature (pointers, then B, H, S, D, then
-    (b, s, h) strides per tensor, then causal, scale, window, dtype,
-    stream)."""
+    """(library, C entry) of `flash_fwd` (pointers, B, H, S, D, (b, s, h)
+    strides of q, k, v, o, then causal, scale, window, dtype, stream and
+    the route out-parameter) or `flash_bwd` (pointers, B, H, S, D, a
+    pointer to 24 strides, causal, scale, window, dtype, stream, route),
+    with its ctypes signature."""
     if name not in _FN:
-        n_ptr, n_strided = {"flash_fwd": (5, 4), "flash_dq": (7, 5),
-                            "flash_dkv": (8, 6)}[name]
-        lib = _build.load("flash_fwd" if name == "flash_fwd" else "flash_bwd")
+        lib = _build.load(name)
         fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * (3 * n_strided)
-                       + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_void_p])
+        if name == "flash_fwd":
+            head = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
+                + [ctypes.c_longlong] * 12
+        else:
+            head = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 \
+                + [ctypes.POINTER(ctypes.c_longlong)]
+        fn.argtypes = head + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_void_p,
+                              ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
         _FN[name] = (lib, fn)
     return _FN[name]
@@ -218,10 +248,10 @@ def _strides(*ts):
     return [st for t in ts for st in t.stride()[:3]]
 
 
-def _tail(q, causal, scale, window, dtype):
+def _tail(q, causal, scale, window, dtype, route):
     return (int(causal), float(scale), int(window or 0),
             0 if dtype == "float32" else 1,
-            _build.stream(q))
+            _build.stream(q), ctypes.byref(route))
 
 
 def _launch(q, k, v, causal, scale, window):
@@ -235,82 +265,117 @@ def _launch(q, k, v, causal, scale, window):
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
     lib, fn = _kernel("flash_fwd")
+    route = ctypes.c_int(0)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              lse.data_ptr(), B, H, S, D, *_strides(q, k, v, o),
-             *_tail(q, causal, scale, window, dtype))
-    if err and dtype == "bfloat16":
-        # the C entry refuses a view it cannot copy in 16-byte chunks;
-        # say which operand
+             *_tail(q, causal, scale, window, dtype, route))
+    if err and route.value == 1:
+        # the tensor-core route refuses a view it cannot copy in 16-byte
+        # chunks; say which operand
         _check_aligned(operands)
     _build.check(lib, "flash_fwd", err)
     launches[f"flash_fwd:{dtype}"] += 1
+    routes[f"flash_fwd:{dtype}:{_ROUTES[route.value]}"] += 1
     return o, lse
 
 
-def _check_rows(q, lse, delta):
+def _check_rows(q, name, t):
     B, S, H, _ = q.shape
-    for name, t in (("lse", lse), ("delta", delta)):
-        if t.device != q.device or t.dtype != torch.float32 \
-                or tuple(t.shape) != (B * H, S) or not t.is_contiguous():
-            raise ValueError(
-                f"flash kernel: {name} must be a contiguous float32 "
-                f"[{B * H}, {S}] array on {q.device}, got {t.dtype} "
-                f"{tuple(t.shape)} on {t.device}")
+    if t.device != q.device or t.dtype != torch.float32 \
+            or tuple(t.shape) != (B * H, S) or not t.is_contiguous():
+        raise ValueError(
+            f"flash kernel: {name} must be a contiguous float32 "
+            f"[{B * H}, {S}] array on {q.device}, got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device}")
+
+
+def _run_bwd(q, k, v, do, lse, causal, scale, window, *, o=None,
+             delta=None, dq=False, dkv=False):
+    """One call of the backward's C entry on [B, S, H, D] views of q, k, v
+    (d contiguous; 16-byte aligned for the bf16 tensor-core kernels) and
+    dO, and the [B*H, S] fp32 rows lse (None if only the pre-pass runs):
+    the delta pre-pass from o when `delta` is None, then the dQ kernel if
+    `dq` and the dK/dV kernel if `dkv`. dO and o are copied where they are
+    not `_aligned` (the pre-pass and the tensor-core kernels read 16-byte
+    chunks of their rows). Returns (delta, dq, dk, dv), None for what was
+    not asked."""
+    dtype = _check_shape(q)
+    B, S, H, D = q.shape
+    do = _aligned_copy(do)
+    operands = [("q", q), ("k", k), ("v", v), ("dout", do)]
+    made = delta is None
+    if made:
+        o = _aligned_copy(o)
+        operands.append(("o", o))
+    _check_operands(operands, q.dtype, (B, S, H, D), q.device)
+    if lse is not None:
+        _check_rows(q, "lse", lse)
+    if made:
+        delta = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
+    else:
+        _check_rows(q, "delta", delta)
+
+    def grad(want):
+        return torch.empty((B, S, H, D), dtype=q.dtype, device=q.device) \
+            if want else None
+
+    outs = {"dq": grad(dq), "dk": grad(dkv), "dv": grad(dkv)}
+    strides = []
+    for t in (q, k, v, o, do, *outs.values()):
+        strides += t.stride()[:3] if t is not None else (0, 0, 0)
+    ptr = [None if t is None else t.data_ptr() for t in (o, *outs.values())]
+    route = ctypes.c_int(0)
+    lib, fn = _kernel("flash_bwd")
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr[0], do.data_ptr(),
+             None if lse is None else lse.data_ptr(),
+             None if made else delta.data_ptr(),
+             delta.data_ptr() if made else None, *ptr[1:], B, H, S, D,
+             (ctypes.c_longlong * 24)(*strides),
+             *_tail(q, causal, scale, window, dtype, route))
+    if err and route.value == 1:
+        # the tensor-core route refuses a view it cannot copy in 16-byte
+        # chunks; say which operand
+        _check_aligned(operands + [(n, t) for n, t in outs.items()
+                                   if t is not None])
+    _build.check(lib, "flash_bwd", err)
+    if made:
+        launches[f"flash_delta:{dtype}"] += 1
+    for kind, want in (("dq", dq), ("dkv", dkv)):
+        if want:
+            launches[f"flash_{kind}:{dtype}"] += 1
+            routes[f"flash_{kind}:{dtype}:{_ROUTES[route.value]}"] += 1
+    return delta, outs["dq"], outs["dk"], outs["dv"]
 
 
 def _launch_dq(q, k, v, do, lse, delta, causal, scale, window):
     """Run the dQ kernel on [B, S, H, D] views of q, k, v, dO and the
     [B*H, S] fp32 rows lse and delta. Returns dq [B, S, H, D]."""
-    dtype = _check_shape(q)
-    B, S, H, D = q.shape
-    _check_operands((("q", q), ("k", k), ("v", v), ("dout", do)), q.dtype,
-                    (B, S, H, D), q.device)
-    _check_rows(q, lse, delta)
-    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-    lib, fn = _kernel("flash_dq")
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, S, D,
-             *_strides(q, k, v, do, dq),
-             *_tail(q, causal, scale, window, dtype))
-    _build.check(lib, "flash_bwd", err)
-    launches[f"flash_dq:{dtype}"] += 1
-    return dq
+    return _run_bwd(q, k, v, do, lse, causal, scale, window, delta=delta,
+                    dq=True)[1]
 
 
 def _launch_dkv(q, k, v, do, lse, delta, causal, scale, window):
     """Run the dK/dV kernel on the same operands as _launch_dq. Returns
     (dk, dv), each [B, S, H, D]."""
-    dtype = _check_shape(q)
-    B, S, H, D = q.shape
-    _check_operands((("q", q), ("k", k), ("v", v), ("dout", do)), q.dtype,
-                    (B, S, H, D), q.device)
-    _check_rows(q, lse, delta)
-    dk = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
-    lib, fn = _kernel("flash_dkv")
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             B, H, S, D, *_strides(q, k, v, do, dk, dv),
-             *_tail(q, causal, scale, window, dtype))
-    _build.check(lib, "flash_bwd", err)
-    launches[f"flash_dkv:{dtype}"] += 1
-    return dk, dv
+    return _run_bwd(q, k, v, do, lse, causal, scale, window, delta=delta,
+                    dkv=True)[2:]
+
+
+def _launch_delta(o, do):
+    """Run the delta pre-pass alone: rowsum(dO o) [B*H, S] fp32 over
+    [B, S, H, D] views of o and dO."""
+    o = _aligned_copy(o)
+    return _run_bwd(o, o, o, do, None, False, 1.0, None, o=o)[0]
 
 
 def _launch_bwd(q, k, v, o, lse, do, causal, scale, window, delta=None):
-    """Both backward kernels on [B, S, H, D] views. delta [B*H, S] fp32 =
-    rowsum(dO o) is computed here with torch ops unless given, as the
-    reference computes it outside Pallas. Returns (dq, dk, dv)."""
-    if do.stride(-1) != 1:
-        do = do.contiguous()      # the kernels read d contiguously
-    if delta is None:
-        B, S, H, _ = q.shape
-        delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
-            .reshape(B * H, S)
-    delta = delta.contiguous()
-    dq = _launch_dq(q, k, v, do, lse, delta, causal, scale, window)
-    dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal, scale, window)
-    return dq, dk, dv
+    """The backward on [B, S, H, D] views in one call of the C entry: the
+    delta pre-pass (rowsum(dO o), unless `delta` [B*H, S] fp32 is given),
+    the dQ kernel and the dK/dV kernel. Returns (dq, dk, dv)."""
+    if delta is not None:
+        delta = delta.contiguous()
+    return _run_bwd(q, k, v, do, lse, causal, scale, window, o=o,
+                    delta=delta, dq=True, dkv=True)[1:]
 
 
 def _flash_fwd(q3, k3, v3, causal, scale, window=None):

@@ -12,8 +12,14 @@ rules (operators/optimizers/adam_op.cc, adamw.py), which differ from
 - the decay applies to every parameter, biases and LayerNorm weights too
   (the reference stores ``apply_decay_param_fun`` and never reads it).
 
-The rules are plain torch ops in fp32 (moments and beta powers are fp32
-whatever the parameter's dtype). Unlike the reference, whose rules are
+The rules are plain torch ops in the reference's dtypes and rounding order:
+the moments start in the parameter's dtype, the beta powers and the step
+size lr_t are fp32, and lr_t is rounded to the parameter's dtype before it
+scales the step; the rules' python scalars (betas, epsilon) meet an array
+as its dtype holds them, as JAX's weak types do, and the fp32 weight-decay
+array widens what it meets (Adam's L2 term turns a bf16 grad, and with it
+the moments, fp32; AdamW's decoupled decay keeps them bf16). Unlike
+the reference, whose rules are
 pure functions returning new arrays, the port updates parameters and
 optimizer state IN PLACE: ``step`` and ``functional_apply`` mutate the
 tensors they are given and return them.
@@ -75,8 +81,11 @@ class Optimizer:
 
     def _rule_with_decay(self, p, g, state, lr, wd):
         # L2 regularization folded into the grad (paddle regularizer
-        # semantics); decoupled decay (AdamW) overrides this
-        self._rule(p, g + wd.to(g.dtype) * p, state, lr)
+        # semantics), with the reference's promotion: its wd is an fp32
+        # array, so a bf16 grad comes out fp32; decoupled decay (AdamW)
+        # overrides this
+        wide = torch.promote_types(g.dtype, wd.dtype)
+        self._rule(p, g.to(wide) + wd * p.to(wide), state, lr)
 
     # -- public API ------------------------------------------------------
     @torch.no_grad()
@@ -121,7 +130,10 @@ class Optimizer:
             for k in st:
                 key = f"{self._key(i, p)}_{k}"
                 if key in state:
-                    st[k].copy_(torch.as_tensor(state[key]))
+                    # the saved slot's dtype (Adam's moments may have
+                    # widened past the parameter's)
+                    st[k] = torch.as_tensor(state[key]).to(
+                        st[k].device, copy=True)
                     loaded = True
             if loaded:
                 self._state[id(p)] = st
@@ -165,26 +177,48 @@ class Adam(Optimizer):
         self._beta1 = beta1
         self._beta2 = beta2
         self._eps = epsilon
+        self._rounded = {}       # dtype -> the rule's scalars in that dtype
         super().__init__(learning_rate, parameters, weight_decay, grad_clip)
 
     def _init_state(self, p):
-        z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-        return {"moment1": z, "moment2": torch.zeros_like(z),
+        return {"moment1": torch.zeros_like(p), "moment2": torch.zeros_like(p),
                 "beta1_pow": torch.ones((), dtype=torch.float32,
                                         device=p.device),
                 "beta2_pow": torch.ones((), dtype=torch.float32,
                                         device=p.device)}
 
+    def _scalars(self, dtype):
+        """(beta1, 1 - beta1, beta2, 1 - beta2, epsilon) rounded to `dtype`:
+        the reference's python scalars meet arrays of that dtype as weak
+        types, so a bf16 moment is scaled by bf16(0.9), not by 0.9."""
+        if dtype not in self._rounded:
+            b1, b2 = self._beta1, self._beta2
+            self._rounded[dtype] = tuple(
+                torch.tensor([b1, 1 - b1, b2, 1 - b2, self._eps],
+                             dtype=torch.float64).to(dtype).tolist())
+        return self._rounded[dtype]
+
     def _rule(self, p, g, state, lr):
-        b1, b2, eps = self._beta1, self._beta2, self._eps
-        state["beta1_pow"].mul_(b1)
-        state["beta2_pow"].mul_(b2)
+        state["beta1_pow"].mul_(self._beta1)
+        state["beta2_pow"].mul_(self._beta2)
         m, v = state["moment1"], state["moment2"]
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_((1 - b2) * (g * g))
+        b1, _, b2, _, _ = self._scalars(m.dtype)
+        wide = torch.promote_types(m.dtype, g.dtype)
+        if m.dtype != wide:
+            # a grad wider than the moments (Adam's L2 term widens it)
+            # widens them, as the reference's sum of the two does
+            m, v = (m * b1).to(wide), (v * b2).to(wide)
+            state["moment1"], state["moment2"] = m, v
+        else:
+            m.mul_(b1)
+            v.mul_(b2)
+        _, c1, _, c2, _ = self._scalars(g.dtype)
+        m.add_(c1 * g)
+        v.add_(c2 * (g * g))
         lr_t = lr * torch.sqrt(1 - state["beta2_pow"]) \
             / (1 - state["beta1_pow"])
-        p.sub_((lr_t * m / (torch.sqrt(v) + eps)).to(p.dtype))
+        eps = self._scalars(v.dtype)[4]
+        p.sub_((lr_t.to(p.dtype) * m / (torch.sqrt(v) + eps)).to(p.dtype))
 
 
 class AdamW(Adam):

@@ -8,6 +8,7 @@ summing online over kv blocks and the port's plain version over the whole
 row. Tests marked ``cuda`` hold the CUDA kernel against the plain version
 on a card, and skip without one.
 """
+import contextlib
 import math
 
 import numpy as np
@@ -106,7 +107,8 @@ def test_block_for_errors_match_reference(s, forced):
     ((1, 2048, 4, 128), "bfloat16", "cuda", True),
     ((2, 1024, 12, 192), "float32", "cuda", True),
     ((1, 1024, 4, 256), "bfloat16", "cuda", True),
-    ((1, 1024, 4, 320), "float32", "cuda", True),   # the kernel then raises
+    ((1, 1024, 4, 320), "float32", "cuda", True),   # a 32-row tiling
+    ((1, 1024, 4, 576), "float32", "cuda", True),   # the kernel then raises
     ((2, 1024, 12, 64), "float32", "cpu", False),    # not on a CUDA device
     ((2, 1024, 12, 48), "float32", "cuda", False),   # head_dim % 64
     ((2, 1000, 12, 64), "float32", "cuda", False),   # seq % 128
@@ -121,7 +123,7 @@ def test_supported_gate(shape, dtype, device, want):
         assert jfa.supported(shape, str(dtype).replace("torch.", "")) is False
 
 
-@pytest.mark.parametrize("d", [48, 320, 512])
+@pytest.mark.parametrize("d", [560, 576, 640])
 def test_kernel_raises_for_head_dims_it_has_no_tiling_for(d):
     q = torch.zeros((1, 1024, 1, d))
     with pytest.raises(ValueError, match="head_dim in"):
@@ -206,6 +208,31 @@ def test_sdpa_naive_path_matches_jax(mask_kind, causal, window):
                                atol=ATOL, rtol=0)
 
 
+def test_sdpa_naive_path_runs_with_autocast_off(monkeypatch):
+    """The naive branch computes inside auto_cast's `disabled()`: the
+    reference's auto_cast reaches only linear and matmul, so its scores,
+    softmax and probabilities keep q's dtype. (On the CPU torch's autocast
+    leaves softmax alone, so only the card shows the values move; the
+    cuda test below holds them.)"""
+    from paddle_tpu_torch.nn.functional import transformer
+
+    entered = []
+    real = transformer._autocast_off
+
+    @contextlib.contextmanager
+    def recording():
+        with real():
+            entered.append(torch.is_autocast_enabled("cpu"))
+            yield
+
+    monkeypatch.setattr(transformer, "_autocast_off", recording)
+    q, k, v = (torch.from_numpy(a) for a in _arrays(1, 16, 2, 64, seed=8))
+    with pt.amp.auto_cast(True, dtype="bfloat16"):
+        out = scaled_dot_product_attention(q, k, v, is_causal=True)
+    assert entered == [False]
+    assert out.dtype == torch.float32
+
+
 # ---- on the card -----------------------------------------------------------
 
 @pytest.fixture
@@ -216,7 +243,7 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128, 192, 256])
+@pytest.mark.parametrize("d", [64, 128, 192, 256, 320, 512])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
                                        (torch.bfloat16, 2e-2)],
                          ids=["fp32", "bf16"])
@@ -226,8 +253,12 @@ def test_kernel_matches_plain_on_card(cuda, d, dtype, tol, causal, window):
     q, k, v = (torch.randn(4, 1024, d, generator=g, device=cuda).to(dtype)
                for _ in range(3))
     scale = 1.0 / math.sqrt(d)
+    dname = str(dtype).replace("torch.", "")
+    route = "mma" if dname == "bfloat16" and d <= 256 else "simt"
+    n = tfa.routes[f"flash_fwd:{dname}:{route}"]
     o, lse = tfa._flash_fwd(q, k, v, causal, scale, window)
     torch.cuda.synchronize()
+    assert tfa.routes[f"flash_fwd:{dname}:{route}"] == n + 1
     ro, rlse = tfa.flash_attention_ref(q, k, v, causal, scale, window)
     assert (o.float() - ro.float()).abs().max().item() <= tol
     assert (lse - rlse).abs().max().item() <= 2e-4
@@ -266,7 +297,7 @@ def test_bf16_kernel_raises_on_a_misaligned_view_on_card(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("d", [192, 256, 320, 512])
 def test_sdpa_launches_wide_heads_on_card(cuda, d):
     q = torch.randn(1, 1024, 2, d, device=cuda)
     n = sum(tfa.launches.values())
@@ -276,8 +307,42 @@ def test_sdpa_launches_wide_heads_on_card(cuda, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1], ids=["eval", "dropout"])
+def test_naive_sdpa_keeps_bf16_under_auto_cast_on_card(cuda, dropout_p):
+    """At seq 512 (the naive path) under auto_cast(bf16), SDPA on bf16 q,
+    k, v gives the plain bf16 math bit for bit: bf16 scores, a bf16
+    softmax, dropout on bf16 probabilities (the same mask, from a
+    reseeded generator). torch's autocast would have made the CUDA
+    softmax's probabilities fp32, and the dropout's rescale fp32 with
+    them."""
+    from paddle_tpu_torch.core import generator
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn(2, 512, 4, 64, generator=g, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    pt.seed(3)
+    with pt.amp.auto_cast(True, dtype="bfloat16"):
+        got = scaled_dot_product_attention(q, k, v, dropout_p=dropout_p,
+                                           is_causal=True, training=True)
+    pt.seed(3)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    scores = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * 0.125
+    keep = torch.ones(512, 512, dtype=torch.bool, device=cuda).tril()
+    probs = torch.softmax(scores.masked_fill(~keep, -1e30), dim=-1)
+    if dropout_p:
+        mask = torch.rand(probs.shape, device=cuda,
+                          generator=generator.default_generator(cuda)) \
+            >= dropout_p
+        probs = torch.where(mask, probs / (1 - dropout_p),
+                            torch.zeros_like(probs))
+    want = torch.einsum("bhqk,bhkd->bhqd", probs, vh).transpose(1, 2)
+    assert probs.dtype == got.dtype == torch.bfloat16
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_sdpa_raises_for_a_head_the_kernel_cannot_tile_on_card(cuda):
-    q = torch.randn(1, 1024, 2, 320, device=cuda)
+    q = torch.randn(1, 1024, 2, 576, device=cuda)
     with pytest.raises(ValueError, match="head_dim in"):
         scaled_dot_product_attention(q, q, q, is_causal=True)
 

@@ -128,7 +128,7 @@ def test_backward_validation():
         tfa._launch_dkv(x, x, x, x, rows, rows, True, 0.125, None)
 
 
-@pytest.mark.parametrize("d", [48, 320])
+@pytest.mark.parametrize("d", [560, 576])
 def test_backward_kernels_raise_for_head_dims_they_cannot_tile(d):
     x = torch.zeros((1, 1024, 1, d))
     rows = torch.zeros((1, 1024))
@@ -149,27 +149,33 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128, 192, 256])
+@pytest.mark.parametrize("d", [64, 128, 192, 256, 320, 512])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
                                        (torch.bfloat16, 3e-2)],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("causal,window", MODES, ids=MODE_IDS)
 def test_kernels_under_autograd_match_plain_on_card(cuda, d, dtype, tol,
                                                     causal, window):
-    """flash_attention's autograd runs the forward and both backward
-    kernels; its grads match autograd through the plain forward."""
+    """flash_attention's autograd runs the forward, the delta pre-pass and
+    both backward kernels, bf16 at head_dim 64 and 128 on the tensor
+    cores; its grads match autograd through the plain forward."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v, do = (torch.randn(2, 1024, 2, d, generator=g, device=cuda)
                    .to(dtype) for _ in range(4))
     dname = str(dtype).replace("torch.", "")
-    n_dq, n_dkv = (tfa.launches[f"flash_{kind}:{dname}"]
-                   for kind in ("dq", "dkv"))
+    route = "mma" if dname == "bfloat16" and d in (64, 128) else "simt"
+    kinds = ("dq", "dkv", "delta")
+    n = {kind: tfa.launches[f"flash_{kind}:{dname}"] for kind in kinds}
+    r = {kind: tfa.routes[f"flash_{kind}:{dname}:{route}"]
+         for kind in ("dq", "dkv")}
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     out = tfa.flash_attention(*leaves, causal=causal, window=window)
     got = torch.autograd.grad(out, leaves, do)
     torch.cuda.synchronize()
-    assert tfa.launches[f"flash_dq:{dname}"] == n_dq + 1
-    assert tfa.launches[f"flash_dkv:{dname}"] == n_dkv + 1
+    for kind in kinds:
+        assert tfa.launches[f"flash_{kind}:{dname}"] == n[kind] + 1
+    for kind in ("dq", "dkv"):
+        assert tfa.routes[f"flash_{kind}:{dname}:{route}"] == r[kind] + 1
     ref = [t.clone().requires_grad_() for t in (q, k, v)]
     ro, _ = tfa.flash_attention_ref(*(tfa._heads(t) for t in ref), causal,
                                     1.0 / math.sqrt(d), window)
@@ -177,3 +183,142 @@ def test_kernels_under_autograd_match_plain_on_card(cuda, d, dtype, tol,
     for a, b in zip(got, want):
         scale = max(1.0, b.float().abs().max().item())
         assert (a.float() - b.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_delta_prepass_and_bit_equal_grads_on_card(cuda, dtype):
+    """The backward's pre-pass gives rowsum(dO o) as the torch expression
+    does (fp32 sums in another order: 1e-5 x max(1, max|want|)); two
+    backward calls on the same inputs give the same bits (every block
+    writes only its own tile: no atomics), and so does a dO that is not
+    16-byte aligned (the wrapper copies it)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    b, s, h, d = 2, 1024, 3, 64
+    qkv = torch.randn(b, s, 3 * h * d, generator=g, device=cuda).to(dtype)
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    do = torch.randn(b, s, h, d, generator=g, device=cuda).to(dtype)
+    o, lse = tfa._launch(q, k, v, True, 0.125, None)
+    delta = tfa._launch_delta(o, do)
+    want = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(b * h, s)
+    torch.cuda.synchronize()
+    tol = 1e-5 * max(1.0, want.abs().max().item())
+    assert (delta - want).abs().max().item() <= tol
+    first = tfa._launch_bwd(q, k, v, o, lse, do, True, 0.125, None)
+    again = tfa._launch_bwd(q, k, v, o, lse, do, True, 0.125, None)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    mis = torch.empty(do.numel() + 1, dtype=dtype, device=cuda)[1:]
+    mis = mis.view(do.shape).copy_(do)            # one element off 16 bytes
+    assert not tfa._aligned(mis)
+    assert torch.equal(tfa._launch_delta(o, mis), delta)
+    shifted = tfa._launch_bwd(q, k, v, o, lse, mis, True, 0.125, None)
+    assert all(torch.equal(x, y) for x, y in zip(first, shifted))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_aligned_copy_copies_only_views_off_16_bytes(dtype):
+    """The backward's wrapper hands the pre-pass and the tensor-core kernels
+    dO and o as they are where they are 16-byte aligned, and else a
+    contiguous copy with the same values that is aligned, also for a
+    contiguous view one element off its allocation."""
+    t = torch.randn(2, 64, 3, 64).to(dtype)
+    assert tfa._aligned_copy(t) is t
+    qkv = torch.randn(2, 64, 9 * 64).to(dtype)
+    packed = qkv[..., 3 * 64:6 * 64].reshape(2, 64, 3, 64)  # a packed slice
+    assert tfa._aligned_copy(packed) is packed
+    off = torch.empty(t.numel() + 1, dtype=dtype)[1:].view(t.shape).copy_(t)
+    strided = torch.randn(2, 64, 3, 128).to(dtype)[..., ::2]
+    for view in (off, strided):
+        got = tfa._aligned_copy(view)
+        assert got is not view and tfa._aligned(got)
+        assert got.stride(-1) == 1 and torch.equal(got, view)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("window", [None, 17], ids=["causal", "window17"])
+def test_bf16_mma_kernels_on_packed_views_with_a_ragged_tile_on_card(
+        cuda, d, window):
+    """The tensor-core kernels read q, k, v as slices of one packed qkv and
+    take seq 1088, whose last 128-row tile is half empty; a window of 17
+    lies inside every tile. Against the plain backward within
+    chip_smoke.py's bf16 band (2e-2 x max(1, max|plain|))."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    b, s, h = 2, 1088, 3
+    qkv = torch.randn(b, s, 3 * h * d, generator=g,
+                      device=cuda).to(torch.bfloat16)
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    do = torch.randn(b, s, h, d, generator=g, device=cuda).to(torch.bfloat16)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = tfa._launch(q, k, v, True, scale, window)
+    got = tfa._launch_bwd(q, k, v, o, lse, do, True, scale, window)
+    heads = [tfa._heads(t) for t in (q, k, v, o, do)]
+    want = tfa.flash_attention_bwd_ref(*heads[:4], lse, heads[4], True,
+                                       scale, window=window)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        band = BF16_BWD_TOL * max(1.0, w.float().abs().max().item())
+        assert (tfa._heads(a).float() - w.float()).abs().max().item() <= band
+
+
+# ---- the bf16 tensor-core kernels' rounding ---------------------------------
+
+#: chip_smoke.py's band for the bf16 backward kernels against the
+#: fp32-math plain backward (FLASH_BWD_TOL["bfloat16"] there), scaled by
+#: max(1, max|plain|)
+BF16_BWD_TOL = 2e-2
+
+
+def _tensor_core_rounding_bwd(q3, k3, v3, o3, lse, do3, causal, scale,
+                              window=None):
+    """Where the bf16 mma.sync kernels round, in plain torch: S = Q K^T and
+    dP = dO V^T of the bf16 inputs accumulated in fp32, P = exp(S * scale -
+    lse) and dS = P (dP - delta) in fp32, then P and dS rounded to bf16
+    before the fp32-accumulated dV = P^T dO, dK = dS^T Q (times scale) and
+    dQ = dS K (times scale); the outputs rounded to bf16."""
+    qf, kf, vf, dof = (t.float() for t in (q3, k3, v3, do3))
+    delta = (dof * o3.float()).sum(-1)
+    p = torch.exp((qf @ kf.transpose(-1, -2)) * scale - lse[..., None])
+    if causal:
+        p = p.masked_fill(~tfa._keep_mask(*p.shape[-2:], window, p.device),
+                          0.0)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
+    pb, dsb = (t.to(torch.bfloat16).float() for t in (p, ds))
+    dq = (dsb @ kf) * scale
+    dk = (dsb.transpose(-1, -2) @ qf) * scale
+    dv = pb.transpose(-1, -2) @ dof
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("d,window", [(64, None), (64, 100), (128, None)],
+                         ids=["d64", "d64_window100", "d128"])
+def test_bf16_tensor_core_rounding_within_band_of_plain(d, window):
+    """At s 1024, causal, d 64 / 128 and d 64 with window 100: rounding P
+    and dS to bf16 before their fp32-accumulated products, as the mma.sync
+    kernels must, stays within the bf16 band of the fp32-math plain
+    backward; and on the same inputs the plain backward matches the JAX
+    package's Pallas backward (interpret mode)."""
+    rng = np.random.RandomState(17)
+    q, k, v, do = (torch.from_numpy(rng.randn(2, 1024, d).astype(np.float32))
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    o, lse = tfa.flash_attention_ref(q, k, v, True, scale, window)
+    plain = tfa.flash_attention_bwd_ref(q, k, v, o, lse, do, True, scale,
+                                        window=window)
+    emulated = _tensor_core_rounding_bwd(q, k, v, o, lse, do, True, scale,
+                                         window)
+    for e, p in zip(emulated, plain):
+        band = BF16_BWD_TOL * max(1.0, p.float().abs().max().item())
+        assert (e.float() - p.float()).abs().max().item() <= band
+
+    # the plain backward against the JAX package, fp32 on the same values
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
+    want = jfa._flash_bwd(*(jnp.asarray(t.numpy())
+                            for t in (qf, kf, vf, of, lse, dof)),
+                          True, scale, True, window=window)
+    got = tfa._flash_bwd(qf, kf, vf, of, lse, dof, True, scale,
+                         window=window)
+    _close(got, want)

@@ -521,9 +521,10 @@ def cuda():
 @pytest.mark.cuda
 def test_bf16_training_step_launches_bf16_flash_and_fp32_tpp_on_card(cuda):
     """A bf16 auto_cast step of the narrow model (seq 1024) runs the bf16
-    flash forward, dQ and dK/dV kernels once per layer, and the TPP kernel
-    (with its LN row-statistics pre-pass) in fp32 only (the reference
-    hands it the fp32 residual stream)."""
+    flash forward, delta pre-pass, dQ and dK/dV kernels once per layer,
+    the dQ and dK/dV kernels on the tensor cores, and the TPP kernel (with
+    its LN row-statistics pre-pass) in fp32 only (the reference hands it
+    the fp32 residual stream)."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     pt.set_flags({"tpp_kernels": True})
@@ -533,6 +534,7 @@ def test_bf16_training_step_launches_bf16_flash_and_fp32_tpp_on_card(cuda):
                                parameters=tm.parameters()),
                      loss_fn=GPTPretrainLoss())
     before = {**fa.launches, **tpp.launches}
+    routes = dict(fa.routes)
     with pt.amp.auto_cast(True, dtype="bfloat16"):
         loss = tt.train_step(golden.input_ids(), golden.train_labels())
     after = {**fa.launches, **tpp.launches}
@@ -540,11 +542,15 @@ def test_bf16_training_step_launches_bf16_flash_and_fp32_tpp_on_card(cuda):
              if after[k] != before.get(k, 0)}
     layers = golden.NARROW["num_layers"]
     assert delta == {"flash_fwd:bfloat16": layers,
+                     "flash_delta:bfloat16": layers,
                      "flash_dq:bfloat16": layers,
                      "flash_dkv:bfloat16": layers,
                      "tpp_matmul.ln:float32": layers,
                      "tpp_matmul.in_act:float32": layers,
                      "tpp_row_stats:float32": layers}
+    for kind in ("fwd", "dq", "dkv"):
+        key = f"flash_{kind}:bfloat16:mma"
+        assert fa.routes[key] - routes.get(key, 0) == layers
     assert bool(torch.isfinite(loss))
 
 
