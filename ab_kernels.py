@@ -1,0 +1,157 @@
+"""Time the port's paged-attention kernel and its scalar fp32 flash kernels
+for two or more checkouts of the repository in alternation, on one CUDA
+device.
+
+    python3 ab_kernels.py [--rounds 2] DIR [DIR ...]
+
+Each DIR is the root of a checkout (it holds ``paddle_tpu_torch/``). In
+round r the checkouts run in order, reversed on every other round (A B B A
+for two checkouts and two rounds), each in a process of its own that
+imports the port from its DIR, builds its kernels and times:
+
+- paged attention (``ops.tpp._paged_kernel_call``) at GPT-2 small's
+  engine widths (8 rows, 12 heads, head dim 64, 16-column frames, 64
+  frames a row, a pool of 513 frames): at full length (every row 1024
+  columns) and at the live pool's lengths after 64 decode steps as
+  chip_smoke.py found them (105-179 columns), bf16 q and pages, fp32 q
+  and pages, fp32 q on int8 pages with their row scales;
+- the flash forward (``ops.flash_attention._launch``) in fp32 at b4 and
+  b16 and in bf16 at b4 (s 1024, h 12, d 64, causal), and the fp32
+  backward (``_launch_bwd``: delta pre-pass, dQ, dK/dV) at b16.
+
+Every input comes from seeded generators, the same in every process.
+Times as chip_smoke.py takes them: CUDA events around one call, median of
+20 after 3 warm-ups, 64 MB written between calls to flush L2; ``ms`` with
+the host's enqueue inside the window, ``device_ms`` after a ~0.5 ms
+device sleep that hides it. Prints one JSON line per process, then a
+summary line (median, min and max of every checkout's times, pooled over
+rounds), and the card's name and power limit. It imports neither jax nor
+the JAX package.
+"""
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+SLEEP_CYCLES = 1_000_000
+LIVE_LENGTHS = (140, 143, 160, 163, 163, 105, 179, 117)
+
+
+def worker(root):
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from paddle_tpu_torch.distributed import compress
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import tpp
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    dev = torch.device("cuda")
+    flush = torch.empty(64 * 2 ** 20 // 4, device=dev)
+
+    def time_ms(fn, hide_enqueue=False, reps=20, warmup=3):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            if hide_enqueue:
+                torch.cuda._sleep(SLEEP_CYCLES)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    def both(fn):
+        return {"ms": time_ms(fn), "device_ms": time_ms(fn, True)}
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {"root": root}
+    B, H, hd, bs, maxb, NB = 8, 12, 64, 16, 64, 513
+    kp = torch.randn(NB, H, bs, hd, generator=gen, device=dev)
+    vp = torch.randn(NB, H, bs, hd, generator=gen, device=dev)
+    (kq, ks), (vq, vs) = compress.quantize_rows(kp), compress.quantize_rows(vp)
+    tables = torch.stack([torch.randperm(NB - 1, generator=gen, device=dev)
+                          [:maxb] + 1 for _ in range(B)]).int()
+    lengths = {"full_length": torch.full((B,), maxb * bs, dtype=torch.int32,
+                                         device=dev),
+               "live_pool": torch.tensor(LIVE_LENGTHS, dtype=torch.int32,
+                                         device=dev)}
+    q32 = torch.randn(B, H, hd, generator=gen, device=dev)
+    cases = {"dense[bfloat16]": (q32.bfloat16(), kp.bfloat16(),
+                                 vp.bfloat16(), None, None),
+             "dense[float32]": (q32, kp, vp, None, None),
+             "int8[float32]": (q32, kq, vq, ks, vs)}
+    for name, (q, k, v, sk, sv) in cases.items():
+        for case, lens in lengths.items():
+            out[f"paged_attention.{name}.{case}"] = both(
+                lambda: tpp._paged_kernel_call(q, k, v, tables, lens, sk, sv))
+    s, h, d = 1024, 12, 64
+    for dname, dt, batches in (("float32", torch.float32, (4, 16)),
+                               ("bfloat16", torch.bfloat16, (4,))):
+        for b in batches:
+            q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device=dev)
+                           .to(dt) for _ in range(4))
+            with torch.no_grad():
+                out[f"flash_fwd[{dname}].b{b}"] = both(
+                    lambda: fa._launch(q, k, v, True, d ** -0.5, None))
+                if dname == "float32" and b == 16:
+                    o, lse = fa._launch(q, k, v, True, d ** -0.5, None)
+                    out[f"flash_bwd_pair[{dname}].b{b}"] = both(
+                        lambda: fa._launch_bwd(q, k, v, o, lse, do, True,
+                                               d ** -0.5, None))
+            del q, k, v, do
+            torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("dirs", nargs="*")
+    args = ap.parse_args()
+    if args.worker:
+        worker(args.worker)
+        return 0
+    if not args.dirs:
+        ap.error("give one or more checkout directories")
+    runs = {d: [] for d in args.dirs}
+    for r in range(args.rounds):
+        for d in (args.dirs if r % 2 == 0 else args.dirs[::-1]):
+            res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                  "--worker", d], capture_output=True,
+                                 text=True, check=True)
+            line = res.stdout.strip().splitlines()[-1]
+            print(line, flush=True)
+            runs[d].append(json.loads(line))
+    summary = {}
+    for d, rows in runs.items():
+        summary[d] = {}
+        for key in rows[0]:
+            if key == "root":
+                continue
+            for t in ("ms", "device_ms"):
+                vals = [row[key][t] for row in rows]
+                summary[d][f"{key}.{t}"] = {
+                    "median": statistics.median(vals), "min": min(vals),
+                    "max": max(vals)}
+    print(json.dumps({"summary": summary}), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0] if smi.stdout else "nvidia-smi: "
+          "no output", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

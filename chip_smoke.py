@@ -16,9 +16,10 @@ and their delta pre-pass, the TPP matmul and its LN row-statistics
 pre-pass, the greedy-NMS kernel, the TPP bias_act, softmax_rows and
 masked_reduce kernels, the paged-attention kernel) against its plain
 PyTorch version (the backward also for bit-equal grads over two calls
-and, on the GPT paths, every bf16 launch on the tensor cores), checks a
-narrow
-GPT's eval forward, greedy ``generate`` and three AdamW training steps and
+and, on the GPT paths, every bf16 launch on the tensor cores; SDPA at
+head dims 576 and 1024, forward and backward, on the streaming route;
+the paged kernel also for bit-equal output over two calls), checks a
+narrow GPT's eval forward, greedy ``generate`` and three AdamW training steps and
 a narrow PP-YOLOE's head outputs and detections against the JAX package's
 committed outputs, drives GPT-2 small (vocab 50304, hidden 768, 12
 layers, 12 heads, random weights from a seed) through the serving path
@@ -155,6 +156,9 @@ FORWARD_SAMPLES = 5
 # GPT-2 small's forward through SDPA's naive path (seq below 1024) under
 # auto_cast, with and without the repair of its autocast guard
 NAIVE_SEQ = 512
+# head dims above 512 (no whole-head tiling): SDPA's forward and backward
+# take the streaming route at b1 s1024 h2, causal
+STREAM_HEAD_DIMS = (576, 1024)
 # the reference's paged_attention audit shape (ops/tpp.py:248): B, H, hd,
 # bs, maxb, and its test's pool of B + 3 frames
 AUDIT_SHAPES = ((16, 8, 128, 32, 16, 19),)
@@ -210,14 +214,16 @@ def tpp_routes_checked(path):
     return routed
 
 
-def flash_routes_checked(path):
+def flash_routes_checked(path, stream=False):
     """The flash launches since flash_attention.routes was cleared, by the
     kernel the C entry chose; checks that every bf16 launch (forward, dQ,
     dK/dV; head_dim 64 on the GPT paths) ran on the tensor cores (mma) and
-    every fp32 one on the scalar kernels (simt)."""
+    every fp32 one on the scalar kernels (simt), or with `stream` (head
+    dims above 512) that every launch took the streaming route."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
-    want = {"bfloat16": "mma", "float32": "simt"}
+    want = {"bfloat16": "stream", "float32": "stream"} if stream else \
+        {"bfloat16": "mma", "float32": "simt"}
     routed = {k: n for k, n in fa.routes.items() if n}
     launched = sum(n for k, n in fa.launches.items()
                    if k.split(":")[0] in ("flash_fwd", "flash_dq",
@@ -226,7 +232,7 @@ def flash_routes_checked(path):
              if k.rsplit(":", 1)[1] != want[k.split(":")[1]]}
     check(not wrong and sum(routed.values()) == launched,
           f"{path}: flash launches by route {routed} ({launched} launches), "
-          f"bf16 all on mma and fp32 on simt")
+          f"by dtype all on {want}")
     return routed
 
 
@@ -242,7 +248,7 @@ def scalar_bwd_instance(mangled):
 
 def kernel_group(name):
     n = name.lower()
-    if "flash_fwd_kernel" in n or "flash_fwd_mma_kernel" in n:
+    if "flash_fwd_" in n:
         return "flash_fwd"
     # the scalar and the tensor-core (flash_*_mma_kernel) backward kernels,
     # and the backward's delta pre-pass
@@ -1070,8 +1076,8 @@ def check_paged_sources(gen):
     """The paged-attention kernel against its plain version off the main
     path: a full-length case (8 rows x 1024 columns over a 513-frame pool)
     and the reference's audit shape with a zero-length row, bf16 and fp32
-    q, dense and int8 pages. Returns {case: max-abs error} and the
-    full-length inputs (for timing)."""
+    q, dense and int8 pages; two calls must give the same bits. Returns
+    {case: max-abs error} and the full-length inputs (for timing)."""
     import torch
 
     from paddle_tpu_torch.ops import tpp
@@ -1093,7 +1099,11 @@ def check_paged_sources(gen):
                     kq, vq, ks, vs = c["int8"]
                     args = (kq, vq, c["tables"], c["lengths"], ks, vs)
                 got = tpp.paged_attention(q, *args)
+                again = tpp.paged_attention(q, *args)
                 torch.cuda.synchronize()
+                check(torch.equal(got, again),
+                      f"paged attention {name} {variant} {dname}: two calls, "
+                      f"the same bits")
                 want = tpp.paged_attention_ref(q, *args)
                 errs[f"{name}.{variant}[{dname}]"] = paged_err(got, want,
                                                                dname)
@@ -1103,7 +1113,8 @@ def check_paged_sources(gen):
     emit({"phase": "kernels_vs_plain", "kernel": "paged_attention",
           "full_length": [SERVE_SLOTS, 12, 64, PAGE_BLOCK, 1024 // PAGE_BLOCK,
                           513], "audit_shape_B_H_hd_bs_maxb": AUDIT_SHAPES[0],
-          "zero_length_row_zeros": True, "max_abs_err": errs,
+          "zero_length_row_zeros": True, "two_calls_bit_equal": True,
+          "max_abs_err": errs,
           "tol": {"float32": PAGED_TOL_F32,
                   "bfloat16": f"|d| <= {PAGED_BF16_REL} |plain| + "
                               f"{PAGED_BF16_ABS}"}})
@@ -1139,9 +1150,19 @@ def time_paged_attention(serve, full, full_errs, time_ms, bound,
         mask = (torch.arange(k.shape[2], device=q.device)[None, :]
                 < lengths[:, None])[:, None, None, :]
         tables, lengths = tables.int().contiguous(), lengths.int()
-        return {
-            "ms": time_ms(lambda: tpp._paged_kernel_call(
-                q, kp, vp, tables, lengths, *scales)),
+        fps, nsplit = tpp._paged_splits(B, H, bs, maxb)
+
+        def kern():
+            return tpp._paged_kernel_call(q, kp, vp, tables, lengths,
+                                          *scales)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None], k, v, attn_mask=mask)
+
+        row = {
+            "ms": time_ms(kern), "device_ms": time_ms(kern,
+                                                      hide_enqueue=True),
             "wrapper_ms": time_ms(lambda: tpp.paged_attention(
                 q, kp, vp, tables, lengths, *scales)),
             "wrapper_is": "paged_attention(): the launch after its checks, "
@@ -1149,14 +1170,20 @@ def time_paged_attention(serve, full, full_errs, time_ms, bound,
             "plain_ms": time_ms(lambda: tpp.paged_attention_ref(
                 q, kp, vp, tables, lengths, *scales)),
             "bound_ms": bms, "bound_by": by,
-            "library_ms": time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q[:, :, None], k, v, attn_mask=mask)),
+            "library_ms": time_ms(sdpa),
+            "library_device_ms": time_ms(sdpa, hide_enqueue=True),
             "library_covers": "scaled_dot_product_attention on the "
                               "pre-gathered dense layout with the length "
                               "mask (gather excluded)",
+            "splits": {"frames_a_split": fps, "splits_a_row": nsplit,
+                       "blocks": B * H * nsplit},
             "bytes": nbytes, "shape_B_H_hd_bs_maxb": [B, H, hd, bs, maxb],
             "lengths": lengths.tolist()}
+        row["share_of_bound"] = bms / row["ms"]
+        row["device_share_of_bound"] = bms / row["device_ms"]
+        row["device_ms_over_library_device_ms"] = \
+            row["device_ms"] / row["library_device_ms"]
+        return row
 
     live = serve["live"]
     kernels = []
@@ -1341,20 +1368,44 @@ def main():
         err = (o - ro.reshape(1, 2, 1024, d).transpose(1, 2)).abs().max()
         check(err.item() <= FLASH_TOL["float32"],
               f"SDPA head_dim {d} vs plain: err {err.item()}")
-    q = randn(1, 1024, 2, 576)
-    try:
-        scaled_dot_product_attention(q, q, q, is_causal=True)
-        raised = False
-    except ValueError:
-        raised = True
-    check(raised, "SDPA head_dim 576 on the card raises")
+    # above 512 no whole-head tiling fits: SDPA's forward and backward take
+    # the streaming route, held against the plain forward and autograd
+    # through it
+    fa.routes.clear()
+    fa.launches.clear()
+    stream_err = {}
+    for d in STREAM_HEAD_DIMS:
+        for dname, dt in dtypes.items():
+            q, k, v, do = (randn(1, 1024, 2, d, dtype=dt) for _ in range(4))
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            o = scaled_dot_product_attention(*leaves, is_causal=True)
+            got = torch.autograd.grad(o, leaves, do)
+            torch.cuda.synchronize()
+            ref = [t.clone().float().requires_grad_() for t in (q, k, v)]
+            ro = fa._unheads(fa.flash_attention_ref(
+                *(fa._heads(t) for t in ref), True, 1.0 / math.sqrt(d))[0],
+                1, 2)
+            want = torch.autograd.grad(ro, ref, do.float())
+            eo = (o.float() - ro).abs().max().item()
+            eg = max((g.float() - w).abs().max().item()
+                     / max(1.0, w.abs().max().item())
+                     for g, w in zip(got, want))
+            stream_err[f"d{d}[{dname}]"] = {"o": eo, "grads_rel": eg}
+            check(eo <= FLASH_TOL[dname] and eg <= FLASH_TOL[dname],
+                  f"SDPA head_dim {d} {dname} vs plain: o err {eo}, grads "
+                  f"err / max(1, max|plain|) {eg}")
+            del q, k, v, do, leaves, o, got, ref, ro, want
+    stream_routes = flash_routes_checked("SDPA head_dim 576 and 1024",
+                                         stream=True)
     emit({"phase": "kernels_vs_plain", "kernel": "flash_fwd",
           "configs": n_flash + 4, "shapes_s_d": shapes,
           "main_shape_s_h_d": [1024, 12, 64],
           "main_shape_max_abs_err_by_batch": flash_err,
           "sdpa_head_dim_192_256_320_launched": True,
-          "sdpa_head_dim_576_raises": True,
-          "tol": {"o": FLASH_TOL, "lse": LSE_TOL}})
+          "sdpa_stream_route_b1_s1024_h2_causal": stream_err,
+          "stream_routes": stream_routes,
+          "tol": {"o": FLASH_TOL, "lse": LSE_TOL,
+                  "stream_grads": "FLASH_TOL x max(1, max|plain|)"}})
 
     def tpp_err(got, want, dname, what):
         err = (got.float() - want.float()).abs().max().item()
@@ -1974,6 +2025,51 @@ def main():
                     "shape": [b, s, h, d]}, 4.0 * b * h * pairs * d, kern,
                     sdpa)
             del qkv, q, k, v, heads, bhsd
+        # the streaming route once, at head_dim 576 (b1 s1024 h2, causal):
+        # the forward and the backward (pre-pass, dQ, dK/dV: one C call)
+        # against SDPA's; the bound counts the function's work, not the
+        # route's recomputation of S
+        ds = STREAM_HEAD_DIMS[0]
+        q, k, v, do = (randn(1, s, 2, ds, dtype=dt) for _ in range(4))
+        sscale = 1.0 / math.sqrt(ds)
+        bhsd = [t.transpose(1, 2).contiguous().requires_grad_()
+                for t in (q, k, v)]
+        with torch.no_grad():
+            o, lse = fa._launch(q, k, v, True, sscale, None)
+
+            def stream_fwd():
+                return fa._launch(q, k, v, True, sscale, None)
+
+            def sdpa_fwd():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    *bhsd, is_causal=True)
+
+            bms, by = bound(4.0 * 2 * pairs * ds,
+                            4 * 2 * s * ds * item + 2 * s * 4, dname)
+            stream_rows = {"forward": rates({
+                "ms": time_ms(stream_fwd, reps=5), "bound_ms": bms,
+                "bound_by": by, "library_ms": time_ms(sdpa_fwd, reps=5),
+                "shape": [1, s, 2, ds]}, 4.0 * 2 * pairs * ds, stream_fwd,
+                sdpa_fwd)}
+        out = torch.nn.functional.scaled_dot_product_attention(
+            *bhsd, is_causal=True)
+        bdo = do.transpose(1, 2).contiguous()
+
+        def sdpa_bwd_stream():
+            return torch.autograd.grad(out, bhsd, bdo, retain_graph=True)
+
+        def stream_bwd():
+            return fa._launch_bwd(q, k, v, o, lse, do, True, sscale, None)
+
+        bms, by = bound(10.0 * 2 * pairs * ds,
+                        8 * 2 * s * ds * item + 2 * 2 * s * 4, dname)
+        stream_rows["backward"] = rates({
+            "ms": time_ms(stream_bwd, reps=5), "bound_ms": bms,
+            "bound_by": by, "library_ms": time_ms(sdpa_bwd_stream, reps=5),
+            "covers": "delta pre-pass + dQ + dK/dV (one C call) against "
+                      "SDPA's backward", "shape": [1, s, 2, ds]},
+            10.0 * 2 * pairs * ds, stream_bwd, sdpa_bwd_stream)
+        del q, k, v, do, o, lse, bhsd, out, bdo
         kernels.append({
             "name": f"flash_fwd[{dname}]", "route": "cuda",
             "source": "paddle_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -1981,7 +2077,8 @@ def main():
             **launch_counts(f"flash_fwd:{dname}"),
             "max_abs_err": flash_err[dname][4], **fwd_rows[4], "causal": True,
             "train_shape": {**fwd_rows[TRAIN_BATCH],
-                            "max_abs_err": flash_err[dname][TRAIN_BATCH]}})
+                            "max_abs_err": flash_err[dname][TRAIN_BATCH]},
+            "stream_route_d576": stream_rows})
 
         # the backward pair at the serving and the training batch, from
         # the forward kernel's o and lse and the pre-pass's delta; `pair`
@@ -2195,7 +2292,8 @@ def main():
                                     bound, launch_counts)
     emit({"phase": "times", "method": "CUDA events, 3 warm-up, median of "
           "20 (the plain NMS: 1 warm-up, median of 5), 64 MB written "
-          "between launches to flush L2; device_ms (flash, TPP): "
+          "between launches to flush L2; device_ms (flash, TPP, paged "
+          "attention): "
           "the same with a ~0.5 ms device sleep before the start event, "
           "so the host's enqueue of the call is not timed",
           "tpp_matmul.plain": tpp_plain})

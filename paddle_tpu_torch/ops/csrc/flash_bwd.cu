@@ -66,8 +66,14 @@
 // scalar fp32 FMAs out of shared memory, the tiles staged in fp32, a
 // 256-thread 16 x 16 grid; fp32 stays fp32 (no TF32) as in the reference.
 // Tiles of 64 rows at head_dim 64 and 128, 32 at 192 and 256, 16 from 320 to
-// 512 (the dK/dV kernel's K, V, Q and dO tiles take 133.6 KB at 512); the
-// entry refuses a wider head.
+// 512 (the dK/dV kernel's K, V, Q and dO tiles take 133.6 KB at 512).
+//
+// Above head_dim 512, fp32 and bf16 (`flash_dq_stream_kernel`,
+// `flash_dkv_stream_kernel`, the streaming route): no tile of a whole head
+// fits, so each output is formed in 64-wide chunks of its columns, S and dP
+// formed again over the head dim in 64-wide chunks for each (flash.cuh);
+// the fp32 staging and the masks are the scalar kernels'. Any head dim that
+// is a multiple of 64 runs.
 //
 // delta pre-pass (`flash_delta_kernel`): rowsum(dO o O) in fp32, 8 lanes a
 // row, 16-byte loads where the views allow them; the sum's order is fixed.
@@ -167,9 +173,10 @@ __global__ void __launch_bounds__(NT)
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const int bh = blockIdx.y;
+  int bh, qt;
+  bh_tile(true, bh, qt);  // the heaviest causal tile first
   const int b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * BR;
+  const int q0 = qt * BR;
   const T* kb = k + b * sk.b + h * sk.h;
   const T* vb = v + b * sv.b + h * sv.h;
 
@@ -265,9 +272,10 @@ __global__ void __launch_bounds__(NT)
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const int bh = blockIdx.y;
+  int bh, kt;
+  bh_tile(false, bh, kt);  // kv tile 0, the heaviest, first
   const int b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * BR;
+  const int k0 = kt * BR;
   const T* qb = q + b * sq.b + h * sq.h;
   const T* dob = dout + b * sdo.b + h * sdo.h;
 
@@ -359,6 +367,192 @@ __global__ void __launch_bounds__(NT)
     for (int j = 0; j < DJ; ++j) {
       krow[tx + 16 * j] = from_f<T>(dka[i][j]);
       vrow[tx + 16 * j] = from_f<T>(dva[i][j]);
+    }
+  }
+}
+
+// ---- head_dim above 512: the streaming route ------------------------------
+//
+// Every output is formed in 64-wide chunks of its columns; for each chunk
+// the kernel walks the tiles it sees and forms S = (Q * scale) K^T and
+// dP = dO V^T again over the whole head dim (stream_scores, flash.cuh),
+// then P = exp(S - lse) and dS = P o (dP - delta) as the scalar kernels do.
+// S and dP are formed D / 64 times in each kernel: slow, and no
+// configuration of the reference has such heads.
+
+// dQ[:, chunk] = scale * sum over kv tiles of dS K[:, chunk]: one block a
+// (b*h, 64-row query tile)
+template <typename T>
+__global__ void __launch_bounds__(ST_THREADS)
+    flash_dq_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const T* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta, T* __restrict__ dq,
+                           int H, int S, int D, Strides sq, Strides sk,
+                           Strides sv, Strides sdo, Strides sdq, int causal,
+                           float scale, int window) {
+  constexpr int BR = ST_ROWS;
+  extern __shared__ float smem[];
+  float* Qc = smem;             // a chunk of Q * scale
+  float* Kc = Qc + ST_TILE;     // a chunk of K (of S's, then of dQ's columns)
+  float* dOc = Kc + ST_TILE;
+  float* Vc = dOc + ST_TILE;
+  float* dSs = Vc + ST_TILE;
+  float* lse_s = dSs + ST_TILE;
+  float* dl_s = lse_s + BR;
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  int bh, qt;
+  bh_tile(true, bh, qt);  // the heaviest causal tile first
+  const int b = bh / H, h = bh % H;
+  const int q0 = qt * BR;
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
+  const T* dob = dout + b * sdo.b + h * sdo.h;
+  if (tid < BR) {
+    lse_s[tid] = lse[(long long)bh * S + q0 + tid];
+    dl_s[tid] = delta[(long long)bh * S + q0 + tid];
+  }
+
+  int kt_begin = 0, kt_end = S / BR;
+  if (causal) {
+    kt_end = (q0 + BR - 1) / BR + 1;
+    if (window > 0) {
+      const int first_key = q0 - (window - 1);
+      kt_begin = first_key > 0 ? first_key / BR : 0;
+    }
+  }
+
+  T* dqb = dq + b * sdq.b + h * sdq.h;
+  for (int d0 = 0; d0 < D; d0 += BR) {
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int kt = kt_begin; kt < kt_end; ++kt) {
+      const int k0 = kt * BR;
+      float s[4][4], dp[4][4];
+      stream_scores<T, true>(s, dp, Qc, Kc, dOc, Vc, qb, sq.s, kb, sk.s, dob,
+                             sdo.s, vb, sv.s, q0, k0, D, scale, ty, tx);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = ty + 16 * i, c = tx + 16 * j;
+          const float p = visible(q0 + r, k0 + c, causal, window)
+                              ? expf(s[i][j] - lse_s[r])
+                              : 0.f;
+          dSs[r * ST_LD + c] = p * (dp[i][j] - dl_s[r]);
+        }
+      __syncthreads();  // dS complete; every reader of the K chunk done
+      stage_chunk(Kc, kb, sk.s, k0, d0, 1.f);
+      __syncthreads();
+      chunk_pv<false>(dSs, Kc, acc, ty, tx);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      T* row = dqb + (long long)(q0 + ty + 16 * i) * sdq.s + d0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) row[tx + 16 * j] = from_f<T>(acc[i][j] * scale);
+    }
+  }
+}
+
+// dK[:, chunk] = sum over query tiles of dS^T (Q * scale)[:, chunk], dV[:,
+// chunk] = sum of P^T dO[:, chunk]: one block a (b*h, 64-row kv tile)
+template <typename T>
+__global__ void __launch_bounds__(ST_THREADS)
+    flash_dkv_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const T* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            T* __restrict__ dk, T* __restrict__ dv, int H,
+                            int S, int D, Strides sq, Strides sk, Strides sv,
+                            Strides sdo, Strides sdk, Strides sdv, int causal,
+                            float scale, int window) {
+  constexpr int BR = ST_ROWS;
+  extern __shared__ float smem[];
+  float* Qc = smem;          // a chunk of Q * scale (of S's, then of dK's)
+  float* Kc = Qc + ST_TILE;
+  float* dOc = Kc + ST_TILE; // a chunk of dO (of dP's, then of dV's)
+  float* Vc = dOc + ST_TILE;
+  float* Ps = Vc + ST_TILE;  // P [query][key] of the current query tile
+  float* dSs = Ps + ST_TILE;
+  float* lse_s = dSs + ST_TILE;
+  float* dl_s = lse_s + BR;
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  int bh, kt;
+  bh_tile(false, bh, kt);  // kv tile 0, the heaviest, first
+  const int b = bh / H, h = bh % H;
+  const int k0 = kt * BR;
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
+  const T* dob = dout + b * sdo.b + h * sdo.h;
+
+  int qt_begin = 0, qt_end = S / BR;
+  if (causal) {
+    qt_begin = k0 / BR;
+    if (window > 0) {
+      const long long last_q = (long long)k0 + BR - 1 + window - 1;
+      const long long e = last_q / BR + 1;
+      if (e < qt_end) qt_end = (int)e;
+    }
+  }
+
+  T* dkb = dk + b * sdk.b + h * sdk.h;
+  T* dvb = dv + b * sdv.b + h * sdv.h;
+  for (int d0 = 0; d0 < D; d0 += BR) {
+    float dka[4][4], dva[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dka[i][j] = dva[i][j] = 0.f;
+    for (int qt = qt_begin; qt < qt_end; ++qt) {
+      const int q0 = qt * BR;
+      // the previous tile's readers of lse_s and dl_s passed a barrier
+      if (tid < BR) {
+        lse_s[tid] = lse[(long long)bh * S + q0 + tid];
+        dl_s[tid] = delta[(long long)bh * S + q0 + tid];
+      }
+      float s[4][4], dp[4][4];
+      stream_scores<T, true>(s, dp, Qc, Kc, dOc, Vc, qb, sq.s, kb, sk.s, dob,
+                             sdo.s, vb, sv.s, q0, k0, D, scale, ty, tx);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = ty + 16 * i, c = tx + 16 * j;
+          const float p = visible(q0 + r, k0 + c, causal, window)
+                              ? expf(s[i][j] - lse_s[r])
+                              : 0.f;
+          Ps[r * ST_LD + c] = p;
+          dSs[r * ST_LD + c] = p * (dp[i][j] - dl_s[r]);
+        }
+      __syncthreads();  // P, dS complete; every reader of Qc, dOc done
+      stage_chunk(Qc, qb, sq.s, q0, d0, scale);
+      stage_chunk(dOc, dob, sdo.s, q0, d0, 1.f);
+      __syncthreads();
+      // this thread's keys ty + 16 i, columns d0 + tx + 16 j
+      chunk_pv<true>(Ps, dOc, dva, ty, tx);
+      chunk_pv<true>(dSs, Qc, dka, ty, tx);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const long long r = k0 + ty + 16 * i;
+      T* krow = dkb + r * sdk.s + d0;
+      T* vrow = dvb + r * sdv.s + d0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        krow[tx + 16 * j] = from_f<T>(dka[i][j]);
+        vrow[tx + 16 * j] = from_f<T>(dva[i][j]);
+      }
     }
   }
 }
@@ -899,7 +1093,7 @@ cudaError_t launch_dq(const Args& a) {
   static bool attr_set = false;
   if (cudaError_t e = smem_attr(flash_dq_kernel<T, D>, bytes, attr_set))
     return e;
-  dim3 grid(a.S / tile_rows<D>(), a.B * a.H);
+  const dim3 grid(a.B * a.H, a.S / tile_rows<D>());
   flash_dq_kernel<T, D><<<grid, NT, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
@@ -914,7 +1108,7 @@ cudaError_t launch_dkv(const Args& a) {
   static bool attr_set = false;
   if (cudaError_t e = smem_attr(flash_dkv_kernel<T, D>, bytes, attr_set))
     return e;
-  dim3 grid(a.S / tile_rows<D>(), a.B * a.H);
+  const dim3 grid(a.B * a.H, a.S / tile_rows<D>());
   flash_dkv_kernel<T, D><<<grid, NT, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
@@ -961,7 +1155,10 @@ cudaError_t launch_delta(const Args& a, float* delta, int D) {
   if (!aligned16(a.o, a.so, a.B, a.H, sizeof(T)) ||
       !aligned16(a.dout, a.sdo, a.B, a.H, sizeof(T)))
     return cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((long long)a.B * a.H * a.S / DELTA_ROWS);
+  // one x dimension of DELTA_ROWS rows a block: no limit of b * h's own
+  const long long rows = (long long)a.B * a.H * a.S;
+  if (rows / DELTA_ROWS > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)(rows / DELTA_ROWS);
   constexpr int VEC = 16 / sizeof(T);
   flash_delta_kernel<T, VEC><<<blocks, NT, 0, a.stream>>>(
       static_cast<const T*>(a.o), static_cast<const T*>(a.dout), delta, a.H,
@@ -993,6 +1190,34 @@ cudaError_t launch_mma(const Args& a) {
   return a.dk != nullptr ? launch_dkv_mma<D>(a) : cudaSuccess;
 }
 
+template <typename T>
+cudaError_t launch_stream(const Args& a, int D) {
+  constexpr int dq_bytes = (5 * ST_TILE + 2 * ST_ROWS) * sizeof(float);
+  constexpr int dkv_bytes = (6 * ST_TILE + 2 * ST_ROWS) * sizeof(float);
+  static bool dq_set = false, dkv_set = false;
+  const dim3 grid(a.B * a.H, a.S / ST_ROWS);
+  if (a.dq != nullptr) {
+    if (cudaError_t e = smem_attr(flash_dq_stream_kernel<T>, dq_bytes, dq_set))
+      return e;
+    flash_dq_stream_kernel<T><<<grid, ST_THREADS, dq_bytes, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+        a.delta, static_cast<T*>(a.dq), a.H, a.S, D, a.sq, a.sk, a.sv, a.sdo,
+        a.sdq, a.causal, a.scale, a.window);
+    if (cudaError_t e = cudaGetLastError()) return e;
+  }
+  if (a.dk == nullptr) return cudaSuccess;
+  if (cudaError_t e =
+          smem_attr(flash_dkv_stream_kernel<T>, dkv_bytes, dkv_set))
+    return e;
+  flash_dkv_stream_kernel<T><<<grid, ST_THREADS, dkv_bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.H, a.S, D,
+      a.sq, a.sk, a.sv, a.sdo, a.sdk, a.sdv, a.causal, a.scale, a.window);
+  return cudaGetLastError();
+}
+
 // the route by type and head dim: bf16 at 64 and 128 on the tensor cores
 template <int D>
 cudaError_t dispatch(const Args& a, int dtype, int* route) {
@@ -1016,7 +1241,8 @@ extern "C" {
 // (b, s, h) element strides of q, k, v, o, dout, dq, dk and dv in that
 // order (24 values; those of an absent tensor unread). dtype: 0 = float32,
 // 1 = bfloat16; window <= 0 means no window. *route is set to the kernels
-// launched: 1 mma.sync, 2 scalar. Returns a cudaError_t:
+// launched: 1 mma.sync, 2 scalar, 3 streaming. b * h rides on gridDim.x,
+// with no limit of its own (the pre-pass's grid too). Returns a cudaError_t:
 // cudaErrorInvalidValue for arguments the kernels do not take, else the
 // first launch error.
 int flash_bwd(const void* q, const void* k, const void* v, const void* o,
@@ -1024,7 +1250,9 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* o,
               void* delta_buf, void* dq, void* dk, void* dv, int B, int H,
               int S, int D, const long long* strides, int causal,
               float scale, int window, int dtype, void* stream, int* route) {
-  if (B < 1 || H < 1 || S < 64 || S % 64 != 0 || B * H > 65535 ||
+  // b * h rides on gridDim.x, the tiles on gridDim.y
+  if (B < 1 || H < 1 || S < 64 || S % 64 != 0 ||
+      (long long)B * H > 0x7fffffffLL || S / 16 > 65535 ||
       (dtype != 0 && dtype != 1) || (window > 0 && !causal) ||
       strides == nullptr || route == nullptr ||
       (dk == nullptr) != (dv == nullptr) ||
@@ -1039,7 +1267,7 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* o,
          strided(5), strided(6), strided(7), causal, scale, window,
          static_cast<cudaStream_t>(stream)};
   *route = 0;
-  if (D < 64 || D > 512 || D % 64 != 0)
+  if (D < 64 || D % 64 != 0)
     return cudaErrorInvalidValue;  // a head_dim the kernels have no tiling for
   if (delta == nullptr) {
     float* buf = static_cast<float*>(delta_buf);
@@ -1059,7 +1287,9 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* o,
     case 448: return dispatch<448>(a, dtype, route);
     case 512: return dispatch<512>(a, dtype, route);
   }
-  return cudaErrorInvalidValue;
+  *route = 3;  // above 512: stream the head dim
+  return dtype == 0 ? launch_stream<float>(a, D)
+                    : launch_stream<__nv_bfloat16>(a, D);
 }
 
 const char* flash_bwd_error_string(int err) {

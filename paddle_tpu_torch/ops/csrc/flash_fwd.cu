@@ -47,13 +47,20 @@
 // in fp32 whatever the input type), one block a (b*h, query tile), an
 // R x D/16 slice of the accumulator a thread. Tiles of 64 rows up to head
 // dim 256 (at 256 they take 209.5 KB of the 227 KB of shared memory a
-// block may have), 32 rows from 320 to 512 (201.5 KB at 512); the entry
-// refuses a wider head. It is 1.5x from SDPA on this card and not yet
-// redesigned.
+// block may have), 32 rows from 320 to 512 (201.5 KB at 512). It is 1.5x
+// from SDPA on this card and not yet redesigned.
+//
+// Above head_dim 512, fp32 and bf16, `flash_fwd_stream_kernel` (the
+// streaming route; flash.cuh): no tile of a whole head fits, so lse comes
+// first from S streamed over the head dim in 64-wide chunks, then each
+// 64-wide chunk of o from S formed again and P = exp(S - lse). Any head dim
+// that is a multiple of 64 runs; the fp32 staging and the masks are the
+// scalar kernel's.
 //
 // The entry reports the kernel it launched (*route: 1 mma.sync, 2 the
-// scalar kernel), which depends only on the type and the head dim. Seq a
-// multiple of 64; lse is a contiguous [B * H, S] fp32 array.
+// scalar kernel, 3 the streaming one), which depends only on the type and
+// the head dim. Seq a multiple of 64; lse is a contiguous [B * H, S] fp32
+// array. b * h rides on gridDim.x, with no limit of its own.
 
 #include "flash.cuh"
 
@@ -100,9 +107,10 @@ __global__ void __launch_bounds__(NT)
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const int bh = blockIdx.y;
+  int bh, qt;
+  bh_tile(true, bh, qt);  // the heaviest causal tile first
   const int b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * BR;
+  const int q0 = qt * BR;
   const T* qb = q + b * sq.b + h * sq.h;
   const T* kb = k + b * sk.b + h * sk.h;
   const T* vb = v + b * sv.b + h * sv.h;
@@ -236,6 +244,136 @@ __global__ void __launch_bounds__(NT)
     for (int j = 0; j < DJ; ++j) orow[tx + 16 * j] = from_f<T>(acc[i][j] / l);
   }
   if (tid < BR) lse[(long long)bh * S + q0 + tid] = m_s[tid] + logf(l_s[tid]);
+}
+
+// ---- head_dim above 512: the streaming route --------------------------------
+
+// One block a (b*h, 64-row query tile). Pass 1 takes the rows' max and sum
+// over the visible kv tiles (the scalar kernel's online rule, S streamed
+// over the head dim) and writes lse. Pass 2, for each 64-wide chunk of the
+// output's columns, forms S again over the whole head dim, P = exp(S - lse)
+// exactly (no running rescale) and o[:, chunk] = P V[:, chunk]. S is formed
+// D / 64 + 1 times: slow, and no configuration of the reference has such
+// heads.
+template <typename T>
+__global__ void __launch_bounds__(ST_THREADS)
+    flash_fwd_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, T* __restrict__ o,
+                            float* __restrict__ lse, int H, int S, int D,
+                            Strides sq, Strides sk, Strides sv, Strides so,
+                            int causal, float scale, int window) {
+  constexpr int BR = ST_ROWS, LPR = ST_THREADS / BR;
+  extern __shared__ float smem[];
+  float* Qc = smem;          // a chunk of Q * scale
+  float* Kc = Qc + ST_TILE;  // a chunk of K, then of V
+  float* Ps = Kc + ST_TILE;  // scores, then probabilities
+  float* m_s = Ps + ST_TILE;
+  float* l_s = m_s + BR;     // the row sum, then lse
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  int bh, qt;
+  bh_tile(true, bh, qt);  // the heaviest causal tile first
+  const int b = bh / H, h = bh % H;
+  const int q0 = qt * BR;
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
+  T* ob = o + b * so.b + h * so.h;
+  if (tid < BR) {
+    m_s[tid] = NEG;
+    l_s[tid] = 0.f;
+  }
+
+  // kv tiles with any visible key for some row of this query tile
+  int kt_begin = 0, kt_end = S / BR;
+  if (causal) {
+    kt_end = (q0 + BR - 1) / BR + 1;
+    if (window > 0) {
+      const int first_key = q0 - (window - 1);
+      kt_begin = first_key > 0 ? first_key / BR : 0;
+    }
+  }
+
+  float s[4][4], unused[4][4];
+  // pass 1: max and sum
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * BR;
+    stream_scores<T, false>(s, unused, Qc, Kc, nullptr, nullptr, qb, sq.s,
+                            kb, sk.s, nullptr, 0, nullptr, 0, q0, k0, D,
+                            scale, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = ty + 16 * i, c = tx + 16 * j;
+        Ps[r * ST_LD + c] =
+            visible(q0 + r, k0 + c, causal, window) ? s[i][j] : NEG;
+      }
+    __syncthreads();
+    {
+      const int r = tid / LPR, part = tid % LPR;
+      const float* pr = Ps + r * ST_LD;
+      float mx = NEG;
+      for (int c = part; c < BR; c += LPR) mx = fmaxf(mx, pr[c]);
+#pragma unroll
+      for (int off = 1; off < LPR; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_prev = m_s[r];
+      const float m_next = fmaxf(m_prev, mx);
+      float sum = 0.f;
+      for (int c = part; c < BR; c += LPR) sum += expf(pr[c] - m_next);
+#pragma unroll
+      for (int off = 1; off < LPR; off <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (part == 0) {
+        // a row whose every key so far was masked has m = NEG: its
+        // garbage (1 per masked key) is wiped by exp(NEG - m_real) = 0
+        // once a visible key arrives, as in the scalar kernel
+        l_s[r] = expf(m_prev - m_next) * l_s[r] + sum;
+        m_s[r] = m_next;
+      }
+    }
+  }
+  __syncthreads();
+  if (tid < BR) {
+    l_s[tid] = m_s[tid] + logf(l_s[tid]);
+    lse[(long long)bh * S + q0 + tid] = l_s[tid];
+  }
+
+  // pass 2: o, 64 columns at a time
+  for (int d0 = 0; d0 < D; d0 += BR) {
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int kt = kt_begin; kt < kt_end; ++kt) {
+      const int k0 = kt * BR;
+      stream_scores<T, false>(s, unused, Qc, Kc, nullptr, nullptr, qb, sq.s,
+                              kb, sk.s, nullptr, 0, nullptr, 0, q0, k0, D,
+                              scale, ty, tx);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = ty + 16 * i, c = tx + 16 * j;
+          Ps[r * ST_LD + c] = visible(q0 + r, k0 + c, causal, window)
+                                  ? expf(s[i][j] - l_s[r])
+                                  : 0.f;
+        }
+      __syncthreads();  // P complete; every reader of the K chunk done
+      stage_chunk(Kc, vb, sv.s, k0, d0, 1.f);
+      __syncthreads();
+      chunk_pv<false>(Ps, Kc, acc, ty, tx);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      T* orow = ob + (long long)(q0 + ty + 16 * i) * so.s + d0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) orow[tx + 16 * j] = from_f<T>(acc[i][j]);
+    }
+  }
 }
 
 // ---- bf16: FlashAttention-2 on the tensor cores ---------------------------
@@ -519,10 +657,29 @@ cudaError_t launch_simt(const Args& a) {
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  dim3 grid(a.S / simt_rows<D>(), a.B * a.H);
+  const dim3 grid(a.B * a.H, a.S / simt_rows<D>());
   flash_fwd_kernel<T, D><<<grid, NT, bytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.H, a.S,
+      a.sq, a.sk, a.sv, a.so, a.causal, a.scale, a.window);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_stream(const Args& a, int D) {
+  constexpr int bytes = (3 * ST_TILE + 2 * ST_ROWS) * sizeof(float);
+  static bool attr_set = false;  // dynamic shared memory above 48 KB
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_stream_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const dim3 grid(a.B * a.H, a.S / ST_ROWS);
+  flash_fwd_stream_kernel<T><<<grid, ST_THREADS, bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.H, a.S, D,
       a.sq, a.sk, a.sv, a.so, a.causal, a.scale, a.window);
   return cudaGetLastError();
 }
@@ -550,7 +707,8 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. window <= 0 means no window. bf16
 // pointers and (b, s, h) strides must be 16-byte aligned up to head_dim
-// 256. *route is set to the kernel launched (1 mma.sync, 2 scalar).
+// 256. *route is set to the kernel launched (1 mma.sync, 2 scalar, 3
+// streaming).
 // Returns a cudaError_t: cudaErrorInvalidValue for arguments the kernel
 // does not take, else the launch's own error.
 int flash_fwd(const void* q, const void* k, const void* v, void* o,
@@ -559,7 +717,9 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
               long long k_sh, long long v_sb, long long v_ss, long long v_sh,
               long long o_sb, long long o_ss, long long o_sh, int causal,
               float scale, int window, int dtype, void* stream, int* route) {
-  if (B < 1 || H < 1 || S < 64 || S % 64 != 0 || B * H > 65535 ||
+  // b * h rides on gridDim.x, the query tiles on gridDim.y
+  if (B < 1 || H < 1 || S < 64 || S % 64 != 0 ||
+      (long long)B * H > 0x7fffffffLL || S / 32 > 65535 ||
       (dtype != 0 && dtype != 1) || (window > 0 && !causal) ||
       route == nullptr)
     return cudaErrorInvalidValue;
@@ -577,7 +737,11 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
     case 448: return launch_dtype<448>(dtype, a, route);
     case 512: return launch_dtype<512>(dtype, a, route);
   }
-  return cudaErrorInvalidValue;  // a head_dim the kernel has no tiling for
+  if (D < 64 || D % 64 != 0)
+    return cudaErrorInvalidValue;  // a head_dim the kernel has no tiling for
+  *route = 3;  // above 512: stream the head dim
+  return dtype == 0 ? launch_stream<float>(a, D)
+                    : launch_stream<__nv_bfloat16>(a, D);
 }
 
 const char* flash_fwd_error_string(int err) {

@@ -9,9 +9,11 @@ tiles, causal and window tiles skipped whole and masked per element on
 their edges. In bf16 the forward (head_dim up to 256) and the backward
 pair (64 and 128) run on the tensor cores (mma.sync, cp.async
 double-buffering, fp32 softmax state and accumulators); fp32, and bf16
-at the other head dims, take scalar kernels of fp32 FMAs out of shared
-memory. The backward's C entry computes delta = rowsum(dO o) by a
-pre-pass kernel unless the caller passes it. ``flash_attention`` is a
+at the other head dims up to 512, take scalar kernels of fp32 FMAs out of
+shared memory; above 512 the streaming kernels form S over the head dim
+in 64-wide chunks and each output 64 columns at a time. The backward's C
+entry computes delta = rowsum(dO o) by a pre-pass kernel unless the
+caller passes it. ``flash_attention`` is a
 ``torch.autograd.Function`` (the reference's ``jax.custom_vjp``): it saves
 q, k, v, o and lse, and its backward returns dq, dk, dv in q's dtype.
 
@@ -21,7 +23,7 @@ CPU takes the plain version, ``flash_attention_ref`` forward and
 by ``"flash_fwd:<dtype>"``, ``"flash_dq:<dtype>"``, ``"flash_dkv:<dtype>"``
 and ``"flash_delta:<dtype>"``, where each kernel is launched and nowhere
 else; ``routes`` splits the forward, dQ and dK/dV launches by the kernel
-the C entry chose (``mma`` or ``simt``).
+the C entry chose (``mma``, ``simt`` or ``stream``).
 """
 import collections
 import ctypes
@@ -41,18 +43,12 @@ _NEG = -1e30
 launches = collections.Counter()
 
 #: forward, dQ and dK/dV launches by "<kernel>:<dtype>:<route>", route
-#: "mma" (the tensor-core kernel) or "simt" (the scalar one), as the C
-#: entry reports the kernel it launched: bf16 takes "mma" at head_dim 64
-#: and 128, and in the forward also at 192 and 256
+#: "mma" (the tensor-core kernel), "simt" (the scalar one) or "stream"
+#: (head_dim above 512, streamed in 64-wide chunks), as the C entry
+#: reports the kernel it launched: bf16 takes "mma" at head_dim 64 and
+#: 128, and in the forward also at 192 and 256
 routes = collections.Counter()
-_ROUTES = {1: "mma", 2: "simt"}
-
-#: the head dims csrc/flash_fwd.cu and csrc/flash_bwd.cu have a tiling for
-#: (scalar fp32 tiles of 16 or 32 rows from 320 up); a wider head raises.
-#: Shared memory alone would allow a little more: the backward's four
-#: 16-row fp32 tiles take 4 * 16 * (d + 1) * 4 bytes (150 KB at 576), the
-#: forward's 32-row tiles 226 KB at 576 and too much at 640
-KERNEL_HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512)
+_ROUTES = {1: "mma", 2: "simt", 3: "stream"}
 
 
 def _block_for(s):
@@ -81,9 +77,9 @@ def _dtype_name(dtype):
 def supported(q_shape, dtype_str, device="cuda"):
     """Does SDPA route q [batch, seq, heads, head_dim] to the kernel? The
     reference's gate (head_dim % 64 == 0, seq % 128 == 0, seq >= 1024,
-    fp32 or bf16) with "on TPU" replaced by "on a CUDA device". A shape it
-    passes that the kernel has no tiling for (head_dim above 512) raises
-    in the kernel's wrapper; it never falls back to the plain version."""
+    fp32 or bf16) with "on TPU" replaced by "on a CUDA device"; the kernels
+    take every shape it passes (head dims above 512 by the streaming
+    route)."""
     if len(q_shape) != 4:
         return False
     _, s, _, d = q_shape
@@ -205,16 +201,15 @@ def _check_aligned(operands):
 
 
 def _check_shape(q):
-    """The kernels' tilings: fp32/bf16, head_dim in KERNEL_HEAD_DIMS, seq a
-    multiple of 64, b*h within the grid. Returns q's dtype name."""
+    """The kernels' tilings: fp32/bf16, head_dim a multiple of 64 (above
+    512 the streaming route), seq a multiple of 64. Returns q's dtype
+    name."""
     B, S, H, D = q.shape
     dtype = _dtype_name(q.dtype)
-    if dtype not in ("float32", "bfloat16") or D not in KERNEL_HEAD_DIMS \
-            or S % 64 or B * H > 65535:
+    if dtype not in ("float32", "bfloat16") or D < 64 or D % 64 or S % 64:
         raise ValueError(
-            f"flash kernel takes fp32/bf16, head_dim in {KERNEL_HEAD_DIMS}, "
-            f"seq a multiple of 64 and b*h <= 65535; got {dtype} "
-            f"{(B, S, H, D)}")
+            f"flash kernel takes fp32/bf16, head_dim a multiple of 64 and "
+            f"seq a multiple of 64; got {dtype} {(B, S, H, D)}")
     return dtype
 
 

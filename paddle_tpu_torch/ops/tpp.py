@@ -573,7 +573,26 @@ _PAGED_AUDIT_SHAPES = ((16, 8, 128, 32, 16),)
 
 _PAGED_MAX_HD = _PAGED_MAX_BS = 256   # the kernel's shared-memory arrays
 
+#: the kernel cuts each row's frames into splits: about this many columns
+#: a split, and more splits while the grid holds fewer blocks than two
+#: waves of the H100's 132 SMs; at most _PAGED_MAX_FPS frames a split and
+#: _PAGED_MAX_SPLITS splits a row (the kernel's shared-memory arrays)
+_PAGED_SPLIT_COLS, _PAGED_MIN_BLOCKS = 128, 2 * 132
+_PAGED_MAX_FPS, _PAGED_MAX_SPLITS = 128, 1024
+
 _PAGED_FN = []
+
+
+def _paged_splits(B, H, bs, maxb):
+    """(frames a split, splits a row) of the paged-attention kernel's grid
+    (b, h, split), from the shapes alone (never from the lengths, which
+    lie on the device): ~_PAGED_SPLIT_COLS columns a split, halved while
+    the grid has fewer than _PAGED_MIN_BLOCKS blocks."""
+    fps = max(1, min(maxb, _PAGED_SPLIT_COLS // bs),
+              -(-maxb // _PAGED_MAX_SPLITS))
+    while fps > 1 and B * H * -(-maxb // fps) < _PAGED_MIN_BLOCKS:
+        fps = (fps + 1) // 2
+    return fps, -(-maxb // fps)
 
 
 def _paged_kernel():
@@ -581,7 +600,7 @@ def _paged_kernel():
         lib = _build.load("paged_attention")
         fn = lib.paged_attention
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp] * 8 + [i] * 5 + [ll, ll, ctypes.c_float, i, i, vp]
+        fn.argtypes = [vp] * 9 + [i] * 7 + [ll, ll, ctypes.c_float, i, i, vp]
         fn.restype = ctypes.c_int
         _PAGED_FN.append((lib, fn))
     return _PAGED_FN[0]
@@ -601,9 +620,12 @@ def _launch_paged_attention(q, kp, vp, tables, lengths, k_scales, v_scales):
         raise ValueError(f"paged_attention kernel: {dtype} q takes "
                          f"{_dtype_name(page_dt)} pages, got "
                          f"{kp.dtype} / {vp.dtype}")
-    if hd > _PAGED_MAX_HD or bs > _PAGED_MAX_BS:
+    if hd > _PAGED_MAX_HD or bs > _PAGED_MAX_BS \
+            or maxb > _PAGED_MAX_FPS * _PAGED_MAX_SPLITS:
         raise ValueError(f"paged_attention kernel takes hd and bs up to "
-                         f"{_PAGED_MAX_HD}, got hd {hd}, bs {bs}")
+                         f"{_PAGED_MAX_HD} and maxb up to "
+                         f"{_PAGED_MAX_FPS * _PAGED_MAX_SPLITS}, got hd {hd}, "
+                         f"bs {bs}, maxb {maxb}")
     if vp.shape != kp.shape or vp.stride() != kp.stride() \
             or kp.stride()[1:] != (bs * hd, hd, 1):
         raise ValueError(
@@ -651,12 +673,18 @@ def _paged_kernel_call(q, kp, vp, tables, lengths, k_scales, v_scales):
     quantized = k_scales is not None
     dtype = _dtype_name(q.dtype)
     out = torch.empty_like(q)
+    fps, nsplit = _paged_splits(B, H, bs, maxb)
+    # each split's partial (m, l, acc[hd]) in fp32, merged by the combine
+    # pass; one split writes out itself
+    part = torch.empty(B * H * nsplit * (hd + 2), dtype=torch.float32,
+                       device=q.device) if nsplit > 1 else None
     lib, fn = _paged_kernel()
     err = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
              k_scales.data_ptr() if quantized else None,
              v_scales.data_ptr() if quantized else None,
              tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             B, H, hd, bs, maxb, kp.stride(0),
+             None if part is None else part.data_ptr(),
+             B, H, hd, bs, maxb, fps, nsplit, kp.stride(0),
              k_scales.stride(0) if quantized else 0, 1.0 / (hd ** 0.5),
              0 if dtype == "float32" else 1, int(quantized),
              _build.stream(q))

@@ -108,7 +108,7 @@ def test_block_for_errors_match_reference(s, forced):
     ((2, 1024, 12, 192), "float32", "cuda", True),
     ((1, 1024, 4, 256), "bfloat16", "cuda", True),
     ((1, 1024, 4, 320), "float32", "cuda", True),   # a 32-row tiling
-    ((1, 1024, 4, 576), "float32", "cuda", True),   # the kernel then raises
+    ((1, 1024, 4, 576), "float32", "cuda", True),   # the streaming route
     ((2, 1024, 12, 64), "float32", "cpu", False),    # not on a CUDA device
     ((2, 1024, 12, 48), "float32", "cuda", False),   # head_dim % 64
     ((2, 1000, 12, 64), "float32", "cuda", False),   # seq % 128
@@ -125,9 +125,67 @@ def test_supported_gate(shape, dtype, device, want):
 
 @pytest.mark.parametrize("d", [560, 576, 640])
 def test_kernel_raises_for_head_dims_it_has_no_tiling_for(d):
+    """Every head dim that is a multiple of 64 has a tiling (above 512 the
+    streaming route); 560 has none and raises."""
     q = torch.zeros((1, 1024, 1, d))
-    with pytest.raises(ValueError, match="head_dim in"):
+    if d % 64:
+        with pytest.raises(ValueError, match="head_dim a multiple of 64"):
+            tfa._launch(q, q, q, True, 0.125, None)
+    else:
+        assert tfa._check_shape(q) == "float32"
+        with pytest.raises(ValueError, match="must lie on"):  # CPU tensors
+            tfa._launch(q, q, q, True, 0.125, None)
+
+
+def test_check_shape_takes_b_h_above_the_grid_y_limit():
+    """b*h rides on gridDim.x, so 65,536 (b 4096, h 16) passes; a
+    zero-stride view allocates nothing of that size."""
+    q = torch.zeros((1, 64, 1, 64)).expand(4096, 64, 16, 64)
+    assert tfa._check_shape(q) == "float32"
+    with pytest.raises(ValueError, match="must lie on"):      # CPU tensors
         tfa._launch(q, q, q, True, 0.125, None)
+
+
+def _stream_fwd(q3, k3, v3, causal, scale, window=None, chunk=64):
+    """The streaming route's algorithm (csrc/flash_fwd.cu,
+    flash_fwd_stream_kernel) in plain torch: S = (q * scale) k^T summed
+    over 64-wide chunks of the head dim, lse first from the masked S, then
+    each 64-wide chunk of o from S formed again and P = exp(S - lse) with
+    no running rescale."""
+    d = q3.shape[-1]
+
+    def scores():
+        s = sum((q3[..., c:c + chunk] * scale)
+                @ k3[..., c:c + chunk].transpose(-1, -2)
+                for c in range(0, d, chunk))
+        if causal:
+            s = s.masked_fill(~tfa._keep_mask(*s.shape[-2:], window,
+                                              q3.device), -torch.inf)
+        return s
+
+    lse = torch.logsumexp(scores(), dim=-1)
+    o = torch.cat([torch.exp(scores() - lse[..., None]) @ v3[..., c:c + chunk]
+                   for c in range(0, d, chunk)], dim=-1)
+    return o, lse
+
+
+@pytest.mark.parametrize("causal,window", MODES, ids=MODE_IDS)
+def test_streaming_route_algorithm_matches_jax_at_head_dim_576(causal,
+                                                               window):
+    """At head_dim 576 (above every whole-head tiling), one head, seq 256:
+    the streaming algorithm and the port's plain forward against the
+    reference's Pallas forward (interpreted)."""
+    q, k, v = _arrays(1, 256, 576, seed=11)
+    scale = 1.0 / math.sqrt(576)
+    jo, jlse = jfa._flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              causal, scale, True, window=window)
+    args = [torch.from_numpy(a) for a in (q, k, v)]
+    for to, tlse in (_stream_fwd(*args, causal, scale, window),
+                     tfa._flash_fwd(*args, causal, scale, window)):
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=ATOL,
+                                   rtol=0)
+        np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse),
+                                   atol=ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("d", [64, 192, 256])
@@ -342,9 +400,33 @@ def test_naive_sdpa_keeps_bf16_under_auto_cast_on_card(cuda, dropout_p):
 
 @pytest.mark.cuda
 def test_sdpa_raises_for_a_head_the_kernel_cannot_tile_on_card(cuda):
-    q = torch.randn(1, 1024, 2, 576, device=cuda)
-    with pytest.raises(ValueError, match="head_dim in"):
-        scaled_dot_product_attention(q, q, q, is_causal=True)
+    """Head dim 576 has no whole-head tiling: SDPA launches the streaming
+    route, which matches the plain version (nothing raises where the
+    reference computes)."""
+    q, k, v = (torch.randn(1, 1024, 2, 576, device=cuda) for _ in range(3))
+    n = tfa.routes["flash_fwd:float32:stream"]
+    with torch.no_grad():
+        o = scaled_dot_product_attention(q, k, v, is_causal=True)
+    torch.cuda.synchronize()
+    assert tfa.routes["flash_fwd:float32:stream"] == n + 1
+    ro, _ = tfa.flash_attention_ref(*(tfa._heads(t) for t in (q, k, v)),
+                                    True, 1.0 / math.sqrt(576))
+    assert (o - tfa._unheads(ro, 1, 2)).abs().max().item() <= 2e-4
+
+
+@pytest.mark.cuda
+def test_forward_at_b_h_above_the_grid_y_limit_on_card(cuda):
+    """b*h = 65,600 (seq 64, head_dim 64, fp32) on gridDim.x: the forward
+    matches its plain version."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn(65600, 64, 1, 64, generator=g, device=cuda)
+               for _ in range(3))
+    o, lse = tfa._launch(q, k, v, True, 0.125, None)
+    torch.cuda.synchronize()
+    ro, rlse = tfa.flash_attention_ref(q[:, :, 0], k[:, :, 0], v[:, :, 0],
+                                       True, 0.125)
+    assert (o[:, :, 0] - ro).abs().max().item() <= 2e-4
+    assert (lse - rlse).abs().max().item() <= LSE_TOL
 
 
 # ---- the bf16 tensor-core kernel's rounding ---------------------------------

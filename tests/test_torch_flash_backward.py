@@ -130,12 +130,72 @@ def test_backward_validation():
 
 @pytest.mark.parametrize("d", [560, 576])
 def test_backward_kernels_raise_for_head_dims_they_cannot_tile(d):
+    """560 is no multiple of 64 and raises; 576 takes the streaming route
+    (here the CPU tensors are refused after the shape is taken)."""
     x = torch.zeros((1, 1024, 1, d))
     rows = torch.zeros((1, 1024))
-    with pytest.raises(ValueError, match="head_dim in"):
+    match = "head_dim a multiple of 64" if d % 64 else "must lie on"
+    with pytest.raises(ValueError, match=match):
         tfa._launch_dq(x, x, x, x, rows, rows, True, 0.125, None)
-    with pytest.raises(ValueError, match="head_dim in"):
+    with pytest.raises(ValueError, match=match):
         tfa._launch_dkv(x, x, x, x, rows, rows, True, 0.125, None)
+
+
+def _stream_bwd(q3, k3, v3, o3, lse, do3, causal, scale, window=None,
+                chunk=64):
+    """The streaming route's backward (csrc/flash_bwd.cu,
+    flash_dq_stream_kernel and flash_dkv_stream_kernel) in plain torch:
+    for each 64-wide chunk of an output's columns, S = (q * scale) k^T and
+    dP = dO v^T formed again over 64-wide chunks of the head dim, P =
+    exp(S - lse), dS = P (dP - delta); dq = scale dS k, dk = dS^T (q *
+    scale), dv = P^T dO, chunk by chunk."""
+    d = q3.shape[-1]
+    delta = (do3 * o3).sum(-1)
+    keep = tfa._keep_mask(q3.shape[-2], k3.shape[-2], window, q3.device) \
+        if causal else None
+
+    def chunked(a, b):
+        return sum(a[..., c:c + chunk] @ b[..., c:c + chunk].transpose(-1, -2)
+                   for c in range(0, d, chunk))
+
+    def p_ds():
+        p = torch.exp(chunked(q3 * scale, k3) - lse[..., None])
+        if keep is not None:
+            p = p.masked_fill(~keep, 0.0)
+        return p, p * (chunked(do3, v3) - delta[..., None])
+
+    dq, dk, dv = [], [], []
+    for c in range(0, d, chunk):
+        cols = slice(c, c + chunk)
+        p, ds = p_ds()
+        dq.append((ds @ k3[..., cols]) * scale)
+        dk.append(ds.transpose(-1, -2) @ (q3[..., cols] * scale))
+        dv.append(p.transpose(-1, -2) @ do3[..., cols])
+    return tuple(torch.cat(g, dim=-1) for g in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("causal,window", MODES, ids=MODE_IDS)
+def test_streaming_route_backward_matches_jax_grad_at_head_dim_576(causal,
+                                                                  window):
+    """At head_dim 576, one head, seq 256: the streaming algorithm's dq,
+    dk, dv (from the reference's o and lse) and the port's plain backward
+    against the JAX gradient through the reference's Pallas kernels
+    (interpreted)."""
+    q, k, v, g = _arrays(1, 256, 576, seed=12)
+    scale = 1.0 / math.sqrt(576)
+
+    def jloss(q_, k_, v_):
+        out = jfa.flash_attention(q_[:, :, None], k_[:, :, None],
+                                  v_[:, :, None], causal=causal,
+                                  interpret=True, window=window)
+        return jnp.sum(out[:, :, 0] * jnp.asarray(g))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    o, lse = _fwd_residuals(q, k, v, causal, scale, window)
+    args = [torch.from_numpy(a) for a in (q, k, v, o, lse, g)]
+    _close(_stream_bwd(*args, causal, scale, window), want)
+    _close(tfa._flash_bwd(*args, causal, scale, window=window), want)
 
 
 # ---- on the card -----------------------------------------------------------
@@ -322,3 +382,36 @@ def test_bf16_tensor_core_rounding_within_band_of_plain(d, window):
     got = tfa._flash_bwd(qf, kf, vf, of, lse, dof, True, scale,
                          window=window)
     _close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [576, 1024])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 3e-2)],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 100)],
+                         ids=["causal", "window100"])
+def test_streaming_route_under_autograd_matches_plain_on_card(
+        cuda, d, dtype, tol, causal, window):
+    """Above head_dim 512 the forward, dQ and dK/dV all take the streaming
+    route; o and the grads match autograd through the plain forward."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v, do = (torch.randn(1, 1024, 2, d, generator=g, device=cuda)
+                   .to(dtype) for _ in range(4))
+    dname = str(dtype).replace("torch.", "")
+    keys = [f"flash_{kind}:{dname}:stream" for kind in ("fwd", "dq", "dkv")]
+    n = [tfa.routes[key] for key in keys]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = tfa.flash_attention(*leaves, causal=causal, window=window)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert [tfa.routes[key] for key in keys] == [c + 1 for c in n]
+    ref = [t.clone().float().requires_grad_() for t in (q, k, v)]
+    ro = tfa._unheads(tfa.flash_attention_ref(
+        *(tfa._heads(t) for t in ref), causal, 1.0 / math.sqrt(d),
+        window)[0], 1, 2)
+    want = torch.autograd.grad(ro, ref, do.float())
+    assert (out.float() - ro).abs().max().item() <= tol
+    for gt, w in zip(got, want):
+        err = (gt.float() - w).abs().max().item()
+        assert err <= tol * max(1.0, w.abs().max().item())

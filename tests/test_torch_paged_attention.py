@@ -132,6 +132,10 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
     bad[0, 0] = kp.shape[0]
     with pytest.raises(ValueError, match="table entry"):
         launch(q, kp, vp, bad, lengths, ks, vs)
+    # more frames a row than 128 a split times 1,024 splits
+    wide = torch.zeros((2, 128 * 1024 + 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="maxb up to"):
+        launch(q, kp, vp, wide, lengths, ks, vs)
     with pytest.raises(ValueError, match="lie on"):   # a CPU tensor
         launch(q, kp, vp, tables, lengths, ks, vs)
     # one layer of a [NB, L, H, bs, hd] pool goes in as a strided view
@@ -139,6 +143,109 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
                        dtype=torch.int8)
     with pytest.raises(ValueError, match="lie on"):
         launch(q, pool[:, 1], pool[:, 1], tables, lengths, ks, vs)
+
+
+# ---- the kernel's split-and-combine, in plain torch -------------------------
+
+def _split_combine(q, kp, vp, tables, lengths, k_scales, v_scales, nsplit):
+    """What csrc/paged_attention.cu computes, in plain torch: each row's
+    frames cut into `nsplit` splits of ceil(maxb / nsplit) frames; each
+    split's partial softmax state over its columns below the length (m, l
+    and acc in fp32; a split past the length m = -inf, l = 0), then the
+    splits merged in order (a max of -inf subtracts 0; l == 0 divides by
+    1)."""
+    B, H, hd = q.shape
+    bs, maxb = kp.shape[2], tables.shape[1]
+    fps = -(-maxb // nsplit)
+    k = tpp.gather_pages(kp, tables, k_scales)       # [B, H, maxb*bs, hd]
+    v = tpp.gather_pages(vp, tables, v_scales)
+    s = torch.einsum("bhd,bhTd->bhT", q.float(), k) / hd ** 0.5
+    parts = []
+    for i in range(nsplit):
+        c0, c1 = i * fps * bs, min((i + 1) * fps, maxb) * bs
+        m = torch.full((B, H, 1), -torch.inf)
+        l, acc = torch.zeros(B, H, 1), torch.zeros(B, H, hd)
+        for b in range(B):
+            end = min(c1, int(lengths[b]))
+            if c0 >= end:
+                continue
+            sb = s[b, :, c0:end]
+            m[b] = sb.amax(-1, keepdim=True)
+            p = torch.exp(sb - m[b])
+            l[b] = p.sum(-1, keepdim=True)
+            acc[b] = torch.einsum("hT,hTd->hd", p, v[b, :, c0:end])
+        parts.append((m, l, acc))
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    ms = torch.where(torch.isfinite(M), M, 0.0)
+    L, A = torch.zeros(B, H, 1), torch.zeros(B, H, hd)
+    for m, l, acc in parts:
+        w = torch.where(torch.isfinite(m), torch.exp(m - ms), 0.0)
+        L = L + l * w
+        A = A + acc * w
+    return (A / torch.where(L == 0.0, 1.0, L)).to(q.dtype)
+
+
+def _boundary_case(quantized, nsplit):
+    """The audit shape with the lengths at the edges: 0, 1, bs - 1, bs,
+    a split boundary - 1, + 0 and + 1, and maxb * bs; the rest random."""
+    args = _case(quantized, seed=6)
+    _, _, _, bs, maxb = jtpp._PAGED_AUDIT_SHAPES[0]
+    edge = min(-(-maxb // nsplit), maxb) * bs
+    lens = [0, 1, bs - 1, bs, edge - 1, edge, min(edge + 1, maxb * bs),
+            maxb * bs]
+    rng = np.random.RandomState(7)
+    tables, lengths = args[3], args[4]
+    lengths[:len(lens)] = lens
+    for b in range(len(lens)):
+        n = -(-lens[b] // bs)
+        tables[b] = 0
+        tables[b, :n] = rng.choice(np.arange(1, args[1].shape[0]), n,
+                                   replace=False)
+    return args
+
+
+@pytest.fixture(scope="module")
+def jax_boundary_outputs():
+    """The JAX kernel (interpreted) and its plain version on the boundary
+    lengths of each split count, dense and int8."""
+    out = {}
+    for quantized in (False, True):
+        for nsplit in SPLITS:
+            args = _boundary_case(quantized, nsplit)
+            out[quantized, nsplit] = (args, _jax(jtpp.paged_attention, args),
+                                      _jax(jtpp.paged_attention_ref, args))
+    return out
+
+
+#: split counts of the plain model: one, two, seven, and more splits than
+#: the audit shape's 16 frames
+SPLITS = (1, 2, 7, 20)
+
+
+@pytest.mark.parametrize("nsplit", SPLITS)
+@pytest.mark.parametrize("quantized", [False, True], ids=["dense", "int8"])
+def test_split_and_combine_matches_the_jax_kernel(jax_boundary_outputs,
+                                                  quantized, nsplit):
+    args, kernel, ref = jax_boundary_outputs[quantized, nsplit]
+    got = _split_combine(*_torch(args), nsplit).numpy()
+    np.testing.assert_allclose(got, kernel, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
+    assert (got[0] == 0).all()                      # the length-0 row
+
+
+@pytest.mark.parametrize("B,H,bs,maxb,want", [
+    (8, 12, 16, 64, (8, 8)),        # GPT-2 small's engine at full length
+    (16, 8, 32, 16, (4, 4)),        # the reference's audit shape
+    (1, 1, 16, 64, (1, 64)),        # one row: a frame a split
+    (2, 2, 256, 2, (1, 2)),         # frames wider than a split's columns
+    (64, 16, 16, 64, (8, 8)),       # a wide batch keeps ~128 columns
+])
+def test_split_count_fills_two_waves_from_the_shapes_alone(B, H, bs, maxb,
+                                                           want):
+    fps, nsplit = tpp._paged_splits(B, H, bs, maxb)
+    assert (fps, nsplit) == want
+    assert fps * nsplit >= maxb and 1 <= fps <= 128 and nsplit <= 1024
+    assert B * H * nsplit >= tpp._PAGED_MIN_BLOCKS or fps == 1
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -210,3 +317,82 @@ def test_kernel_matches_plain_on_card(cuda, quantized, dtype):
     else:
         assert bool((diff <= 2.0 ** -7 * want.float().abs() + 1e-6).all())
     assert bool((got[0] == 0).all())
+
+
+def _full_length_case(quantized, seed=8):
+    """GPT-2 small's engine at full length: 8 rows of 1024 columns, 12
+    heads of 64, 16-column frames from a pool of 513."""
+    B, H, hd, bs, maxb, NB = 8, 12, 64, 16, 64, 513
+    rng = np.random.RandomState(seed)
+    q = rng.randn(B, H, hd).astype(np.float32)
+    tables = np.stack([rng.choice(np.arange(1, NB), maxb, replace=False)
+                       for _ in range(B)]).astype(np.int32)
+    lengths = np.full((B,), maxb * bs, np.int32)
+    if quantized:
+        kp, vp = (rng.randint(-127, 128, (NB, H, bs, hd)).astype(np.int8)
+                  for _ in range(2))
+        ks, vs = (rng.rand(NB, H, bs, 1).astype(np.float32) * 0.02
+                  for _ in range(2))
+        return [q, kp, vp, tables, lengths, ks, vs]
+    kp, vp = (rng.randn(NB, H, bs, hd).astype(np.float32) for _ in range(2))
+    return [q, kp, vp, tables, lengths, None, None]
+
+
+def _odd_width_case(quantized, seed=9):
+    """Rows whose bytes are no multiple of 16 in bf16 and int8 (head dim
+    100), 7-column frames, nine splits of one frame: the kernel's
+    one-element loads and its combine pass."""
+    B, H, hd, bs, maxb, NB = 3, 2, 100, 7, 9, 30
+    rng = np.random.RandomState(seed)
+    q = rng.randn(B, H, hd).astype(np.float32)
+    tables = np.stack([rng.choice(np.arange(1, NB), maxb, replace=False)
+                       for _ in range(B)]).astype(np.int32)
+    lengths = np.array([0, 20, maxb * bs], np.int32)
+    if quantized:
+        kp, vp = (rng.randint(-127, 128, (NB, H, bs, hd)).astype(np.int8)
+                  for _ in range(2))
+        ks, vs = (rng.rand(NB, H, bs, 1).astype(np.float32) * 0.02
+                  for _ in range(2))
+        return [q, kp, vp, tables, lengths, ks, vs]
+    kp, vp = (rng.randn(NB, H, bs, hd).astype(np.float32) for _ in range(2))
+    return [q, kp, vp, tables, lengths, None, None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["full_length", "boundary", "odd_widths"])
+@pytest.mark.parametrize("quantized,dtype", [(False, "float32"),
+                                             (False, "bfloat16"),
+                                             (True, "float32"),
+                                             (True, "bfloat16")])
+def test_split_kernel_matches_plain_and_repeats_its_bits_on_card(
+        cuda, case, quantized, dtype):
+    """The split kernel and its combine pass at the engine's full length,
+    at the audit shape's boundary lengths (0, 1, bs - 1, bs, the kernel's
+    own split boundary - 1 / + 0 / + 1, maxb * bs) and at odd widths:
+    within the file's bands of the plain version, and two calls give the
+    same bits."""
+    if case == "full_length":
+        args = _full_length_case(quantized)
+    elif case == "odd_widths":
+        args = _odd_width_case(quantized)
+    else:
+        B, H, _, bs, maxb = jtpp._PAGED_AUDIT_SHAPES[0]
+        args = _boundary_case(quantized, tpp._paged_splits(B, H, bs,
+                                                           maxb)[1])
+    args = _torch(args, cuda)
+    dt = getattr(torch, dtype)
+    args[0] = args[0].to(dt)
+    if not quantized:
+        args[1:3] = [a.to(dt) for a in args[1:3]]
+    got = tpp.paged_attention(*args)
+    again = tpp.paged_attention(*args)
+    torch.cuda.synchronize()
+    want = tpp.paged_attention_ref(*args)
+    diff = (got.float() - want.float()).abs()
+    if dtype == "float32":
+        assert diff.max().item() <= TOL
+    else:
+        assert bool((diff <= 2.0 ** -7 * want.float().abs() + 1e-6).all())
+    assert torch.equal(got, again)
+    if case != "full_length":
+        assert bool((got[0] == 0).all())
