@@ -1,4 +1,4 @@
-"""Time the port's paged-attention kernel and its scalar fp32 flash kernels
+"""Time the port's paged-attention kernel and its fp32 flash kernels
 for two or more checkouts of the repository in alternation, on one CUDA
 device.
 
@@ -17,7 +17,7 @@ imports the port from its DIR, builds its kernels and times:
   and pages, fp32 q on int8 pages with their row scales;
 - the flash forward (``ops.flash_attention._launch``) in fp32 at b4 and
   b16 and in bf16 at b4 (s 1024, h 12, d 64, causal), and the fp32
-  backward (``_launch_bwd``: delta pre-pass, dQ, dK/dV) at b16.
+  backward (``_launch_bwd``: delta pre-pass, dQ, dK/dV) at b4 and b16.
 
 Every input comes from seeded generators, the same in every process.
 Times as chip_smoke.py takes them: CUDA events around one call, median of
@@ -103,7 +103,7 @@ def worker(root):
             with torch.no_grad():
                 out[f"flash_fwd[{dname}].b{b}"] = both(
                     lambda: fa._launch(q, k, v, True, d ** -0.5, None))
-                if dname == "float32" and b == 16:
+                if dname == "float32":
                     o, lse = fa._launch(q, k, v, True, d ** -0.5, None)
                     out[f"flash_bwd_pair[{dname}].b{b}"] = both(
                         lambda: fa._launch_bwd(q, k, v, o, lse, do, True,

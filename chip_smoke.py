@@ -10,7 +10,8 @@ Run from the repository root, on a machine with a CUDA device and nvcc:
 It builds the port's CUDA kernels from paddle_tpu_torch/ops/csrc/
 (printing ptxas's registers and spills and the tensor-core instructions
 in each library's SASS, and failing if the bf16 TPP, flash forward or
-flash backward has none or spills), holds
+flash backward has none or spills, or the fp32 flash backward pair has
+no TF32 ones), holds
 each kernel (flash-attention forward, its dQ and dK/dV backward kernels
 and their delta pre-pass, the TPP matmul and its LN row-statistics
 pre-pass, the greedy-NMS kernel, the TPP bias_act, softmax_rows and
@@ -54,6 +55,9 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12                                # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}      # dense, no TF32
+# dense TF32 on the tensor cores: the fp32 backward pair's products run
+# there in three passes, so its tensor-core bound is 3 x its FLOPs over this
+PEAK_TF32_FLOPS = 494.7e12
 # Kernel vs plain version, both fp32 math on the same inputs: fp32 output
 # differs only by summation order; a bf16 output may also round to the
 # neighbouring bf16 value (2^-7 at |x| in [1, 2)), so 2e-2 allows ~2 ulps.
@@ -99,8 +103,8 @@ BWD_SCALAR_SPILLS = {
 # step is 2^-5 at the losses' magnitude (4-8), so a loss may land one step
 # away; the kept parameter rows are held by golden.update_rel_err, their
 # update against the JAX package's, within golden.TRAIN_BF16_UPDATE_RTOL
-# (the reasons are there). Two control runs zero the dQ or the dK/dV
-# kernel's output and must land outside that limit.
+# (the reasons are there). Control runs zero the dQ or the dK/dV kernel's
+# output, in fp32 and in bf16, and must land outside the row limit.
 TRAIN_FP32_TOL = 1e-4
 TRAIN_BF16_LOSS_TOL = 2.0 ** -5
 # GPT-2 small training (bench.py's headline workload): batch 16, seq 1024,
@@ -217,22 +221,29 @@ def tpp_routes_checked(path):
 def flash_routes_checked(path, stream=False):
     """The flash launches since flash_attention.routes was cleared, by the
     kernel the C entry chose; checks that every bf16 launch (forward, dQ,
-    dK/dV; head_dim 64 on the GPT paths) ran on the tensor cores (mma) and
-    every fp32 one on the scalar kernels (simt), or with `stream` (head
+    dK/dV; head_dim 64 on the GPT paths) ran on the tensor cores (mma),
+    every fp32 dQ and dK/dV launch on the TF32 tensor cores (tf32x3) and
+    every fp32 forward on the scalar kernel (simt), or with `stream` (head
     dims above 512) that every launch took the streaming route."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
-    want = {"bfloat16": "stream", "float32": "stream"} if stream else \
-        {"bfloat16": "mma", "float32": "simt"}
+    def want(kernel, dname):
+        if stream:
+            return "stream"
+        if dname == "bfloat16":
+            return "mma"
+        return "simt" if kernel == "flash_fwd" else "tf32x3"
+
     routed = {k: n for k, n in fa.routes.items() if n}
     launched = sum(n for k, n in fa.launches.items()
                    if k.split(":")[0] in ("flash_fwd", "flash_dq",
                                           "flash_dkv"))
     wrong = {k: n for k, n in routed.items()
-             if k.rsplit(":", 1)[1] != want[k.split(":")[1]]}
+             if k.split(":")[2] != want(*k.split(":")[:2])}
     check(not wrong and sum(routed.values()) == launched,
           f"{path}: flash launches by route {routed} ({launched} launches), "
-          f"by dtype all on {want}")
+          f"bf16 on mma, fp32 dQ and dK/dV on tf32x3 and the fp32 forward "
+          f"on simt" + (" (all on stream)" if stream else ""))
     return routed
 
 
@@ -613,6 +624,8 @@ def time_new_kernels(det, rows, randn, time_ms, bound, launch_counts):
             acts[act] = {
                 "max_abs_err": errs[f"bias_act.{act}[{dname}]"],
                 "ms": time_ms(lambda: tpp.bias_act(x, b, act)),
+                "device_ms": time_ms(lambda: tpp.bias_act(x, b, act),
+                                     hide_enqueue=True),
                 "plain_ms": time_ms(lambda: tpp._bias_act_ref(x, b, act)),
                 "bound_ms": bms, "bound_by": by,
                 "library_ms": time_ms(lambda: x + b) if act == "none"
@@ -635,9 +648,13 @@ def time_new_kernels(det, rows, randn, time_ms, bound, launch_counts):
             **launch_counts(f"tpp_softmax_rows:{dname}"),
             "max_abs_err": errs[f"softmax_rows[{dname}]"],
             "ms": time_ms(lambda: tpp.softmax_rows(sc)),
+            "device_ms": time_ms(lambda: tpp.softmax_rows(sc),
+                                 hide_enqueue=True),
             "plain_ms": time_ms(lambda: tpp._softmax_rows_ref(sc)),
             "bound_ms": bms, "bound_by": by,
             "library_ms": time_ms(lambda: torch.softmax(sc, -1)),
+            "library_device_ms": time_ms(lambda: torch.softmax(sc, -1),
+                                         hide_enqueue=True),
             "library_covers": "torch.softmax(x, -1)", "shape": [m_s, n_s]})
         mask = causal_rows(ROWS_SCORES, sc.device)
         kinds = {}
@@ -648,6 +665,8 @@ def time_new_kernels(det, rows, randn, time_ms, bound, launch_counts):
             kinds[kind] = {
                 "max_abs_err": errs[f"masked_reduce.{kind}[{dname}]"],
                 "ms": time_ms(lambda: tpp.masked_reduce(sc, mask, kind)),
+                "device_ms": time_ms(lambda: tpp.masked_reduce(
+                    sc, mask, kind), hide_enqueue=True),
                 "plain_ms": time_ms(lambda: tpp._masked_reduce_ref(
                     sc, mask, kind)),
                 "bound_ms": bms, "bound_by": by,
@@ -1294,16 +1313,22 @@ def main():
     emit({"phase": "build", "wall_s": wall, "nvcc_s": seconds,
           "ptxas": ptxas, "sass_tensor_core_instructions": sass})
     # the redesigned kernels run on the tensor cores (wgmma in the bf16
-    # TPP, mma.sync in the bf16 flash forward and backward pair) and no
-    # kernel spills, but for the scalar backward instantiations listed in
-    # BWD_SCALAR_SPILLS
+    # TPP, mma.sync in the bf16 flash forward and backward pair, mma.sync
+    # on TF32 operands in the fp32 backward pair) and no kernel spills, but
+    # for the scalar backward instantiations listed in BWD_SCALAR_SPILLS
     for name, op in (("tpp_matmul", "HGMMA"), ("flash_fwd", "HMMA"),
-                     ("flash_bwd", "HMMA")):
+                     ("flash_bwd", "HMMA"), ("flash_bwd", "HMMA.TF32")):
         check(sass[name][op] > 0, f"{name}: {op} instructions in its SASS")
         spills = {k: r for k, r in ptxas[name].items() if r["spill_bytes"]
                   and not (name == "flash_bwd"
                            and scalar_bwd_instance(k) in BWD_SCALAR_SPILLS)}
         check(not spills, f"{name}: no register spills ({spills})")
+    tf32_kernels = {k: r for k, r in ptxas["flash_bwd"].items()
+                    if "_tf32_kernel" in k}
+    check(len(tf32_kernels) == 4 and not any(
+        r["spill_bytes"] for r in tf32_kernels.values()),
+          f"flash_bwd: the TF32 dQ and dK/dV kernels at head_dim 64 and 128 "
+          f"built without spills ({tf32_kernels})")
 
     # ---- 2. every kernel against its plain version ------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1497,10 +1522,14 @@ def main():
         return err, err <= FLASH_BWD_TOL[dname] * scale
 
     n_bwd = 0
+    n_tc = {"bfloat16": 0, "float32": 0}   # calls at head_dim 64 and 128
+    fa.routes.clear()
     for s, d in shapes:
         for dname, dt in dtypes.items():
             for causal, window in ((False, None), (True, None),
                                    (True, 100)):
+                n_tc[dname] += (2 if causal and window is None else 1) \
+                    if d <= 128 else 0
                 q, k, v, do = (randn(8, s, d, dtype=dt) for _ in range(4))
                 scale = 1.0 / math.sqrt(d)
                 leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -1529,6 +1558,15 @@ def main():
                     check(ok, f"flash bwd external delta s={s} d={d} "
                           f"{dname}: err {err}")
                 n_bwd += 1
+    # every call at head_dim 64 and 128 on the tensor cores: bf16 on mma,
+    # fp32 on the TF32 kernels
+    bwd_routes = {k: n for k, n in fa.routes.items() if n}
+    for dname, route in (("bfloat16", "mma"), ("float32", "tf32x3")):
+        for kind in ("dq", "dkv"):
+            check(bwd_routes.get(f"flash_{kind}:{dname}:{route}", 0)
+                  == n_tc[dname], f"flash bwd {dname} at head_dim 64 and "
+                  f"128: {n_tc[dname]} {kind} launches on {route} "
+                  f"({bwd_routes})")
     # the training path's call, at its shape: grads of strided q/k/v views
     # of one packed qkv through the autograd Function, against autograd
     # through the plain forward
@@ -1580,6 +1618,7 @@ def main():
           "main_shape": [b, s, h, d],
           "main_shape_max_abs_err": bwd_errs,
           "main_shape_two_calls_bit_equal": True,
+          "routes_of_the_configs": bwd_routes,
           "delta_prepass_max_abs_err": delta_errs,
           "tol_x_max(1,max|plain|)": FLASH_BWD_TOL,
           "delta_tol_x_max(1,max|torch|)": DELTA_TOL})
@@ -1692,10 +1731,17 @@ def main():
                 ok = loss_err <= TRAIN_FP32_TOL and row_err <= TRAIN_FP32_TOL
             check(ok, f"narrow training {key} vs JAX: {narrow_train[key]}")
     set_flags({"tpp_kernels": False})
-    # the controls: a bf16 backward whose dQ or dK/dV is zero must fail
-    # the bf16 row check
+    # the controls: a backward whose dQ or dK/dV is zero must fail the row
+    # check, fp32 (the TF32 kernels) and bf16
     controls = {}
     for zero in ("dq", "dkv"):
+        _, rows, _ = train_narrow(False, zero)
+        want32 = {n: tfix[f"rows_fp32__{n}"] for n in golden.KEPT_PARAMS}
+        key = f"fp32_{zero}_zeroed_row_max_abs_err"
+        controls[key] = max(float(np.abs(rows[n] - want32[n]).max())
+                            for n in rows)
+        check(controls[key] > TRAIN_FP32_TOL,
+              f"a zeroed {zero} fails the fp32 row check: {controls}")
         _, rows, _ = train_narrow(True, zero)
         controls[f"bf16_{zero}_zeroed_update_rel_err"] = golden.update_rel_err(
             rows, want_rows)
@@ -1813,7 +1859,7 @@ def main():
     check(toks_bf16.shape == (4, 256)
           and bool(((toks_bf16 >= 0) & (toks_bf16 < cfg.vocab_size)).all()),
           "bf16 generate: [4, 256] ids in the vocabulary")
-    counts_serve = {**fa.launches, **tpp.launches}
+    counts_serve = {**fa.launches, **tpp.launches, **fa.routes}
     emit({"phase": "gpt2_small_generate", "batch": 4, "prompt": 128,
           "new_tokens": n_new, "dtype": "bfloat16",
           "seconds_all": gen_s,
@@ -1912,7 +1958,7 @@ def main():
         del model, trainer
         torch.cuda.empty_cache()
     set_flags({"tpp_kernels": False})
-    counts_train = {**fa.launches, **tpp.launches}
+    counts_train = {**fa.launches, **tpp.launches, **fa.routes}
     emit({"phase": "gpt2_small_train", "batch": TRAIN_BATCH, "seq": S,
           "optimizer": "AdamW lr 1e-4", "flops_per_token": flops_per_token,
           "warmup_steps": 1, "train": train,
@@ -2118,20 +2164,26 @@ def main():
             def pair():
                 return fa._launch_bwd(q, k, v, o, lse, do, True, scale, None)
 
+            pair_flops = 14.0 * d * b * h * pairs
+            pair_bytes = 10 * b * h * s * d * item + 2 * b * h * s * 4
+            bms, by = bound(pair_flops, pair_bytes, dname)
             rows = {"pair": {"ms": time_ms(pair),
                              "device_ms": time_ms(pair, hide_enqueue=True),
+                             "bound_ms": bms, "bound_by": by,
                              "covers": "delta pre-pass + dQ + dK/dV, one "
                                        "call of the C entry", **library}}
             rows["pair"]["device_ms_over_library_device_ms"] = \
                 rows["pair"]["device_ms"] / library["library_device_ms"]
+            tc_bounds = {"pair": (pair_flops, pair_bytes)}
             for kind, flops_per_pair, n_out, fn in (
                     ("dq", 6, 1, lambda: fa._launch_dq(
                         q, k, v, do, lse, delta, True, scale, None)),
                     ("dkv", 8, 2, lambda: fa._launch_dkv(
                         q, k, v, do, lse, delta, True, scale, None))):
                 flops = float(flops_per_pair) * d * b * h * pairs
-                bms, by = bound(flops, (4 + n_out) * b * h * s * d * item
-                                + 2 * b * h * s * 4, dname)
+                nbytes = (4 + n_out) * b * h * s * d * item \
+                    + 2 * b * h * s * 4
+                bms, by = bound(flops, nbytes, dname)
                 rows[kind] = rates({
                     "ms": time_ms(fn), "plain_ms": plain_ms,
                     "plain_covers": "dq, dk and dv: one plain backward",
@@ -2139,6 +2191,19 @@ def main():
                     "library_covers": "dq, dk and dv: one backward of "
                                       "scaled_dot_product_attention",
                     "shape": [b, s, h, d], "causal": True}, flops, fn)
+                tc_bounds[kind] = (flops, nbytes)
+            if dname == "float32":
+                # the TF32 kernels' own bound: three tensor-core passes a
+                # product (bound_ms stays the fp32 FMA bound, 67 TFLOP/s)
+                for kind, (flops, nbytes) in tc_bounds.items():
+                    t_ops = 3 * flops / PEAK_TF32_FLOPS
+                    t_mem = nbytes / HBM_BYTES_PER_S
+                    row = rows[kind]
+                    row["bound_tc_ms"] = max(t_ops, t_mem) * 1e3
+                    row["bound_tc_by"] = "operations: 3 x FLOPs over " \
+                        "494.7 TFLOP/s TF32" if t_ops >= t_mem else "bytes"
+                    row["device_share_of_tc_bound"] = \
+                        row["bound_tc_ms"] / row["device_ms"]
             # the pre-pass: read o and dO once, write delta (bytes bind it)
             flops = 2.0 * b * s * h * d
             bms, by = bound(flops, 2 * b * s * h * d * item + b * h * s * 4,
@@ -2166,12 +2231,17 @@ def main():
             bwd_rows[b] = rows
             del qkv, q, k, v, do, o, lse, delta
             torch.cuda.empty_cache()
+        # bf16: flash_{dq,dkv}_mma_kernel; fp32: flash_{dq,dkv}_tf32_kernel
+        # (three TF32 passes a product), counted by that route
         for kind, line in (("dq", 282), ("dkv", 319)):
+            route, tag = ("mma", "") if dname == "bfloat16" \
+                else ("tf32x3", "_tf32")
             kernels.append({
-                "name": f"flash_{kind}[{dname}]", "route": "cuda",
+                "name": f"flash_{kind}{tag}[{dname}]", "route": "cuda",
                 "source": "paddle_tpu_torch/ops/csrc/flash_bwd.cu",
+                "kernel": f"flash_{kind}{tag or '_mma'}_kernel",
                 "replaces": f"paddle_tpu/ops/flash_attention.py:{line}",
-                **launch_counts(f"flash_{kind}:{dname}"),
+                **launch_counts(f"flash_{kind}:{dname}:{route}"),
                 "max_abs_err": bwd_errs[dname][kind],
                 **bwd_rows[TRAIN_BATCH][kind],
                 "pair": bwd_rows[TRAIN_BATCH]["pair"],
@@ -2293,15 +2363,15 @@ def main():
     emit({"phase": "times", "method": "CUDA events, 3 warm-up, median of "
           "20 (the plain NMS: 1 warm-up, median of 5), 64 MB written "
           "between launches to flush L2; device_ms (flash, TPP, paged "
-          "attention): "
+          "attention, the row kernels): "
           "the same with a ~0.5 ms device sleep before the start event, "
           "so the host's enqueue of the call is not timed",
           "tpp_matmul.plain": tpp_plain})
     for kern in kernels:
         check(kern["launches"] > 0, f"{kern['name']} ran on a main path")
     for name in ("flash_fwd[bfloat16]", "flash_dq[bfloat16]",
-                 "flash_dkv[bfloat16]", "flash_dq[float32]",
-                 "flash_dkv[float32]", "flash_delta[bfloat16]",
+                 "flash_dkv[bfloat16]", "flash_dq_tf32[float32]",
+                 "flash_dkv_tf32[float32]", "flash_delta[bfloat16]",
                  "flash_delta[float32]", "tpp_matmul.ln_prologue[float32]",
                  "tpp_matmul.gelu_in_bias[float32]",
                  "tpp_row_stats[float32]"):

@@ -156,12 +156,15 @@ def ptxas_report(name):
 
 #: tensor-core instructions in SASS: Hopper's warpgroup MMA, and mma.sync
 TENSOR_CORE_OPS = ("HGMMA", "HMMA")
+#: the TF32 form of mma.sync (m16n8k8, e.g. HMMA.1688.F32.TF32)
+_TF32_HMMA = re.compile(r"\bHMMA\.[0-9A-Z.]*TF32\b")
 
 
 def sass_counts(name):
     """{opcode: count} of the tensor-core instructions (TENSOR_CORE_OPS) in
     the machine code of kernel source `name`'s built library, read with
-    the cuobjdump beside nvcc. Raises RuntimeError if it cannot run."""
+    the cuobjdump beside nvcc, and under "HMMA.TF32" those HMMA that take
+    TF32 operands. Raises RuntimeError if it cannot run."""
     so = _target(name)[1]
     if not so.is_file():
         raise RuntimeError(f"{name} is not built")
@@ -170,8 +173,10 @@ def sass_counts(name):
                          capture_output=True, text=True, timeout=300)
     if out.returncode != 0:
         raise RuntimeError(f"cuobjdump on {so.name} failed: {out.stderr}")
-    return {op: len(re.findall(rf"\b{op}\.", out.stdout))
-            for op in TENSOR_CORE_OPS}
+    counts = {op: len(re.findall(rf"\b{op}\.", out.stdout))
+              for op in TENSOR_CORE_OPS}
+    counts["HMMA.TF32"] = len(_TF32_HMMA.findall(out.stdout))
+    return counts
 
 
 def load(name):

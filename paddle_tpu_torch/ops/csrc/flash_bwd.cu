@@ -62,11 +62,41 @@
 // thread's 255 registers (ptxas spills), so the tensor-core kernels stop
 // at 128.
 //
-// fp32, and bf16 from head_dim 192 (`flash_dq_kernel`, `flash_dkv_kernel`):
-// scalar fp32 FMAs out of shared memory, the tiles staged in fp32, a
-// 256-thread 16 x 16 grid; fp32 stays fp32 (no TF32) as in the reference.
-// Tiles of 64 rows at head_dim 64 and 128, 32 at 192 and 256, 16 from 320 to
-// 512 (the dK/dV kernel's K, V, Q and dO tiles take 133.6 KB at 512).
+// fp32 at head_dim 64 and 128 (`flash_dq_tf32_kernel`,
+// `flash_dkv_tf32_kernel`, route 4): the bf16 pair's block structure on the
+// TF32 tensor cores (mma.sync.m16n8k8; 494.7 dense TFLOP/s against 67 for
+// fp32 FMAs). One TF32 product keeps 10 of an operand's 23 mantissa bits:
+// with one pass the pair's dQ, dK and dV landed 2.9e-4 to 7.8e-4 x max(1,
+// max|plain|) off the plain backward on an H100 (b4, s 1024 and 1088, d 64
+// and 128, full, causal, windows 100 and 17; randn inputs;
+// tf32_variants.py), 1.4-3.9x outside the fp32 band of 2e-4. So every
+// product is formed in three passes: x = big + small, big = tf32(x), small
+// = tf32(x - big), and A B = small(A) big(B) + big(A) small(B) + big(A)
+// big(B) in that order into one fp32 accumulator (mma_tf32x3). The dropped
+// small(A) small(B) and the split's rest are below 2^-22 of |A| |B|; on the
+// same inputs the three passes land at most 2.0e-5 off the plain backward,
+// and no nearer to an fp64 one, 10x inside the band. They triple the
+// tensor-core work: the pair's bound is 3 x 90.3 GFLOP over 494.7 TFLOP/s,
+// 0.548 ms at b16. A block owns a tile of 64 rows at head_dim 64 and 128 at
+// 128 (warps of 16 rows) and walks 32-row kv tiles (dQ) or 32- / 16-row
+// query tiles (dK/dV), double-buffered by cp.async 16-byte copies into rows
+// of D + 4 floats. Fragments load 16 bytes a lane with no bank conflict:
+// both kinds of product permute their k index (product_nt, product_acc), so
+// the m16n8 accumulator of P or dS is the A fragment of the next product as
+// it stands, and the operands read transposed (K in dS K, Q in dS^T Q, dO
+// in P^T dO) come 16 bytes a lane too. Operands are split at every use, in
+// registers (four instructions an element, tf32_rna and split_tf32):
+// splitting them once, into big and small tiles, would double every
+// fragment's shared-memory loads instead. A view whose pointer or (b, s, h)
+// step is not 16-byte aligned takes the scalar kernels, chosen before any
+// launch (route 2).
+//
+// bf16 from head_dim 192, and fp32 where the TF32 route does not take the
+// views or the head dim (`flash_dq_kernel`, `flash_dkv_kernel`): scalar
+// fp32 FMAs out of shared memory, the tiles staged in fp32, a 256-thread
+// 16 x 16 grid. Tiles of 64 rows at head_dim 64 and 128, 32 at 192 and 256,
+// 16 from 320 to 512 (the dK/dV kernel's K, V, Q and dO tiles take 133.6 KB
+// at 512).
 //
 // Above head_dim 512, fp32 and bf16 (`flash_dq_stream_kernel`,
 // `flash_dkv_stream_kernel`, the streaming route): no tile of a whole head
@@ -1014,6 +1044,446 @@ __global__ void __launch_bounds__(mma_threads<D>())
                    sdq.s, wq0, S, L, lane);
 }
 
+// ---- fp32 at head_dim 64 and 128: the TF32 tensor cores, three passes ----
+
+// Rows of the tile a block owns (a warp 16 of them), of the other side's
+// tile a step, and the blocks an SM must hold (the launch bound that caps
+// registers). At head_dim 64 the tiles are 64 rows: three dQ blocks (12
+// warps) an SM within 168 registers a thread, two dK/dV blocks (the dK
+// and dV accumulators need ~220). At 128 the dK and dV accumulators of a
+// warp's 16 rows take 128 registers alone: one block of 128 rows an SM,
+// 16-row query steps. (Chosen on the card among 64 / 128 rows, 8 / 16 /
+// 32 / 64-row steps and one to three blocks: the fastest without spills.)
+template <int D> __host__ __device__ constexpr int dq_tf_rows() {
+  return D == 64 ? 64 : 128;
+}
+constexpr int DQ_TF_BKV = 32;
+template <int D> __host__ __device__ constexpr int dq_tf_blocks() {
+  return D == 64 ? 3 : 1;
+}
+template <int D> __host__ __device__ constexpr int dkv_tf_rows() {
+  return D == 64 ? 64 : 128;
+}
+template <int D> __host__ __device__ constexpr int dkv_tf_bq() {
+  return D == 64 ? 32 : 16;
+}
+template <int D> __host__ __device__ constexpr int dkv_tf_blocks() {
+  return D == 64 ? 2 : 1;
+}
+// product_nt's UNROLL in the dK/dV kernel (the dQ kernel's is false)
+template <int D> __host__ __device__ constexpr bool dkv_tf_unroll() {
+  return D == 64;
+}
+template <int ROWS> __host__ __device__ constexpr int tf_threads() {
+  return 2 * ROWS;
+}
+// floats a row of a staged fp32 tile: D + 4, a whole number of 16-byte
+// chunks whose bank group advances by one (mod 8) from a row to the next,
+// so that no fragment load below has a bank conflict
+template <int D> __host__ __device__ constexpr int tf_ld() { return D + 4; }
+
+// rows [0, n) of a [B, S, H, D] fp32 view at sequence position s0 into a
+// [n][D + 4] tile by `threads` threads, 16 bytes a cp.async; rows at or
+// past S are zero-filled
+template <int D, int THREADS>
+__device__ __forceinline__ void cp_async_tile_f32(uint32_t dst,
+                                                  const float* base,
+                                                  long long stride_s, int s0,
+                                                  int n, int S, int tid) {
+  constexpr int CH = D / 4;
+  for (int idx = tid; idx < n * CH; idx += THREADS) {
+    const int r = idx / CH, c = idx % CH;
+    const int sp = s0 + r;
+    cp_async16(dst + (r * tf_ld<D>() + 4 * c) * 4,
+               base + (long long)(sp < S ? sp : S - 1) * stride_s + c * 4,
+               sp < S);
+  }
+}
+
+// the four floats of a 16-byte shared-memory load, split into TF32 big
+// and small parts
+__device__ __forceinline__ void split4(const float* p, uint32_t (&big)[4],
+                                       uint32_t (&small)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  split_tf32(x.x, big[0], small[0]);
+  split_tf32(x.y, big[1], small[1]);
+  split_tf32(x.z, big[2], small[2]);
+  split_tf32(x.w, big[3], small[3]);
+}
+
+// X = A B^T over D in three TF32 passes: A the warp's 16 rows of a
+// [rows][D + 4] fp32 tile from row ar0, B rows [0, N) of another. The
+// head-dim index is summed, so it may be permuted: lane t reads 16-byte
+// chunk 8 h + 2 t + s of a row (columns 32 h + 8 t + 4 s .. + 3), which
+// feeds k-steps 4 h + 2 s + e (e = 0, 1): slot t from column 32 h + 8 t +
+// 4 s + 2 e, slot t + 4 from the next. A and B read the same columns. One
+// load gives a fragment row two k-steps, and a quarter warp (g in {2 q,
+// 2 q + 1}, t = 0..3) touches eight distinct 16-byte bank groups. With
+// UNROLL the loop over h is unrolled too: faster, but two chunks' split
+// operands in flight at once need registers that the dQ kernel at head_dim
+// 64 (168 a thread) and the dK/dV kernel at 128 (255) do not have.
+template <int D, int N, bool UNROLL>
+__device__ __forceinline__ void product_nt(float (&x)[N / 8][4],
+                                           const float* a, const float* b,
+                                           int ar0, const Lanes& L) {
+  constexpr int LD = tf_ld<D>();
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) x[j][r] = 0.f;
+  auto chunk = [&](int h) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int col = 32 * h + 8 * L.t + 4 * s;
+      // rows g and g + 8, four columns each; the A fragment of k-step e
+      // takes their columns 2 e and 2 e + 1
+      uint32_t rb[2][4], rs[2][4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        split4(a + (ar0 + L.g + 8 * r) * LD + col, rb[r], rs[r]);
+      uint32_t ab[2][4], as[2][4];
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {  // fragment slot f: row f & 1
+          ab[e][f] = rb[f & 1][2 * e + (f >> 1)];
+          as[e][f] = rs[f & 1][2 * e + (f >> 1)];
+        }
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        uint32_t bb[4], bs[4];
+        split4(b + (8 * j + L.g) * LD + col, bb, bs);
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          mma_tf32x3(x[j], ab[e], as[e], bb[2 * e], bb[2 * e + 1],
+                     bs[2 * e], bs[2 * e + 1]);
+      }
+    }
+  };
+  if constexpr (UNROLL) {
+#pragma unroll
+    for (int h = 0; h < D / 32; ++h) chunk(h);
+  } else {
+#pragma unroll 1
+    for (int h = 0; h < D / 32; ++h) chunk(h);
+  }
+}
+
+// X += A B over K = 8 KS in three TF32 passes: A the fp32 accumulators of
+// the warp's 16 rows (k-tile j: columns 8 j + 2 t and + 1 of rows g and
+// g + 8), B rows [0, 8 KS) of a [k][D + 4] fp32 tile. The k index is
+// summed, so k-step j takes slot t from accumulator column 8 j + 2 t and
+// slot t + 4 from 8 j + 2 t + 1: the accumulator is the A fragment without
+// a shuffle, and B comes from rows 8 j + 2 t and + 1. The output column is
+// permuted too: n-tile 4 m + c's column g is head-dim column 32 m + 4 g +
+// c, so a lane loads B 16 bytes at a time (a quarter warp on eight
+// distinct bank groups) and holds, of each output row, the eight
+// contiguous head-dim columns 32 m + 8 t .. + 7 (store_acc_f32).
+template <int D, int KS>
+__device__ __forceinline__ void product_acc(float (&x)[D / 8][4],
+                                            const float (&a)[KS][4],
+                                            const float* b, const Lanes& L) {
+  constexpr int LD = tf_ld<D>();
+#pragma unroll
+  for (int j = 0; j < KS; ++j) {
+    uint32_t ab[4], as[4];
+    split_tf32(a[j][0], ab[0], as[0]);  // row g, slot t
+    split_tf32(a[j][2], ab[1], as[1]);  // row g + 8, slot t
+    split_tf32(a[j][1], ab[2], as[2]);  // row g, slot t + 4
+    split_tf32(a[j][3], ab[3], as[3]);  // row g + 8, slot t + 4
+    const float* brow = b + (8 * j + 2 * L.t) * LD + 4 * L.g;
+#pragma unroll
+    for (int m = 0; m < D / 32; ++m) {
+      uint32_t lo_b[4], lo_s[4], hi_b[4], hi_s[4];  // rows 2 t, 2 t + 1
+      split4(brow + 32 * m, lo_b, lo_s);
+      split4(brow + LD + 32 * m, hi_b, hi_s);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        mma_tf32x3(x[4 * m + c], ab, as, lo_b[c], hi_b[c], lo_s[c],
+                   hi_s[c]);
+    }
+  }
+}
+
+// the warp's 16 rows of product_acc's accumulators, times mul, to sequence
+// positions s0.. of a [B, S, H, D] fp32 view: a lane writes 32 contiguous
+// bytes of a row for every 32 columns; rows at or past S are not written
+template <int D>
+__device__ __forceinline__ void store_acc_f32(const float (&x)[D / 8][4],
+                                              float mul, float* base,
+                                              long long stride_s, int s0,
+                                              int S, const Lanes& L) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int sp = s0 + L.g + 8 * r;
+    if (sp >= S) continue;
+    float* row = base + (long long)sp * stride_s + 8 * L.t;
+#pragma unroll
+    for (int m = 0; m < D / 32; ++m)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)  // columns 32 m + 8 t + 4 e + c
+        *reinterpret_cast<float4*>(row + 32 * m + 4 * e) = make_float4(
+            x[4 * m][2 * r + e] * mul, x[4 * m + 1][2 * r + e] * mul,
+            x[4 * m + 2][2 * r + e] * mul, x[4 * m + 3][2 * r + e] * mul);
+  }
+}
+
+template <int D>
+__host__ __device__ constexpr int dkv_tf32_smem_bytes() {
+  // K and V resident; Q and dO twice each; lse and delta twice each
+  return (2 * dkv_tf_rows<D>() + 4 * dkv_tf_bq<D>()) * tf_ld<D>() * 4
+         + 4 * dkv_tf_bq<D>() * 4;
+}
+
+template <int D>
+__global__ void __launch_bounds__(tf_threads<dkv_tf_rows<D>()>(),
+                                  dkv_tf_blocks<D>())
+    flash_dkv_tf32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int H, int S, Strides sq, Strides sk, Strides sv,
+                          Strides sdo, Strides sdk, Strides sdv, int causal,
+                          float scale, int window) {
+  constexpr int ROWS = dkv_tf_rows<D>(), NTH = tf_threads<ROWS>();
+  constexpr int LD = tf_ld<D>(), BQ = dkv_tf_bq<D>();
+  constexpr int Q_TILE = BQ * LD;     // floats of one Q or dO tile
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* const k_s = reinterpret_cast<float*>(smem_raw);
+  float* const v_s = k_s + ROWS * LD;
+  float* const q_s = v_s + ROWS * LD;      // two Q tiles
+  float* const o_s = q_s + 2 * Q_TILE;     // two dO tiles
+  float* const rows_s = o_s + 2 * Q_TILE;  // lse of two tiles, delta of two
+  const uint32_t rows_u = smem_u32(rows_s);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const Lanes L(lane);
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * ROWS;  // kv tile 0 (the heaviest) first
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* ob = dout + b * sdo.b + h * sdo.h;
+  const float* lse_b = lse + (long long)bh * S;
+  const float* dl_b = delta + (long long)bh * S;
+
+  // query tiles with any row that sees some key of this kv tile
+  const int k_last = (k0 + ROWS < S ? k0 + ROWS : S) - 1;
+  int qt_begin = 0, qt_end = S / BQ;
+  if (causal) {
+    qt_begin = k0 / BQ;
+    if (window > 0) {
+      const long long e = ((long long)k_last + window - 1) / BQ + 1;
+      if (e < qt_end) qt_end = (int)e;
+    }
+  }
+
+  // one query tile's Q, dO, lse and delta into buffer `buf`
+  auto load_q_tile = [&](int qt, int buf) {
+    cp_async_tile_f32<D, NTH>(smem_u32(q_s + buf * Q_TILE), qb, sq.s,
+                              qt * BQ, BQ, S, tid);
+    cp_async_tile_f32<D, NTH>(smem_u32(o_s + buf * Q_TILE), ob, sdo.s,
+                              qt * BQ, BQ, S, tid);
+    if (tid < BQ / 2) {  // BQ / 4 chunks of lse, then BQ / 4 of delta
+      const int c = tid % (BQ / 4), which = tid / (BQ / 4);
+      const float* src = (which ? dl_b : lse_b) + qt * BQ + 4 * c;
+      cp_async16(rows_u + ((2 * which + buf) * BQ + 4 * c) * 4, src);
+    }
+  };
+
+  cp_async_tile_f32<D, NTH>(smem_u32(k_s), k + b * sk.b + h * sk.h, sk.s,
+                            k0, ROWS, S, tid);
+  cp_async_tile_f32<D, NTH>(smem_u32(v_s), v + b * sv.b + h * sv.h, sv.s,
+                            k0, ROWS, S, tid);
+  if (qt_begin < qt_end) load_q_tile(qt_begin, 0);
+  cp_async_commit();
+
+  const int wr0 = 16 * warp;       // the warp's first row in K and V
+  const int wk0 = k0 + wr0;        // and in the sequence
+  const float sl2 = scale * LOG2E;
+  // the warp's rows of dK (unscaled) and dV, in product_acc's layout
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+  for (int qt = qt_begin; qt < qt_end; ++qt) {
+    const int buf = (qt - qt_begin) & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile qt has landed; every warp is done with qt - 1
+    if (qt + 1 < qt_end) load_q_tile(qt + 1, buf ^ 1);
+    cp_async_commit();
+    const int q0 = qt * BQ;
+    // a tile no row of this warp's keys is seen by
+    if (wk0 >= S || (causal && q0 + BQ - 1 < wk0) ||
+        (window > 0 && q0 > wk0 + 15 + window - 1))
+      continue;
+    const float* qbuf = q_s + buf * Q_TILE;
+    const float* obuf = o_s + buf * Q_TILE;
+    const float* lse_t = rows_s + buf * BQ;
+    const float* dl_t = rows_s + (2 + buf) * BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T: rows the warp's keys, columns the
+    // tile's queries
+    float st[BQ / 8][4], dpt[BQ / 8][4];
+    product_nt<D, BQ, dkv_tf_unroll<D>()>(st, k_s, qbuf, wr0, L);
+    product_nt<D, BQ, dkv_tf_unroll<D>()>(dpt, v_s, obuf, wr0, L);
+
+    // P^T and dS^T = P^T o (dP^T - delta), masked where the diagonal or
+    // the window's edge crosses the warp's part of the tile
+    const bool edge = causal && (q0 < wk0 + 15 ||
+                                 (window > 0 && q0 + BQ - 1 - wk0 >= window));
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const int c = 8 * j + 2 * L.t;  // this thread's two query columns
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_t + c);
+      const float2 d2 = *reinterpret_cast<const float2*>(dl_t + c);
+      const float nl[2] = {-l2.x * LOG2E, -l2.y * LOG2E};
+      const float dl[2] = {d2.x, d2.y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2_approx(fmaf(st[j][e], sl2, nl[e & 1]));
+        if (edge && !visible(q0 + c + (e & 1), wk0 + L.g + 8 * (e >> 1),
+                             causal, window))
+          p = 0.f;
+        st[j][e] = p;
+        dpt[j][e] = p * (dpt[j][e] - dl[e & 1]);
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q over the tile's queries
+    product_acc<D, BQ / 8>(dva, st, obuf, L);
+    product_acc<D, BQ / 8>(dka, dpt, qbuf, L);
+  }
+  cp_async_wait<0>();  // no copy in flight when the block ends
+
+  store_acc_f32<D>(dka, scale, dk + b * sdk.b + h * sdk.h, sdk.s, wk0, S, L);
+  store_acc_f32<D>(dva, 1.f, dv + b * sdv.b + h * sdv.h, sdv.s, wk0, S, L);
+}
+
+template <int D>
+__host__ __device__ constexpr int dq_tf32_smem_bytes() {
+  // Q and dO resident; K and V twice each
+  return (2 * dq_tf_rows<D>() + 4 * DQ_TF_BKV) * tf_ld<D>() * 4;
+}
+
+template <int D>
+__global__ void __launch_bounds__(tf_threads<dq_tf_rows<D>()>(),
+                                  dq_tf_blocks<D>())
+    flash_dq_tf32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dq, int H, int S, Strides sq,
+                         Strides sk, Strides sv, Strides sdo, Strides sdq,
+                         int causal, float scale, int window) {
+  constexpr int ROWS = dq_tf_rows<D>(), NTH = tf_threads<ROWS>();
+  constexpr int LD = tf_ld<D>(), BKV = DQ_TF_BKV;
+  constexpr int KV_TILE = BKV * LD;        // floats of one K or V tile
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* const q_s = reinterpret_cast<float*>(smem_raw);
+  float* const o_s = q_s + ROWS * LD;
+  float* const k_s = o_s + ROWS * LD;      // two K tiles
+  float* const v_s = k_s + 2 * KV_TILE;    // two V tiles
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const Lanes L(lane);
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  // the last causal tile (the heaviest) first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+
+  // kv tiles with any visible key for some row of this query tile
+  const int q_last = (q0 + ROWS < S ? q0 + ROWS : S) - 1;
+  int kt_begin = 0, kt_end = S / BKV;
+  if (causal) {
+    kt_end = q_last / BKV + 1;
+    if (window > 0) {
+      const int first_key = q0 - (window - 1);
+      kt_begin = first_key > 0 ? first_key / BKV : 0;
+    }
+  }
+
+  cp_async_tile_f32<D, NTH>(smem_u32(q_s), q + b * sq.b + h * sq.h, sq.s,
+                            q0, ROWS, S, tid);
+  cp_async_tile_f32<D, NTH>(smem_u32(o_s), dout + b * sdo.b + h * sdo.h,
+                            sdo.s, q0, ROWS, S, tid);
+  cp_async_tile_f32<D, NTH>(smem_u32(k_s), kb, sk.s, kt_begin * BKV, BKV, S,
+                            tid);
+  cp_async_tile_f32<D, NTH>(smem_u32(v_s), vb, sv.s, kt_begin * BKV, BKV, S,
+                            tid);
+  cp_async_commit();
+
+  const int wr0 = 16 * warp;       // the warp's first row in Q and dO
+  const int wq0 = q0 + wr0;        // and in the sequence
+  const float sl2 = scale * LOG2E;
+  // -lse * log2(e) and delta of the thread's rows g and g + 8
+  float nl[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = wq0 + L.g + 8 * r;
+    nl[r] = qp < S ? -lse[(long long)bh * S + qp] * LOG2E : 0.f;
+    dl[r] = qp < S ? delta[(long long)bh * S + qp] : 0.f;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int buf = (kt - kt_begin) & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt has landed; every warp is done with kt - 1
+    if (kt + 1 < kt_end) {
+      cp_async_tile_f32<D, NTH>(smem_u32(k_s + (buf ^ 1) * KV_TILE), kb,
+                                sk.s, (kt + 1) * BKV, BKV, S, tid);
+      cp_async_tile_f32<D, NTH>(smem_u32(v_s + (buf ^ 1) * KV_TILE), vb,
+                                sv.s, (kt + 1) * BKV, BKV, S, tid);
+    }
+    cp_async_commit();
+    const int k0 = kt * BKV;
+    // a tile this warp's rows see nothing of
+    if (wq0 >= S || (causal && k0 > wq0 + 15) ||
+        (window > 0 && k0 + BKV - 1 < wq0 - window + 1))
+      continue;
+    const float* kbuf = k_s + buf * KV_TILE;
+    const float* vbuf = v_s + buf * KV_TILE;
+
+    // S = Q K^T and dP = dO V^T
+    float sc[BKV / 8][4], dp[BKV / 8][4];
+    product_nt<D, BKV, false>(sc, q_s, kbuf, wr0, L);
+    product_nt<D, BKV, false>(dp, o_s, vbuf, wr0, L);
+
+    // dS = P o (dP - delta), P masked where the diagonal or the window's
+    // edge crosses the warp's part of the tile
+    const bool edge = causal && (k0 + BKV - 1 > wq0 ||
+                                 (window > 0 && k0 < wq0 + 15 - window + 1));
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float p = exp2_approx(fmaf(sc[j][e], sl2, nl[r]));
+        if (edge && !visible(wq0 + L.g + 8 * r, k0 + 8 * j + 2 * L.t + (e & 1),
+                             causal, window))
+          p = 0.f;
+        sc[j][e] = p * (dp[j][e] - dl[r]);
+      }
+
+    // dQ += dS K
+    product_acc<D, BKV / 8>(acc, sc, kbuf, L);
+  }
+  cp_async_wait<0>();  // no copy in flight when the block ends
+
+  store_acc_f32<D>(acc, scale, dq + b * sdq.b + h * sdq.h, sdq.s, wq0, S, L);
+}
+
 // ---- delta = rowsum(dO o O), the pre-pass ----------------------------------
 
 constexpr int DELTA_LANES = 8;                     // lanes a row
@@ -1149,6 +1619,39 @@ cudaError_t launch_dkv_mma(const Args& a) {
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dq_tf32(const Args& a) {
+  constexpr int bytes = dq_tf32_smem_bytes<D>();
+  static bool attr_set = false;
+  if (cudaError_t e = smem_attr(flash_dq_tf32_kernel<D>, bytes, attr_set))
+    return e;
+  constexpr int rows = dq_tf_rows<D>();
+  dim3 grid(a.B * a.H, (a.S + rows - 1) / rows);
+  flash_dq_tf32_kernel<D><<<grid, tf_threads<rows>(), bytes, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.dq), a.H, a.S, a.sq, a.sk, a.sv,
+      a.sdo, a.sdq, a.causal, a.scale, a.window);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_tf32(const Args& a) {
+  constexpr int bytes = dkv_tf32_smem_bytes<D>();
+  static bool attr_set = false;
+  if (cudaError_t e = smem_attr(flash_dkv_tf32_kernel<D>, bytes, attr_set))
+    return e;
+  constexpr int rows = dkv_tf_rows<D>();
+  dim3 grid(a.B * a.H, (a.S + rows - 1) / rows);
+  flash_dkv_tf32_kernel<D><<<grid, tf_threads<rows>(), bytes, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+      a.H, a.S, a.sq, a.sk, a.sv, a.sdo, a.sdk, a.sdv, a.causal, a.scale,
+      a.window);
+  return cudaGetLastError();
+}
+
 // o and dO must be 16-byte aligned (the wrapper copies a view that is not)
 template <typename T>
 cudaError_t launch_delta(const Args& a, float* delta, int D) {
@@ -1173,18 +1676,23 @@ cudaError_t launch_simt(const Args& a) {
   return a.dk != nullptr ? launch_dkv<T, D>(a) : cudaSuccess;
 }
 
-template <int D>
-cudaError_t launch_mma(const Args& a) {
-  // 16-byte copies and stores: pointers and (b, s, h) steps, and the rows
-  // of lse and delta
+// the tensor-core kernels' 16-byte copies and stores: every pointer and
+// (b, s, h) step of the views, for elements of `bytes` bytes, and the rows
+// of lse and delta
+bool views_aligned16(const Args& a, int bytes) {
   const void* ptrs[] = {a.q, a.k, a.v, a.dout, a.dq, a.dk, a.dv};
   const Strides strides[] = {a.sq, a.sk, a.sv, a.sdo, a.sdq, a.sdk, a.sdv};
   for (int i = 0; i < 7; ++i)
-    if (ptrs[i] != nullptr && !aligned16(ptrs[i], strides[i], a.B, a.H))
-      return cudaErrorInvalidValue;
-  if ((reinterpret_cast<uintptr_t>(a.lse) |
-       reinterpret_cast<uintptr_t>(a.delta)) & 15)
-    return cudaErrorInvalidValue;
+    if (ptrs[i] != nullptr &&
+        !aligned16(ptrs[i], strides[i], a.B, a.H, bytes))
+      return false;
+  return ((reinterpret_cast<uintptr_t>(a.lse) |
+           reinterpret_cast<uintptr_t>(a.delta)) & 15) == 0;
+}
+
+template <int D>
+cudaError_t launch_mma(const Args& a) {
+  if (!views_aligned16(a, 2)) return cudaErrorInvalidValue;
   if (a.dq != nullptr)
     if (cudaError_t e = launch_dq_mma<D>(a)) return e;
   return a.dk != nullptr ? launch_dkv_mma<D>(a) : cudaSuccess;
@@ -1218,15 +1726,35 @@ cudaError_t launch_stream(const Args& a, int D) {
   return cudaGetLastError();
 }
 
-// the route by type and head dim: bf16 at 64 and 128 on the tensor cores
+template <int D>
+cudaError_t launch_tf32(const Args& a) {
+  if (a.dq != nullptr)
+    if (cudaError_t e = launch_dq_tf32<D>(a)) return e;
+  return a.dk != nullptr ? launch_dkv_tf32<D>(a) : cudaSuccess;
+}
+
+// the route by type, head dim and alignment: bf16 at 64 and 128 on the
+// tensor cores (a view off 16 bytes is refused); fp32 at 64 and 128 on the
+// TF32 tensor cores where every view is 16-byte aligned, else, as at the
+// other head dims, on the scalar kernels
 template <int D>
 cudaError_t dispatch(const Args& a, int dtype, int* route) {
-  *route = dtype == 1 && D <= 128 ? 1 : 2;
-  if (dtype == 0) return launch_simt<float, D>(a);
-  if constexpr (D <= 128)
-    return launch_mma<D>(a);
-  else
-    return launch_simt<__nv_bfloat16, D>(a);
+  if constexpr (D <= 128) {
+    if (dtype == 1) {
+      *route = 1;
+      return launch_mma<D>(a);
+    }
+    if (views_aligned16(a, 4)) {
+      *route = 4;
+      return launch_tf32<D>(a);
+    }
+    *route = 2;
+    return launch_simt<float, D>(a);
+  } else {
+    *route = 2;
+    return dtype == 0 ? launch_simt<float, D>(a)
+                      : launch_simt<__nv_bfloat16, D>(a);
+  }
 }
 
 }  // namespace
@@ -1241,7 +1769,8 @@ extern "C" {
 // (b, s, h) element strides of q, k, v, o, dout, dq, dk and dv in that
 // order (24 values; those of an absent tensor unread). dtype: 0 = float32,
 // 1 = bfloat16; window <= 0 means no window. *route is set to the kernels
-// launched: 1 mma.sync, 2 scalar, 3 streaming. b * h rides on gridDim.x,
+// launched: 1 mma.sync (bf16), 2 scalar, 3 streaming, 4 mma.sync TF32 in
+// three passes (fp32). b * h rides on gridDim.x,
 // with no limit of its own (the pre-pass's grid too). Returns a cudaError_t:
 // cudaErrorInvalidValue for arguments the kernels do not take, else the
 // first launch error.

@@ -1,7 +1,8 @@
-// Device helpers shared by the port's sm_90a kernels (tpp_matmul.cu and
-// flash_fwd.cu): type conversion, bf16 packing, ldmatrix, cp.async,
-// mma.sync, mbarrier and TMA, each a thin wrapper over one PTX
-// instruction. ops/_build.py hashes this header with every source that
+// Device helpers shared by the port's sm_90a kernels (tpp_matmul.cu,
+// flash_fwd.cu and flash_bwd.cu): type conversion, bf16 packing, the TF32
+// split, ldmatrix, cp.async, mma.sync (bf16, and TF32 in one or three
+// passes), mbarrier and TMA, each a thin wrapper over one PTX instruction
+// or a few. ops/_build.py hashes this header with every source that
 // includes it, so an edit here rebuilds them.
 
 #pragma once
@@ -70,6 +71,56 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero,
+// as a b32 register that the TF32 mma reads: the bit rule of
+// cvt.rna.tf32.f32 (add half a TF32 unit to the magnitude, clear the 13
+// bits below it), two integer instructions. For finite x it gives
+// cvt.rna's bits; ptxas expands cvt.rna itself with a NaN test and a
+// select besides, and the split runs on every operand element.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small + a rest below 2^-22 |x|: big = tf32(x), small =
+// tf32(x - big) (x - big is exact in fp32). The TF32 mma reads the top 19
+// bits of an operand register and ignores the 13 below, so small is left
+// with its half unit added and its low bits uncleared: the mma reads
+// tf32(x - big) from it, for four instructions an element.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
+}
+
+// D += A B, m16n8k8, tf32 in, fp32 accumulate. A: a0 (row g, k t), a1
+// (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); B: b0 (k t, col g), b1
+// (t + 4, g); D: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1), for
+// g = lane / 4, t = lane % 4
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D += A B in fp32 accuracy from three TF32 products of the split
+// operands (split_tf32), in this fixed order: small(A) big(B), big(A)
+// small(B), big(A) big(B). small(A) small(B) is below 2^-22 |A| |B| and
+// dropped. One TF32 product alone rounds each operand by up to 2^-11 of
+// it.
+__device__ __forceinline__ void mma_tf32x3(float (&d)[4],
+                                           const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4],
+                                           uint32_t b0_big, uint32_t b1_big,
+                                           uint32_t b0_small,
+                                           uint32_t b1_small) {
+  mma_tf32(d, a_small, b0_big, b1_big);
+  mma_tf32(d, a_big, b0_small, b1_small);
+  mma_tf32(d, a_big, b0_big, b1_big);
 }
 
 // 16-byte global -> shared copy; with valid false the destination is

@@ -8,10 +8,14 @@ thread block per (b*h, query or key tile) looping over the other side's
 tiles, causal and window tiles skipped whole and masked per element on
 their edges. In bf16 the forward (head_dim up to 256) and the backward
 pair (64 and 128) run on the tensor cores (mma.sync, cp.async
-double-buffering, fp32 softmax state and accumulators); fp32, and bf16
-at the other head dims up to 512, take scalar kernels of fp32 FMAs out of
-shared memory; above 512 the streaming kernels form S over the head dim
-in 64-wide chunks and each output 64 columns at a time. The backward's C
+double-buffering, fp32 softmax state and accumulators); the fp32
+backward pair at 64 and 128 runs on the TF32 tensor cores, each product
+in three passes (big and small TF32 parts of each operand) that keep fp32
+accuracy, where every view is 16-byte aligned; the fp32 forward, fp32
+views off 16 bytes and both types at the other head dims up to 512 take
+scalar kernels of fp32 FMAs out of shared memory; above 512 the streaming
+kernels form S over the head dim in 64-wide chunks and each output 64
+columns at a time. The backward's C
 entry computes delta = rowsum(dO o) by a pre-pass kernel unless the
 caller passes it. ``flash_attention`` is a
 ``torch.autograd.Function`` (the reference's ``jax.custom_vjp``): it saves
@@ -23,7 +27,7 @@ CPU takes the plain version, ``flash_attention_ref`` forward and
 by ``"flash_fwd:<dtype>"``, ``"flash_dq:<dtype>"``, ``"flash_dkv:<dtype>"``
 and ``"flash_delta:<dtype>"``, where each kernel is launched and nowhere
 else; ``routes`` splits the forward, dQ and dK/dV launches by the kernel
-the C entry chose (``mma``, ``simt`` or ``stream``).
+the C entry chose (``mma``, ``simt``, ``stream`` or ``tf32x3``).
 """
 import collections
 import ctypes
@@ -43,12 +47,14 @@ _NEG = -1e30
 launches = collections.Counter()
 
 #: forward, dQ and dK/dV launches by "<kernel>:<dtype>:<route>", route
-#: "mma" (the tensor-core kernel), "simt" (the scalar one) or "stream"
-#: (head_dim above 512, streamed in 64-wide chunks), as the C entry
-#: reports the kernel it launched: bf16 takes "mma" at head_dim 64 and
-#: 128, and in the forward also at 192 and 256
+#: "mma" (the bf16 tensor-core kernel), "simt" (the scalar one), "stream"
+#: (head_dim above 512, streamed in 64-wide chunks) or "tf32x3" (the fp32
+#: backward pair on the TF32 tensor cores, three passes a product), as the
+#: C entry reports the kernel it launched: bf16 takes "mma" at head_dim 64
+#: and 128, and in the forward also at 192 and 256; the fp32 dQ and dK/dV
+#: take "tf32x3" at 64 and 128 where every view is 16-byte aligned
 routes = collections.Counter()
-_ROUTES = {1: "mma", 2: "simt", 3: "stream"}
+_ROUTES = {1: "mma", 2: "simt", 3: "stream", 4: "tf32x3"}
 
 
 def _block_for(s):
@@ -287,13 +293,14 @@ def _check_rows(q, name, t):
 def _run_bwd(q, k, v, do, lse, causal, scale, window, *, o=None,
              delta=None, dq=False, dkv=False):
     """One call of the backward's C entry on [B, S, H, D] views of q, k, v
-    (d contiguous; 16-byte aligned for the bf16 tensor-core kernels) and
-    dO, and the [B*H, S] fp32 rows lse (None if only the pre-pass runs):
-    the delta pre-pass from o when `delta` is None, then the dQ kernel if
-    `dq` and the dK/dV kernel if `dkv`. dO and o are copied where they are
-    not `_aligned` (the pre-pass and the tensor-core kernels read 16-byte
-    chunks of their rows). Returns (delta, dq, dk, dv), None for what was
-    not asked."""
+    (d contiguous; 16-byte aligned for the bf16 tensor-core kernels, and
+    for the fp32 ones, which the C entry leaves for the scalar kernels
+    where any view is not) and dO, and the [B*H, S] fp32 rows lse (None
+    if only the pre-pass runs): the delta pre-pass from o when `delta` is
+    None, then the dQ kernel if `dq` and the dK/dV kernel if `dkv`. dO and
+    o are copied where they are not `_aligned` (the pre-pass and the
+    tensor-core kernels read 16-byte chunks of their rows). Returns (delta,
+    dq, dk, dv), None for what was not asked."""
     dtype = _check_shape(q)
     B, S, H, D = q.shape
     do = _aligned_copy(do)

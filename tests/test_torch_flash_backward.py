@@ -217,13 +217,16 @@ def cuda():
 def test_kernels_under_autograd_match_plain_on_card(cuda, d, dtype, tol,
                                                     causal, window):
     """flash_attention's autograd runs the forward, the delta pre-pass and
-    both backward kernels, bf16 at head_dim 64 and 128 on the tensor
-    cores; its grads match autograd through the plain forward."""
+    both backward kernels, at head_dim 64 and 128 on the tensor cores (bf16
+    on mma, fp32 on the TF32 kernels' three passes); its grads match
+    autograd through the plain forward."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v, do = (torch.randn(2, 1024, 2, d, generator=g, device=cuda)
                    .to(dtype) for _ in range(4))
     dname = str(dtype).replace("torch.", "")
-    route = "mma" if dname == "bfloat16" and d in (64, 128) else "simt"
+    route = "simt"
+    if d in (64, 128):
+        route = "mma" if dname == "bfloat16" else "tf32x3"
     kinds = ("dq", "dkv", "delta")
     n = {kind: tfa.launches[f"flash_{kind}:{dname}"] for kind in kinds}
     r = {kind: tfa.routes[f"flash_{kind}:{dname}:{route}"]
@@ -251,9 +254,10 @@ def test_kernels_under_autograd_match_plain_on_card(cuda, d, dtype, tol,
 def test_delta_prepass_and_bit_equal_grads_on_card(cuda, dtype):
     """The backward's pre-pass gives rowsum(dO o) as the torch expression
     does (fp32 sums in another order: 1e-5 x max(1, max|want|)); two
-    backward calls on the same inputs give the same bits (every block
-    writes only its own tile: no atomics), and so does a dO that is not
-    16-byte aligned (the wrapper copies it)."""
+    backward calls on the same inputs, q, k and v slices of one packed
+    qkv, give the same bits on the tensor-core route (every block writes
+    only its own tile: no atomics), and so does a dO that is not 16-byte
+    aligned (the wrapper copies it)."""
     g = torch.Generator(device=cuda).manual_seed(5)
     b, s, h, d = 2, 1024, 3, 64
     qkv = torch.randn(b, s, 3 * h * d, generator=g, device=cuda).to(dtype)
@@ -265,9 +269,14 @@ def test_delta_prepass_and_bit_equal_grads_on_card(cuda, dtype):
     torch.cuda.synchronize()
     tol = 1e-5 * max(1.0, want.abs().max().item())
     assert (delta - want).abs().max().item() <= tol
+    dname = str(dtype).replace("torch.", "")
+    route = "mma" if dname == "bfloat16" else "tf32x3"
+    n = [tfa.routes[f"flash_{kind}:{dname}:{route}"] for kind in ("dq", "dkv")]
     first = tfa._launch_bwd(q, k, v, o, lse, do, True, 0.125, None)
     again = tfa._launch_bwd(q, k, v, o, lse, do, True, 0.125, None)
     torch.cuda.synchronize()
+    assert [tfa.routes[f"flash_{kind}:{dname}:{route}"]
+            for kind in ("dq", "dkv")] == [c + 2 for c in n]
     assert all(torch.equal(x, y) for x, y in zip(first, again))
     mis = torch.empty(do.numel() + 1, dtype=dtype, device=cuda)[1:]
     mis = mis.view(do.shape).copy_(do)            # one element off 16 bytes
@@ -322,6 +331,59 @@ def test_bf16_mma_kernels_on_packed_views_with_a_ragged_tile_on_card(
     for a, w in zip(got, want):
         band = BF16_BWD_TOL * max(1.0, w.float().abs().max().item())
         assert (tfa._heads(a).float() - w.float()).abs().max().item() <= band
+
+
+def _bwd_band_check(q, k, v, do, causal, scale, window, band_of):
+    """The backward kernels on [B, S, H, D] views against the plain
+    backward (from the forward kernel's o and lse), each grad within
+    band_of x max(1, max|plain|)."""
+    o, lse = tfa._launch(q, k, v, causal, scale, window)
+    got = tfa._launch_bwd(q, k, v, o, lse, do, causal, scale, window)
+    heads = [tfa._heads(t) for t in (q, k, v, o, do)]
+    want = tfa.flash_attention_bwd_ref(*heads[:4], lse, heads[4], causal,
+                                       scale, window=window)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        band = band_of * max(1.0, w.float().abs().max().item())
+        assert (tfa._heads(a).float() - w.float()).abs().max().item() <= band
+
+
+@pytest.mark.cuda
+def test_fp32_views_off_16_bytes_take_the_scalar_route_on_card(cuda):
+    """fp32 q, k, v whose sequence step is not a multiple of 16 bytes (a
+    packed qkv one column wider than the three heads' blocks) are left to
+    the scalar kernels before any launch (route simt, not tf32x3), and
+    their grads match the plain backward within the fp32 band."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    b, s, h, d = 2, 1024, 3, 64
+    wide = torch.randn(b, s, 3 * h * d + 1, generator=g, device=cuda)
+    q, k, v = (t.reshape(b, s, h, d)
+               for t in wide[..., :3 * h * d].split(h * d, dim=-1))
+    assert not any(tfa._aligned(t) for t in (q, k, v))
+    do = torch.randn(b, s, h, d, generator=g, device=cuda)
+    keys = [f"flash_{kind}:float32:{route}" for kind in ("dq", "dkv")
+            for route in ("simt", "tf32x3")]
+    n = [tfa.routes[key] for key in keys]
+    _bwd_band_check(q, k, v, do, True, 0.125, None, FP32_BWD_TOL)
+    assert [tfa.routes[key] for key in keys] == [n[0] + 1, n[1],
+                                                 n[2] + 1, n[3]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1024, 1088])
+def test_fp32_tf32_kernels_ragged_window_at_head_dim_128_on_card(cuda, s):
+    """At head_dim 128 a window of 100 crosses the 128-row tiles and the
+    32-row steps at no multiple of either; at seq 1088 the last 128-row
+    tile is half empty. q, k, v slices of one packed qkv, on the TF32
+    route; the grads within the fp32 band of the plain backward."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    b, h, d = 2, 3, 128
+    qkv = torch.randn(b, s, 3 * h * d, generator=g, device=cuda)
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    do = torch.randn(b, s, h, d, generator=g, device=cuda)
+    n = tfa.routes["flash_dkv:float32:tf32x3"]
+    _bwd_band_check(q, k, v, do, True, 1.0 / math.sqrt(d), 100, FP32_BWD_TOL)
+    assert tfa.routes["flash_dkv:float32:tf32x3"] == n + 1
 
 
 # ---- the bf16 tensor-core kernels' rounding ---------------------------------
@@ -382,6 +444,91 @@ def test_bf16_tensor_core_rounding_within_band_of_plain(d, window):
     got = tfa._flash_bwd(qf, kf, vf, of, lse, dof, True, scale,
                          window=window)
     _close(got, want)
+
+
+# ---- the fp32 TF32 tensor-core kernels' three passes ------------------------
+
+#: chip_smoke.py's band for the fp32 backward kernels against the plain
+#: backward (FLASH_BWD_TOL["float32"] there), scaled by max(1, max|plain|)
+FP32_BWD_TOL = 2e-4
+
+
+def _tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 rounds: to the nearest value
+    with 10 mantissa bits, ties away from zero (add half of the dropped
+    13 bits' unit to the magnitude, then clear them)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32x3(a, b):
+    """a @ b as the kernels form it: each operand split into big =
+    tf32(x) and small = tf32(x - big), and small(a) big(b) + big(a)
+    small(b) + big(a) big(b) summed in fp32."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _tf32x1(a, b):
+    """a @ b from one TF32 pass: both operands rounded to TF32."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _tf32_bwd(q3, k3, v3, o3, lse, do3, causal, scale, window, mm):
+    """The fp32 tensor-core kernels' backward in plain torch, every
+    product through `mm`: S = Q K^T and dP = dO V^T, P = exp(S * scale -
+    lse) and dS = P (dP - delta) in fp32, dQ = dS K, dK = dS^T Q (both
+    times scale) and dV = P^T dO."""
+    delta = (do3 * o3).sum(-1)
+    p = torch.exp(mm(q3, k3.transpose(-1, -2)) * scale - lse[..., None])
+    if causal:
+        p = p.masked_fill(~tfa._keep_mask(*p.shape[-2:], window, p.device),
+                          0.0)
+    ds = p * (mm(do3, v3.transpose(-1, -2)) - delta[..., None])
+    return (mm(ds, k3) * scale, mm(ds.transpose(-1, -2), q3) * scale,
+            mm(p.transpose(-1, -2), do3))
+
+
+def test_tf32_rounding_follows_cvt_rna():
+    """The emulation's rounding: to the nearest TF32 value, a tie away
+    from zero, and a value with 10 mantissa bits kept as it is."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1.0 + ulp * 0.5, -(1.0 + ulp * 0.5), 1.0 + ulp * 0.49,
+                      1.0 + ulp * 1.5, 3.0 + 2 * ulp, 0.0])
+    want = torch.tensor([1.0 + ulp, -(1.0 + ulp), 1.0, 1.0 + 2 * ulp,
+                         3.0 + 2 * ulp, 0.0])
+    assert torch.equal(_tf32(x), want)
+
+
+@pytest.mark.parametrize("d,window", [(64, None), (64, 100), (128, None)],
+                         ids=["d64", "d64_window100", "d128"])
+def test_fp32_three_pass_tf32_within_band_of_plain(d, window):
+    """At s 1024, causal, b 1, h 2: every product of the backward formed
+    in three TF32 passes, as the fp32 tensor-core kernels form it, stays
+    within the fp32 band of the plain backward; one TF32 pass lands
+    outside it in every output (the control, ~5e-4 to 1e-3); and on the
+    same inputs the plain backward matches the JAX package's Pallas
+    backward (interpret mode)."""
+    rng = np.random.RandomState(17)
+    q, k, v, do = (torch.from_numpy(rng.randn(2, 1024, d).astype(np.float32))
+                   for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    o, lse = tfa.flash_attention_ref(q, k, v, True, scale, window)
+    plain = tfa.flash_attention_bwd_ref(q, k, v, o, lse, do, True, scale,
+                                        window=window)
+    args = (q, k, v, o, lse, do, True, scale, window)
+    three = _tf32_bwd(*args, _tf32x3)
+    one = _tf32_bwd(*args, _tf32x1)
+    for e3, e1, p in zip(three, one, plain):
+        band = FP32_BWD_TOL * max(1.0, p.abs().max().item())
+        assert (e3 - p).abs().max().item() <= band
+        assert (e1 - p).abs().max().item() > band
+
+    want = jfa._flash_bwd(*(jnp.asarray(t.numpy())
+                            for t in (q, k, v, o, lse, do)),
+                          True, scale, True, window=window)
+    _close(plain, want)
 
 
 @pytest.mark.cuda

@@ -199,6 +199,23 @@ def test_ptxas_report_reads_registers_and_spills(monkeypatch):
         "_Z1jv": {"registers": 40, "spill_bytes": 0}}
 
 
+def test_sass_counts_tell_the_tf32_mma_apart(monkeypatch, tmp_path):
+    """sass_counts counts every HMMA, and under "HMMA.TF32" those on TF32
+    operands (the fp32 backward pair's), from cuobjdump's listing."""
+    so = tmp_path / "k.so"
+    so.write_bytes(b"")
+    sass = ("        /*0a30*/  HMMA.1688.F32.TF32 R4, R8, R12, R4 ;\n"
+            "        /*0a40*/  HMMA.1688.F32.TF32 R0, R8, R14, R0 ;\n"
+            "        /*0a50*/  HMMA.16816.F32.BF16 R16, R20, R24, R16 ;\n"
+            "        /*0a60*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4] ;\n")
+    monkeypatch.setattr(_build, "_target", lambda name: (None, so))
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(tmp_path / "nvcc"))
+    monkeypatch.setattr(_build.subprocess, "run", lambda *a, **k:
+                        subprocess.CompletedProcess(a, 0, sass, ""))
+    assert _build.sass_counts("k") == {"HGMMA": 1, "HMMA": 3,
+                                       "HMMA.TF32": 2}
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     if shutil.which("nvcc") or Path("/usr/local/cuda/bin/nvcc").is_file():
         pytest.skip("nvcc is installed here")

@@ -1,0 +1,225 @@
+#!/usr/bin/env python3
+"""Build variants of the fp32 flash backward pair's TF32 kernels
+(paddle_tpu_torch/ops/csrc/flash_bwd.cu: flash_dq_tf32_kernel and
+flash_dkv_tf32_kernel) side by side on one CUDA device, and compare them.
+
+    python3 tf32_variants.py [VARIANT ...]
+
+Each variant is a copy of flash_bwd.cu with some of its tiling functions
+(dq_tf_rows, dq_tf_blocks, dkv_tf_rows, dkv_tf_bq, dkv_tf_blocks,
+dkv_tf_unroll) returning other values, built under its own name in
+ops/csrc/ and removed again at the end; "one_pass" forms every product
+from the operands' big TF32 parts alone (one TF32 pass: the accuracy
+control). For each it prints ptxas's registers and spills of the four
+TF32 kernels, the largest error of dQ, dK and dV over max(1, max|plain|)
+against the plain backward (and against an fp64 one) on randn inputs (b4,
+s 1024 and 1088, head_dim 64 and 128, full, causal, windows 100 and 17),
+whether two calls give the same bits, and the device ms (CUDA events
+after a ~0.5 ms device sleep, median of 20, 64 MB written between calls)
+of the pair (delta pre-pass + dQ + dK/dV, one call of the C entry), dQ
+and dK/dV at b4 and b16 (s 1024, causal, q/k/v slices of one packed qkv;
+h 12 at head_dim 64, 6 at 128), then SDPA's backward on the same inputs
+and the card's name and power limit. It imports neither jax nor the JAX
+package.
+"""
+import json
+import math
+import os
+import re
+import statistics
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+#: {variant: {tiling function: the expression it returns instead}}
+VARIANTS = {
+    "chosen": {},
+    "one_pass": {},
+    "rows128": {"dq_tf_rows": "128", "dq_tf_blocks": "1",
+                "dkv_tf_rows": "128", "dkv_tf_blocks": "1"},
+    "dkv_no_unroll": {"dkv_tf_unroll": "false"},
+}
+# one TF32 pass: the big parts' product alone, in mma_tf32x3's place
+ONE_PASS = """
+namespace {
+__device__ __forceinline__ void mma_tf32x1(
+    float (&d)[4], const uint32_t (&a_big)[4], const uint32_t (&)[4],
+    uint32_t b0_big, uint32_t b1_big, uint32_t, uint32_t) {
+  hopper::mma_tf32(d, a_big, b0_big, b1_big);
+}
+}  // namespace
+"""
+SLEEP_CYCLES = 1_000_000
+
+
+def variant_source(src, name):
+    """flash_bwd.cu's text with `name`'s changes."""
+    for fn, expr in VARIANTS[name].items():
+        src, n = re.subn(
+            rf"(constexpr (?:int|bool) {fn}\(\) \{{\n  return )[^;]*;",
+            rf"\g<1>{expr};", src)
+        if n != 1:
+            raise RuntimeError(f"{fn} not found once in flash_bwd.cu")
+    if name == "one_pass":
+        src = src.replace('#include "flash.cuh"\n',
+                          '#include "flash.cuh"\n' + ONE_PASS, 1)
+        src, n = re.subn(r"mma_tf32x3\(x", "mma_tf32x1(x", src)
+        if n != 2:
+            raise RuntimeError("mma_tf32x3 calls not found in flash_bwd.cu")
+    return src
+
+
+def main(names):
+    import torch
+
+    from paddle_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        raise SystemExit("tf32_variants.py needs a CUDA device")
+    src = (_build.CSRC / "flash_bwd.cu").read_text()
+    libs = {n: f"flash_bwd_{n}" for n in names}
+    written = []
+    try:
+        for n, lib in libs.items():
+            path = _build.CSRC / f"{lib}.cu"
+            path.write_text(variant_source(src, n))
+            written.append(path)
+        print(json.dumps({"build_s": _build.build(list(libs.values()))}),
+              flush=True)
+        compare(libs)
+    finally:
+        for path in written:       # the build finds a library by its source
+            path.unlink()
+    return 0
+
+
+def compare(libs):
+    """Hold every built variant against the plain backward and time it."""
+    import torch
+
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def device_ms(fn, reps=20, warmup=3):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SLEEP_CYCLES)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    def bwd_fp64(q, k, v, o, lse, do, causal, scale, window):
+        q, k, v, o, lse, do = (t.double() for t in (q, k, v, o, lse, do))
+        delta = (do * o).sum(-1)
+        p = torch.exp(q @ k.transpose(-1, -2) * scale - lse[..., None])
+        if causal:
+            p = p.masked_fill(~fa._keep_mask(*p.shape[-2:], window, dev), 0)
+        ds = p * (do @ v.transpose(-1, -2) - delta[..., None])
+        return ((ds @ k) * scale, (ds.transpose(-1, -2) @ q) * scale,
+                p.transpose(-1, -2) @ do)
+
+    def rel_err(got, want):
+        err = max((g.double() - w.double()).abs().max().item()
+                  for g, w in zip(got, want))
+        return err / max(1.0, max(w.abs().max().item() for w in want))
+
+    cases = []
+    for s in (1024, 1088):
+        for d in (64, 128):
+            for causal, window in ((False, None), (True, None), (True, 100),
+                                   (True, 17)):
+                q, k, v, do = (torch.randn(4, s, d, generator=gen,
+                                           device=dev) for _ in range(4))
+                scale = 1.0 / math.sqrt(d)
+                o, lse = fa.flash_attention_ref(q, k, v, causal, scale,
+                                                window)
+                args = (q, k, v, o, lse, do, causal, scale, window)
+                cases.append((args, fa.flash_attention_bwd_ref(
+                    *args[:-1], window=window), bwd_fp64(*args)))
+    timed = {}
+    for b in (4, 16):
+        for d in (64, 128):
+            h = 12 if d == 64 else 6
+            qkv = torch.randn(b, 1024, 3 * h * d, generator=gen, device=dev)
+            q, k, v = (t.reshape(b, 1024, h, d)
+                       for t in qkv.split(h * d, dim=-1))
+            do = torch.randn(b, 1024, h, d, generator=gen, device=dev)
+            o3, lse = fa.flash_attention_ref(
+                *(fa._heads(t) for t in (q, k, v)), True, d ** -0.5)
+            timed[(b, d)] = (q, k, v, fa._unheads(o3, b, h).contiguous(),
+                             lse, do)
+            del o3
+
+    real_load = _build.load
+    for n, lib in libs.items():
+        fa._FN.pop("flash_bwd", None)
+        _build.load = lambda name, lib=lib: real_load(
+            lib if name == "flash_bwd" else name)
+        regs = {k.split("flash_")[-1].split("ILi")[0] + "<"
+                + k.split("ILi")[1].split("E")[0] + ">": r
+                for k, r in _build.ptxas_report(lib).items() if "tf32" in k}
+        out = {"variant": n, "ptxas": regs}
+        errs = []
+        for (q, k, v, o, lse, do, causal, scale, window), plain, fp64 in cases:
+            got = [t.squeeze(2) for t in fa._launch_bwd(
+                *(t.unsqueeze(2) for t in (q, k, v, o)), lse,
+                do.unsqueeze(2), causal, scale, window)]
+            errs.append((rel_err(got, plain), rel_err(got, fp64)))
+        out["max_err_vs_plain"] = max(e[0] for e in errs)
+        out["min_err_vs_plain"] = min(e[0] for e in errs)
+        out["max_err_vs_fp64"] = max(e[1] for e in errs)
+        for (b, d), (q, k, v, o, lse, do) in timed.items():
+            scale = d ** -0.5
+            first = fa._launch_bwd(q, k, v, o, lse, do, True, scale, None)
+            again = fa._launch_bwd(q, k, v, o, lse, do, True, scale, None)
+            delta = fa._launch_delta(o, do)
+            out[f"b{b}_d{d}"] = {
+                "bit_equal": all(torch.equal(x, y)
+                                 for x, y in zip(first, again)),
+                "pair": device_ms(lambda: fa._launch_bwd(
+                    q, k, v, o, lse, do, True, scale, None)),
+                "dq": device_ms(lambda: fa._launch_dq(
+                    q, k, v, do, lse, delta, True, scale, None)),
+                "dkv": device_ms(lambda: fa._launch_dkv(
+                    q, k, v, do, lse, delta, True, scale, None))}
+        print(json.dumps(out), flush=True)
+    _build.load = real_load
+    sdpa = {}
+    for (b, d), (q, k, v, o, lse, do) in timed.items():
+        bq, bk, bv = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            bq, bk, bv, is_causal=True)
+        bdo = do.transpose(1, 2).contiguous()
+        sdpa[f"b{b}_d{d}"] = device_ms(lambda: torch.autograd.grad(
+            out, (bq, bk, bv), bdo, retain_graph=True))
+    print(json.dumps({"sdpa_backward_device_ms": sdpa}), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0] if smi.stdout else
+          "nvidia-smi: no output", flush=True)
+
+
+if __name__ == "__main__":
+    chosen = sys.argv[1:] or list(VARIANTS)
+    unknown = [n for n in chosen if n not in VARIANTS]
+    if unknown:
+        raise SystemExit(f"unknown variants {unknown}; known: "
+                         f"{list(VARIANTS)}")
+    sys.exit(main(chosen))
