@@ -17,7 +17,19 @@ imports the port from its DIR, builds its kernels and times:
   and pages, fp32 q on int8 pages with their row scales;
 - the flash forward (``ops.flash_attention._launch``) in fp32 at b4 and
   b16 and in bf16 at b4 (s 1024, h 12, d 64, causal), and the fp32
-  backward (``_launch_bwd``: delta pre-pass, dQ, dK/dV) at b4 and b16.
+  backward (``_launch_bwd``: delta pre-pass, dQ, dK/dV) at b4 and b16;
+  with a sha256 of the fp32 backward's dq, dk and dv at b4 from the
+  plain forward's o and lse, which two checkouts whose backward kernels
+  give the same bits share;
+- ``ops.tpp.softmax_rows`` in fp32 and bf16 at [49152, 1024] (the
+  attention-score rows of b4 h12 s1024, std 3);
+- the fp32 flash kernels' main paths on GPT-2 small (vocab 50304, hidden
+  768, 12 layers, 12 heads, dropout 0, random weights from seed 0): the
+  eval forward at 4 x 1024 and the training step at 16 x 1024
+  (SpmdTrainer + AdamW lr 1e-4, ids and labels as chip_smoke.py draws
+  them), fp32 with FLAGS_tpp_kernels off; ``wall_ms``, the host clock
+  around a synchronised call, median of 10 forwards after 2 warm-ups and
+  of 5 steps after 1.
 
 Every input comes from seeded generators, the same in every process.
 Times as chip_smoke.py takes them: CUDA events around one call, median of
@@ -25,15 +37,17 @@ Times as chip_smoke.py takes them: CUDA events around one call, median of
 the host's enqueue inside the window, ``device_ms`` after a ~0.5 ms
 device sleep that hides it. Prints one JSON line per process, then a
 summary line (median, min and max of every checkout's times, pooled over
-rounds), and the card's name and power limit. It imports neither jax nor
-the JAX package.
+rounds, and the set of each checkout's digests), and the card's name and
+power limit. It imports neither jax nor the JAX package.
 """
 import argparse
+import hashlib
 import json
 import os
 import statistics
 import subprocess
 import sys
+import time
 
 SLEEP_CYCLES = 1_000_000
 LIVE_LENGTHS = (140, 143, 160, 163, 163, 105, 179, 117)
@@ -108,9 +122,76 @@ def worker(root):
                     out[f"flash_bwd_pair[{dname}].b{b}"] = both(
                         lambda: fa._launch_bwd(q, k, v, o, lse, do, True,
                                                d ** -0.5, None))
+                    if b == 4:
+                        o3, lse = fa.flash_attention_ref(
+                            *(fa._heads(t) for t in (q, k, v)), True,
+                            d ** -0.5)
+                        o = fa._unheads(o3, b, h).contiguous()
+                        digest = hashlib.sha256()
+                        for g in fa._launch_bwd(q, k, v, o, lse, do, True,
+                                                d ** -0.5, None):
+                            digest.update(g.cpu().numpy().tobytes())
+                        out[f"flash_bwd_pair[{dname}].b{b}.sha256"] = \
+                            digest.hexdigest()
             del q, k, v, do
             torch.cuda.empty_cache()
+    for dname, dt in (("float32", torch.float32),
+                      ("bfloat16", torch.bfloat16)):
+        x = (torch.randn(49152, 1024, generator=gen, device=dev) * 3.0) \
+            .to(dt)
+        out[f"softmax_rows[{dname}]"] = both(lambda: tpp.softmax_rows(x))
+        del x
+    out.update(gpt2_fp32(dev))
     print(json.dumps(out), flush=True)
+
+
+def gpt2_fp32(dev):
+    """{cell: {"wall_ms": median}} of GPT-2 small's fp32 eval forward at
+    4 x 1024 and training step at 16 x 1024."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.distributed import SpmdTrainer
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM, \
+        GPTPretrainLoss
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def wall_ms(fn, n, warmup):
+        times = []
+        for i in range(warmup + n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if i >= warmup:
+                times.append((time.perf_counter() - t) * 1e3)
+        return {"wall_ms": statistics.median(times)}
+
+    cfg = GPTConfig(hidden_size=768, num_layers=12, num_heads=12,
+                    dropout=0.0)
+    model = GPTForCausalLM(cfg, device=dev,
+                           generator=torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    ids, labels = (torch.as_tensor(rng.randint(0, cfg.vocab_size, (
+        16, 1024)).astype(np.int32)).long().to(dev) for _ in range(2))
+    out = {}
+    model.eval()
+    with torch.no_grad():
+        out["gpt2_small_forward[float32].b4"] = wall_ms(
+            lambda: model(ids[:4]), 10, 2)
+    model.train()
+    trainer = SpmdTrainer(model, AdamW(learning_rate=1e-4,
+                                       parameters=model.parameters()),
+                          loss_fn=GPTPretrainLoss())
+    out["gpt2_small_train_step[float32].b16"] = wall_ms(
+        lambda: trainer.train_step(ids, labels).item(), 5, 1)
+    return out
+
+
+def row_metrics(entry):
+    """The timed metrics of one entry: ms and device_ms of a kernel, or
+    wall_ms of a main-path call."""
+    return [t for t in ("ms", "device_ms", "wall_ms") if t in entry]
 
 
 def main():
@@ -139,7 +220,10 @@ def main():
         for key in rows[0]:
             if key == "root":
                 continue
-            for t in ("ms", "device_ms"):
+            if key.endswith(".sha256"):
+                summary[d][key] = sorted({row[key] for row in rows})
+                continue
+            for t in row_metrics(rows[0][key]):
                 vals = [row[key][t] for row in rows]
                 summary[d][f"{key}.{t}"] = {
                     "median": statistics.median(vals), "min": min(vals),

@@ -10,8 +10,8 @@ Run from the repository root, on a machine with a CUDA device and nvcc:
 It builds the port's CUDA kernels from paddle_tpu_torch/ops/csrc/
 (printing ptxas's registers and spills and the tensor-core instructions
 in each library's SASS, and failing if the bf16 TPP, flash forward or
-flash backward has none or spills, or the fp32 flash backward pair has
-no TF32 ones), holds
+flash backward has none or spills, or the fp32 flash forward or backward
+pair has no TF32 ones), holds
 each kernel (flash-attention forward, its dQ and dK/dV backward kernels
 and their delta pre-pass, the TPP matmul and its LN row-statistics
 pre-pass, the greedy-NMS kernel, the TPP bias_act, softmax_rows and
@@ -64,6 +64,11 @@ PEAK_TF32_FLOPS = 494.7e12
 # lse is fp32 in both dtypes. TPP tolerances scale with max(1, max|plain|).
 FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 LSE_TOL = 2e-4
+# The fp32 forward on the tf32x3 route, o x max(1, max|plain|) and lse:
+# three TF32 passes land near 4e-6 and one pass at 1.5e-4 and above
+# (tf32_variants.py), so a kernel that drops passes fails this band even
+# where it would pass FLASH_TOL.
+TF32X3_FWD_TOL = 2e-5
 TPP_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # The narrow model against the JAX package's fp32 outputs: summation order.
 NARROW_TOL = 1e-4
@@ -207,7 +212,8 @@ def tpp_routes_checked(path):
     from paddle_tpu_torch.ops import tpp
 
     want = {"bfloat16": "wgmma", "float32": "simt"}
-    routed = {k: n for k, n in tpp.routes.items() if n}
+    routed = {k: n for k, n in tpp.routes.items()
+              if n and k.startswith("tpp_matmul.")}
     launched = sum(n for k, n in tpp.launches.items()
                    if k.startswith("tpp_matmul."))
     wrong = {k: n for k, n in routed.items()
@@ -221,18 +227,16 @@ def tpp_routes_checked(path):
 def flash_routes_checked(path, stream=False):
     """The flash launches since flash_attention.routes was cleared, by the
     kernel the C entry chose; checks that every bf16 launch (forward, dQ,
-    dK/dV; head_dim 64 on the GPT paths) ran on the tensor cores (mma),
-    every fp32 dQ and dK/dV launch on the TF32 tensor cores (tf32x3) and
-    every fp32 forward on the scalar kernel (simt), or with `stream` (head
-    dims above 512) that every launch took the streaming route."""
+    dK/dV; head_dim 64 on the GPT paths) ran on the tensor cores (mma) and
+    every fp32 one (forward, dQ, dK/dV) on the TF32 tensor cores
+    (tf32x3), or with `stream` (head dims above 512) that every launch
+    took the streaming route."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     def want(kernel, dname):
         if stream:
             return "stream"
-        if dname == "bfloat16":
-            return "mma"
-        return "simt" if kernel == "flash_fwd" else "tf32x3"
+        return "mma" if dname == "bfloat16" else "tf32x3"
 
     routed = {k: n for k, n in fa.routes.items() if n}
     launched = sum(n for k, n in fa.launches.items()
@@ -242,8 +246,8 @@ def flash_routes_checked(path, stream=False):
              if k.split(":")[2] != want(*k.split(":")[:2])}
     check(not wrong and sum(routed.values()) == launched,
           f"{path}: flash launches by route {routed} ({launched} launches), "
-          f"bf16 on mma, fp32 dQ and dK/dV on tf32x3 and the fp32 forward "
-          f"on simt" + (" (all on stream)" if stream else ""))
+          f"bf16 on mma and fp32 on tf32x3"
+          + (" (all on stream)" if stream else ""))
     return routed
 
 
@@ -544,11 +548,13 @@ def serve_detector(dev, gen):
 def call_row_primitives(randn):
     """The TPP row primitives' path: each entry point called once at its
     main shape in each dtype, counted from zero, its output held against
-    the plain version. Returns {"counts": launches, "errs": max-abs
-    errors by kernel}."""
+    the plain version; softmax_rows on its register route (the rows are
+    16-byte aligned, 1,024 long). Returns {"counts": launches, "routes":
+    softmax_rows launches by route, "errs": max-abs errors by kernel}."""
     from paddle_tpu_torch.ops import tpp
 
     tpp.launches.clear()
+    tpp.routes.clear()
     errs = {}
     for dname, dt in torch_dtypes().items():
         x = randn(*ROWS_BIAS_ACT, dtype=dt)
@@ -573,12 +579,17 @@ def call_row_primitives(randn):
                  for kind in ("sum", "max") for d in torch_dtypes()})
     check(counts == want, f"TPP row primitives: one launch per entry point "
           f"call, got {counts}")
+    routes = {k: n for k, n in tpp.routes.items() if n}
+    check(routes == {f"tpp_softmax_rows:{d}:register": 1
+                     for d in torch_dtypes()},
+          f"softmax_rows at {ROWS_SCORES}: one launch a dtype on the "
+          f"register route, got {routes}")
     emit({"phase": "kernels_vs_plain", "kernel": "tpp_rowwise",
           "shapes": {"bias_act": ROWS_BIAS_ACT, "softmax_rows": ROWS_SCORES,
                      "masked_reduce": ROWS_SCORES},
           "max_abs_err": errs, "tol_x_max(1,max|plain|)": ROW_TOL,
-          "main_path_launches": counts})
-    return {"counts": counts, "errs": errs}
+          "main_path_launches": counts, "softmax_routes": routes})
+    return {"counts": counts, "routes": routes, "errs": errs}
 
 
 def time_new_kernels(det, rows, randn, time_ms, bound, launch_counts):
@@ -655,7 +666,10 @@ def time_new_kernels(det, rows, randn, time_ms, bound, launch_counts):
             "library_ms": time_ms(lambda: torch.softmax(sc, -1)),
             "library_device_ms": time_ms(lambda: torch.softmax(sc, -1),
                                          hide_enqueue=True),
-            "library_covers": "torch.softmax(x, -1)", "shape": [m_s, n_s]})
+            "library_covers": "torch.softmax(x, -1)", "shape": [m_s, n_s],
+            "kernel_route": "register",
+            "routes_on_path": {k: n for k, n in rows["routes"].items()
+                               if k.startswith(f"tpp_softmax_rows:{dname}:")}})
         mask = causal_rows(ROWS_SCORES, sc.device)
         kinds = {}
         for kind in ("sum", "max"):
@@ -1314,21 +1328,23 @@ def main():
           "ptxas": ptxas, "sass_tensor_core_instructions": sass})
     # the redesigned kernels run on the tensor cores (wgmma in the bf16
     # TPP, mma.sync in the bf16 flash forward and backward pair, mma.sync
-    # on TF32 operands in the fp32 backward pair) and no kernel spills, but
-    # for the scalar backward instantiations listed in BWD_SCALAR_SPILLS
+    # on TF32 operands in the fp32 forward and backward pair) and no kernel
+    # spills, but for the scalar backward instantiations listed in
+    # BWD_SCALAR_SPILLS
     for name, op in (("tpp_matmul", "HGMMA"), ("flash_fwd", "HMMA"),
-                     ("flash_bwd", "HMMA"), ("flash_bwd", "HMMA.TF32")):
+                     ("flash_fwd", "HMMA.TF32"), ("flash_bwd", "HMMA"),
+                     ("flash_bwd", "HMMA.TF32")):
         check(sass[name][op] > 0, f"{name}: {op} instructions in its SASS")
         spills = {k: r for k, r in ptxas[name].items() if r["spill_bytes"]
                   and not (name == "flash_bwd"
                            and scalar_bwd_instance(k) in BWD_SCALAR_SPILLS)}
         check(not spills, f"{name}: no register spills ({spills})")
-    tf32_kernels = {k: r for k, r in ptxas["flash_bwd"].items()
-                    if "_tf32_kernel" in k}
-    check(len(tf32_kernels) == 4 and not any(
+    tf32_kernels = {k: r for name in ("flash_fwd", "flash_bwd")
+                    for k, r in ptxas[name].items() if "_tf32_kernel" in k}
+    check(len(tf32_kernels) == 6 and not any(
         r["spill_bytes"] for r in tf32_kernels.values()),
-          f"flash_bwd: the TF32 dQ and dK/dV kernels at head_dim 64 and 128 "
-          f"built without spills ({tf32_kernels})")
+          f"flash_fwd and flash_bwd: the TF32 forward, dQ and dK/dV kernels "
+          f"at head_dim 64 and 128 built without spills ({tf32_kernels})")
 
     # ---- 2. every kernel against its plain version ------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1338,8 +1354,10 @@ def main():
 
     flash_err = {}
     n_flash = 0
+    tf32_err = 0.0
     shapes = [(s, d) for s in (1024, 2048) for d in (64, 128)] \
         + [(1024, 192), (1024, 256), (1024, 320)]
+    fa.routes.clear()
     for s, d in shapes:
         for dname, dt in dtypes.items():
             for causal, window in ((False, None), (True, None),
@@ -1355,6 +1373,13 @@ def main():
                 check(eo <= FLASH_TOL[dname] and el <= LSE_TOL,
                       f"flash s={s} d={d} {dname} causal={causal} "
                       f"window={window}: o err {eo}, lse err {el}")
+                if dname == "float32" and d in (64, 128):
+                    eo /= max(1.0, ro.abs().max().item())
+                    tf32_err = max(tf32_err, eo, el)
+                    check(eo <= TF32X3_FWD_TOL and el <= TF32X3_FWD_TOL,
+                          f"flash s={s} d={d} fp32 on tf32x3 causal={causal} "
+                          f"window={window}: o err / max(1, max|plain|) "
+                          f"{eo}, lse err {el} > {TF32X3_FWD_TOL}")
                 n_flash += 1
     # the main paths' calls: strided q/k/v views of one packed qkv tensor,
     # at the serving batch (4) and the training batch
@@ -1371,12 +1396,41 @@ def main():
                 ro, _ = fa.flash_attention_ref(
                     *(fa._heads(t) for t in (q, k, v)), True,
                     1.0 / math.sqrt(d))
+                if b == TRAIN_BATCH:   # every block writes only its rows
+                    check(torch.equal(o, fa.flash_attention(
+                        q, k, v, causal=True)),
+                          f"flash main shape b={b} {dname}: two calls, "
+                          f"the same bits")
             ro = fa._unheads(ro, b, h)
             err = (o.float() - ro.float()).abs().max().item()
             flash_err[dname][b] = err
             check(err <= FLASH_TOL[dname],
                   f"flash main shape b={b} {dname}: err {err}")
+            if dname == "float32":
+                err /= max(1.0, ro.abs().max().item())
+                tf32_err = max(tf32_err, err)
+                check(err <= TF32X3_FWD_TOL, f"flash main shape b={b} fp32 "
+                      f"on tf32x3: err / max(1, max|plain|) {err}")
             del qkv, q, k, v, o, ro
+    # the configs' forward launches by route: bf16 on mma up to head_dim
+    # 256, fp32 on the TF32 kernel at 64 and 128 (every view aligned), the
+    # scalar kernel elsewhere; the main shape's three calls a dtype on the
+    # tensor cores
+    fwd_routes = {k: n for k, n in fa.routes.items() if n}
+    want_routes = {}
+    for _, d in shapes:
+        for dname in dtypes:
+            route = "simt"
+            if dname == "bfloat16" and d <= 256:
+                route = "mma"
+            elif dname == "float32" and d in (64, 128):
+                route = "tf32x3"
+            key = f"flash_fwd:{dname}:{route}"
+            want_routes[key] = want_routes.get(key, 0) + 3
+    for dname, route in (("bfloat16", "mma"), ("float32", "tf32x3")):
+        want_routes[f"flash_fwd:{dname}:{route}"] += 3
+    check(fwd_routes == want_routes, f"flash forward launches by route "
+          f"{fwd_routes}, expected {want_routes}")
     # SDPA sends every shape its gate passes to the kernel: the wide heads
     # launch it, and a head it has no tiling for (above 512) raises
     from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
@@ -1428,8 +1482,12 @@ def main():
           "main_shape_max_abs_err_by_batch": flash_err,
           "sdpa_head_dim_192_256_320_launched": True,
           "sdpa_stream_route_b1_s1024_h2_causal": stream_err,
+          "routes_of_the_configs": fwd_routes,
+          "main_shape_two_calls_bit_equal": True,
           "stream_routes": stream_routes,
+          "fp32_tf32x3_max_err": tf32_err,
           "tol": {"o": FLASH_TOL, "lse": LSE_TOL,
+                  "fp32_tf32x3_o_x_max(1,max|plain|)_and_lse": TF32X3_FWD_TOL,
                   "stream_grads": "FLASH_TOL x max(1, max|plain|)"}})
 
     def tpp_err(got, want, dname, what):
@@ -2070,6 +2128,20 @@ def main():
                     "library_ms": time_ms(sdpa),
                     "shape": [b, s, h, d]}, 4.0 * b * h * pairs * d, kern,
                     sdpa)
+            row = fwd_rows[b]
+            row["device_ms_over_library_device_ms"] = \
+                row["device_ms"] / row["library_device_ms"]
+            if dname == "float32":
+                # the TF32 kernel's own bound: three tensor-core passes a
+                # product (bound_ms stays the fp32 FMA bound, 67 TFLOP/s)
+                t_ops = 3 * 4.0 * b * h * pairs * d / PEAK_TF32_FLOPS
+                t_mem = (4 * b * h * s * d * item + b * h * s * 4) \
+                    / HBM_BYTES_PER_S
+                row["bound_tc_ms"] = max(t_ops, t_mem) * 1e3
+                row["bound_tc_by"] = "operations: 3 x FLOPs over 494.7 " \
+                    "TFLOP/s TF32" if t_ops >= t_mem else "bytes"
+                row["device_share_of_tc_bound"] = \
+                    row["bound_tc_ms"] / row["device_ms"]
             del qkv, q, k, v, heads, bhsd
         # the streaming route once, at head_dim 576 (b1 s1024 h2, causal):
         # the forward and the backward (pre-pass, dQ, dK/dV: one C call)
@@ -2116,11 +2188,16 @@ def main():
                       "SDPA's backward", "shape": [1, s, 2, ds]},
             10.0 * 2 * pairs * ds, stream_bwd, sdpa_bwd_stream)
         del q, k, v, do, o, lse, bhsd, out, bdo
+        # bf16: flash_fwd_mma_kernel; fp32: flash_fwd_tf32_kernel (three
+        # TF32 passes a product), counted by that route
+        route, tag = ("mma", "") if dname == "bfloat16" \
+            else ("tf32x3", "_tf32")
         kernels.append({
-            "name": f"flash_fwd[{dname}]", "route": "cuda",
+            "name": f"flash_fwd{tag}[{dname}]", "route": "cuda",
             "source": "paddle_tpu_torch/ops/csrc/flash_fwd.cu",
+            "kernel": f"flash_fwd{tag or '_mma'}_kernel",
             "replaces": "paddle_tpu/ops/flash_attention.py:196",
-            **launch_counts(f"flash_fwd:{dname}"),
+            **launch_counts(f"flash_fwd:{dname}:{route}"),
             "max_abs_err": flash_err[dname][4], **fwd_rows[4], "causal": True,
             "train_shape": {**fwd_rows[TRAIN_BATCH],
                             "max_abs_err": flash_err[dname][TRAIN_BATCH]},
@@ -2369,7 +2446,8 @@ def main():
           "tpp_matmul.plain": tpp_plain})
     for kern in kernels:
         check(kern["launches"] > 0, f"{kern['name']} ran on a main path")
-    for name in ("flash_fwd[bfloat16]", "flash_dq[bfloat16]",
+    for name in ("flash_fwd[bfloat16]", "flash_fwd_tf32[float32]",
+                 "flash_dq[bfloat16]",
                  "flash_dkv[bfloat16]", "flash_dq_tf32[float32]",
                  "flash_dkv_tf32[float32]", "flash_delta[bfloat16]",
                  "flash_delta[float32]", "tpp_matmul.ln_prologue[float32]",

@@ -1,8 +1,8 @@
 // Device helpers shared by the flash-attention kernels (flash_fwd.cu and
 // flash_bwd.cu): the [B, S, H, D] view's strides, the reference's mask,
-// the SFU's exp2, and the swizzled bf16 tiles that the mma.sync kernels
-// fill by cp.async and read by ldmatrix. ops/_build.py hashes this header
-// (and hopper.cuh, which it includes) with both sources.
+// and the swizzled bf16 tiles that the mma.sync kernels fill by cp.async
+// and read by ldmatrix (with its lanes' roles). ops/_build.py hashes this
+// header (and hopper.cuh, which it includes) with both sources.
 
 #pragma once
 
@@ -16,21 +16,11 @@ struct Strides {  // element strides of a [B, S, H, D] view (d contiguous)
   long long b, s, h;
 };
 
-constexpr float LOG2E = 1.4426950408889634f;
-
 // The forward's mask (flash_attention.py `_causal_mask`): keep k <= q,
 // and q - k < window.
 __device__ __forceinline__ bool visible(int qp, int kp, int causal,
                                         int window) {
   return !causal || (kp <= qp && (window <= 0 || qp - kp < window));
-}
-
-// 2^x on the SFU (relative error 2^-22, subnormal results flushed to 0:
-// a probability that small adds nothing to an fp32 sum that holds a 1)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // byte offset of 16-byte chunk c of row r in a [rows][D] bf16 tile whose
@@ -39,6 +29,18 @@ template <int D>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
   return r * (D * 2) + ((c ^ (r & 7)) << 4);
 }
+
+// ldmatrix lane roles (flash_fwd.cu's bf16 kernel): A fragments and the B
+// fragments of a [k][n] tile (ldmatrix.trans) address row lane % 16, chunk
+// lane / 16; the B fragments of an [n][k] tile row lane % 8 (+8 for lanes
+// 16-31), chunk (lane / 8) % 2; g and t the mma fragments' lane / 4 and
+// lane % 4
+struct Lanes {
+  int g, t, a_r, a_c, b_r, b_c;
+  __device__ explicit Lanes(int lane)
+      : g(lane >> 2), t(lane & 3), a_r(lane & 15), a_c(lane >> 4),
+        b_r((lane & 7) + ((lane >> 4) << 3)), b_c((lane >> 3) & 1) {}
+};
 
 // rows [0, n) of a [B, S, H, D] bf16 view at sequence position s0 into a
 // swizzled tile by `threads` threads, 16 bytes a cp.async; rows at or past

@@ -42,13 +42,40 @@
 // written without a copy; a warp stages its rows of o in its own rows of
 // the Q tile and stores them as 16-byte chunks.
 //
-// fp32, and bf16 at head_dim 320 to 512, `flash_fwd_kernel`: fp32 stays
-// fp32 (no TF32): scalar fp32 FMAs out of shared memory (the tiles staged
-// in fp32 whatever the input type), one block a (b*h, query tile), an
-// R x D/16 slice of the accumulator a thread. Tiles of 64 rows up to head
-// dim 256 (at 256 they take 209.5 KB of the 227 KB of shared memory a
-// block may have), 32 rows from 320 to 512 (201.5 KB at 512). It is 1.5x
-// from SDPA on this card and not yet redesigned.
+// fp32 at head_dim 64 and 128, `flash_fwd_tf32_kernel` (route 4): the
+// same FlashAttention-2 loop on the TF32 tensor cores (mma.sync.m16n8k8;
+// 494.7 dense TFLOP/s against 67 for fp32 FMAs), every product in three
+// passes as the fp32 backward pair forms them (flash_tf32.cuh): x = big +
+// small, big = tf32(x), small = tf32(x - big), and A B = small(A) big(B) +
+// big(A) small(B) + big(A) big(B) into one fp32 accumulator. One TF32 pass
+// keeps 10 of 23 mantissa bits and lands outside the fp32 band of 2e-4;
+// three keep fp32 accuracy and triple the tensor-core work (3 x 4 d FLOPs
+// a visible pair: 77.4 GFLOP, 0.156 ms at b16 h12 s1024 d64 causal). A
+// block owns a tile of 64 query rows (a warp 16 of them) of one (b, h),
+// heaviest causal tile first, and walks the kv tiles it can see; K and V
+// tiles (64 rows at head_dim 64, 32 at 128) are double-buffered by
+// cp.async 16-byte copies into rows of D + 4 floats, the next tile's copy
+// in flight while this one computes. The scale is applied to q in fp32 in
+// shared memory, where the reference applies it, before S = (Q scale) K^T
+// (product_nt). Masked scores take the reference's _NEG where the diagonal
+// or the window's edge crosses the warp's part of the tile; the online
+// softmax runs on S's accumulator fragment (each row's max over the quad
+// by shuffles, m, l and the rescale in registers, P = exp(S - m) on the
+// SFU's exp2), and O = O alpha + P V (product_acc) takes P as the A
+// operand as it stands: nothing goes through shared memory but the staged
+// tiles. o = O / l leaves 16 bytes a lane (store_acc_f32), lse = m + log l.
+// What holds it is issue slots, not the tensor pipe: each operand element
+// is split (four integer and float instructions) at every use, beside the
+// MMAs' own. A view whose pointer or (b, s, h) step is not 16-byte aligned
+// takes the scalar kernel, chosen before any launch (route 2).
+//
+// bf16 at head_dim 320 to 512, and fp32 at the other head dims up to 512
+// or where a view is off 16 bytes, `flash_fwd_kernel`: scalar fp32 FMAs
+// out of shared memory (the tiles staged in fp32 whatever the input type),
+// one block a (b*h, query tile), an R x D/16 slice of the accumulator a
+// thread. Tiles of 64 rows up to head dim 256 (at 256 they take 209.5 KB
+// of the 227 KB of shared memory a block may have), 32 rows from 320 to
+// 512 (201.5 KB at 512).
 //
 // Above head_dim 512, fp32 and bf16, `flash_fwd_stream_kernel` (the
 // streaming route; flash.cuh): no tile of a whole head fits, so lse comes
@@ -58,11 +85,12 @@
 // scalar kernel's.
 //
 // The entry reports the kernel it launched (*route: 1 mma.sync, 2 the
-// scalar kernel, 3 the streaming one), which depends only on the type and
-// the head dim. Seq a multiple of 64; lse is a contiguous [B * H, S] fp32
-// array. b * h rides on gridDim.x, with no limit of its own.
+// scalar kernel, 3 the streaming one, 4 the TF32 one), which depends on
+// the type, the head dim and, in fp32, the views' alignment. Seq a
+// multiple of 64; lse is a contiguous [B * H, S] fp32 array. b * h rides
+// on gridDim.x, with no limit of its own.
 
-#include "flash.cuh"
+#include "flash_tf32.cuh"
 
 namespace {
 
@@ -606,6 +634,191 @@ __global__ void __launch_bounds__(mma_threads<MB>(), 1)
   }
 }
 
+// ---- fp32 at head_dim 64 and 128: the TF32 tensor cores, three passes ----
+
+// Query rows a block (16 a warp), kv rows a step, the blocks an SM must
+// hold (the launch bound that caps registers) and product_nt's UNROLL.
+// tf32_variants.py builds the other values side by side.
+template <int D> __host__ __device__ constexpr int fwd_tf_rows() {
+  return 64;
+}
+template <int D> __host__ __device__ constexpr int fwd_tf_bkv() {
+  return D == 64 ? 64 : 32;
+}
+template <int D> __host__ __device__ constexpr int fwd_tf_blocks() {
+  return 2;
+}
+template <int D> __host__ __device__ constexpr bool fwd_tf_unroll() {
+  return D == 64;
+}
+
+template <int D>
+__host__ __device__ constexpr int fwd_tf32_smem_bytes() {
+  // Q resident; K and V twice each
+  return (fwd_tf_rows<D>() + 4 * fwd_tf_bkv<D>()) * tf_ld<D>() * 4;
+}
+
+template <int D>
+__global__ void __launch_bounds__(tf_threads<fwd_tf_rows<D>()>(),
+                                  fwd_tf_blocks<D>())
+    flash_fwd_tf32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          float* __restrict__ o, float* __restrict__ lse,
+                          int H, int S, Strides sq, Strides sk, Strides sv,
+                          Strides so, int causal, float scale, int window) {
+  constexpr int ROWS = fwd_tf_rows<D>(), NTH = tf_threads<ROWS>();
+  constexpr int LD = tf_ld<D>(), BKV = fwd_tf_bkv<D>();
+  constexpr int KV_TILE = BKV * LD;        // floats of one K or V tile
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* const q_s = reinterpret_cast<float*>(smem_raw);
+  float* const k_s = q_s + ROWS * LD;      // two K tiles
+  float* const v_s = k_s + 2 * KV_TILE;    // two V tiles
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const Lanes L(lane);
+  int bh, qt;
+  bh_tile(true, bh, qt);  // the heaviest causal tile first
+  const int b = bh / H, h = bh % H;
+  const int q0 = qt * ROWS;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+
+  // kv tiles with any visible key for some row of this query tile
+  const int q_last = (q0 + ROWS < S ? q0 + ROWS : S) - 1;
+  int kt_begin = 0, kt_end = S / BKV;
+  if (causal) {
+    kt_end = q_last / BKV + 1;
+    if (window > 0) {
+      const int first_key = q0 - (window - 1);
+      kt_begin = first_key > 0 ? first_key / BKV : 0;
+    }
+  }
+
+  cp_async_tile_f32<D, NTH>(smem_u32(q_s), qb, sq.s, q0, ROWS, S, tid);
+  cp_async_tile_f32<D, NTH>(smem_u32(k_s), kb, sk.s, kt_begin * BKV, BKV,
+                            S, tid);
+  cp_async_tile_f32<D, NTH>(smem_u32(v_s), vb, sv.s, kt_begin * BKV, BKV,
+                            S, tid);
+  cp_async_commit();
+  // Q * scale in fp32, where the reference applies the scale: each thread
+  // scales the 16-byte chunks it copied once they have landed; a barrier
+  // publishes them
+  cp_async_wait<0>();
+  for (int idx = tid; idx < ROWS * (D / 4); idx += NTH) {
+    float4* p = reinterpret_cast<float4*>(q_s + (idx / (D / 4)) * LD +
+                                          4 * (idx % (D / 4)));
+    float4 x = *p;
+    x.x *= scale;
+    x.y *= scale;
+    x.z *= scale;
+    x.w *= scale;
+    *p = x;
+  }
+
+  const int wr0 = 16 * warp;       // the warp's first row in Q
+  const int wq0 = q0 + wr0;        // and in the sequence
+  // running max and sum of the thread's rows g and g + 8 (the sum this
+  // thread's part: the quad's four parts add up at the end), and the
+  // warp's rows of O in product_acc's layout
+  float m_r[2] = {NEG, NEG}, l_r[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int buf = (kt - kt_begin) & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt has landed; every warp is done with kt - 1
+    if (kt + 1 < kt_end) {
+      cp_async_tile_f32<D, NTH>(smem_u32(k_s + (buf ^ 1) * KV_TILE), kb,
+                                sk.s, (kt + 1) * BKV, BKV, S, tid);
+      cp_async_tile_f32<D, NTH>(smem_u32(v_s + (buf ^ 1) * KV_TILE), vb,
+                                sv.s, (kt + 1) * BKV, BKV, S, tid);
+    }
+    cp_async_commit();
+    const int k0 = kt * BKV;
+    // a tile this warp's rows see nothing of
+    if (wq0 >= S || (causal && k0 > wq0 + 15) ||
+        (window > 0 && k0 + BKV - 1 < wq0 - window + 1))
+      continue;
+    const float* kbuf = k_s + buf * KV_TILE;
+    const float* vbuf = v_s + buf * KV_TILE;
+
+    // S = (Q * scale) K^T
+    float sc[BKV / 8][4];
+    product_nt<D, BKV, fwd_tf_unroll<D>()>(sc, q_s, kbuf, wr0, L);
+
+    // the reference's _NEG where the diagonal or the window's edge
+    // crosses the warp's part of the tile
+    if (causal && (k0 + BKV - 1 > wq0 ||
+                   (window > 0 && k0 < wq0 + 15 - window + 1))) {
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!visible(wq0 + L.g + 8 * (e >> 1),
+                       k0 + 8 * j + 2 * L.t + (e & 1), causal, window))
+            sc[j][e] = NEG;
+    }
+
+    // online softmax, the reference's rule, on the accumulator fragment:
+    // each row's max over the quad that holds it, P = exp(S - m) in
+    // registers, O and the sum rescaled by exp(m_prev - m). A row whose
+    // every key so far was masked has m = NEG and sums a 1 per masked
+    // key, wiped by exp(NEG - m_real) = 0 once a visible key arrives.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m_r[r];
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j)
+        mx = fmaxf(mx, fmaxf(sc[j][2 * r], sc[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float alpha = exp2_approx((m_r[r] - mx) * LOG2E);
+      m_r[r] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float p = exp2_approx((sc[j][2 * r + c] - mx) * LOG2E);
+          sc[j][2 * r + c] = p;
+          sum += p;
+        }
+      l_r[r] = l_r[r] * alpha + sum;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[j][2 * r] *= alpha;
+        acc[j][2 * r + 1] *= alpha;
+      }
+    }
+
+    // O += P V: P's accumulator is the A operand as it stands
+    product_acc<D, BKV / 8>(acc, sc, vbuf, L);
+  }
+  cp_async_wait<0>();  // no copy in flight when the block ends
+
+  // o = O / l (divided, as the reference divides), lse = m + log l
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[j][2 * r] /= l;
+      acc[j][2 * r + 1] /= l;
+    }
+    const int qp = wq0 + L.g + 8 * r;
+    if (L.t == 0 && qp < S) lse[(long long)bh * S + qp] = m_r[r] + logf(l);
+  }
+  store_acc_f32<D>(acc, 1.f, o + b * so.b + h * so.h, so.s, wq0, S, L);
+}
+
 // rows a warp: 32 at d 64 (two 16-row blocks share each K and V
 // fragment: half the ldmatrix traffic a FLOP), 16 above, where the
 // accumulators of 32 rows would not fit in 255 registers
@@ -641,6 +854,26 @@ cudaError_t launch_mma(const Args& a) {
       static_cast<const bf*>(a.q), static_cast<const bf*>(a.k),
       static_cast<const bf*>(a.v), static_cast<bf*>(a.o), a.lse, a.H, a.S,
       a.sq, a.sk, a.sv, a.so, a.causal, a.scale, a.window);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_tf32(const Args& a) {
+  constexpr int bytes = fwd_tf32_smem_bytes<D>();
+  static bool attr_set = false;  // dynamic shared memory above 48 KB
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_tf32_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  constexpr int rows = fwd_tf_rows<D>();
+  const dim3 grid(a.B * a.H, (a.S + rows - 1) / rows);
+  flash_fwd_tf32_kernel<D><<<grid, tf_threads<rows>(), bytes, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.H,
+      a.S, a.sq, a.sk, a.sv, a.so, a.causal, a.scale, a.window);
   return cudaGetLastError();
 }
 
@@ -684,16 +917,30 @@ cudaError_t launch_stream(const Args& a, int D) {
   return cudaGetLastError();
 }
 
-// the route by type and head dim: bf16 up to 256 on the tensor cores
+// every view's pointer and (b, s, h) steps 16-byte aligned
+bool views_aligned16(const Args& a, int bytes) {
+  return aligned16(a.q, a.sq, a.B, a.H, bytes) &&
+         aligned16(a.k, a.sk, a.B, a.H, bytes) &&
+         aligned16(a.v, a.sv, a.B, a.H, bytes) &&
+         aligned16(a.o, a.so, a.B, a.H, bytes);
+}
+
+// the route by type, head dim and views: bf16 up to 256 on the tensor
+// cores (refused off 16 bytes); fp32 at 64 and 128 on the TF32 tensor
+// cores where every view is 16-byte aligned, else the scalar kernel
 template <int D>
 cudaError_t launch_dtype(int dtype, const Args& a, int* route) {
   if constexpr (D <= 256) {
     if (dtype == 1) {
       *route = 1;
-      if (!(aligned16(a.q, a.sq, a.B, a.H) && aligned16(a.k, a.sk, a.B, a.H) &&
-            aligned16(a.v, a.sv, a.B, a.H) && aligned16(a.o, a.so, a.B, a.H)))
-        return cudaErrorInvalidValue;
+      if (!views_aligned16(a, 2)) return cudaErrorInvalidValue;
       return launch_mma<D>(a);
+    }
+  }
+  if constexpr (D == 64 || D == 128) {
+    if (views_aligned16(a, 4)) {
+      *route = 4;
+      return launch_tf32<D>(a);
     }
   }
   *route = 2;
@@ -708,7 +955,7 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16. window <= 0 means no window. bf16
 // pointers and (b, s, h) strides must be 16-byte aligned up to head_dim
 // 256. *route is set to the kernel launched (1 mma.sync, 2 scalar, 3
-// streaming).
+// streaming, 4 the TF32 three-pass kernel).
 // Returns a cudaError_t: cudaErrorInvalidValue for arguments the kernel
 // does not take, else the launch's own error.
 int flash_fwd(const void* q, const void* k, const void* v, void* o,

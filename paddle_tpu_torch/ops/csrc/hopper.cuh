@@ -1,9 +1,10 @@
 // Device helpers shared by the port's sm_90a kernels (tpp_matmul.cu,
-// flash_fwd.cu and flash_bwd.cu): type conversion, bf16 packing, the TF32
-// split, ldmatrix, cp.async, mma.sync (bf16, and TF32 in one or three
-// passes), mbarrier and TMA, each a thin wrapper over one PTX instruction
-// or a few. ops/_build.py hashes this header with every source that
-// includes it, so an edit here rebuilds them.
+// flash_fwd.cu, flash_bwd.cu and tpp_rowwise.cu): type conversion, bf16
+// packing, the SFU's exp2, the TF32 split, ldmatrix, cp.async, mma.sync
+// (bf16, and TF32 in one or three passes), mbarrier and TMA, each a thin
+// wrapper over one PTX instruction or a few. ops/_build.py hashes this
+// header with every source that includes it, so an edit here rebuilds
+// them.
 
 #pragma once
 
@@ -25,6 +26,16 @@ template <> __device__ __forceinline__ float from_f<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x on the SFU (relative error 2^-22, subnormal results flushed to 0:
+// a probability that small adds nothing to an fp32 sum that holds a 1)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

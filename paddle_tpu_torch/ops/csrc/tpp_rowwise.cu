@@ -17,40 +17,42 @@
 //   - bias_act is a grid-stride loop over 16-byte vectors of x (4 fp32 or 8
 //     bf16 values, which share a row when n is a multiple of the vector),
 //     with a scalar path for any other shape or alignment;
-//   - softmax_rows and masked_reduce give each row to one block of 256
-//     threads, which read the row with neighbouring threads on neighbouring
-//     addresses and combine their partial max and sum with warp shuffles
-//     and a 32-entry shared array. softmax_rows reads its row three times
-//     (max, sum, write); at the rows it is called on (a few KB) the second
-//     and third reads hit the L1/L2 caches, so device memory sees each
-//     element once. The TPU kernels' row blocks become single rows here:
-//     there is no carried state between rows, and a block per row fills the
-//     card at the attention-score shapes (tens of thousands of rows).
+//   - softmax_rows, the register route (`softmax_rows_reg_kernel`, rows
+//     whose base is 16-byte aligned, n a multiple of the 16-byte vector and
+//     at most 2,048): a row to one warp while a lane holds at most four
+//     16-byte vectors (bf16 up to 1,024), else to two or four warps (fp32
+//     at 1,024: two), 256 threads a block. Each lane issues all of its
+//     row's 16-byte loads before any math and keeps the row in registers;
+//     the max and then the sum reduce by warp shuffles (one warp a row: no
+//     shared memory, no __syncthreads; more: one exchange through shared
+//     memory for each), exp(x - max) is formed once an element on the
+//     SFU's exp2 and kept, and the row leaves as e * (1 / sum) in 16-byte
+//     stores. So the row is read from memory once, and every warp of the
+//     SM has its part of a row in flight at once;
+//   - softmax_rows on every other row (the block route,
+//     `softmax_rows_kernel`) and masked_reduce give each row to one block
+//     of 256 threads, which read the row with neighbouring threads on
+//     neighbouring addresses and combine their partial max and sum with
+//     warp shuffles and a 32-entry shared array. The block route reads its
+//     row three times (max, sum, write); at a few KB a row the second and
+//     third reads hit the L1/L2 caches, so device memory sees each element
+//     once. The TPU kernels' row blocks become single rows here: there is
+//     no carried state between rows, and a block per row fills the card at
+//     the attention-score shapes (tens of thousands of rows).
 // Any shape runs (ragged edges are masked); the Python wrappers keep the
 // reference's contract on which shapes the registry accepts.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <cstring>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int NT = 256;  // threads a block: 8 warps
+using namespace hopper;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+constexpr int NT = 256;  // threads a block: 8 warps
 
 // act codes follow ops/tpp.py _ACTS: 0 none, 1 gelu, 2 gelu_tanh, 3 relu
 __device__ __forceinline__ float apply_act(float x, int act) {
@@ -143,6 +145,126 @@ __global__ void __launch_bounds__(NT)
     orow[j] = from_f<T>(expf(to_f(xr[j]) - mx) / s);
 }
 
+// ---- softmax_rows in registers: a warp or a few a row --------------------
+
+constexpr int REG_ROWS = NT / 32;   // rows a block at one warp a row
+constexpr int REG_MAX_N = 2048;     // the longest row the route keeps
+
+template <typename T> struct Vec;   // the elements of one 16-byte vector
+template <> struct Vec<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void unpack(const uint4& r, float* f) {
+    f[0] = __uint_as_float(r.x);
+    f[1] = __uint_as_float(r.y);
+    f[2] = __uint_as_float(r.z);
+    f[3] = __uint_as_float(r.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+};
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void unpack(const uint4& r, float* f) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 p = unpack_bf16(w[i]);
+      f[2 * i] = p.x;
+      f[2 * i + 1] = p.y;
+    }
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    return make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
+                      pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+  }
+};
+
+// Combine one value a warp (lane 0's) over the WPR warps that share a
+// row, through `red` (one entry a warp of the block) and a barrier: every
+// warp of the row gets the same result, summed in the same order.
+template <int WPR, bool MAX>
+__device__ __forceinline__ float row_reduce(float v, float* red, int warp) {
+  if ((threadIdx.x & 31) == 0) red[warp] = v;
+  __syncthreads();
+  const int w0 = warp - warp % WPR;
+  v = red[w0];
+#pragma unroll
+  for (int w = 1; w < WPR; ++w)
+    v = MAX ? fmaxf(v, red[w0 + w]) : v + red[w0 + w];
+  return v;
+}
+
+// Row `blockIdx.x * REG_ROWS / WPR + warp / WPR` of [m, n] (rows past m
+// idle), held by WPR warps: lane l of the row's warp p holds its 16-byte
+// vectors 32 p + l, 32 (WPR + p) + l, .. (VPL of them, those past the
+// row's end masked off). One warp a row reduces by shuffles alone; WPR
+// warps add one exchange through shared memory for the max and one for
+// the sum. exp(x - max) = 2^((x - max) log2(e)), one exp2 an element;
+// x - max is formed first, as the plain version forms it, so a row whose
+// max is near the type's largest finite value stays finite (max log2(e)
+// alone would overflow). A row containing +inf or NaN gives NaN
+// everywhere, as the plain version does (inf - inf, or the NaN, reaches
+// the sum).
+template <typename T, int VPL, int WPR>
+__global__ void __launch_bounds__(NT)
+    softmax_rows_reg_kernel(const T* __restrict__ x, T* __restrict__ out,
+                            int m, int n) {
+  constexpr int V = Vec<T>::N;
+  __shared__ float red[2][WPR > 1 ? NT / 32 : 1];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * (REG_ROWS / WPR) + warp / WPR;
+  if (WPR == 1 && row >= m) return;  // with WPR > 1 every warp meets the
+  const bool live = row < m;         // barriers
+  const int nv = n / V;
+  const int c0 = 32 * (warp % WPR) + lane;  // the lane's first vector
+  const uint4* xr = reinterpret_cast<const uint4*>(x + (live ? row : 0) * n);
+  uint4 raw[VPL];
+#pragma unroll
+  for (int i = 0; i < VPL; ++i)  // every load in flight before any math
+    if (live && c0 + 32 * WPR * i < nv) raw[i] = xr[c0 + 32 * WPR * i];
+  float e[VPL][V];
+  float mx = -CUDART_INF_F;
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    if (live && c0 + 32 * WPR * i < nv) {
+      Vec<T>::unpack(raw[i], e[i]);
+#pragma unroll
+      for (int c = 0; c < V; ++c) mx = fmaxf(mx, e[i][c]);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  if constexpr (WPR > 1) mx = row_reduce<WPR, true>(mx, red[0], warp);
+  // a NaN is dropped by fmaxf but reaches the sum below
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    if (live && c0 + 32 * WPR * i < nv) {
+#pragma unroll
+      for (int c = 0; c < V; ++c) {
+        e[i][c] = exp2_approx((e[i][c] - mx) * LOG2E);
+        s += e[i][c];
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if constexpr (WPR > 1) s = row_reduce<WPR, false>(s, red[1], warp);
+  const float inv = 1.f / s;
+  uint4* orow = reinterpret_cast<uint4*>(out + (live ? row : 0) * n);
+#pragma unroll
+  for (int i = 0; i < VPL; ++i) {
+    if (live && c0 + 32 * WPR * i < nv) {
+#pragma unroll
+      for (int c = 0; c < V; ++c) e[i][c] *= inv;
+      orow[c0 + 32 * WPR * i] = Vec<T>::pack(e[i]);
+    }
+  }
+}
+
 template <typename T, typename M>
 __global__ void __launch_bounds__(NT)
     masked_reduce_kernel(const T* __restrict__ x, const M* __restrict__ mask,
@@ -193,6 +315,35 @@ cudaError_t masked_reduce(const void* x, const void* mask, void* out, int m,
   return cudaGetLastError();
 }
 
+// the register route's launch: at most four 16-byte vectors a lane (the
+// row's loads all in flight at once, ~48 registers), so one warp a row up
+// to 128 vectors (bf16 1,024), two up to 256 (fp32 1,024) and four up to
+// 512 (REG_MAX_N = 2,048 in fp32); VPL the fewest vectors a lane, a power
+// of two, that cover the row
+template <typename T>
+cudaError_t softmax_reg(const void* x, void* out, int m, int n,
+                        cudaStream_t st) {
+  const int nv = n / Vec<T>::N;  // vectors a row
+  const T* xi = static_cast<const T*>(x);
+  T* o = static_cast<T*>(out);
+  auto grid = [m](int wpr) {
+    return (int)(((long long)m + REG_ROWS / wpr - 1) / (REG_ROWS / wpr));
+  };
+  if (nv <= 32)
+    softmax_rows_reg_kernel<T, 1, 1><<<grid(1), NT, 0, st>>>(xi, o, m, n);
+  else if (nv <= 64)
+    softmax_rows_reg_kernel<T, 2, 1><<<grid(1), NT, 0, st>>>(xi, o, m, n);
+  else if (nv <= 128)
+    softmax_rows_reg_kernel<T, 4, 1><<<grid(1), NT, 0, st>>>(xi, o, m, n);
+  else if (nv <= 256)
+    softmax_rows_reg_kernel<T, 4, 2><<<grid(2), NT, 0, st>>>(xi, o, m, n);
+  else if (nv <= 512)
+    softmax_rows_reg_kernel<T, 4, 4><<<grid(4), NT, 0, st>>>(xi, o, m, n);
+  else
+    return cudaErrorInvalidValue;  // longer than REG_MAX_N
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -214,12 +365,23 @@ int tpp_bias_act(const void* x, const void* bias, void* out, long long total,
   return bias_act<__nv_bfloat16>(x, b, out, total, n, act, vec, st);
 }
 
-// x and out [m, n] contiguous.
+// x and out [m, n] contiguous. *route is set to the kernel launched: 1
+// the register route (x and out 16-byte aligned, n a multiple of the
+// 16-byte vector and at most REG_MAX_N), 2 the block route.
 int tpp_softmax_rows(const void* x, void* out, int m, int n, int dtype,
-                     void* stream) {
-  if (m < 1 || n < 1 || (dtype != 0 && dtype != 1))
+                     void* stream, int* route) {
+  if (m < 1 || n < 1 || (dtype != 0 && dtype != 1) || route == nullptr)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int V = dtype == 0 ? 4 : 8;
+  if (n % V == 0 && n <= REG_MAX_N &&
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) &
+       15) == 0) {
+    *route = 1;
+    return dtype == 0 ? softmax_reg<float>(x, out, m, n, st)
+                      : softmax_reg<__nv_bfloat16>(x, out, m, n, st);
+  }
+  *route = 2;
   if (dtype == 0)
     softmax_rows_kernel<float><<<m, NT, 0, st>>>(
         static_cast<const float*>(x), static_cast<float*>(out), n);

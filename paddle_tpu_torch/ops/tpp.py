@@ -41,7 +41,8 @@ CPU takes the plain version (``_matmul_ref``, ``_row_stats_ref``,
 ``"tpp_softmax_rows:<dtype>"``, ``"tpp_masked_reduce:<kind>:<dtype>"`` and
 ``"tpp_paged_attention.<dense|int8>:<q dtype>"``, where each kernel is
 launched and nowhere else; ``routes`` splits the TPP matmul's launches
-by the kernel the C entry chose (``wgmma`` or ``simt``).
+by the kernel the C entry chose (``wgmma`` or ``simt``), and
+softmax_rows's (``register`` or ``block``).
 """
 import collections
 import ctypes
@@ -59,10 +60,15 @@ _LN_EPS = 1e-5   # nn.LayerNorm's default epsilon (the only one GPT uses)
 launches = collections.Counter()
 
 #: TPP matmul launches by "tpp_matmul.<variant>:<dtype>:<route>", route
-#: "wgmma" (the tensor-core kernel) or "simt" (the CUDA-core one), as the
-#: C entry reports the kernel it launched
+#: "wgmma" (the tensor-core kernel) or "simt" (the CUDA-core one), and
+#: softmax_rows launches by "tpp_softmax_rows:<dtype>:<route>", route
+#: "register" (the row held in registers by one to four warps: 16-byte
+#: aligned rows of a whole number of 16-byte vectors, at most 2,048 long)
+#: or "block" (a block a row), as the C entry reports the kernel it
+#: launched
 routes = collections.Counter()
 _ROUTES = {1: "wgmma", 2: "simt"}
+_SOFTMAX_ROUTES = {1: "register", 2: "block"}
 
 #: candidate block edges of the reference registry; the CUDA kernels tile
 #: by 128 rows (128 to 256 columns) and mask ragged edges, so these only
@@ -420,7 +426,8 @@ def _row_kernel(name):
         vp, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = {
             "tpp_bias_act": [vp, vp, vp, ctypes.c_longlong, i, i, i, i, vp],
-            "tpp_softmax_rows": [vp, vp, i, i, i, vp],
+            "tpp_softmax_rows": [vp, vp, i, i, i, vp,
+                                 ctypes.POINTER(i)],
             "tpp_masked_reduce": [vp, vp, vp, i, i, i, i, i, vp]}[name]
         fn.restype = ctypes.c_int
         _ROW_FN[name] = (lib, fn)
@@ -491,11 +498,13 @@ def _launch_softmax_rows(x):
     m, n = x.shape
     out = torch.empty_like(x)
     lib, fn = _row_kernel("tpp_softmax_rows")
+    route = ctypes.c_int(0)
     err = fn(x.data_ptr(), out.data_ptr(), m, n,
              0 if dtype == "float32" else 1,
-             _build.stream(x))
+             _build.stream(x), ctypes.byref(route))
     _build.check(lib, "tpp_rowwise", err)
     launches[f"tpp_softmax_rows:{dtype}"] += 1
+    routes[f"tpp_softmax_rows:{dtype}:{_SOFTMAX_ROUTES[route.value]}"] += 1
     return out
 
 

@@ -24,6 +24,7 @@ from paddle_tpu.ops import flash_attention as jfa
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
 from paddle_tpu_torch.ops import flash_attention as tfa
+from paddle_tpu_torch.testing.tf32 import tf32x1, tf32x3
 
 ATOL = 2e-5
 MODES = [(False, None), (True, None), (True, 100)]
@@ -293,6 +294,15 @@ def test_sdpa_naive_path_runs_with_autocast_off(monkeypatch):
 
 # ---- on the card -----------------------------------------------------------
 
+#: chip_smoke.py's bands for the kernels' o against the plain version
+#: (FLASH_TOL there; fp32 scaled by max(1, max|plain|)), and for lse in
+#: both types
+FP32_TOL, BF16_TOL, LSE_TOL = 2e-4, 2e-2, 2e-4
+#: chip_smoke.py's TF32X3_FWD_TOL: the fp32 forward on the tf32x3 route, o
+#: (scaled by max(1, max|plain|)) and lse; one TF32 pass lands outside it
+TF32X3_TOL = 2e-5
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -312,14 +322,21 @@ def test_kernel_matches_plain_on_card(cuda, d, dtype, tol, causal, window):
                for _ in range(3))
     scale = 1.0 / math.sqrt(d)
     dname = str(dtype).replace("torch.", "")
-    route = "mma" if dname == "bfloat16" and d <= 256 else "simt"
+    route = "simt"
+    if dname == "bfloat16" and d <= 256:
+        route = "mma"
+    elif dname == "float32" and d in (64, 128):
+        route = "tf32x3"
     n = tfa.routes[f"flash_fwd:{dname}:{route}"]
     o, lse = tfa._flash_fwd(q, k, v, causal, scale, window)
     torch.cuda.synchronize()
     assert tfa.routes[f"flash_fwd:{dname}:{route}"] == n + 1
     ro, rlse = tfa.flash_attention_ref(q, k, v, causal, scale, window)
+    if route == "tf32x3":
+        tol = TF32X3_TOL * max(1.0, ro.abs().max().item())
     assert (o.float() - ro.float()).abs().max().item() <= tol
-    assert (lse - rlse).abs().max().item() <= 2e-4
+    assert (lse - rlse).abs().max().item() <= \
+        (TF32X3_TOL if route == "tf32x3" else 2e-4)
 
 
 @pytest.mark.cuda
@@ -342,6 +359,77 @@ def test_packed_qkv_views_with_a_small_window_on_card(cuda, d, dtype, tol):
     torch.cuda.synchronize()
     err = (o.float() - tfa._unheads(ro, b, h).float()).abs().max().item()
     assert err <= tol
+
+
+def _fwd_band_check(q, k, v, causal, scale, window, tol=FP32_TOL,
+                    lse_tol=LSE_TOL):
+    """The forward kernel on [B, S, H, D] views against the plain version:
+    o within tol x max(1, max|plain|), lse within lse_tol. Returns
+    (o, lse)."""
+    b, _, h, _ = q.shape
+    o, lse = tfa._launch(q, k, v, causal, scale, window)
+    ro, rlse = tfa.flash_attention_ref(*(tfa._heads(t) for t in (q, k, v)),
+                                       causal, scale, window)
+    ro = tfa._unheads(ro, b, h)
+    torch.cuda.synchronize()
+    band = tol * max(1.0, ro.abs().max().item())
+    assert (o - ro).abs().max().item() <= band
+    assert (lse - rlse).abs().max().item() <= lse_tol
+    return o, lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1024, 1088])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("window", [None, 100, 17],
+                         ids=["causal", "window100", "window17"])
+def test_fp32_tf32_forward_on_packed_views_on_card(cuda, s, d, window):
+    """fp32 q, k, v slices of one packed qkv (16-byte aligned) take the
+    TF32 three-pass kernel (route tf32x3, counted); at seq 1088 the last
+    query tile is half empty, and windows of 100 and 17 cross the query
+    and kv tiles at no multiple of either; o and lse within the three-pass
+    band (TF32X3_TOL) of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    b, h = 2, 3
+    qkv = torch.randn(b, s, 3 * h * d, generator=g, device=cuda)
+    q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
+    keys = [f"flash_fwd:float32:{route}" for route in ("tf32x3", "simt")]
+    n = [tfa.routes[key] for key in keys]
+    _fwd_band_check(q, k, v, True, 1.0 / math.sqrt(d), window, TF32X3_TOL,
+                    TF32X3_TOL)
+    assert [tfa.routes[key] for key in keys] == [n[0] + 1, n[1]]
+
+
+@pytest.mark.cuda
+def test_fp32_views_off_16_bytes_take_the_scalar_forward_on_card(cuda):
+    """fp32 q, k, v whose sequence step is not a multiple of 16 bytes (a
+    packed qkv one column wider than the three heads' blocks) are left to
+    the scalar kernel before any launch (route simt, not tf32x3), and
+    match the plain version within the fp32 band."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    b, s, h, d = 2, 1024, 3, 64
+    wide = torch.randn(b, s, 3 * h * d + 1, generator=g, device=cuda)
+    q, k, v = (t.reshape(b, s, h, d)
+               for t in wide[..., :3 * h * d].split(h * d, dim=-1))
+    assert not any(tfa._aligned(t) for t in (q, k, v))
+    keys = [f"flash_fwd:float32:{route}" for route in ("tf32x3", "simt")]
+    n = [tfa.routes[key] for key in keys]
+    _fwd_band_check(q, k, v, True, 0.125, None)
+    assert [tfa.routes[key] for key in keys] == [n[0], n[1] + 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_fp32_tf32_forward_two_calls_bit_equal_on_card(cuda, d):
+    """Every block writes only its own rows of o and lse: two calls on
+    the same inputs give the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v = (torch.randn(4, 1024, 6, d, generator=g, device=cuda)
+               for _ in range(3))
+    first = tfa._launch(q, k, v, True, 1.0 / math.sqrt(d), None)
+    again = tfa._launch(q, k, v, True, 1.0 / math.sqrt(d), None)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
 
 
 @pytest.mark.cuda
@@ -431,9 +519,7 @@ def test_forward_at_b_h_above_the_grid_y_limit_on_card(cuda):
 
 # ---- the bf16 tensor-core kernel's rounding ---------------------------------
 
-#: chip_smoke.py's band for the bf16 kernel's o against the fp32-math
-#: plain version (FLASH_TOL["bfloat16"] there), and for lse in both types
-BF16_TOL, LSE_TOL = 2e-2, 2e-4
+
 
 
 def _tensor_core_rounding(q3, k3, v3, causal, scale, window=None):
@@ -476,4 +562,52 @@ def test_bf16_tensor_core_rounding_within_band_of_plain(d, window):
     to, tlse = tfa._flash_fwd(qf, kf, vf, True, scale, window)
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=ATOL, rtol=0)
     np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), atol=ATOL,
+                               rtol=0)
+
+
+# ---- the fp32 TF32 tensor-core kernel's three passes ------------------------
+
+def _tf32_fwd(q3, k3, v3, causal, scale, window, mm):
+    """The fp32 tensor-core kernel's forward in plain torch, every product
+    through `mm`: S = (Q * scale) K^T (the scale on q in fp32, where the
+    reference applies it), the reference's _NEG on masked scores, P =
+    exp(S - m) in fp32, o = (P V) / l, lse = m + log l."""
+    s = mm(q3 * scale, k3.transpose(-1, -2))
+    if causal:
+        s = s.masked_fill(~tfa._keep_mask(*s.shape[-2:], window, s.device),
+                          tfa._NEG)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    return mm(p, v3) / l, (m + torch.log(l)).squeeze(-1)
+
+
+@pytest.mark.parametrize("d,window", [(64, None), (64, 100), (128, None)],
+                         ids=["d64", "d64_window100", "d128"])
+def test_fp32_three_pass_tf32_forward_within_band_of_plain(d, window):
+    """At s 1024, causal, b 1, h 2: both products of the forward formed in
+    three TF32 passes, as the fp32 tensor-core kernel forms them, keep o
+    and lse within the three-pass band (TF32X3_TOL; ~3e-7 and ~1e-6 here),
+    itself inside the fp32 band of the plain version; one TF32 pass lands
+    outside the fp32 band (the control: o ~3.4e-4 x max(1, max|plain|),
+    lse ~4.6e-4 to 4.7e-4); and on the same inputs
+    the plain version matches the JAX package's Pallas forward
+    (interpret mode)."""
+    rng = np.random.RandomState(17)
+    q, k, v = (torch.from_numpy(rng.randn(2, 1024, d).astype(np.float32))
+               for _ in range(3))
+    scale = 1.0 / math.sqrt(d)
+    po, plse = tfa.flash_attention_ref(q, k, v, True, scale, window)
+    top = max(1.0, po.abs().max().item())
+    o3, lse3 = _tf32_fwd(q, k, v, True, scale, window, tf32x3)
+    o1, lse1 = _tf32_fwd(q, k, v, True, scale, window, tf32x1)
+    assert (o3 - po).abs().max().item() <= TF32X3_TOL * top
+    assert (lse3 - plse).abs().max().item() <= TF32X3_TOL
+    assert (o1 - po).abs().max().item() > FP32_TOL * top
+    assert (lse1 - plse).abs().max().item() > LSE_TOL
+
+    jo, jlse = jfa._flash_fwd(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                              True, scale, True, window=window)
+    np.testing.assert_allclose(po.numpy(), np.asarray(jo), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(plse.numpy(), np.asarray(jlse), atol=ATOL,
                                rtol=0)

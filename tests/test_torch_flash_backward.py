@@ -21,6 +21,8 @@ import jax.numpy as jnp
 from paddle_tpu.ops import flash_attention as jfa
 
 from paddle_tpu_torch.ops import flash_attention as tfa
+from paddle_tpu_torch.testing.tf32 import tf32 as _tf32, \
+    tf32x1 as _tf32x1, tf32x3 as _tf32x3
 
 ATOL = 2e-5
 MODES = [(False, None), (True, None), (True, 100)]
@@ -451,28 +453,6 @@ def test_bf16_tensor_core_rounding_within_band_of_plain(d, window):
 #: chip_smoke.py's band for the fp32 backward kernels against the plain
 #: backward (FLASH_BWD_TOL["float32"] there), scaled by max(1, max|plain|)
 FP32_BWD_TOL = 2e-4
-
-
-def _tf32(x):
-    """x rounded to TF32 as cvt.rna.tf32.f32 rounds: to the nearest value
-    with 10 mantissa bits, ties away from zero (add half of the dropped
-    13 bits' unit to the magnitude, then clear them)."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def _tf32x3(a, b):
-    """a @ b as the kernels form it: each operand split into big =
-    tf32(x) and small = tf32(x - big), and small(a) big(b) + big(a)
-    small(b) + big(a) big(b) summed in fp32."""
-    a_big, b_big = _tf32(a), _tf32(b)
-    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
-    return a_small @ b_big + a_big @ b_small + a_big @ b_big
-
-
-def _tf32x1(a, b):
-    """a @ b from one TF32 pass: both operands rounded to TF32."""
-    return _tf32(a) @ _tf32(b)
 
 
 def _tf32_bwd(q3, k3, v3, o3, lse, do3, causal, scale, window, mm):

@@ -523,12 +523,22 @@ def test_functions_launch_the_kernel_and_match_plain_grads_on_card(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("shape", [(256, 3072), (48, 96), (40, 100)],
-                         ids=["wide", "narrow", "unvectorised"])
+@pytest.mark.parametrize("shape", [(256, 3072), (48, 96), (40, 100),
+                                   (37, 1024), (21, 2048)],
+                         ids=["wide", "narrow", "unvectorised", "rows1024",
+                              "rows2048"])
 def test_row_kernels_match_plain_on_card(cuda, dtype, shape):
     """Each row kernel against its plain version, with the launch counted;
-    n = 100 is not a multiple of the bias_act vector, so it takes the
-    scalar path (the registry gate is bypassed through the launchers)."""
+    n = 100 is not a multiple of the bias_act vector in bf16, so it takes
+    the scalar path (the registry gate is bypassed through the launchers).
+    softmax_rows takes its register route where n is a multiple of the
+    16-byte vector and at most 2,048 (one warp a row, or two or four at
+    n 1,024 and 2,048 in fp32 and 2,048 in bf16; 37 and 21 rows fill no
+    whole number of blocks), else the block route (n 3,072; n 100 in
+    bf16), counted by route; a row holding +inf gives the plain
+    version's NaN row on either, and rows whose max is near the type's
+    largest finite value (+3e38, and below -2.4e38 throughout) its finite
+    rows."""
     g = torch.Generator(device=cuda).manual_seed(2)
     x = torch.randn(*shape, generator=g, device=cuda).to(dtype)
     b = torch.randn(shape[1], generator=g, device=cuda)
@@ -536,10 +546,24 @@ def test_row_kernels_match_plain_on_card(cuda, dtype, shape):
     mask[3] = False
     dname = tpp._dtype_name(dtype)
     tol = 1e-5 if dtype == torch.float32 else 1e-2
+    vec = 4 if dtype == torch.float32 else 8
+    route = "register" if shape[1] % vec == 0 and shape[1] <= 2048 \
+        else "block"
+    key = f"tpp_softmax_rows:{dname}:{route}"
+    n_route = tpp.routes[key]
     checks = [(tpp._launch_bias_act(x, b, act), tpp._bias_act_ref(x, b, act),
                f"tpp_bias_act:{act}:{dname}") for act in tpp._ACTS]
-    checks.append((tpp._launch_softmax_rows(x), tpp._softmax_rows_ref(x),
-                   f"tpp_softmax_rows:{dname}"))
+    x_inf = x.clone()
+    x_inf[1, 5] = float("inf")
+    x_big = x.clone()
+    x_big[2] = (x[2].float() * 1e37).to(dtype)
+    x_big[2, 7] = 3e38
+    x_big[4] = (x[4].float() * 1e37 - 2.8e38).to(dtype)
+    for xs in (x, x_inf, x_big):
+        checks.append((tpp._launch_softmax_rows(xs),
+                       tpp._softmax_rows_ref(xs),
+                       f"tpp_softmax_rows:{dname}"))
+    assert tpp.routes[key] == n_route + 3
     for kind in ("sum", "max"):
         for m in (mask, mask.to(torch.int32), mask.float() * 1.7):
             checks.append((tpp._launch_masked_reduce(x, m, kind),

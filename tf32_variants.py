@@ -1,26 +1,31 @@
 #!/usr/bin/env python3
-"""Build variants of the fp32 flash backward pair's TF32 kernels
-(paddle_tpu_torch/ops/csrc/flash_bwd.cu: flash_dq_tf32_kernel and
-flash_dkv_tf32_kernel) side by side on one CUDA device, and compare them.
+"""Build variants of the fp32 flash kernels on the TF32 tensor cores
+(paddle_tpu_torch/ops/csrc/flash_fwd.cu: flash_fwd_tf32_kernel;
+flash_bwd.cu: flash_dq_tf32_kernel and flash_dkv_tf32_kernel) side by side
+on one CUDA device, and compare them.
 
     python3 tf32_variants.py [VARIANT ...]
 
-Each variant is a copy of flash_bwd.cu with some of its tiling functions
-(dq_tf_rows, dq_tf_blocks, dkv_tf_rows, dkv_tf_bq, dkv_tf_blocks,
-dkv_tf_unroll) returning other values, built under its own name in
-ops/csrc/ and removed again at the end; "one_pass" forms every product
-from the operands' big TF32 parts alone (one TF32 pass: the accuracy
-control). For each it prints ptxas's registers and spills of the four
-TF32 kernels, the largest error of dQ, dK and dV over max(1, max|plain|)
-against the plain backward (and against an fp64 one) on randn inputs (b4,
-s 1024 and 1088, head_dim 64 and 128, full, causal, windows 100 and 17),
-whether two calls give the same bits, and the device ms (CUDA events
-after a ~0.5 ms device sleep, median of 20, 64 MB written between calls)
-of the pair (delta pre-pass + dQ + dK/dV, one call of the C entry), dQ
-and dK/dV at b4 and b16 (s 1024, causal, q/k/v slices of one packed qkv;
-h 12 at head_dim 64, 6 at 128), then SDPA's backward on the same inputs
-and the card's name and power limit. It imports neither jax nor the JAX
-package.
+Each variant is a copy of flash_fwd.cu or flash_bwd.cu (or both) with some
+of its tiling functions returning other values (fwd_tf_rows, fwd_tf_bkv,
+fwd_tf_blocks, fwd_tf_unroll in the forward; dq_tf_rows,
+dq_tf_blocks, dkv_tf_rows, dkv_tf_bq, dkv_tf_blocks, dkv_tf_unroll in the
+backward), built under its own name in ops/csrc/ and removed again at the
+end; "chosen" builds both sources as they are, and "one_pass" both with
+every product formed from the operands' big TF32 parts alone (one TF32
+pass: the accuracy control), through a copy of flash_tf32.cuh. For each it
+prints ptxas's registers and spills of the TF32 kernels; for a forward:
+the largest error of o over max(1, max|plain|) and of lse against the
+plain forward (and against an fp64 one) on randn inputs (b4, s 1024 and
+1088, head_dim 64 and 128, full, causal, windows 100 and 17), whether two
+calls give the same bits, and the device ms at b4 and b16 (s 1024,
+causal, q/k/v slices of one packed qkv; h 12 at head_dim 64, 6 at 128);
+for a backward the same of dQ, dK and dV and the device ms of the pair
+(delta pre-pass + dQ + dK/dV, one call of the C entry), dQ and dK/dV.
+Device ms: CUDA events after a ~0.5 ms device sleep, median of 20, 64 MB
+written between calls. Then SDPA's forward and backward on the same
+inputs, and the card's name and power limit. It imports neither jax nor
+the JAX package.
 """
 import json
 import math
@@ -33,41 +38,71 @@ import sys
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-#: {variant: {tiling function: the expression it returns instead}}
+#: {variant: {tiling function: the expression it returns instead}}; the
+#: fwd_* functions are flash_fwd.cu's, the others flash_bwd.cu's
 VARIANTS = {
     "chosen": {},
     "one_pass": {},
     "rows128": {"dq_tf_rows": "128", "dq_tf_blocks": "1",
                 "dkv_tf_rows": "128", "dkv_tf_blocks": "1"},
     "dkv_no_unroll": {"dkv_tf_unroll": "false"},
+    "fwd_rows128": {"fwd_tf_rows": "128", "fwd_tf_blocks": "1"},
+    "fwd_bkv32": {"fwd_tf_bkv": "32", "fwd_tf_blocks": "D == 64 ? 3 : 2"},
+    "fwd_bkv64": {"fwd_tf_bkv": "64", "fwd_tf_blocks": "1"},
+    "fwd_no_unroll": {"fwd_tf_unroll": "false"},
 }
 # one TF32 pass: the big parts' product alone, in mma_tf32x3's place
 ONE_PASS = """
-namespace {
 __device__ __forceinline__ void mma_tf32x1(
     float (&d)[4], const uint32_t (&a_big)[4], const uint32_t (&)[4],
     uint32_t b0_big, uint32_t b1_big, uint32_t, uint32_t) {
   hopper::mma_tf32(d, a_big, b0_big, b1_big);
 }
-}  // namespace
 """
+ONE_PASS_HEADER = "flash_tf32_one_pass.cuh"
 SLEEP_CYCLES = 1_000_000
 
 
-def variant_source(src, name):
-    """flash_bwd.cu's text with `name`'s changes."""
+def variant_sources(name):
+    """The sources variant `name` builds: both for "chosen" and
+    "one_pass", else those whose tiling functions it changes."""
+    fns = VARIANTS[name]
+    if not fns:
+        return ("flash_fwd", "flash_bwd")
+    return tuple(sorted({"flash_fwd" if fn.startswith("fwd_")
+                         else "flash_bwd" for fn in fns}))
+
+
+def one_pass(text, n_calls, what):
+    """`text` with its mma_tf32x3 calls on accumulators x swapped for
+    mma_tf32x1 (there must be n_calls)."""
+    text, n = re.subn(r"mma_tf32x3\(x", "mma_tf32x1(x", text)
+    if n != n_calls:
+        raise RuntimeError(f"{n} mma_tf32x3 calls in {what}, expected "
+                           f"{n_calls}")
+    return text
+
+
+def one_pass_header(src):
+    """flash_tf32.cuh's text with both products in one TF32 pass."""
+    src = src.replace("namespace flash {\n", "namespace flash {\n" + ONE_PASS,
+                      1)
+    return one_pass(src, 2, "flash_tf32.cuh")
+
+
+def variant_source(src, source, name):
+    """`source` (flash_fwd or flash_bwd)'s text with `name`'s changes."""
     for fn, expr in VARIANTS[name].items():
         src, n = re.subn(
             rf"(constexpr (?:int|bool) {fn}\(\) \{{\n  return )[^;]*;",
             rf"\g<1>{expr};", src)
-        if n != 1:
-            raise RuntimeError(f"{fn} not found once in flash_bwd.cu")
+        if n != 1 and (fn.startswith("fwd_")) == (source == "flash_fwd"):
+            raise RuntimeError(f"{fn} not found once in {source}.cu")
     if name == "one_pass":
-        src = src.replace('#include "flash.cuh"\n',
-                          '#include "flash.cuh"\n' + ONE_PASS, 1)
-        src, n = re.subn(r"mma_tf32x3\(x", "mma_tf32x1(x", src)
-        if n != 2:
-            raise RuntimeError("mma_tf32x3 calls not found in flash_bwd.cu")
+        src = src.replace('#include "flash_tf32.cuh"\n',
+                          f'#include "{ONE_PASS_HEADER}"\n', 1)
+        # every product is the header's: none may call mma_tf32x3 itself
+        src = one_pass(src, 0, f"{source}.cu")
     return src
 
 
@@ -78,16 +113,25 @@ def main(names):
 
     if not torch.cuda.is_available():
         raise SystemExit("tf32_variants.py needs a CUDA device")
-    src = (_build.CSRC / "flash_bwd.cu").read_text()
-    libs = {n: f"flash_bwd_{n}" for n in names}
     written = []
+    libs = {n: {} for n in names}
     try:
-        for n, lib in libs.items():
-            path = _build.CSRC / f"{lib}.cu"
-            path.write_text(variant_source(src, n))
+        if "one_pass" in names:
+            path = _build.CSRC / ONE_PASS_HEADER
+            path.write_text(one_pass_header(
+                (_build.CSRC / "flash_tf32.cuh").read_text()))
             written.append(path)
-        print(json.dumps({"build_s": _build.build(list(libs.values()))}),
-              flush=True)
+        for n in names:
+            for source in variant_sources(n):
+                lib = f"{source}_{n}"
+                path = _build.CSRC / f"{lib}.cu"
+                path.write_text(variant_source(
+                    (_build.CSRC / f"{source}.cu").read_text(), source, n))
+                written.append(path)
+                libs[n][source] = lib
+        print(json.dumps({"build_s": _build.build(
+            [lib for by in libs.values() for lib in by.values()])}),
+            flush=True)
         compare(libs)
     finally:
         for path in written:       # the build finds a library by its source
@@ -96,7 +140,8 @@ def main(names):
 
 
 def compare(libs):
-    """Hold every built variant against the plain backward and time it."""
+    """Hold every built variant against the plain forward or backward and
+    time it."""
     import torch
 
     from paddle_tpu_torch.ops import _build
@@ -123,12 +168,24 @@ def compare(libs):
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
+    def keep(p, causal, window):
+        return p if not causal else p.masked_fill(
+            ~fa._keep_mask(*p.shape[-2:], window, dev), 0)
+
+    def fwd_fp64(q, k, v, causal, scale, window):
+        q, k, v = (t.double() for t in (q, k, v))
+        sc = q @ k.transpose(-1, -2) * scale
+        if causal:
+            sc = sc.masked_fill(~fa._keep_mask(*sc.shape[-2:], window, dev),
+                                -math.inf)
+        lse = torch.logsumexp(sc, -1)
+        return torch.exp(sc - lse[..., None]) @ v, lse
+
     def bwd_fp64(q, k, v, o, lse, do, causal, scale, window):
         q, k, v, o, lse, do = (t.double() for t in (q, k, v, o, lse, do))
         delta = (do * o).sum(-1)
-        p = torch.exp(q @ k.transpose(-1, -2) * scale - lse[..., None])
-        if causal:
-            p = p.masked_fill(~fa._keep_mask(*p.shape[-2:], window, dev), 0)
+        p = keep(torch.exp(q @ k.transpose(-1, -2) * scale - lse[..., None]),
+                 causal, window)
         ds = p * (do @ v.transpose(-1, -2) - delta[..., None])
         return ((ds @ k) * scale, (ds.transpose(-1, -2) @ q) * scale,
                 p.transpose(-1, -2) @ do)
@@ -137,6 +194,9 @@ def compare(libs):
         err = max((g.double() - w.double()).abs().max().item()
                   for g, w in zip(got, want))
         return err / max(1.0, max(w.abs().max().item() for w in want))
+
+    def lse_err(got, want):
+        return (got.double() - want.double()).abs().max().item()
 
     cases = []
     for s in (1024, 1088):
@@ -149,8 +209,11 @@ def compare(libs):
                 o, lse = fa.flash_attention_ref(q, k, v, causal, scale,
                                                 window)
                 args = (q, k, v, o, lse, do, causal, scale, window)
-                cases.append((args, fa.flash_attention_bwd_ref(
-                    *args[:-1], window=window), bwd_fp64(*args)))
+                cases.append((args, (o, lse),
+                              fwd_fp64(q, k, v, causal, scale, window),
+                              fa.flash_attention_bwd_ref(
+                                  *args[:-1], window=window),
+                              bwd_fp64(*args)))
     timed = {}
     for b in (4, 16):
         for d in (64, 128):
@@ -165,17 +228,36 @@ def compare(libs):
                              lse, do)
             del o3
 
-    real_load = _build.load
-    for n, lib in libs.items():
-        fa._FN.pop("flash_bwd", None)
-        _build.load = lambda name, lib=lib: real_load(
-            lib if name == "flash_bwd" else name)
-        regs = {k.split("flash_")[-1].split("ILi")[0] + "<"
-                + k.split("ILi")[1].split("E")[0] + ">": r
-                for k, r in _build.ptxas_report(lib).items() if "tf32" in k}
-        out = {"variant": n, "ptxas": regs}
+    def fwd_rows():
+        out = {}
         errs = []
-        for (q, k, v, o, lse, do, causal, scale, window), plain, fp64 in cases:
+        for (q, k, v, *_, causal, scale, window), plain, fp64, _, _ in cases:
+            o, lse = fa._launch(*(t.unsqueeze(2) for t in (q, k, v)),
+                                causal, scale, window)
+            o = o.squeeze(2)
+            errs.append((rel_err([o], [plain[0]]), lse_err(lse, plain[1]),
+                         rel_err([o], [fp64[0]]), lse_err(lse, fp64[1])))
+        for i, key in enumerate(("o_max_err_vs_plain", "lse_max_err_vs_plain",
+                                 "o_max_err_vs_fp64",
+                                 "lse_max_err_vs_fp64")):
+            out[key] = max(e[i] for e in errs)
+        out["o_min_err_vs_plain"] = min(e[0] for e in errs)
+        for (b, d), (q, k, v, *_) in timed.items():
+            scale = d ** -0.5
+            first = fa._launch(q, k, v, True, scale, None)
+            again = fa._launch(q, k, v, True, scale, None)
+            out[f"b{b}_d{d}"] = {
+                "bit_equal": all(torch.equal(x, y)
+                                 for x, y in zip(first, again)),
+                "forward": device_ms(lambda: fa._launch(
+                    q, k, v, True, scale, None))}
+        return out
+
+    def bwd_rows():
+        out = {}
+        errs = []
+        for ((q, k, v, o, lse, do, causal, scale, window), _, _, plain,
+             fp64) in cases:
             got = [t.squeeze(2) for t in fa._launch_bwd(
                 *(t.unsqueeze(2) for t in (q, k, v, o)), lse,
                 do.unsqueeze(2), causal, scale, window)]
@@ -197,18 +279,38 @@ def compare(libs):
                     q, k, v, do, lse, delta, True, scale, None)),
                 "dkv": device_ms(lambda: fa._launch_dkv(
                     q, k, v, do, lse, delta, True, scale, None))}
-        print(json.dumps(out), flush=True)
-    _build.load = real_load
+        return out
+
+    real_load = _build.load
+    for n, by_source in libs.items():
+        for source, lib in by_source.items():
+            fa._FN.pop(source, None)
+            _build.load = lambda name, lib=lib, source=source: real_load(
+                lib if name == source else name)
+            regs = {k.split("flash_")[-1].split("ILi")[0] + "<"
+                    + k.split("ILi")[1].split("E")[0] + ">": r
+                    for k, r in _build.ptxas_report(lib).items()
+                    if "tf32" in k}
+            out = {"variant": n, "source": source, "ptxas": regs}
+            out.update(fwd_rows() if source == "flash_fwd" else bwd_rows())
+            print(json.dumps(out), flush=True)
+            fa._FN.pop(source, None)
+            _build.load = real_load
     sdpa = {}
     for (b, d), (q, k, v, o, lse, do) in timed.items():
         bq, bk, bv = (t.transpose(1, 2).contiguous().requires_grad_()
                       for t in (q, k, v))
+        with torch.no_grad():
+            fwd = device_ms(lambda: torch.nn.functional
+                            .scaled_dot_product_attention(bq, bk, bv,
+                                                          is_causal=True))
         out = torch.nn.functional.scaled_dot_product_attention(
             bq, bk, bv, is_causal=True)
         bdo = do.transpose(1, 2).contiguous()
-        sdpa[f"b{b}_d{d}"] = device_ms(lambda: torch.autograd.grad(
-            out, (bq, bk, bv), bdo, retain_graph=True))
-    print(json.dumps({"sdpa_backward_device_ms": sdpa}), flush=True)
+        sdpa[f"b{b}_d{d}"] = {"forward": fwd, "backward": device_ms(
+            lambda: torch.autograd.grad(out, (bq, bk, bv), bdo,
+                                        retain_graph=True))}
+    print(json.dumps({"sdpa_device_ms": sdpa}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
