@@ -30,7 +30,9 @@ training path
 (SpmdTrainer + AdamW at 16 x 1024, bf16 auto_cast with FLAGS_tpp_kernels
 off and on, and fp32), drives PP-YOLOE (80 classes, width 64, depth 2:
 bench.py's config) through forward, decode and multiclass-NMS
-postprocess at 8 x 640 x 640 in fp32 and under bf16 auto_cast, calls the
+postprocess at 8 x 640 x 640 in fp32 and under bf16 auto_cast (the NMS
+kernel's smem route) and ``paddle.vision.ops.nms`` over one image's
+anchor boxes (its global route; some boxes suppressed), calls the
 TPP row primitives at GPT-2 small's shapes, serves GPT-2 small through
 the ServingEngine as bench.py's run_serve and run_serve_mixed do (the
 greedy drain on the dense and the paged engine, whose outputs must be
@@ -128,8 +130,18 @@ ROWS_BIAS_ACT = (16384, 3072)
 ROWS_SCORES = (49152, 1024)
 ROW_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # the NMS kernel against its plain version on random, overlapping
-# [problems, boxes]; (640, 400) is the full-width serving call's shape
-NMS_RANDOM = ((640, 400), (8, 100), (4, 401), (1, 8192))
+# [problems, boxes]; (640, 400) is the full-width serving call's shape.
+# The word edges (63 / 64 / 65 / 129 boxes), the smem route's cap (512)
+# and one past it, and single problems past the reference's 8192-box TPU
+# cap, which take the global route.
+NMS_RANDOM = ((640, 400), (8, 100), (4, 401), (640, 63), (640, 64),
+              (640, 65), (640, 129), (132, 512), (132, 513), (1, 8192),
+              (1, 8193), (2, 12000), (1, 16384))
+# the global route timed alone: one problem of this many boxes
+NMS_SINGLE = 8192
+# PP-YOLOE's anchor boxes: squares of this many strides (its ATSS
+# assigner's grid_cell_scale)
+ANCHOR_SCALE = 5.0
 # operations per element beyond the add, for bias_act's bound
 ACT_OPS = {"none": 0, "relu": 1, "gelu": 6, "gelu_tanh": 9}
 # operations of one NMS IoU evaluation (two boxes' overlap, union and
@@ -191,7 +203,7 @@ def check(cond, what):
 def det_group(name):
     """The detection serving path's kernel groups."""
     n = name.lower()
-    if "nms_kernel" in n:
+    if re.search(r"nms_\w*kernel", n):
         return "nms_kernel"
     if any(t in n for t in ("conv", "fprop", "implicit", "winograd", "cudnn",
                             "xmma", "gemm", "nchwtonhwc", "nhwctonchw",
@@ -354,6 +366,16 @@ def causal_rows(shape, device):
     return torch.arange(s, device=device)[None, :] <= r
 
 
+def nms_route(p, n):
+    """The route nms_pallas picks for [p, n] on device 0."""
+    import torch
+
+    from paddle_tpu_torch.ops import nms_pallas
+
+    return "smem" if nms_pallas._smem_route(p, n, torch.device("cuda", 0)) \
+        else "global"
+
+
 def nms_iou_evaluations(boxes, keep, thr):
     """The IoU evaluations greedy NMS needs on these problems: for each
     kept box i, the later boxes j still kept when i's step comes (j is
@@ -382,12 +404,15 @@ def serve_detector(dev, gen):
     """The detection phases: the NMS kernel against its plain version on
     random problems, the narrow detector against the JAX fixture, and
     PP-YOLOE serving at full width (fp32 and under bf16 auto_cast, timed
-    and profiled), whose NMS launches are counted from zero. Returns
-    {"counts": the serving path's launches, "problems": the full-width
-    call's NMS problems, "evals": the IoU evaluations they need,
-    "mismatches": keep entries where the kernel and the plain version
-    differ over every problem compared, "launches_per_call": NMS
-    launches per serving call}."""
+    and profiled), whose NMS launches are counted from zero, and
+    paddle.vision.ops.nms over the anchor boxes, scored by one served
+    image (one problem on the global route, some boxes suppressed),
+    counted from zero too. Returns {"counts": the
+    serving path's launches and routes, "counts_anchors": the anchors
+    path's, "problems": the full-width call's NMS problems, "evals": the
+    IoU evaluations they need, "mismatches": keep entries where the kernel
+    and the plain version differ over every problem compared,
+    "launches_per_call": NMS launches per serving call}."""
     import numpy as np
     import torch
 
@@ -396,7 +421,8 @@ def serve_detector(dev, gen):
     from paddle_tpu_torch.ops import nms_pallas
     from paddle_tpu_torch.testing import golden
     from paddle_tpu_torch.vision.models import PPYOLOE, ppyoloe_tiny
-    from paddle_tpu_torch.vision.ops import _sorted_desc, multiclass_nms
+    from paddle_tpu_torch.vision.ops import _sorted_desc, multiclass_nms, \
+        nms
 
     post = dict(score_threshold=golden.DET_SCORE_THRESHOLD,
                 keep_top_k=golden.DET_KEEP_TOP_K)
@@ -404,19 +430,26 @@ def serve_detector(dev, gen):
     torch.backends.cudnn.allow_tf32 = False
 
     # the NMS kernel against its plain version: random problems, ragged n
-    # up to the cap, and an IoU exactly at the threshold; masks bit-equal
+    # across the word edges and both routes, and an IoU exactly at the
+    # threshold; masks bit-equal, each on the route its shape picks
     nms_checked, mismatches = [], 0
     for p_, n_ in NMS_RANDOM:
         size = 40.0 + n_ / 20
         xy = torch.rand(p_, n_, 2, generator=gen, device=dev) * size
         wh = torch.rand(p_, n_, 2, generator=gen, device=dev) * 30.0 + 1.0
         b = torch.cat([xy, xy + wh], dim=-1)
+        nms_pallas.routes.clear()
         keep = nms_pallas.nms_keep_mask(b, thr)
         torch.cuda.synchronize()
+        route = nms_route(p_, n_)
+        check(dict(nms_pallas.routes) == {f"nms:float32:{route}": 1},
+              f"nms kernel [{p_}, {n_}]: one call on the {route} route, "
+              f"got {dict(nms_pallas.routes)}")
         ref = nms_pallas.nms_keep_mask_ref(b, thr)
         mismatches += int((keep != ref).sum())
         check(torch.equal(keep, ref), f"nms kernel vs plain [{p_}, {n_}]")
-        nms_checked.append({"shape": [p_, n_], "kept": int(keep.sum())})
+        nms_checked.append({"shape": [p_, n_], "route": route,
+                            "kept": int(keep.sum())})
     pair = torch.tensor([[0, 0, 2, 1], [0, 0, 1, 1]], dtype=torch.float32,
                         device=dev)                       # IoU exactly 0.5
     check(nms_pallas.nms_keep_mask(pair, 0.5).tolist() == [True, True]
@@ -477,6 +510,7 @@ def serve_detector(dev, gen):
             return model.postprocess(model(images), **post)
 
     nms_pallas.launches.clear()
+    nms_pallas.routes.clear()
     torch.cuda.reset_peak_memory_stats()
     out32, valid32 = serve()                                # warm-up
     times = []
@@ -495,11 +529,11 @@ def serve_detector(dev, gen):
           "detections under bf16 auto_cast == the fp32 run's")
     _, trace = device_breakdown(serve, det_group)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    counts = dict(nms_pallas.launches)
+    counts = {**nms_pallas.launches, **nms_pallas.routes}
     n_calls = DET_CALLS + 3
-    check(counts == {"nms:float32": n_calls},
-          f"detection serving: one NMS launch per call, got {counts} over "
-          f"{n_calls} calls")
+    check(counts == {"nms:float32": n_calls, "nms:float32:smem": n_calls},
+          f"detection serving: one NMS call per serving call, on the smem "
+          f"route, got {counts} over {n_calls} calls")
     check(tuple(out32.shape) == (DET_BATCH, golden.DET_KEEP_TOP_K, 6)
           and bool(torch.isfinite(out32).all())
           and bool(((valid32 >= 0) & (valid32 <= golden.DET_KEEP_TOP_K))
@@ -525,6 +559,36 @@ def serve_detector(dev, gen):
           f"{list(problems.shape[:2])} problems")
     evals = nms_iou_evaluations(problems, keep_ref, thr)
     ms = statistics.median(times)
+    # paddle.vision.ops.nms over the image's anchor boxes (PP-YOLOE's
+    # anchor grid: a square of ANCHOR_SCALE strides at each cell centre of
+    # the three levels, as its ATSS assigner draws them), each scored by
+    # image 0's best class and kept apart by category: one problem on the
+    # global route, equal to the CPU's plain sweep. Neighbours of a level
+    # overlap with IoU 2/3, so boxes of one class suppress each other.
+    anchors = []
+    for stride in model.strides:
+        c = (torch.arange(DET_SIZE // stride, dtype=torch.float32,
+                          device=dev) + 0.5) * stride
+        cy, cx = torch.meshgrid(c, c, indexing="ij")
+        half = ANCHOR_SCALE * stride / 2
+        anchors.append(torch.stack([cx - half, cy - half, cx + half,
+                                    cy + half], dim=-1).reshape(-1, 4))
+    anchors = torch.cat(anchors)
+    check(anchors.shape[0] == boxes.shape[1], "one anchor box per anchor")
+    score, label = scores[0].max(dim=0)
+    nms_pallas.launches.clear()
+    nms_pallas.routes.clear()
+    kept_idx = nms(anchors, thr, score, label)
+    counts_anchors = {**nms_pallas.launches, **nms_pallas.routes}
+    check(counts_anchors == {"nms:float32": 1, "nms:float32:global": 1},
+          f"paddle.vision.ops.nms over {anchors.shape[0]} anchors: one call "
+          f"on the global route, got {counts_anchors}")
+    check(0 < len(kept_idx) < anchors.shape[0],
+          f"paddle.vision.ops.nms over the anchors suppresses some boxes: "
+          f"kept {len(kept_idx)} of {anchors.shape[0]}")
+    check(torch.equal(kept_idx.cpu(), nms(anchors.cpu(), thr, score.cpu(),
+                                          label.cpu())),
+          "paddle.vision.ops.nms over the anchors == the CPU's plain sweep")
     emit({"phase": "ppyoloe_serving", "config": DET_CONFIG,
           "batch": DET_BATCH, "size": DET_SIZE, "dtype": "float32",
           "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
@@ -537,11 +601,15 @@ def serve_detector(dev, gen):
           "valid": valid32.tolist(),
           "nms_problems": list(problems.shape[:2]),
           "nms_kept": int(keep.sum()), "nms_iou_evaluations": evals,
-          "nms_kernel_equals_plain": True})
-    del model, images, boxes, scores
+          "nms_kernel_equals_plain": True,
+          "anchors_nms": {"boxes": anchors.shape[0], "kept": len(kept_idx),
+                          "anchor_scale": ANCHOR_SCALE,
+                          "launches": counts_anchors,
+                          "equals_cpu": True}})
+    del model, images, boxes, scores, anchors
     torch.cuda.empty_cache()
-    return {"counts": counts, "problems": problems, "evals": evals,
-            "mismatches": mismatches,
+    return {"counts": counts, "counts_anchors": counts_anchors,
+            "problems": problems, "evals": evals, "mismatches": mismatches,
             "launches_per_call": counts["nms:float32"] / n_calls}
 
 
@@ -593,8 +661,9 @@ def call_row_primitives(randn):
 
 
 def time_new_kernels(det, rows, randn, time_ms, bound, launch_counts):
-    """The `kernels` entries of the NMS kernel (on the full-width call's
-    problems) and the three row kernels (at their main shapes)."""
+    """The `kernels` entries of the NMS kernel (the smem route on the
+    full-width call's problems, the global route on one random problem of
+    NMS_SINGLE boxes) and the three row kernels (at their main shapes)."""
     import torch
 
     from paddle_tpu_torch.ops import nms_pallas, tpp
@@ -606,20 +675,54 @@ def time_new_kernels(det, rows, randn, time_ms, bound, launch_counts):
     p_, n_ = problems.shape[:2]
     bms, by = bound(IOU_OPS * det["evals"] + AREA_OPS * p_ * n_,
                     p_ * n_ * 16 + p_ * n_, "float32")
+    nms_call = lambda: nms_pallas.nms_keep_mask(problems, thr)  # noqa: E731
     kernels = [{
         "name": "nms[float32]", "route": "cuda",
         "source": "paddle_tpu_torch/ops/csrc/nms.cu",
         "replaces": "paddle_tpu/ops/nms_pallas.py:21",
-        **launch_counts("nms:float32"), "max_abs_err": det["mismatches"],
+        **launch_counts("nms:float32:smem"), "max_abs_err": det["mismatches"],
         "max_abs_err_is": "keep entries that differ from the plain "
                           "version's, over every problem compared",
-        "ms": time_ms(lambda: nms_pallas.nms_keep_mask(problems, thr)),
+        "ms": time_ms(nms_call),
+        "device_ms": time_ms(nms_call, hide_enqueue=True),
         "plain_ms": time_ms(lambda: nms_pallas.nms_keep_mask_ref(
             problems, thr), reps=5, warmup=1),
         "bound_ms": bms, "bound_by": by, "library_ms": None,
         "library_covers": "none: PyTorch has no NMS call",
-        "shape": [p_, n_], "iou_evaluations": det["evals"],
+        "shape": [p_, n_], "kernel_route": nms_route(p_, n_),
+        "iou_evaluations": det["evals"],
         "launches_per_serving_call": det["launches_per_call"]}]
+    # the global route at one large problem (nms_mask, paddle.vision.ops.nms)
+    gen = torch.Generator(device=problems.device).manual_seed(NMS_SINGLE)
+    xy = torch.rand(1, NMS_SINGLE, 2, generator=gen,
+                    device=problems.device) * (40.0 + NMS_SINGLE / 20)
+    single = torch.cat([xy, xy + torch.rand(
+        1, NMS_SINGLE, 2, generator=gen, device=problems.device) * 30.0
+        + 1.0], dim=-1)
+    keep = nms_pallas.nms_keep_mask(single, thr)
+    keep_ref = nms_pallas.nms_keep_mask_ref(single, thr)
+    check(torch.equal(keep, keep_ref),
+          f"nms kernel vs plain at [1, {NMS_SINGLE}]")
+    evals = nms_iou_evaluations(single, keep_ref, thr)
+    bms, by = bound(IOU_OPS * evals + AREA_OPS * NMS_SINGLE,
+                    NMS_SINGLE * 17, "float32")
+    single_call = lambda: nms_pallas.nms_keep_mask(single, thr)  # noqa: E731
+    kernels.append({
+        "name": "nms_global[float32]", "route": "cuda",
+        "source": "paddle_tpu_torch/ops/csrc/nms.cu",
+        "replaces": "paddle_tpu/ops/nms_pallas.py:21",
+        **launch_counts("nms:float32:global"),
+        "max_abs_err": int((keep != keep_ref).sum()),
+        "max_abs_err_is": "keep entries that differ from the plain version's",
+        "ms": time_ms(single_call),
+        "device_ms": time_ms(single_call, hide_enqueue=True),
+        "plain_ms": time_ms(lambda: nms_pallas.nms_keep_mask_ref(
+            single, thr), reps=5, warmup=1),
+        "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "library_covers": "none: PyTorch has no NMS call",
+        "shape": [1, NMS_SINGLE], "kernel_route": nms_route(1, NMS_SINGLE),
+        "iou_evaluations": evals})
+    del single, keep, keep_ref
 
     errs = rows["errs"]
     m_b, n_b = ROWS_BIAS_ACT
@@ -1339,6 +1442,12 @@ def main():
                   and not (name == "flash_bwd"
                            and scalar_bwd_instance(k) in BWD_SCALAR_SPILLS)}
         check(not spills, f"{name}: no register spills ({spills})")
+    nms_kernels = {k: r for k, r in ptxas["nms"].items()}
+    check(len(nms_kernels) == 3 and all(
+        re.search(r"nms_(smem|mask|sweep)_kernel", k) for k in nms_kernels)
+        and not any(r["spill_bytes"] for r in nms_kernels.values()),
+          f"nms: the smem, mask and sweep kernels built without spills "
+          f"({nms_kernels})")
     tf32_kernels = {k: r for name in ("flash_fwd", "flash_bwd")
                     for k, r in ptxas[name].items() if "_tf32_kernel" in k}
     check(len(tf32_kernels) == 6 and not any(
@@ -2028,6 +2137,7 @@ def main():
     det_path = serve_detector(dev, gen)
     rows_path = call_row_primitives(randn)
     counts_detect, counts_rows = det_path["counts"], rows_path["counts"]
+    counts_anchors = det_path["counts_anchors"]
 
     # ---- 4e. GPT-2 small through the ServingEngine, dense and paged -------
     serve = gpt2_serving_engines(dev)
@@ -2092,6 +2202,7 @@ def main():
         by_path = {"gpt_serve": count(counts_serve),
                    "gpt_train": count(counts_train),
                    "detect_serve": count(counts_detect),
+                   "detect_anchors_nms": count(counts_anchors),
                    "tpp_rows": count(counts_rows),
                    "gpt_paged_serving": count(counts_paged)}
         return {"launches": sum(by_path.values()),
@@ -2440,7 +2551,7 @@ def main():
     emit({"phase": "times", "method": "CUDA events, 3 warm-up, median of "
           "20 (the plain NMS: 1 warm-up, median of 5), 64 MB written "
           "between launches to flush L2; device_ms (flash, TPP, paged "
-          "attention, the row kernels): "
+          "attention, the row kernels, NMS): "
           "the same with a ~0.5 ms device sleep before the start event, "
           "so the host's enqueue of the call is not timed",
           "tpp_matmul.plain": tpp_plain})

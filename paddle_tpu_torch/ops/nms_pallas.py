@@ -2,36 +2,63 @@
 
 Ports paddle_tpu/ops/nms_pallas.py. The Pallas ``_nms_kernel`` behind
 ``nms_keep_mask_pallas`` becomes ``csrc/nms.cu`` (the design notes are
-there): one thread block per problem, its boxes and keep flags in shared
-memory, the greedy sweep run in order inside the block. It takes P
-problems at once, so ``multiclass_nms`` makes one launch for all its
-images and classes.
+there): a bitmask of the pairwise IoUs above the threshold, built in
+parallel over 64 x 64 tiles, then a sweep that resolves 64 rows at a time
+in registers. It takes P problems at once, so ``multiclass_nms`` makes
+one C call for all its images and classes. With up to ``SMEM_MAX_N``
+boxes a problem and at least one problem an SM, the mask stays in shared
+memory (route ``smem``: one block a problem, one launch); otherwise it
+goes to a workspace of [P, ceil(n / 64), n] words that the wrapper
+allocates (route ``global``: a mask kernel over every tile, then a sweep
+kernel). There is no cap on n but device memory; running out raises
+torch's own out-of-memory error.
 
 ``nms_keep_mask(boxes, thr)``: boxes [P, n, 4] (or one problem [n, 4]),
 each problem sorted by descending score, cast to fp32 as the reference
 casts them; keep[p, i] is true unless a kept box j < i of the same
 problem has IoU(i, j) > thr. A tensor on a CUDA device launches the
 kernel or raises; a tensor on the CPU takes the plain version,
-``nms_keep_mask_ref``. ``launches`` counts kernel launches by
-``"nms:float32"``, where the kernel is launched and nowhere else.
-``supported`` is the reference's gate: n <= 8192, on the card.
+``nms_keep_mask_ref``. ``launches`` counts calls of the C entry by
+``"nms:float32"``, where it is called and nowhere else; ``routes``
+splits them by the route it took (``"nms:float32:smem"`` /
+``"nms:float32:global"``).
 """
 import collections
 import ctypes
+import functools
 
 import torch
 
 from . import _build
 
-MAX_BOXES = 8192   # the reference's supported() cap; csrc/nms.cu's MAX_N
+SMEM_MAX_N = 512   # csrc/nms.cu's SMEM_MAX_N: the smem route's cap
+WORD = 64          # boxes a mask word covers
 
-#: kernel launches by "nms:float32"
+#: C-entry calls by "nms:float32"
 launches = collections.Counter()
+#: the same calls by "nms:float32:<route>"
+routes = collections.Counter()
 
 
 def supported(n_boxes, device):
-    """Whether the kernel takes a problem of n_boxes boxes on `device`."""
-    return torch.device(device).type == "cuda" and n_boxes <= MAX_BOXES
+    """Whether the kernel takes a problem of n_boxes boxes on `device`:
+    any n on the card. The reference's cap of 8192 boxes is its TPU VMEM
+    budget; past it the reference computes the same mask with its scan
+    over the IoU matrix, and here the global route has no cap."""
+    return torch.device(device).type == "cuda"
+
+
+def _smem_route(p, n, device):
+    """Whether [p, n] takes the smem route: one block a problem with its
+    mask in shared memory (n <= SMEM_MAX_N), which pays once the problems
+    fill the card's SMs. Fewer problems take the global route, which
+    spreads the mask stage over every SM."""
+    return n <= SMEM_MAX_N and p >= _sm_count(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _as_problems(boxes):
@@ -65,14 +92,21 @@ def nms_keep_mask_ref(boxes, iou_threshold):
 _FN = []
 
 
+def _bind(lib):
+    """lib's C entry nms_keep_mask(boxes, keep, workspace, P, n, thr,
+    stream) with its ctypes signature."""
+    fn = lib.nms_keep_mask
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _kernel():
     if not _FN:
         lib = _build.load("nms")
-        fn = lib.nms_keep_mask
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN.append((lib, fn))
+        _FN.append((lib, _bind(lib)))
     return _FN[0]
 
 
@@ -82,17 +116,19 @@ def _launch(b, iou_threshold):
     if not b.is_cuda:
         raise ValueError(f"nms kernel: boxes must lie on a CUDA device, got "
                          f"{b.device}")
-    if n > MAX_BOXES:
-        raise ValueError(f"nms kernel takes at most {MAX_BOXES} boxes a "
-                         f"problem, got {n} (gate on supported())")
     if b.data_ptr() % 16:
         raise ValueError("nms kernel: boxes must be 16-byte aligned")
     keep = torch.empty((p, n), dtype=torch.bool, device=b.device)
+    # the global route's mask words; torch raises if the card lacks room
+    work = None if _smem_route(p, n, b.device) else torch.empty(
+        (p, -(-n // WORD), n), dtype=torch.int64, device=b.device)
     lib, fn = _kernel()
-    err = fn(b.data_ptr(), keep.data_ptr(), p, n, float(iou_threshold),
-             _build.stream(b))
+    err = fn(b.data_ptr(), keep.data_ptr(),
+             None if work is None else work.data_ptr(), p, n,
+             float(iou_threshold), _build.stream(b))
     _build.check(lib, "nms_keep_mask", err)
     launches["nms:float32"] += 1
+    routes[f"nms:float32:{'smem' if work is None else 'global'}"] += 1
     return keep
 
 

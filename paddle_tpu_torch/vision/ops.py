@@ -9,7 +9,7 @@ The reference's ``multiclass_nms`` vmaps a per-image function over the
 batch and loops over classes in Python, one NMS per (image, class). Here
 both loops are batch dimensions: the top ``nms_top_k`` boxes of every
 (image, class) are gathered into [B*C, k, 4] and one call of
-``ops.nms_pallas.nms_keep_mask`` (one kernel launch on the card) sweeps
+``ops.nms_pallas.nms_keep_mask`` (one C call on the card) sweeps
 them all. Ties rank as ``jax.lax.top_k`` ranks them, the lower index
 first: a stable descending sort stands in for ``top_k``. The reference's
 scan over the IoU matrix (``_iou_matrix`` :21, taken when
@@ -33,8 +33,7 @@ def nms_mask(boxes, scores, iou_threshold=0.3, score_threshold=None,
              top_k=None):
     """Static-shape NMS of one problem: keep mask [n] in the boxes'
     original order. The sweep is ``nms_keep_mask`` on the score-sorted
-    boxes: the kernel on the card (it raises above 8192 boxes), its plain
-    version on the CPU."""
+    boxes: the kernel on the card, its plain version on the CPU."""
     n = boxes.shape[0]
     order = _sorted_desc(scores)[1]
     keep_sorted = _kernel.nms_keep_mask(boxes[order], iou_threshold)

@@ -10,6 +10,8 @@ does (the same operations in the same order), so any difference is a
 flipped decision, not a rounding one. Tests marked ``cuda`` hold the CUDA
 kernel against the plain version on a card, and skip without one.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -49,6 +51,155 @@ def _greedy_numpy(boxes, thr):
         iou = inter / np.maximum(area + area[i] - inter, np.float32(1e-9))
         keep &= ~((iou > np.float32(thr)) & (np.arange(len(b)) > i))
     return keep
+
+
+WORD = nms_pallas.WORD
+
+
+def _tile_of(t):
+    """(rt, ct) of tile pair t as csrc/nms.cu's nms_mask_kernel numbers
+    them: column tile ct, row tile rt <= ct, t = ct (ct + 1) / 2 + rt."""
+    ct = int((math.sqrt(8.0 * t + 1.0) - 1.0) / 2.0)
+    while ct * (ct + 1) // 2 > t:
+        ct -= 1
+    while (ct + 1) * (ct + 2) // 2 <= t:
+        ct += 1
+    return t - ct * (ct + 1) // 2, ct
+
+
+def _tile_columns(n, rt, ct):
+    """[64, 64] bool: the columns each row of tile (rt, ct) evaluates, as
+    csrc/nms.cu's tile_word bounds them: up to the valid columns rounded
+    up to 8, and on the diagonal the upper 32 rows from column 32 on."""
+    c = torch.arange(WORD)
+    end = min(WORD, -(-(n - ct * WORD) // 8) * 8)
+    begin = torch.where((rt == ct) & (c >= 32), 32, 0)       # by row
+    return (c[None, :] >= begin[:, None]) & (c[None, :] < end)
+
+
+def _mask_ious(n):
+    """The IoUs nms.cu's mask stage computes for one problem of n boxes:
+    each valid row of every tile pair (rt <= ct) over its _tile_columns."""
+    words = -(-n // WORD)
+    return sum(int(_tile_columns(n, rt, ct)[:min(WORD, n - rt * WORD)].sum())
+               for rt in range(words) for ct in range(rt, words))
+
+
+def _two_stage_keep(boxes, thr, smem_max_n=nms_pallas.SMEM_MAX_N):
+    """Plain-torch emulation of csrc/nms.cu on [P, n, 4] boxes: the mask
+    stage's 64 x 64 tiles (in the smem kernel's order up to smem_max_n
+    boxes, else nms_mask_kernel's numbering) into word-major words, each
+    row over its _tile_columns, with zero boxes past n and only bits j > i
+    on the diagonal; then the sweep, 64-row blocks in order, the chain
+    inside a block, the kept rows' later words ORed into `removed`.
+    Returns (bool [P, n], the IoUs a problem's mask stage evaluated)."""
+    b = torch.as_tensor(boxes, dtype=torch.float32).reshape(-1, *np.shape(
+        boxes)[-2:])
+    p, n = b.shape[:2]
+    words = -(-n // WORD)
+    pad = torch.zeros(p, words * WORD, 4)
+    pad[:, :n] = b
+    x1, y1, x2, y2 = pad.unbind(-1)
+    area = torch.clamp_min(x2 - x1, 0.0) * torch.clamp_min(y2 - y1, 0.0)
+    bit = torch.ones(WORD, dtype=torch.int64) << torch.arange(WORD)
+    if n <= smem_max_n:
+        tiles = [(rt, ct) for rt in range(words) for ct in range(rt, words)]
+    else:
+        tiles = [_tile_of(t) for t in range(words * (words + 1) // 2)]
+    assert sorted(tiles) == [(rt, ct) for rt in range(words)
+                             for ct in range(rt, words)]
+    mask = torch.zeros(p, words, n, dtype=torch.int64)       # [w][i]
+    n_ious = 0
+    for rt, ct in tiles:
+        i = torch.arange(rt * WORD, min(n, rt * WORD + WORD))
+        j = torch.arange(ct * WORD, ct * WORD + WORD)
+        iw = torch.clamp_min(torch.minimum(x2[:, j][:, None], x2[:, i][:, :, None])
+                             - torch.maximum(x1[:, j][:, None],
+                                             x1[:, i][:, :, None]), 0.0)
+        ih = torch.clamp_min(torch.minimum(y2[:, j][:, None], y2[:, i][:, :, None])
+                             - torch.maximum(y1[:, j][:, None],
+                                             y1[:, i][:, :, None]), 0.0)
+        inter = iw * ih
+        iou = inter / torch.clamp_min(area[:, j][:, None]
+                                      + area[:, i][:, :, None] - inter, 1e-9)
+        cols = _tile_columns(n, rt, ct)[:len(i)]
+        n_ious += int(cols.sum())
+        hit = (iou > thr) & (j[None, :] > i[:, None]) & cols
+        mask[:, ct, i] = (hit.long() * bit).sum(-1)    # distinct bits: OR
+    removed = torch.zeros(p, words, dtype=torch.int64)
+    for blk in range(words):
+        rows = min(WORD, n - blk * WORD)
+        diag = mask[:, blk, blk * WORD:blk * WORD + rows]
+        rem = removed[:, blk].clone()
+        for r in range(rows):
+            rem = torch.where(((rem >> r) & 1) == 0, rem | diag[:, r], rem)
+        removed[:, blk] = rem
+        kept = ((rem[:, None] >> torch.arange(rows)) & 1) == 0    # [P, rows]
+        for r in range(rows if blk + 1 < words else 0):
+            later = mask[:, blk + 1:, blk * WORD + r]
+            removed[:, blk + 1:] |= torch.where(kept[:, r:r + 1], later, 0)
+    i = torch.arange(n)
+    return ((removed[:, i // WORD] >> (i % WORD)) & 1) == 0, n_ious
+
+
+def _nms_cases():
+    """Score-sorted [n, 4] problems and their thresholds: random boxes at
+    the word edges, and the shapes greedy NMS gets wrong first."""
+    cases = {f"random{n}": (_boxes(n, seed=n), 0.5)
+             for n in (1, 63, 64, 65, 127, 128, 129, 400, 401)}
+    k = np.arange(130, dtype=np.float32)[:, None]       # IoU 5/11, then 2/14
+    cases["chain"] = (np.concatenate([3 * k, 0 * k, 3 * k + 8, 0 * k + 1], 1),
+                      0.4)
+    cases["identical"] = (np.tile(np.float32([[2, 3, 9, 7]]), (100, 1)), 0.5)
+    odd = _boxes(70, seed=70)
+    odd[0::3, 2] = odd[0::3, 0]                          # zero width
+    odd[1::5, 2:] = odd[1::5, :2] - 1.0                  # inverted
+    cases["degenerate"] = (odd, 0.3)
+    pairs = np.float32([[[10 * q, 0, 10 * q + 2, 1], [10 * q, 0, 10 * q + 1, 1]]
+                        for q in range(33)]).reshape(66, 4)  # IoU exactly 0.5
+    cases["at_threshold"] = (pairs, 0.5)
+    rng = np.random.RandomState(12)
+    bx = _boxes(200, seed=13)
+    cat = rng.randint(0, 4, 200).astype(np.float32)
+    shifted = bx + cat[:, None] * (bx.max() + np.float32(1.0))  # as nms()
+    order = np.argsort(-rng.rand(200), kind="stable")
+    cases["category_shifted"] = (shifted[order], 0.3)
+    return cases
+
+
+_CASES = _nms_cases()
+
+
+@pytest.mark.parametrize("smem_max_n", [nms_pallas.SMEM_MAX_N, 0],
+                         ids=["smem_tiling", "global_tiling"])
+@pytest.mark.parametrize("case", list(_CASES))
+def test_two_stage_emulation_equals_the_plain_sweep(case, smem_max_n):
+    """The kernel's algorithm (bitmask words, then the 64-row block sweep)
+    bit for bit against the plain version and numpy's greedy loop."""
+    bx, thr = _CASES[case]
+    got, n_ious = _two_stage_keep(bx[None], thr, smem_max_n)
+    got = got[0].numpy()
+    assert n_ious == _mask_ious(len(bx))
+    np.testing.assert_array_equal(
+        got, nms_pallas.nms_keep_mask_ref(torch.from_numpy(bx), thr).numpy())
+    np.testing.assert_array_equal(got, _greedy_numpy(bx, thr))
+    if case == "random129" and smem_max_n == 0:    # interpret mode: seconds
+        pallas = np.asarray(jnms.nms_keep_mask_pallas(jnp.asarray(bx), thr,
+                                                      interpret=True))
+        np.testing.assert_array_equal(got, pallas)
+    if case == "chain":
+        np.testing.assert_array_equal(got, np.arange(130) % 2 == 0)
+    if case == "identical":
+        assert got.sum() == 1 and got[0]
+
+
+@pytest.mark.parametrize("n,ious", [(400, 86_272), (8192, 33_685_504)])
+def test_mask_stage_iou_counts(n, ious):
+    """The IoUs nms.cu's mask stage computes a problem at the serving
+    shape's n and at one problem of 8192 boxes, against the 79,800 and
+    33,550,336 pairs j > i (the diagonal tiles' lower rows and the ragged
+    last tile's columns up to a multiple of 8 add the rest)."""
+    assert _mask_ious(n) == ious >= n * (n - 1) // 2
 
 
 @pytest.mark.parametrize("n", [1, 3, 100, 400, 401])
@@ -239,9 +390,12 @@ def test_cpu_tensors_take_the_plain_version():
     bx, sc = _mc_inputs(1, 3, 20, seed=11)
     ops.multiclass_nms(torch.from_numpy(bx), torch.from_numpy(sc))
     assert sum(nms_pallas.launches.values()) == 0
+    assert sum(nms_pallas.routes.values()) == 0
     assert not nms_pallas.supported(10, "cpu")
     assert nms_pallas.supported(8192, "cuda")
-    assert not nms_pallas.supported(8193, "cuda")
+    # the reference's 8192 is its TPU VMEM cap; the global route has none
+    assert nms_pallas.supported(8193, "cuda")
+    assert nms_pallas.supported(1 << 20, "cuda")
     with pytest.raises(ValueError, match="CUDA device"):
         nms_pallas._launch(torch.from_numpy(bx), 0.5)
 
@@ -260,18 +414,73 @@ def cuda():
     return torch.device("cuda")
 
 
+def _route_on_card(p, n):
+    """The route the wrapper picks for [p, n]: smem up to SMEM_MAX_N boxes
+    once the problems fill the SMs, else global."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return "smem" if n <= nms_pallas.SMEM_MAX_N and p >= sms else "global"
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("p,n", [(640, 400), (3, 100), (2, 401), (1, 8192),
-                                 (5, 1), (4, 3)])
+@pytest.mark.parametrize("p,n", [
+    (640, 400), (3, 100), (2, 401), (1, 8192), (5, 1), (4, 3),
+    (640, 63), (640, 64), (640, 65), (640, 129), (3, 129),
+    (132, 512), (132, 513), (1, 512), (1, 8193), (2, 12000)])
 def test_kernel_matches_plain_on_card(cuda, p, n):
     probs = np.stack([_boxes(n, seed=s, size=40.0 + n / 20)
                       for s in range(p)])
     b = torch.from_numpy(probs).to(cuda)
     count = nms_pallas.launches["nms:float32"]
+    nms_pallas.routes.clear()
     got = nms_pallas.nms_keep_mask(b, 0.5)
     torch.cuda.synchronize()
     assert nms_pallas.launches["nms:float32"] == count + 1
+    assert dict(nms_pallas.routes) == {
+        f"nms:float32:{_route_on_card(p, n)}": 1}
     assert torch.equal(got.cpu(), nms_pallas.nms_keep_mask_ref(b, 0.5).cpu())
+    if (p, n) == (640, 400):
+        assert _route_on_card(p, n) == "smem"      # the serving shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,n", [(640, 400), (1, 8193)])
+def test_kernel_calls_are_bit_equal_on_card(cuda, p, n):
+    b = torch.from_numpy(np.stack([_boxes(n, seed=s) for s in range(p)]))
+    b = b.to(cuda)
+    first = nms_pallas.nms_keep_mask(b, 0.5)
+    assert torch.equal(first, nms_pallas.nms_keep_mask(b, 0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [400, 1000])
+def test_kernel_matches_plain_far_from_unit_scale_on_card(cuda, n):
+    """Boxes scaled from 1e-22 to 1e17: areas past 2^59 and overlaps below
+    2^-60 take __fdiv_rn, the rest the fast quotient; all bit-equal."""
+    scales = (1e-22, 1e-12, 1.0, 1e12, 1e17)
+    b = torch.from_numpy(np.stack([_boxes(n, seed=s) * np.float32(f)
+                                   for s, f in enumerate(scales)])).to(cuda)
+    for thr in (0.5, 1e-12, 0.0):
+        got = nms_pallas.nms_keep_mask(b, thr)
+        assert torch.equal(got.cpu(),
+                           nms_pallas.nms_keep_mask_ref(b, thr).cpu())
+
+
+@pytest.mark.cuda
+def test_nms_with_categories_on_card_equals_cpu_at_9000_boxes(cuda):
+    """paddle.vision.ops.nms past the reference's 8192-box TPU cap: one
+    problem on the global route, equal to the CPU's plain sweep."""
+    bx = _boxes(9000, seed=14, size=600.0)
+    rng = np.random.RandomState(15)
+    scores = rng.rand(9000).astype(np.float32)
+    cats = rng.randint(0, 5, 9000).astype(np.int64)
+    nms_pallas.routes.clear()
+    got = ops.nms(torch.from_numpy(bx).to(cuda), 0.4,
+                  torch.from_numpy(scores).to(cuda),
+                  torch.from_numpy(cats).to(cuda))
+    assert dict(nms_pallas.routes) == {"nms:float32:global": 1}
+    want = ops.nms(torch.from_numpy(bx), 0.4, torch.from_numpy(scores),
+                   torch.from_numpy(cats))
+    assert torch.equal(got.cpu(), want) and 0 < len(want) < 9000
 
 
 @pytest.mark.cuda
