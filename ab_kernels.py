@@ -23,13 +23,13 @@ imports the port from its DIR, builds its kernels and times:
   give the same bits share;
 - ``ops.tpp.softmax_rows`` in fp32 and bf16 at [49152, 1024] (the
   attention-score rows of b4 h12 s1024, std 3);
-- the fp32 flash kernels' main paths on GPT-2 small (vocab 50304, hidden
-  768, 12 layers, 12 heads, dropout 0, random weights from seed 0): the
-  eval forward at 4 x 1024 and the training step at 16 x 1024
-  (SpmdTrainer + AdamW lr 1e-4, ids and labels as chip_smoke.py draws
-  them), fp32 with FLAGS_tpp_kernels off; ``wall_ms``, the host clock
-  around a synchronised call, median of 10 forwards after 2 warm-ups and
-  of 5 steps after 1.
+- GPT-2 small (vocab 50304, hidden 768, 12 layers, 12 heads, dropout 0,
+  random weights from seed 0) with FLAGS_tpp_kernels off: the fp32 eval
+  forward at 4 x 1024 and the training step at 16 x 1024 (SpmdTrainer +
+  AdamW lr 1e-4, ids and labels as chip_smoke.py draws them) in fp32 and
+  under bf16 ``amp.auto_cast`` (bench.py's headline step); ``wall_ms``,
+  the host clock around a synchronised call, median of 10 forwards after
+  2 warm-ups and of 5 steps after 1.
 
 Every input comes from seeded generators, the same in every process.
 Times as chip_smoke.py takes them: CUDA events around one call, median of
@@ -141,16 +141,18 @@ def worker(root):
             .to(dt)
         out[f"softmax_rows[{dname}]"] = both(lambda: tpp.softmax_rows(x))
         del x
-    out.update(gpt2_fp32(dev))
+    out.update(gpt2_steps(dev))
     print(json.dumps(out), flush=True)
 
 
-def gpt2_fp32(dev):
+def gpt2_steps(dev):
     """{cell: {"wall_ms": median}} of GPT-2 small's fp32 eval forward at
-    4 x 1024 and training step at 16 x 1024."""
+    4 x 1024 and its training step at 16 x 1024, fp32 and bf16 auto_cast
+    (each from the same weights and fresh AdamW state)."""
     import numpy as np
     import torch
 
+    from paddle_tpu_torch.amp import auto_cast
     from paddle_tpu_torch.distributed import SpmdTrainer
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM, \
         GPTPretrainLoss
@@ -179,12 +181,20 @@ def gpt2_fp32(dev):
     with torch.no_grad():
         out["gpt2_small_forward[float32].b4"] = wall_ms(
             lambda: model(ids[:4]), 10, 2)
-    model.train()
-    trainer = SpmdTrainer(model, AdamW(learning_rate=1e-4,
-                                       parameters=model.parameters()),
-                          loss_fn=GPTPretrainLoss())
-    out["gpt2_small_train_step[float32].b16"] = wall_ms(
-        lambda: trainer.train_step(ids, labels).item(), 5, 1)
+    for dname, amp in (("float32", False), ("bf16_auto_cast", True)):
+        model = GPTForCausalLM(cfg, device=dev,
+                               generator=torch.Generator().manual_seed(0))
+        trainer = SpmdTrainer(model, AdamW(learning_rate=1e-4,
+                                           parameters=model.parameters()),
+                              loss_fn=GPTPretrainLoss())
+
+        def step():
+            with auto_cast(amp, dtype="bfloat16"):
+                return trainer.train_step(ids, labels).item()
+
+        out[f"gpt2_small_train_step[{dname}].b16"] = wall_ms(step, 5, 1)
+        del model, trainer
+        torch.cuda.empty_cache()
     return out
 
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's GPT-2 serving and training paths, its
-PP-YOLOE detection serving path, the TPP row primitives and the
-continuous-batching ServingEngine (dense and paged) on one GPU.
+"""Drive the PyTorch/CUDA port's GPT-2 serving, decoding and training
+paths, its PP-YOLOE detection serving and training paths, the TPP row
+primitives and the continuous-batching ServingEngine (dense and paged) on
+one GPU.
 
 Run from the repository root, on a machine with a CUDA device and nvcc:
 
@@ -19,14 +20,15 @@ masked_reduce kernels, the paged-attention kernel) against its plain
 PyTorch version (the backward also for bit-equal grads over two calls
 and, on the GPT paths, every bf16 launch on the tensor cores; SDPA at
 head dims 576 and 1024, forward and backward, on the streaming route;
-the paged kernel also for bit-equal output over two calls), checks a
+the paged kernel also for bit-equal output over two calls, and through
+its public entry on the stream route at head dims and frames of 512, on
+fp16 q and mixed q / page dtypes, and on a transposed-page view), checks a
 narrow GPT's eval forward, greedy ``generate`` and three AdamW training steps and
 a narrow PP-YOLOE's head outputs and detections against the JAX package's
 committed outputs, drives GPT-2 small (vocab 50304, hidden 768, 12
 layers, 12 heads, random weights from a seed) through the serving path
-(eval forward at 4 x 1024 and greedy ``generate``; and at seq 512, SDPA's
-naive path under auto_cast with and without its autocast guard) and the
-training path
+(eval forward at 4 x 1024 and greedy ``generate``; auto_cast enters no
+torch.autocast) and the training path
 (SpmdTrainer + AdamW at 16 x 1024, bf16 auto_cast with FLAGS_tpp_kernels
 off and on, and fp32), drives PP-YOLOE (80 classes, width 64, depth 2:
 bench.py's config) through forward, decode and multiclass-NMS
@@ -36,9 +38,16 @@ anchor boxes (its global route; some boxes suppressed), calls the
 TPP row primitives at GPT-2 small's shapes, serves GPT-2 small through
 the ServingEngine as bench.py's run_serve and run_serve_mixed do (the
 greedy drain on the dense and the paged engine, whose outputs must be
-equal; the mixed drain; a paged run on a shared 512-token prefix with
+equal; the dense drain on an int8 cache, each token generate's greedy
+pick; the mixed drain; a paged run on a shared 512-token prefix with
 cold pages) and runs the paged-attention kernel on the paged engine's
-live pool, profiles each configuration once for the device time by
+live pool, decodes GPT-2 small as bench.py's gpt2s_decode does on a
+bf16, an int8 and an fp8 cache (new tok/s, MBU at 3.35 TB/s, cache
+bytes; the narrow model's quantized generate against the CPU's), trains
+PP-YOLOE as bench.py's ppyolo train half does (the narrow detector's
+three Momentum steps against the JAX package's committed run first; then
+8 x 640 x 640 under bf16 auto_cast: imgs/s, step ms, peak memory, idle
+share), profiles each configuration once for the device time by
 kernel and the device's idle share, and times every kernel. Each phase prints one JSON line; then a ``kernels``
 line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -174,15 +183,37 @@ SLEEP_CYCLES = 1_000_000
 # GPT-2 small forwards timed a cell, after one warm-up (the first forward
 # after a flag or dtype change pays one-time host costs)
 FORWARD_SAMPLES = 5
-# GPT-2 small's forward through SDPA's naive path (seq below 1024) under
-# auto_cast, with and without the repair of its autocast guard
-NAIVE_SEQ = 512
 # head dims above 512 (no whole-head tiling): SDPA's forward and backward
 # take the streaming route at b1 s1024 h2, causal
 STREAM_HEAD_DIMS = (576, 1024)
 # the reference's paged_attention audit shape (ops/tpp.py:248): B, H, hd,
 # bs, maxb, and its test's pool of B + 3 frames
 AUDIT_SHAPES = ((16, 8, 128, 32, 16, 19),)
+# paged attention past the split kernel's caps (head dim or frame above
+# 256: the stream route): B, H, hd, bs, maxb, NB; no model has such heads
+PAGED_STREAM_SHAPES = ((8, 4, 512, 16, 64, 520), (8, 4, 64, 512, 4, 40),
+                       (8, 4, 512, 512, 4, 40))
+# gpt2s_decode as bench.py runs it on the TPU (run_decode :583-631; the
+# int8 and fp8 legs :1097-1110): batch, prompt, new tokens, cache dtypes;
+# each leg's full and 1-token runs DECODE_REPS times after a warm-up
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW, DECODE_REPS = 8, 128, 256, 3
+DECODE_LEGS = (None, "int8", "fp8")
+# a quantized cache's greedy tokens on the card against the CPU's greedy
+# pick along the same tokens (fp32): a step may pick another token only
+# where its logit lies this close below the CPU's largest. The two
+# devices' fp32 sums differ in the last bits, and a row whose scaled value
+# lies at a rounding edge takes the neighbouring int8 or fp8 code, which
+# moves the logits by about that code's step through the layers.
+QUANT_TIE_F32 = 1e-3
+# the engine's bf16 int8-cache drain against generate's greedy pick along
+# the engine's tokens (bf16, int8): two bf16 computations of other GEMM
+# shapes (8 rows against 1, a cache of 1024 columns against prompt + new)
+# each lie within BF16_VS_FP32_MATH_TOL of fp32 math, so a token may be
+# another only within twice that below the largest logit
+ENGINE_TIE_BF16 = 2 * BF16_VS_FP32_MATH_TOL
+# PP-YOLOE training (bench.py run_ppyolo_train :493-545): 1 warm-up step,
+# then this many timed steps, then one profiled
+DET_TRAIN_STEPS_TIMED = 5
 
 
 def torch_dtypes():
@@ -234,6 +265,15 @@ def tpp_routes_checked(path):
           f"{path}: TPP matmul launches by route {routed} ({launched} "
           f"launches), bf16 all on wgmma and fp32 on simt")
     return routed
+
+
+def paged_routes():
+    """The paged-attention launches by route ("split" or "stream") since
+    tpp.routes was cleared."""
+    from paddle_tpu_torch.ops import tpp
+
+    return {k: n for k, n in tpp.routes.items()
+            if n and k.startswith("tpp_paged_attention.")}
 
 
 def flash_routes_checked(path, stream=False):
@@ -418,7 +458,7 @@ def serve_detector(dev, gen):
 
     from paddle_tpu_torch.amp import auto_cast
     from paddle_tpu_torch.models import ppyoloe_params_from_jax
-    from paddle_tpu_torch.ops import nms_pallas
+    from paddle_tpu_torch.ops import nms_pallas, tpp
     from paddle_tpu_torch.testing import golden
     from paddle_tpu_torch.vision.models import PPYOLOE, ppyoloe_tiny
     from paddle_tpu_torch.vision.ops import _sorted_desc, multiclass_nms, \
@@ -511,6 +551,7 @@ def serve_detector(dev, gen):
 
     nms_pallas.launches.clear()
     nms_pallas.routes.clear()
+    tpp.routes.clear()
     torch.cuda.reset_peak_memory_stats()
     out32, valid32 = serve()                                # warm-up
     times = []
@@ -534,6 +575,7 @@ def serve_detector(dev, gen):
     check(counts == {"nms:float32": n_calls, "nms:float32:smem": n_calls},
           f"detection serving: one NMS call per serving call, on the smem "
           f"route, got {counts} over {n_calls} calls")
+    counts.update(paged_routes())
     check(tuple(out32.shape) == (DET_BATCH, golden.DET_KEEP_TOP_K, 6)
           and bool(torch.isfinite(out32).all())
           and bool(((valid32 >= 0) & (valid32 <= golden.DET_KEEP_TOP_K))
@@ -578,11 +620,13 @@ def serve_detector(dev, gen):
     score, label = scores[0].max(dim=0)
     nms_pallas.launches.clear()
     nms_pallas.routes.clear()
+    tpp.routes.clear()
     kept_idx = nms(anchors, thr, score, label)
     counts_anchors = {**nms_pallas.launches, **nms_pallas.routes}
     check(counts_anchors == {"nms:float32": 1, "nms:float32:global": 1},
           f"paddle.vision.ops.nms over {anchors.shape[0]} anchors: one call "
           f"on the global route, got {counts_anchors}")
+    counts_anchors.update(paged_routes())
     check(0 < len(kept_idx) < anchors.shape[0],
           f"paddle.vision.ops.nms over the anchors suppresses some boxes: "
           f"kept {len(kept_idx)} of {anchors.shape[0]}")
@@ -652,6 +696,7 @@ def call_row_primitives(randn):
                      for d in torch_dtypes()},
           f"softmax_rows at {ROWS_SCORES}: one launch a dtype on the "
           f"register route, got {routes}")
+    counts.update(paged_routes())
     emit({"phase": "kernels_vs_plain", "kernel": "tpp_rowwise",
           "shapes": {"bias_act": ROWS_BIAS_ACT, "softmax_rows": ROWS_SCORES,
                      "masked_reduce": ROWS_SCORES},
@@ -810,7 +855,10 @@ def time_new_kernels(det, rows, randn, time_ms, bound, launch_counts):
 def gpt2_serving_engines(dev):
     """bench.py's serving workloads on GPT-2 small at full width, through
     the port's ServingEngine: the greedy drain on the dense and the paged
-    engine (their outputs must be equal), the mixed drain (staggered
+    engine (their outputs must be equal), the dense drain on an int8 cache
+    (each token generate's greedy pick on the same prompt and cache dtype,
+    along the drain's own tokens, within ENGINE_TIE_BF16), the mixed drain
+    (staggered
     arrivals, a third sampling, chunked prefill), and a paged run on a
     shared prefix with cold pages. After PAGED_STEPS decode steps of the
     paged drain, the paged-attention kernel runs once a layer on the live
@@ -826,6 +874,7 @@ def gpt2_serving_engines(dev):
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
     from paddle_tpu_torch.ops import tpp
     from paddle_tpu_torch.serving import paging
+    from paddle_tpu_torch.serving.decode_model import cache_row_bytes
 
     cfg = GPTConfig(vocab_size=50304, hidden_size=768, num_layers=12,
                     num_heads=12, max_seq_len=1024, dropout=0.0)
@@ -894,8 +943,31 @@ def gpt2_serving_engines(dev):
     eng = engine(False)
     warm(eng)
     dense_out, dense = drain(eng)
+    dense["cache_bytes"] = cache_row_bytes((eng._kc, eng._vc))
     del eng
     torch.cuda.empty_cache()
+
+    # ---- the dense drain on an int8 cache ------------------------------
+    eng = engine(False, cache_dtype="int8")
+    warm(eng)
+    int8_out, int8 = drain(eng)
+    int8["cache_bytes"] = cache_row_bytes((eng._kc, eng._vc))
+    del eng
+    torch.cuda.empty_cache()
+    gaps = torch.cat([teacher_forced_gaps(model, p, o, dtype="bfloat16",
+                                          cache_dtype="int8")
+                      for p, o in zip(prompts, int8_out)])
+    check(float(gaps.max()) <= ENGINE_TIE_BF16,
+          f"int8-cache engine: every token generate's greedy pick on the "
+          f"same prompt and cache dtype within {ENGINE_TIE_BF16} (max gap "
+          f"{float(gaps.max())})")
+    int8["vs_generate"] = {
+        "tokens": int(gaps.numel()), "generate_greedy": int(
+            (gaps == 0).sum()), "max_gap": float(gaps.max()),
+        "tie": ENGINE_TIE_BF16,
+        "tokens_equal_bf16_cache_drain": sum(
+            a == b for o8, o in zip(int8_out, dense_out)
+            for a, b in zip(o8, o))}
 
     live = {}
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -937,8 +1009,10 @@ def gpt2_serving_engines(dev):
     eng = engine(True, page_block=PAGE_BLOCK)
     warm(eng)
     tpp.launches.clear()                 # the paged serving path: from 0
+    tpp.routes.clear()
     paged_out, paged = drain(eng, at_step=paged_kernel_path)
     live["counts"] = dict(tpp.launches)
+    live["routes"] = paged_routes()
     check(set(live["counts"]) == {
         f"tpp_paged_attention.{v}:{d}" for v, d in (
             ("dense", "bfloat16"), ("dense", "float32"), ("int8", "float32"))},
@@ -954,6 +1028,7 @@ def gpt2_serving_engines(dev):
           "slots": SERVE_SLOTS, "requests": SERVE_REQUESTS,
           "prompt_lens": lens, "new_tokens": SERVE_NEW, "dtype": "bfloat16",
           "dense": dense, "paged": paged, "page_block": PAGE_BLOCK,
+          "dense_int8_cache": int8,
           "paged_live_pool_after_64_steps": live["stats"],
           "paged_outputs_equal_dense": True})
 
@@ -1105,21 +1180,24 @@ def gpt2_serving_engines(dev):
                                            lengths, ks[:, l], vs[:, l])
         key = f"{variant}[{dname}]"
         errs[key] = max(errs.get(key, 0.0), paged_err(got, want, dname))
-    return {"counts": live["counts"], "live": live, "errs": errs,
+    return {"counts": {**live["counts"], **live["routes"]}, "live": live,
+            "errs": errs,
             "int8_vs_dense": int8_vs_dense(live)}
 
 
 def paged_err(got, want, dname):
     """Max-abs error of the paged-attention kernel against its plain
-    version, checked against PAGED_TOL_F32 (fp32 out) or one bf16 step,
-    |got - want| <= 2^-7 |want| + 1e-6 (bf16 out)."""
+    version, checked against PAGED_TOL_F32 (fp32 out) or one step of the
+    output's type, |got - want| <= 2^-7 |want| + 1e-6 (bf16 out; 2^-10
+    for fp16)."""
     check(got.dtype == want.dtype and got.shape == want.shape,
           "paged attention: same dtype and shape as plain")
     diff = (got.float() - want.float()).abs()
     if dname == "float32":
         ok = diff.max().item() <= PAGED_TOL_F32
     else:
-        ok = bool((diff <= PAGED_BF16_REL * want.float().abs()
+        rel = PAGED_BF16_REL if dname == "bfloat16" else 2.0 ** -10
+        ok = bool((diff <= rel * want.float().abs()
                    + PAGED_BF16_ABS).all())
     check(ok, f"paged attention {dname} vs plain: err {diff.max().item()}")
     return diff.max().item()
@@ -1212,8 +1290,13 @@ def check_paged_sources(gen):
     """The paged-attention kernel against its plain version off the main
     path: a full-length case (8 rows x 1024 columns over a 513-frame pool)
     and the reference's audit shape with a zero-length row, bf16 and fp32
-    q, dense and int8 pages; two calls must give the same bits. Returns
-    {case: max-abs error} and the full-length inputs (for timing)."""
+    q, dense and int8 pages; two calls must give the same bits. Then
+    through the public entry what the split kernel cannot read as it is:
+    PAGED_STREAM_SHAPES (head dim or frame above 256) on the stream route,
+    the same cases; fp16 q (on fp16 and fp32 pages) and bf16 q on fp32
+    pages; a transposed-page view, which must give the contiguous pages'
+    bits. Returns {case: max-abs error}, the full-length inputs and the
+    stream route's timed case, hd 512 and bs 512 (for timing)."""
     import torch
 
     from paddle_tpu_torch.ops import tpp
@@ -1246,21 +1329,83 @@ def check_paged_sources(gen):
                 if name == "audit":
                     check(bool((got[0] == 0).all()),
                           "paged attention: a zero-length row gives zeros")
+    stream = None
+    n_stream = 0
+    for shape in PAGED_STREAM_SHAPES:
+        c = paged_cases(*shape, gen)
+        B, H, hd, bs = shape[:4]
+        for dname, dt in torch_dtypes().items():
+            q = torch.randn(B, H, hd, generator=gen,
+                            device=gen.device).to(dt)
+            for variant in ("dense", "int8"):
+                if variant == "dense":
+                    args = (c["kp"].to(dt), c["vp"].to(dt), c["tables"],
+                            c["lengths"])
+                else:
+                    kq, vq, ks, vs = c["int8"]
+                    args = (kq, vq, c["tables"], c["lengths"], ks, vs)
+                key = f"tpp_paged_attention.{variant}:{dname}:stream"
+                n0 = tpp.routes[key]
+                got = tpp.paged_attention(q, *args)
+                again = tpp.paged_attention(q, *args)
+                torch.cuda.synchronize()
+                check(tpp.routes[key] - n0 == 2, f"paged attention hd {hd} "
+                      f"bs {bs}: both calls on the stream route")
+                n_stream += 2
+                check(torch.equal(got, again),
+                      f"paged attention stream hd {hd} bs {bs} {variant} "
+                      f"{dname}: two calls, the same bits")
+                check(bool((got[0] == 0).all()),
+                      "paged attention stream: a zero-length row gives zeros")
+                errs[f"stream_hd{hd}_bs{bs}.{variant}[{dname}]"] = paged_err(
+                    got, tpp.paged_attention_ref(q, *args), dname)
+        if hd == 512 and bs == 512:
+            stream = c
+    # dtype pairs and a transposed-page view, on the split route
+    c = full
+    B, H, hd = c["tables"].shape[0], c["kp"].shape[1], c["kp"].shape[3]
+    for q_dt, p_dt in ((torch.float16, torch.float16),
+                       (torch.float16, torch.float32),
+                       (torch.bfloat16, torch.float32)):
+        q = torch.randn(B, H, hd, generator=gen, device=gen.device).to(q_dt)
+        args = (c["kp"].to(p_dt), c["vp"].to(p_dt), c["tables"],
+                c["lengths"])
+        dname = str(q_dt).replace("torch.", "")
+        errs[f"full_length.q_{dname}_pages_"
+             f"{str(p_dt).replace('torch.', '')}"] = paged_err(
+            tpp.paged_attention(q, *args), tpp.paged_attention_ref(q, *args),
+            dname)
+    q = torch.randn(B, H, hd, generator=gen, device=gen.device)
+    tk, tv = (t.transpose(1, 2).contiguous().transpose(1, 2)
+              for t in (c["kp"], c["vp"]))
+    check(torch.equal(tpp.paged_attention(q, tk, tv, c["tables"],
+                                          c["lengths"]),
+                      tpp.paged_attention(q, c["kp"], c["vp"], c["tables"],
+                                          c["lengths"])),
+          "paged attention: a transposed-page view gives the contiguous "
+          "pages' bits")
     emit({"phase": "kernels_vs_plain", "kernel": "paged_attention",
           "full_length": [SERVE_SLOTS, 12, 64, PAGE_BLOCK, 1024 // PAGE_BLOCK,
                           513], "audit_shape_B_H_hd_bs_maxb": AUDIT_SHAPES[0],
+          "stream_shapes_B_H_hd_bs_maxb_NB": PAGED_STREAM_SHAPES,
+          "stream_route_launches": n_stream,
           "zero_length_row_zeros": True, "two_calls_bit_equal": True,
+          "transposed_page_view_bit_equal": True,
           "max_abs_err": errs,
           "tol": {"float32": PAGED_TOL_F32,
                   "bfloat16": f"|d| <= {PAGED_BF16_REL} |plain| + "
-                              f"{PAGED_BF16_ABS}"}})
-    return errs, full
+                              f"{PAGED_BF16_ABS}",
+                  "float16": f"|d| <= {2.0 ** -10} |plain| + "
+                             f"{PAGED_BF16_ABS}"}})
+    return errs, full, stream
 
 
-def time_paged_attention(serve, full, full_errs, time_ms, bound,
+def time_paged_attention(serve, full, full_errs, stream, time_ms, bound,
                          launch_counts):
     """The `kernels` entries of the paged-attention kernel: one layer of
-    the live pool (the main path's call), and the full-length case. ms
+    the live pool (the main path's call), the full-length case, and the
+    stream route at head dim 512 and frames of 512 (`stream`; no path
+    launches it: no model has such heads). ms
     times the launch alone, wrapper_ms the entry point with its checks;
     the bound counts what the function needs: the K and V rows (and their
     scales) of the columns below each length, the table entries of the
@@ -1271,7 +1416,7 @@ def time_paged_attention(serve, full, full_errs, time_ms, bound,
 
     from paddle_tpu_torch.ops import tpp
 
-    def entry(q, kp, vp, tables, lengths, scales, dname):
+    def entry(q, kp, vp, tables, lengths, scales, dname, route="split"):
         B, H, hd = q.shape
         bs, maxb = kp.shape[2], tables.shape[1]
         cols = int(lengths.long().sum())
@@ -1290,7 +1435,7 @@ def time_paged_attention(serve, full, full_errs, time_ms, bound,
 
         def kern():
             return tpp._paged_kernel_call(q, kp, vp, tables, lengths,
-                                          *scales)
+                                          *scales, route=route)
 
         def sdpa():
             return torch.nn.functional.scaled_dot_product_attention(
@@ -1311,6 +1456,7 @@ def time_paged_attention(serve, full, full_errs, time_ms, bound,
             "library_covers": "scaled_dot_product_attention on the "
                               "pre-gathered dense layout with the length "
                               "mask (gather excluded)",
+            "route": route,
             "splits": {"frames_a_split": fps, "splits_a_row": nsplit,
                        "blocks": B * H * nsplit},
             "bytes": nbytes, "shape_B_H_hd_bs_maxb": [B, H, hd, bs, maxb],
@@ -1337,6 +1483,14 @@ def time_paged_attention(serve, full, full_errs, time_ms, bound,
             fscales = (fks, fvs)
         fq = torch.randn(full["tables"].shape[0], full["kp"].shape[1],
                          full["kp"].shape[3], device=q.device).to(q.dtype)
+        sq = torch.randn(stream["tables"].shape[0], stream["kp"].shape[1],
+                         stream["kp"].shape[3], device=q.device).to(q.dtype)
+        if variant == "dense":
+            sk, sv = stream["kp"].to(q.dtype), stream["vp"].to(q.dtype)
+            sscales = (None, None)
+        else:
+            sk, sv, sks, svs = stream["int8"]
+            sscales = (sks, svs)
         kernels.append({
             "name": f"paged_attention.{variant}[{dname}]", "route": "cuda",
             "source": "paddle_tpu_torch/ops/csrc/paged_attention.cu",
@@ -1350,46 +1504,311 @@ def time_paged_attention(serve, full, full_errs, time_ms, bound,
             "full_length": {
                 **entry(fq, fk, fv, full["tables"], full["lengths"], fscales,
                         dname),
-                "max_abs_err": full_errs[f"full_length.{variant}[{dname}]"]}})
+                "max_abs_err": full_errs[f"full_length.{variant}[{dname}]"]},
+            "stream_route_hd512_bs512": {
+                **entry(sq, sk, sv, stream["tables"], stream["lengths"],
+                        sscales, dname, route="stream"),
+                **launch_counts(
+                    f"tpp_paged_attention.{variant}:{dname}:stream"),
+                "max_abs_err": full_errs[
+                    f"stream_hd512_bs512.{variant}[{dname}]"]}})
     return kernels
 
 
-def naive_sdpa_before_after(model, ids):
-    """GPT-2 small's fp32 model at seq 512 (SDPA's naive path) under
-    auto_cast(bf16), eval and in training mode with its dropout 0.1 (the
-    generator reseeded for each run): the logits with the naive branch's
-    autocast guard (the repair) and without it (as before the repair,
-    when torch's autocast made the CUDA softmax's probabilities fp32).
-    Returns the max-abs difference of the two, for each mode."""
-    import contextlib
-
+def auto_cast_enters_no_autocast():
+    """auto_cast(bf16) only sets the amp state that linear and matmul
+    read: torch's own CUDA autocast stays off inside it, so no other op
+    (SDPA's naive branch, conv2d, the decode math) is cast."""
     import torch
 
-    import paddle_tpu_torch as pt
-    from paddle_tpu_torch.amp import auto_cast
-    from paddle_tpu_torch.nn.functional import transformer
+    from paddle_tpu_torch.amp import amp_dtype, auto_cast
 
-    guard = transformer._autocast_off
-    out = {"batch": int(ids.shape[0]), "seq": int(ids.shape[1])}
-    for mode in ("eval", "train"):
-        model.train(mode == "train")
-        logits = []
-        for off in (guard, contextlib.nullcontext):
-            transformer._autocast_off = off
-            try:
-                pt.seed(0)
-                with torch.no_grad(), auto_cast(True, dtype="bfloat16"):
-                    logits.append(model(ids).float())
-            finally:
-                transformer._autocast_off = guard
-        check(all(bool(torch.isfinite(t).all()) for t in logits),
-              f"naive SDPA {mode}: finite logits")
-        after, before = logits
-        out[f"{mode}_max_abs_diff_before_vs_after"] = \
-            (after - before).abs().max().item()
-        out[f"{mode}_logits_max_abs"] = after.abs().max().item()
-    model.eval()
+    with auto_cast(True, dtype="bfloat16"):
+        state = {"amp_dtype": str(amp_dtype()),
+                 "torch_cuda_autocast": torch.is_autocast_enabled("cuda")}
+    check(state == {"amp_dtype": "torch.bfloat16",
+                    "torch_cuda_autocast": False},
+          f"auto_cast sets the amp dtype and enters no torch.autocast, got "
+          f"{state}")
+    return state
+
+
+def teacher_forced_gaps(model, prompt, toks, dtype=None, cache_dtype=None):
+    """generate's decode math (models/gpt.py ``_decode_fns``, one row at
+    its own length, the cache of prompt + new columns) fed the prompt and
+    then `toks` [n] one at a time, as generate feeds its own picks. Returns
+    the gap of each step's token below that step's largest logit
+    (0 where generate's greedy pick is the token), as a float64 [n]."""
+    import torch
+
+    from paddle_tpu_torch.models import gpt as pgpt
+
+    dev = model.device
+    fwd, logits_of, cache_init = pgpt._decode_fns(model.cfg, cache_dtype)
+    compute = pgpt._decode_compute_dtype(dtype)
+    p = {n: (t.detach().to(compute) if compute is not None
+             and t.is_floating_point() else t.detach())
+         for n, t in model.named_parameters()}
+    toks = torch.as_tensor(toks, device=dev).long()
+    ids = torch.as_tensor(prompt, device=dev).long()[None]
+    s0, n = ids.shape[1], toks.shape[0]
+    rows = []
+    with torch.no_grad():
+        kc, vc = cache_init(1, s0 + n, p["gpt.wte.weight"].dtype, dev)
+        x = fwd(p, ids, 0, kc, vc)[:, -1]
+        for i in range(n):
+            rows.append(logits_of(p, x).float()[0])
+            if i + 1 < n:
+                x = fwd(p, toks[i].reshape(1, 1), s0 + i, kc, vc)[:, 0]
+    lg = torch.stack(rows)
+    gaps = lg.max(-1).values - lg.gather(-1, toks[:, None].to(
+        lg.device)).squeeze(-1)
+    return gaps.double().cpu()
+
+
+def narrow_quantized_decode(dev):
+    """The narrow model's greedy generate on int8 and fp8 caches (the JAX
+    fixture's prompt, fp32 params) on the card, held against the port's
+    CPU run of the same weights, which tests/test_torch_kv_quant.py holds
+    to the JAX package's tokens: every card token is the CPU's greedy
+    pick along the card's own tokens, or within QUANT_TIE_F32 of it."""
+    import torch
+
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM, \
+        params_from_jax
+    from paddle_tpu_torch.testing import golden
+
+    state = params_from_jax(golden.jax_layout_params())
+    cpu = GPTForCausalLM(GPTConfig(**golden.NARROW), device="cpu")
+    cpu.load_state_dict(state)
+    card = GPTForCausalLM(GPTConfig(**golden.NARROW), device=dev)
+    card.load_state_dict(state)
+    prompt = golden.input_ids()[:, :golden.PROMPT]
+    out = {}
+    for leg in ("int8", "fp8"):
+        toks = card.generate(torch.as_tensor(prompt, device=dev).long(),
+                             max_new_tokens=golden.NEW_TOKENS,
+                             temperature=0.0, cache_dtype=leg)
+        new = toks[0, golden.PROMPT:].cpu()
+        want = cpu.generate(torch.as_tensor(prompt).long(),
+                            max_new_tokens=golden.NEW_TOKENS,
+                            temperature=0.0, cache_dtype=leg)
+        gaps = teacher_forced_gaps(cpu, prompt[0], new, cache_dtype=leg)
+        check(float(gaps.max()) <= QUANT_TIE_F32,
+              f"narrow {leg} generate on the card: every token the CPU's "
+              f"greedy pick within {QUANT_TIE_F32} (max gap "
+              f"{float(gaps.max())})")
+        out[leg] = {"tokens_equal_cpu": int((new == want[0, golden.PROMPT:])
+                                            .sum()),
+                    "of": golden.NEW_TOKENS,
+                    "steps_off_cpu_greedy": int((gaps > 0).sum()),
+                    "max_gap": float(gaps.max())}
     return out
+
+
+def gpt2_decode_legs(dev):
+    """bench.py's gpt2s_decode as it runs on the TPU (run_decode :583-631,
+    the int8 and fp8 legs :1097-1110): GPT-2 small (random weights from
+    seed 0), bf16 params, batch 8, prompt 128 (RandomState(0)), 256 new
+    tokens, greedy, on a bf16, an int8 and an fp8 cache. New tok/s with
+    prefill excluded by differencing a 1-token run, DECODE_REPS runs each
+    after a warm-up; MBU by bench.py's byte count (_decode_mbu :633-660)
+    over the H100's 3.35 TB/s; the cache's allocated bytes. Returns the
+    phase's dict, with the kernel launches of the decode (none: the
+    reference's decode runs no kernel either)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.models import gpt as pgpt
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import nms_pallas, tpp
+    from paddle_tpu_torch.serving.decode_model import cache_row_bytes
+
+    cfg = GPTConfig(vocab_size=50304, hidden_size=768, num_layers=12,
+                    num_heads=12, max_seq_len=1024, dropout=0.0)
+    model = GPTForCausalLM(cfg, device=dev,
+                           generator=torch.Generator().manual_seed(0)).eval()
+    B, P, N = DECODE_BATCH, DECODE_PROMPT, DECODE_NEW
+    ids = torch.as_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (B, P)).astype(np.int32)).long().to(dev)
+    h, L, V = cfg.hidden_size, cfg.num_layers, cfg.vocab_size
+    hd, KVh = h // cfg.num_heads, cfg.num_kv_heads
+    streamed = L * 12 * h * h + h * V   # bench.py's _n_params - the gathered
+    #                                     embedding: every block and the head
+    for counter in (fa.launches, tpp.launches, tpp.routes,
+                    nms_pallas.launches):
+        counter.clear()
+    legs, toks = {}, {}
+    for leg in DECODE_LEGS:
+        def run(n):
+            return model.generate(ids, max_new_tokens=n, temperature=0.0,
+                                  dtype="bfloat16", cache_dtype=leg)
+
+        def timed(n):
+            run(n)                                   # warm-up
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(DECODE_REPS):
+                out = run(n)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t, out
+
+        torch.cuda.reset_peak_memory_stats()
+        dt_full, out = timed(N)
+        dt_prefill, _ = timed(1)
+        decode_s = max(dt_full - dt_prefill, 1e-9)
+        tps = B * (N - 1) * DECODE_REPS / decode_s
+        check(tuple(out.shape) == (B, P + N) and bool(
+            ((out >= 0) & (out < V)).all()),
+              f"decode leg {leg}: [{B}, {P + N}] ids in the vocabulary")
+        quant = leg is not None
+        row_bytes = hd * (1 if quant else 2) + (4 if quant else 0)
+        mbu_cache = B * 2 * L * (P + N / 2) * KVh * row_bytes
+        bytes_per_token = (2 * streamed + mbu_cache) / B
+        kc, vc = pgpt._decode_fns(cfg, leg)[2](B, P + N, torch.bfloat16,
+                                              "meta")
+        legs[leg or "bfloat16"] = {
+            "new_tok_per_s": tps,
+            "mbu": tps * bytes_per_token / HBM_BYTES_PER_S,
+            "mbu_bytes_per_token": bytes_per_token,
+            "mbu_cache_bytes_avg_len": mbu_cache,
+            "cache_bytes": cache_row_bytes((kc, vc)),
+            "full_s": dt_full, "prefill_and_one_step_s": dt_prefill,
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 2 ** 30}
+        toks[leg] = out[:, P:]
+    for leg in ("int8", "fp8"):
+        legs[leg]["new_tokens_equal_bf16_leg"] = int(
+            (toks[leg] == toks[None]).sum())
+    counts = {k: n for c in (fa.launches, tpp.launches, tpp.routes,
+                             nms_pallas.launches)
+              for k, n in c.items() if n}
+    check(not counts, f"decode legs: no kernel launch (the reference's "
+          f"decode runs none), got {counts}")
+    del model
+    torch.cuda.empty_cache()
+    return {"legs": legs, "counts": counts}
+
+
+def train_detector(dev):
+    """PP-YOLOE training as bench.py runs it (run_ppyolo_train :493-545):
+    loss(decode(model(x))) through SpmdTrainer(loss_fn=None) with Momentum
+    (lr 0.01, momentum 0.9) under bf16 auto_cast, TF32 off. First the
+    narrow detector's golden.DET_TRAIN_STEPS steps against the JAX
+    package's committed run; then the full width (80 classes, width 64,
+    depth 2; batch 8 at 640 x 640 from RandomState(0), targets over the
+    8,400 anchors from RandomState(1), as bench.py draws them): one warm-up
+    step, DET_TRAIN_STEPS_TIMED timed steps (host clock around a
+    synchronised step) and one profiled. Returns the full-width path's
+    kernel launches (none of the port's kernels: no NMS in training)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.distributed import SpmdTrainer
+    from paddle_tpu_torch.models import ppyoloe_params_from_jax
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import nms_pallas, tpp
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.testing import golden
+    from paddle_tpu_torch.vision.models import PPYOLOE, PPYOLOELoss, \
+        ppyoloe_tiny
+
+    torch.backends.cudnn.allow_tf32 = False
+
+    def trainer_for(det, classes):
+        layer = golden.detector_train_step(det, PPYOLOELoss(classes))
+        return SpmdTrainer(layer, Momentum(
+            learning_rate=golden.DET_TRAIN_LR,
+            momentum=golden.DET_TRAIN_MOMENTUM,
+            parameters=layer.parameters()), loss_fn=None)
+
+    # the narrow detector against the JAX package's three steps
+    fix = dict(np.load(golden.DET_TRAIN_FIXTURE))
+    det = ppyoloe_tiny(num_classes=golden.DET_CLASSES, device=dev)
+    det.load_state_dict(ppyoloe_params_from_jax(golden.detector_state()))
+    tr = trainer_for(det, golden.DET_CLASSES)
+    init = {n: p.detach().cpu().numpy().copy()
+            for n, p in tr.params.items()}
+    batch = [torch.as_tensor(a, device=dev) for a in (
+        golden.detector_images(), *golden.detector_targets())]
+    with auto_cast(True, dtype="bfloat16"):
+        losses = [float(tr.train_step(*batch))
+                  for _ in range(golden.DET_TRAIN_STEPS)]
+    summary = golden.detector_train_summary(
+        losses, {n: p.detach().cpu().numpy() for n, p in tr.params.items()},
+        {n: tr.opt_state[n]["velocity"].cpu().numpy() for n in tr.params},
+        {n: b.cpu().numpy() for n, b in tr.buffers.items()}, init)
+    err = golden.detector_train_errors(summary, fix)
+    check(max(err["loss"], err["values"]) <= golden.DET_TRAIN_RTOL
+          and err["norms"] <= golden.DET_TRAIN_NORM_RTOL,
+          f"narrow detector training vs JAX: {err}")
+    emit({"phase": "ppyoloe_narrow_train_vs_jax_fixture",
+          "steps": golden.DET_TRAIN_STEPS, "losses": losses,
+          "jax_losses": fix["loss"].tolist(), "rel_err": err,
+          "tol": {"loss_and_values": golden.DET_TRAIN_RTOL,
+                  "norms": golden.DET_TRAIN_NORM_RTOL},
+          "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32})
+    del det, tr, batch
+
+    # the full width, bench.py's config
+    det = PPYOLOE(**DET_CONFIG, device=dev,
+                  generator=torch.Generator().manual_seed(0))
+    tr = trainer_for(det, DET_CONFIG["num_classes"])
+    A = sum((DET_SIZE // s) ** 2 for s in det.strides)
+    images = torch.as_tensor(np.random.RandomState(0).rand(
+        DET_BATCH, 3, DET_SIZE, DET_SIZE).astype(np.float32), device=dev)
+    rng = np.random.RandomState(1)
+    gt_boxes = torch.as_tensor((rng.rand(DET_BATCH, A, 4) * DET_SIZE)
+                               .astype(np.float32), device=dev)
+    gt_labels = torch.as_tensor(rng.randint(
+        0, DET_CONFIG["num_classes"] + 1, (DET_BATCH, A)).astype(np.int64),
+        device=dev)
+    for counter in (fa.launches, tpp.launches, tpp.routes,
+                    nms_pallas.launches):
+        counter.clear()
+    losses = []
+
+    def step():
+        with auto_cast(True, dtype="bfloat16"):
+            loss = tr.train_step(images, gt_boxes, gt_labels)
+        losses.append(loss.item())
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(1 + DET_TRAIN_STEPS_TIMED):        # one warm-up step
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t) * 1e3)
+    _, trace = device_breakdown(step, det_group)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = {k: n for c in (fa.launches, tpp.launches, tpp.routes,
+                             nms_pallas.launches)
+              for k, n in c.items() if n}
+    check(all(math.isfinite(x) for x in losses),
+          f"PP-YOLOE training: finite losses {losses}")
+    check(trace.get("kernels", 0) > 0, "PP-YOLOE training: the profiled "
+          "step ran on the device")
+    ms = statistics.median(times)
+    emit({"phase": "ppyoloe_train", "config": DET_CONFIG,
+          "batch": DET_BATCH, "size": DET_SIZE, "anchors": A,
+          "optimizer": f"Momentum lr {golden.DET_TRAIN_LR} momentum "
+                       f"{golden.DET_TRAIN_MOMENTUM}",
+          "auto_cast": "bfloat16 (casts nothing on the detector)",
+          "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+          "step_ms": ms, "step_ms_all": times,
+          "imgs_per_s": DET_BATCH / (ms / 1e3),
+          "losses": losses, "loss_falls": losses[-1] < losses[0],
+          "max_memory_allocated_gb": peak, "profiled": trace,
+          "main_path_launches": counts})
+    del det, tr, images, gt_boxes, gt_labels
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main():
@@ -2026,7 +2445,8 @@ def main():
     check(toks_bf16.shape == (4, 256)
           and bool(((toks_bf16 >= 0) & (toks_bf16 < cfg.vocab_size)).all()),
           "bf16 generate: [4, 256] ids in the vocabulary")
-    counts_serve = {**fa.launches, **tpp.launches, **fa.routes}
+    counts_serve = {**fa.launches, **tpp.launches, **fa.routes,
+                    **paged_routes()}
     emit({"phase": "gpt2_small_generate", "batch": 4, "prompt": 128,
           "new_tokens": n_new, "dtype": "bfloat16",
           "seconds_all": gen_s,
@@ -2036,8 +2456,8 @@ def main():
           "main_path_launches": counts_serve,
           "flash_routes": flash_routes_checked("serving path"),
           "tpp_routes": tpp_routes_checked("serving path")})
-    naive_sdpa = naive_sdpa_before_after(model, ids[:, :NAIVE_SEQ])
-    emit({"phase": "gpt2_small_naive_sdpa_under_auto_cast", **naive_sdpa})
+    emit({"phase": "auto_cast_enters_no_torch_autocast",
+          **auto_cast_enters_no_autocast()})
     del model, model_bf16
     torch.cuda.empty_cache()
 
@@ -2125,7 +2545,8 @@ def main():
         del model, trainer
         torch.cuda.empty_cache()
     set_flags({"tpp_kernels": False})
-    counts_train = {**fa.launches, **tpp.launches, **fa.routes}
+    counts_train = {**fa.launches, **tpp.launches, **fa.routes,
+                    **paged_routes()}
     emit({"phase": "gpt2_small_train", "batch": TRAIN_BATCH, "seq": S,
           "optimizer": "AdamW lr 1e-4", "flops_per_token": flops_per_token,
           "warmup_steps": 1, "train": train,
@@ -2146,7 +2567,25 @@ def main():
           "source": "the paged engine's live pool, 12 layers",
           "max_abs_err": serve["errs"], "int8_vs_dense": serve["int8_vs_dense"],
           "main_path_launches": counts_paged})
-    paged_errs, paged_full = check_paged_sources(gen)
+    paged_errs, paged_full, paged_stream = check_paged_sources(gen)
+
+    # ---- 4f. gpt2s_decode: the bf16, int8 and fp8 caches ------------------
+    narrow_q = narrow_quantized_decode(dev)
+    decode = gpt2_decode_legs(dev)
+    counts_decode = decode["counts"]
+    emit({"phase": "gpt2_small_decode", "config": "bench.py run_decode",
+          "batch": DECODE_BATCH, "prompt": DECODE_PROMPT,
+          "new_tokens": DECODE_NEW, "reps": DECODE_REPS,
+          "dtype": "bfloat16", "legs": decode["legs"],
+          "mbu_is": "new tok/s x bench.py _decode_mbu's bytes a token "
+                    "(bf16 params but the gathered embedding, the cache at "
+                    "its average length with 4-byte row scales) / "
+                    f"{HBM_BYTES_PER_S / 1e12} TB/s",
+          "narrow_quantized_vs_cpu": narrow_q,
+          "narrow_tie": QUANT_TIE_F32, "main_path_launches": counts_decode})
+
+    # ---- 4g. PP-YOLOE training -------------------------------------------
+    counts_det_train = train_detector(dev)
 
     # ---- 5. times at the main path's shapes -------------------------------
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > L2
@@ -2204,7 +2643,9 @@ def main():
                    "detect_serve": count(counts_detect),
                    "detect_anchors_nms": count(counts_anchors),
                    "tpp_rows": count(counts_rows),
-                   "gpt_paged_serving": count(counts_paged)}
+                   "gpt_paged_serving": count(counts_paged),
+                   "gpt_decode": count(counts_decode),
+                   "detect_train": count(counts_det_train)}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
@@ -2546,8 +2987,9 @@ def main():
             **rows["stats"][M], "train_shape": rows["stats"][M_TRAIN]})
     kernels += time_new_kernels(det_path, rows_path, randn, time_ms, bound,
                                 launch_counts)
-    kernels += time_paged_attention(serve, paged_full, paged_errs, time_ms,
-                                    bound, launch_counts)
+    kernels += time_paged_attention(serve, paged_full, paged_errs,
+                                    paged_stream, time_ms, bound,
+                                    launch_counts)
     emit({"phase": "times", "method": "CUDA events, 3 warm-up, median of "
           "20 (the plain NMS: 1 warm-up, median of 5), 64 MB written "
           "between launches to flush L2; device_ms (flash, TPP, paged "

@@ -1,24 +1,22 @@
 """AMP autocast.
 
 Ports paddle_tpu/amp/auto_cast.py: ``auto_cast`` / ``amp_guard``,
-``amp_state`` and ``amp_dtype``. Under the reference's autocast only two
-ops read the amp state, ``linear`` and ``matmul``: they cast their
-floating inputs to the amp dtype, and every other op runs in its input
-dtype (convolutions included; the reference's ``maybe_cast_inputs`` is
-called from nowhere). The port keeps no op lists: here the context
-enters ``torch.autocast`` for the CPU and, when there is one, the CUDA
-device, so a tensor is cast by the autocast of the device it lies on,
-and torch's autocast casts every op on torch's own lists. So each ported
-op on those lists other than linear/matmul runs with autocast off
-(``disabled()``) to keep the reference's semantics: ``nn.functional.
-conv2d`` does, and so do the kernel Functions of ops/ (flash attention,
-TPP), which run in the dtype they are handed. On the GPT path that gives
-the reference's semantics: the Linear layers and the tied head run in
-bf16 (so q, k and v, the attention output and the logits are bf16), the
-residual stream and LayerNorms stay fp32 and the loss upcasts the logits
-itself; on the detector's path everything stays fp32. The ops still to be
-ported that torch's lists name (bmm, baddbmm, conv1d/3d, softplus, exp,
-log, ...) are listed in ROADMAP.md's Queue 3.
+``amp_state`` and ``amp_dtype``. As in the reference, the context only
+sets the amp state, and only two ops read it: ``nn.functional.linear``
+(and so the ``nn.Linear`` layer) and ``tensor.matmul``, which cast their
+floating inputs to the amp dtype. Every other op runs in its input dtype:
+convolutions, BatchNorm, softmax, exp, log, reductions and the kernels of
+ops/ (the reference's ``maybe_cast_inputs`` is called from nowhere). On
+the GPT path that gives the Linear layers and the tied head in bf16 (so
+q, k and v, the attention output and the logits are bf16), the residual
+stream and LayerNorms in fp32, and the loss upcasting the logits itself;
+on the detector's path everything stays fp32.
+
+``auto_cast`` never enters ``torch.autocast``. ``disabled()`` turns off a
+``torch.autocast`` that a caller may have entered around the port's code,
+for the ops that must not be cast by it (the trainer's backward, the
+kernel Functions of ops/, ``conv2d``, SDPA's naive path, the decode
+math).
 
 ``level="O2"`` and custom white/black lists are not ported yet and raise
 NotImplementedError.
@@ -45,16 +43,12 @@ def _convert_dtype(dtype):
     return _DTYPES[dtype]
 
 
-def _device_types():
-    return ["cpu"] + (["cuda"] if torch.cuda.is_available() else [])
-
-
 @contextlib.contextmanager
 def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
               level="O1", dtype="bfloat16"):
-    """Run the enclosed ops under mixed precision: linear/matmul in
-    `dtype`, the ported ops in their input dtype. Nested contexts restore
-    the outer state on exit."""
+    """Run the enclosed code with the amp state set: linear and matmul
+    compute in `dtype`, every other op in its input dtype. Nested contexts
+    restore the outer state on exit."""
     if level != "O1":
         raise NotImplementedError(f"auto_cast(level={level!r}) is not ported "
                                   "yet (O1 only)")
@@ -65,11 +59,7 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
     old = dict(_STATE)
     _STATE.update(enabled=bool(enable), dtype=d)
     try:
-        with contextlib.ExitStack() as stack:
-            for dev in _device_types():
-                stack.enter_context(torch.autocast(
-                    device_type=dev, dtype=d, enabled=bool(enable)))
-            yield
+        yield
     finally:
         _STATE.update(old)
 
@@ -77,14 +67,14 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
 amp_guard = auto_cast
 
 
+def _device_types():
+    return ["cpu"] + (["cuda"] if torch.cuda.is_available() else [])
+
+
 @contextlib.contextmanager
 def disabled():
-    """Autocast off on every device type, whatever encloses the block. The
-    trainer's backward runs under it (gradients take the dtypes the
-    forward chose, as the reference's vjp does), and so do the kernel
-    Functions of ops/ and their plain versions, which compute in fp32
-    whatever an enclosing autocast says, and ``conv2d``, which the
-    reference's auto_cast never casts."""
+    """torch's autocast off on every device type, whatever encloses the
+    block (``auto_cast`` itself enters none)."""
     with contextlib.ExitStack() as stack:
         for dev in _device_types():
             stack.enter_context(torch.autocast(device_type=dev,
@@ -94,3 +84,16 @@ def disabled():
 
 def amp_dtype():
     return _STATE["dtype"] if _STATE["enabled"] else None
+
+
+def cast_inputs(*ts):
+    """The reference's cast in ``linear`` and ``matmul``: under an enabled
+    auto_cast, when the first input is floating, every input becomes the
+    amp dtype; otherwise inputs of two dtypes meet in their promoted one,
+    as ``jnp.matmul`` promotes them."""
+    d = amp_dtype()
+    if d is None or not ts[0].is_floating_point():
+        d = ts[0].dtype
+        for t in ts[1:]:
+            d = torch.promote_types(d, t.dtype)
+    return tuple(t if t.dtype == d else t.to(d) for t in ts)

@@ -14,8 +14,11 @@ What differs from the reference:
 - The non-finite guard is synchronous: with ``FLAGS_check_nan_inf`` each
   step reads one boolean back from the device (one ``.item()``), where the
   reference defers the verdict by a step. A non-finite loss or gradient
-  skips the update, so parameters, optimizer state and the step counter
-  stay bit-identical (the learning-rate position does not advance); more
+  skips the update, so parameters, optimizer state, the layer's buffers
+  (BatchNorm's running statistics, which a training forward updates in
+  place: the guard copies them before the forward and puts the copies
+  back) and the step counter stay bit-identical (the learning-rate
+  position does not advance); more
   than ``FLAGS_max_skip_steps`` consecutive skips raise FloatingPointError
   from the step that makes the streak too long.
 - ``stats()`` times each step on the host clock without a device sync, as
@@ -98,6 +101,7 @@ class SpmdTrainer:
         self.amp_dtype = amp_dtype
         self.params = {n: p for n, p in layer.named_parameters()
                        if p.requires_grad}
+        self.buffers = dict(layer.named_buffers())
         self.opt_state = optimizer.functional_init(self.params)
         self._device = next(iter(self.params.values())).device \
             if self.params else torch.device("cpu")
@@ -130,12 +134,17 @@ class SpmdTrainer:
         batch = [self._to_device(b) for b in batch]
         for p in self.params.values():
             p.grad = None
+        guard = _flags.get_flag("check_nan_inf", False)
+        saved = {n: b.clone() for n, b in self.buffers.items()} \
+            if guard else None
         loss = self._forward_loss(batch).float()
         with _autocast_off():
             loss.backward()
         grads = {n: p.grad for n, p in self.params.items()}
-        if _flags.get_flag("check_nan_inf", False) \
-                and not self._all_finite(loss, grads):
+        if guard and not self._all_finite(loss, grads):
+            with torch.no_grad():
+                for n, b in self.buffers.items():
+                    b.copy_(saved[n])
             self._skip()
         else:
             self._nonfinite_streak = 0

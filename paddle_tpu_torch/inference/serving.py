@@ -39,8 +39,12 @@ reference compiles its programs and pads prompts to ``prompt_buckets``;
 here prompts and chunks are prefilled at their own length (the junk
 columns the padding writes are causally hidden, so the tokens are the
 same), and ``prompt_buckets`` is validated as the reference validates it.
-Not ported, each raising ``NotImplementedError``: ``tp_mesh``,
-``draft_model``, ``cache_dtype``, ``max_adapters``/``lora_rank`` > 0,
+``cache_dtype="int8"`` or ``"fp8"`` keeps the dense cache quantized as the
+decode model's ``decode_fns`` lays it out (GPT: each side a (values,
+scales) pair; ``cache_spec()["quantized"]``); the paged engine refuses it,
+as the reference's does. Not ported, each raising
+``NotImplementedError``: ``tp_mesh``, ``draft_model``,
+``max_adapters``/``lora_rank`` > 0,
 ``load_adapter``, ``evict_adapter``, ``submit(adapter=)``, ``hot_swap``,
 ``admit_prefilled`` and ``warmup``. Not ported at all: the reference's
 ``FLAGS_async_dispatch`` step, monitor counters, trace spans, blackbox
@@ -62,6 +66,16 @@ __all__ = ["ServingEngine", "Request", "QueueFullError"]
 class QueueFullError(RuntimeError):
     """submit() rejected: the bounded admission queue is full and the
     request's priority does not outrank any queued entry."""
+
+
+def _cache_map(f, c):
+    """f over a cache side: a tensor, or a tuple of tensors (a quantized
+    side's values and scales)."""
+    return tuple(f(x) for x in c) if isinstance(c, tuple) else f(c)
+
+
+def _cache_leaves(c):
+    return c if isinstance(c, tuple) else (c,)
 
 
 def _not_ported(what):
@@ -684,8 +698,10 @@ class ServingEngine:
             # the row goes into the slot's reserved PRIVATE frames
             self._pool.admit_row(slot, kc1[:, 0], vc1[:, 0])
         else:
-            self._kc[:, slot] = kc1[:, 0]
-            self._vc[:, slot] = vc1[:, 0]
+            for big, row in zip(_cache_leaves(self._kc)
+                                + _cache_leaves(self._vc),
+                                _cache_leaves(kc1) + _cache_leaves(vc1)):
+                big[:, slot] = row[:, 0]
         self._slot_req[slot] = req
         self._pos[slot] = n
         self._temps[slot] = req.temperature
@@ -730,7 +746,8 @@ class ServingEngine:
                 self._m["prefix_hit"] += 1
                 _, kc_p, vc_p = self._prefixes[req.prefix_id]
                 self._slot_req[slot] = req
-                self._prefilling[slot] = [req, kc_p.clone(), vc_p.clone(),
+                self._prefilling[slot] = [req, _cache_map(torch.clone, kc_p),
+                                          _cache_map(torch.clone, vc_p),
                                           prefix_len, C]
                 return
             # else: whole-prompt prefill (the reference's chunk schedule

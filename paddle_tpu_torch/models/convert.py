@@ -1,6 +1,6 @@
-"""Carry the JAX package's GPT weights and optimizer state, and its
-PP-YOLOE weights and BatchNorm statistics, into the port (no counterpart
-in paddle_tpu/).
+"""Carry the JAX package's GPT weights, its PP-YOLOE weights and
+BatchNorm statistics, and either model's optimizer state into the port
+(no counterpart in paddle_tpu/).
 
 The reference's ``nn.Linear`` stores its weight as [in, out] (used as
 ``h @ w``); the port's layers are ``torch.nn.Linear``, whose weight is
@@ -40,12 +40,13 @@ def params_from_jax(named):
 def opt_state_from_jax(named_state, device=None):
     """named_state: the reference optimizer's ``functional_init`` /
     ``functional_apply`` state as numpy arrays, ``{param name: {slot:
-    array}, "__step__": array}`` (an SpmdTrainer's ``opt_state``). Returns
-    the port optimizer's state in the same layout, as tensors on `device`
-    (``cuda`` unless the caller names another; raises without a CUDA
-    device): moments of Linear weights transposed like their weights,
-    scalar slots (``beta1_pow``, ``beta2_pow``) and ``__step__`` as they
-    are."""
+    array}, "__step__": array}`` (an SpmdTrainer's ``opt_state``: AdamW's
+    moments of the GPT, or Momentum's ``velocity`` of the detector).
+    Returns the port optimizer's state in the same layout, as tensors on
+    `device` (``cuda`` unless the caller names another; raises without a
+    CUDA device): slots of Linear weights transposed like their weights,
+    every other slot (conv weights share torch's layout; ``beta1_pow``,
+    ``beta2_pow``) and ``__step__`` as they are."""
     device = resolve_device(device)
     out = {}
     for name, slots in named_state.items():

@@ -25,8 +25,10 @@ says, as the reference's raw ``jnp`` decode math does. The reference
 compiles generate as one jit(scan); here it is an eager loop over the new
 tokens against a pre-allocated cache that is updated in place.
 
-Linear layers are ``torch.nn.Linear`` (weight [out, in]); the reference's
-``nn.Linear`` stores [in, out], which ``models/convert.py`` transposes.
+Linear layers are the port's ``nn.Linear``, a ``torch.nn.Linear`` (weight
+[out, in]; the reference's stores [in, out], which ``models/convert.py``
+transposes) whose forward reads ``amp.auto_cast`` as the reference's
+does; so does the tied head, ``tensor.matmul(h, wte, transpose_y=True)``.
 Parameter names are the reference's (``gpt.blocks.{i}.attn.qkv.weight``,
 ...). Tensor-parallel, MoE and sequence-parallel configurations are not
 ported yet and are refused by ``GPTConfig``.
@@ -45,8 +47,10 @@ from ..core.device import resolve_device
 from ..nn.functional.common import dropout as _dropout
 from ..nn.functional.loss import cross_entropy
 from ..nn.functional.transformer import scaled_dot_product_attention
+from ..nn.layer.common import Linear
 from ..ops import tpp
 from ..serving import decode_model as _decode_model
+from ..tensor.math import matmul
 
 
 class GPTConfig:
@@ -135,8 +139,8 @@ class GPTAttention(nn.Module):
         qkv_out = (self.num_heads + 2 * self.num_kv_heads) * self.head_dim
         self.use_flash = cfg.use_flash
         self.window = cfg.attention_window
-        self.qkv = nn.Linear(h, qkv_out)
-        self.proj = nn.Linear(h, h)
+        self.qkv = Linear(h, qkv_out)
+        self.proj = Linear(h, h)
         self.dropout = cfg.dropout
 
     def forward(self, x):
@@ -163,8 +167,8 @@ class GPTMLP(nn.Module):
     def __init__(self, cfg):
         super().__init__()
         h, i = cfg.hidden_size, cfg.intermediate_size
-        self.fc1 = nn.Linear(h, i)
-        self.fc2 = nn.Linear(i, h)
+        self.fc1 = Linear(h, i)
+        self.fc2 = Linear(i, h)
         self._gelu_approx = cfg.gelu_approx
 
     def forward(self, x):
@@ -258,7 +262,8 @@ class GPTForCausalLM(nn.Module):
 
     def forward(self, input_ids):
         h = self.gpt(torch.as_tensor(input_ids, device=self.device))
-        return F.linear(h, self.gpt.wte.weight)   # tied head: h @ wte^T
+        # tied head: h @ wte^T
+        return matmul(h, self.gpt.wte.weight, transpose_y=True)
 
     def loss(self, input_ids, labels):
         """Mean hard-label cross-entropy of the logits against `labels`
@@ -278,15 +283,13 @@ class GPTForCausalLM(nn.Module):
         top_p < 1.0 then keeps the smallest prefix reaching mass top_p),
         seeded by `seed` through a torch.Generator on the model's device.
         dtype='bfloat16' serves in bf16 (params and cache; logits pick in
-        fp32). Returns [b, prompt + max_new_tokens] int64 ids, prompt
-        included. Beam search, quantized caches, ragged prompts and
-        tensor-parallel serving are not ported yet."""
+        fp32). cache_dtype='int8' or 'fp8' quantizes the KV cache (one
+        fp32 absmax scale a cached row; ``_decode_fns``), and composes with
+        dtype. Returns [b, prompt + max_new_tokens] int64 ids, prompt
+        included. Beam search, ragged prompts and tensor-parallel serving
+        are not ported yet."""
         if num_beams > 1:
             raise NotImplementedError("beam search is not ported yet")
-        if cache_dtype is not None:
-            raise NotImplementedError(
-                f"cache_dtype={cache_dtype!r}: quantized KV caches are not "
-                "ported yet")
         if attention_mask is not None:
             raise NotImplementedError(
                 "attention_mask (ragged prompts) is not ported yet")
@@ -295,7 +298,7 @@ class GPTForCausalLM(nn.Module):
                 "tensor-parallel serving is not ported yet")
         return _gpt_generate(self, input_ids, max_new_tokens, temperature,
                              top_k, seed, eos_token_id, dtype=dtype,
-                             top_p=top_p)
+                             top_p=top_p, cache_dtype=cache_dtype)
 
     def generate_speculative(self, draft_model, input_ids,
                              max_new_tokens=32, k=4, dtype=None,
@@ -317,7 +320,29 @@ class GPTPretrainLoss(nn.Module):
 # Autoregressive decoding with a KV cache (the serving path).
 # ---------------------------------------------------------------------------
 
-def _decode_fns(cfg):
+#: quantized KV-cache formats: (storage dtype, qmax, integer rounding).
+#: int8 rounds half to even and clips to +-127; fp8 (e4m3fn, largest
+#: finite value 448) casts: the per-row absmax scale puts every value
+#: inside its range, and the cast keeps a mantissa
+_QUANT = {"int8": (torch.int8, 127.0, True),
+          "fp8": (torch.float8_e4m3fn, 448.0, False)}
+
+
+def _quantize(val, cache_dtype):
+    """A cache row's codes and scale in the ``_QUANT`` format: val [...,
+    hd] divided by its absmax / qmax (taken in val's dtype, then fp32, at
+    least 1e-8) and cast, int8 after rounding half to even and clipping.
+    Returns (codes [..., hd], fp32 scales [..., 1])."""
+    qdt, qmax, integer = _QUANT[cache_dtype]
+    s = torch.clamp_min(val.abs().amax(-1, keepdim=True).float() / qmax,
+                        1e-8)
+    q = val.float() / s
+    if integer:
+        q = torch.clamp(torch.round(q), -qmax, qmax)
+    return q.to(qdt), s
+
+
+def _decode_fns(cfg, cache_dtype=None):
     """Plain-PyTorch decode math over name-addressed params (port layout:
     Linear weights [out, in]). Returns (fwd, logits_of, cache_init).
     fwd(p, tok_ids [B, t], pos, kc, vc) runs the block stack with its first
@@ -327,9 +352,19 @@ def _decode_fns(cfg):
     an int (the whole batch at one frontier) or a [B] tensor (each row at
     its own frontier: continuous batching). fwd and logits_of run with
     autocast off: they compute in the dtype of their params and cache.
-    The reference's quantized caches (cache_dtype), tensor-parallel heads
-    (tp_axis), left-padded rows (key_valid, pos_ids) and per-row LoRA
-    deltas (lora) are not ported."""
+
+    cache_dtype 'int8' or 'fp8' (``_QUANT``) keeps each cache side as a
+    (values, scales) pair: values [L, B, KVh, T, hd] in the storage dtype
+    and one fp32 scale a cached row, [L, B, KVh, T, 1]. A stored row is
+    quantized by ``_quantize``; a loaded layer is multiplied back in fp32
+    and cast to q's dtype. Any other
+    cache_dtype raises ValueError, for every entry point. The reference's
+    tensor-parallel heads (tp_axis), left-padded rows (key_valid, pos_ids)
+    and per-row LoRA deltas (lora) are not ported."""
+    if cache_dtype is not None and cache_dtype not in _QUANT:
+        raise ValueError(f"cache_dtype must be None, 'int8', or 'fp8', "
+                         f"got {cache_dtype!r}")
+    quant = _QUANT.get(cache_dtype)
     L, Hh = cfg.num_layers, cfg.num_heads
     hd = cfg.hidden_size // Hh
     scale = 1.0 / math.sqrt(hd)
@@ -339,8 +374,16 @@ def _decode_fns(cfg):
     gelu = "tanh" if cfg.gelu_approx else "none"
 
     def cache_init(b_, T_, dtype, device):
-        z = torch.zeros((L, b_, KVh, T_, hd), dtype=dtype, device=device)
-        return z, torch.zeros_like(z)
+        shape = (L, b_, KVh, T_, hd)
+        if quant is None:
+            z = torch.zeros(shape, dtype=dtype, device=device)
+            return z, torch.zeros_like(z)
+
+        def side():
+            return (torch.zeros(shape, dtype=quant[0], device=device),
+                    torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                                device=device))
+        return side(), side()
 
     def ln(x, w, bb):
         mu = x.mean(-1, keepdim=True)
@@ -348,8 +391,23 @@ def _decode_fns(cfg):
         return (x - mu) / torch.sqrt(var + 1e-5) * w + bb
 
     def store(c, i, val, pos, per_row):
-        """val [B, KVh, t, hd] into layer i at column pos (per row: row b
-        at its own pos[b])."""
+        """val [B, KVh, t, hd] into layer i of a cache side at column pos
+        (per row: row b at its own pos[b]), quantized first for a
+        (values, scales) side."""
+        if quant is None:
+            put(c, i, val, pos, per_row)
+            return
+        codes, s = _quantize(val, cache_dtype)
+        put(c[0], i, codes, pos, per_row)
+        put(c[1], i, s, pos, per_row)
+
+    def load(c, i, like):
+        """Layer i of a cache side in dtype `like` (dequantized)."""
+        if quant is None:
+            return c[i]
+        return (c[0][i].float() * c[1][i]).to(like)
+
+    def put(c, i, val, pos, per_row):
         t = val.shape[2]
         if not per_row:
             c[i, :, :, pos:pos + t] = val
@@ -366,7 +424,7 @@ def _decode_fns(cfg):
     def block(p, i, x, kc, vc, pos, per_row):
         pre = f"gpt.blocks.{i}."
         bb, t = x.shape[0], x.shape[1]
-        T = kc.shape[3]
+        T = (kc[0] if quant else kc).shape[3]
         h_in = ln(x, p[pre + "ln1.weight"], p[pre + "ln1.bias"])
         flat = F.linear(h_in, p[pre + "attn.qkv.weight"],
                         p[pre + "attn.qkv.bias"])
@@ -387,18 +445,22 @@ def _decode_fns(cfg):
         if win is not None:  # sliding window: the forward's band
             mask &= (rows - cols) < win
         if g == 1:
-            att = torch.einsum("bhtd,bhTd->bhtT", q, kc[i]) * scale
+            att = torch.einsum("bhtd,bhTd->bhtT", q,
+                               load(kc, i, q.dtype)) * scale
             att = torch.softmax(att.masked_fill(~mask[:, None], -math.inf),
                                 dim=-1)
-            out = torch.einsum("bhtT,bhTd->bhtd", att, vc[i])
+            out = torch.einsum("bhtT,bhTd->bhtd", att,
+                               load(vc, i, att.dtype))
         else:
             # grouped queries share their kv head: [B, KVh, g, t, *]
             qg = q.reshape(bb, KVh, g, t, hd)
-            att = torch.einsum("bkgtd,bkTd->bkgtT", qg, kc[i]) * scale
+            att = torch.einsum("bkgtd,bkTd->bkgtT", qg,
+                               load(kc, i, q.dtype)) * scale
             att = torch.softmax(
                 att.masked_fill(~mask[:, None, None], -math.inf), dim=-1)
-            out = torch.einsum("bkgtT,bkTd->bkgtd", att, vc[i]).reshape(
-                bb, Hh, t, hd)
+            out = torch.einsum("bkgtT,bkTd->bkgtd", att,
+                               load(vc, i, att.dtype)).reshape(
+                                   bb, Hh, t, hd)
         out = out.transpose(1, 2).reshape(bb, t, Hh * hd)
         x = x + F.linear(out, p[pre + "attn.proj.weight"]) \
             + p[pre + "attn.proj.bias"]
@@ -470,12 +532,13 @@ def _decode_setup(model, input_ids, max_new_tokens):
 
 
 def _gpt_generate(model, input_ids, max_new_tokens, temperature, top_k,
-                  seed, eos_token_id, dtype=None, top_p=None):
+                  seed, eos_token_id, dtype=None, top_p=None,
+                  cache_dtype=None):
     """Prefill, then one step per new token against a cache of static
     shape [L, b, KVh, prompt + max_new_tokens, hd] (parity against the
     cache-free forward is what tests/test_torch_gpt.py pins)."""
     cfg, ids, b, s0, T, p = _decode_setup(model, input_ids, max_new_tokens)
-    fwd, logits_of, cache_init = _decode_fns(cfg)
+    fwd, logits_of, cache_init = _decode_fns(cfg, cache_dtype)
     compute_dtype = _decode_compute_dtype(dtype)
     if compute_dtype is not None:
         # serving precision: bf16 params + bf16 KV cache; logits in fp32
@@ -550,11 +613,9 @@ class GPTDecodeModel(_decode_model.DecodeModel):
 
     def decode_fns(self, cfg, aux, cache_dtype=None, tp_axis=None,
                    tp_size=1):
-        if cache_dtype is not None:
-            _not_ported(f"cache_dtype={cache_dtype!r} (quantized KV caches)")
         if tp_axis is not None or tp_size != 1:
             _not_ported("tensor-parallel serving")
-        return _decode_fns(cfg)
+        return _decode_fns(cfg, cache_dtype)
 
     def tp_setup(self, tp_mesh, cfg, params):
         _not_ported("tensor-parallel serving")
@@ -569,7 +630,8 @@ class GPTDecodeModel(_decode_model.DecodeModel):
                 "axes": {"L": cfg.num_layers, "KVh": cfg.num_kv_heads,
                          "T": cfg.max_seq_len,
                          "hd": cfg.hidden_size // cfg.num_heads},
-                "quantized": None}
+                "quantized": "per-side (values, scales) tuple when the "
+                             "engine's cache_dtype is int8/fp8"}
 
     def lora_init(self, cfg, n_slots, rank, dtype=None):
         _not_ported("multi-LoRA serving")

@@ -1,7 +1,11 @@
-"""Common functionals: dropout and interpolate.
+"""Common functionals: linear, dropout and interpolate.
 
-Ports ``dropout`` and ``interpolate`` (:121) of
-paddle_tpu/nn/functional/common.py. The reference draws its dropout
+Ports ``linear`` (:22), ``dropout`` and ``interpolate`` (:121) of
+paddle_tpu/nn/functional/common.py. ``linear`` takes the reference's
+weight layout, [in, out] (``x @ weight + bias``), and is one of the two
+ops that read ``amp.auto_cast``'s state (``tensor.matmul`` is the other):
+under it a floating x, the weight and the bias are cast to the amp dtype
+first. The reference draws its dropout
 keep-mask from the framework's PRNG key; here the mask comes from a
 ``torch.Generator`` — the caller's, or the default generator of the
 tensor's device (``paddle_tpu_torch.seed`` reseeds those) — never from
@@ -13,7 +17,25 @@ every other mode, size or layout raises.
 import torch
 import torch.nn.functional as F
 
+from ...amp.auto_cast import cast_inputs
 from ...core import generator as _generator
+
+
+def linear(x, weight, bias=None, name=None):
+    """``x @ weight + bias``, weight [in, out] (an ``nn.Linear`` layer
+    passes its [out, in] weight as ``weight.t()``, which costs no copy).
+    Under auto_cast x, weight and bias compute in the amp dtype; otherwise
+    the bias takes the product's dtype, as the reference adds it."""
+    return _linear(x, weight.t(), bias)
+
+
+def _linear(x, weight, bias):
+    """``linear`` on a weight in torch's [out, in] layout (the
+    ``nn.Linear`` layer's), with no transposed view in between."""
+    x, weight = cast_inputs(x, weight)
+    if bias is not None and bias.dtype != x.dtype:
+        bias = bias.to(x.dtype)
+    return F.linear(x, weight, bias)
 
 
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",

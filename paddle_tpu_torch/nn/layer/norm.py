@@ -5,8 +5,9 @@ paddle_tpu/nn/layer/norm.py, under the reference's names: the parameters
 ``weight`` (ones) and ``bias`` (zeros), and the fp32 buffers ``_mean``
 (zeros) and ``_variance`` (ones) that hold the running statistics
 (norm.py:29-30). In eval mode the forward normalises by those buffers;
-training mode needs batch statistics, which ``nn.functional.batch_norm``
-does not port yet (it raises).
+in training mode by the batch's statistics, and it updates the buffers in
+place by ``nn.functional.batch_norm``'s rule (momentum 0.9: ``running =
+0.9 * running + 0.1 * batch``, the variance biased).
 """
 import torch
 from torch import nn

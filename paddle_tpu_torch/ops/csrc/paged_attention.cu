@@ -14,7 +14,10 @@
 //     sqrt(hd)) . V[b, h, c], accumulated in f32, in q's dtype; a row of
 //     length 0 gives zeros.
 //
-// Types: q f32 or bf16; pages of q's type, or int8 with f32 scales.
+// Types: q f32, bf16 or f16 (read and written through a runtime switch: q
+// is read once a block and out written once); pages f32, bf16 or f16 of
+// any of q's types, or int8 with f32 scales. Every sum is in f32, as the
+// reference casts q and the pages to f32.
 //
 // What bounds it: bytes. Each valid column's K and V row is read once (at
 // GPT-2 small's full length, 8 rows x 1024 columns x 12 heads x 64: 25.2 MB
@@ -52,6 +55,20 @@
 // Views that are not 16-byte aligned (a row of hd * sizeof(page) bytes that
 // is no multiple of 16, or a misaligned frame stride or pointer) take the
 // same kernel with one element a load.
+//
+// The stream route (`paged_stream_kernel`) takes what the split kernel's
+// registers and shared memory cannot: head dims above MAX_HD, frames above
+// MAX_BS columns, and splits of more than MAX_FPS frames (over 131,072
+// frames a row). Same grid and the same combine pass; a block walks its
+// split's columns in tiles of TC: each warp forms the scores of its
+// columns (lanes over the head dim, then a shuffle sum) into shared memory
+// beside each column's row offset, every thread takes the tile's max and
+// the block the tile's weights, and each thread then updates its own head
+// dims of the accumulator, which lives in the split's fp32 slot of the
+// workspace (hd floats, no cap) and never in shared memory. One element a
+// load: a simple route for shapes no model of the repository has.
+
+#include <cuda_fp16.h>
 
 #include <type_traits>
 
@@ -59,11 +76,28 @@
 
 namespace {
 
-using hopper::from_f;
 using hopper::to_f;
 using hopper::unpack_bf16;
+using hopper::warp_sum;
 
 __device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+
+// q and out by the runtime dtype: 0 f32, 1 bf16, 2 f16
+__device__ __forceinline__ float load_q(const void* q, int qdt, long long i) {
+  if (qdt == 0) return static_cast<const float*>(q)[i];
+  if (qdt == 1) return __bfloat162float(static_cast<const __nv_bfloat16*>(q)[i]);
+  return __half2float(static_cast<const __half*>(q)[i]);
+}
+__device__ __forceinline__ void store_o(void* o, int qdt, long long i,
+                                        float v) {
+  if (qdt == 0)
+    static_cast<float*>(o)[i] = v;
+  else if (qdt == 1)
+    static_cast<__nv_bfloat16*>(o)[i] = __float2bfloat16(v);
+  else
+    static_cast<__half*>(o)[i] = __float2half_rn(v);
+}
 
 constexpr int NT = 128;
 constexpr int NW = NT / 32;
@@ -92,6 +126,10 @@ __device__ __forceinline__ void unpack(const Raw<PT, CH>& r, float (&x)[CH]) {
       } else if constexpr (std::is_same<PT, __nv_bfloat16>::value) {
         const float2 f = unpack_bf16(w[i]);
         x[2 * i] = f.x, x[2 * i + 1] = f.y;
+      } else if constexpr (std::is_same<PT, __half>::value) {
+        const float2 f =
+            __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+        x[2 * i] = f.x, x[2 * i + 1] = f.y;
       } else {  // int8: sign-extend each byte
 #pragma unroll
         for (int k = 0; k < 4; ++k)
@@ -104,16 +142,17 @@ __device__ __forceinline__ void unpack(const Raw<PT, CH>& r, float (&x)[CH]) {
 
 // One (b, h, split): the partial softmax state of the split's columns.
 // part, for row bh: m [nsplit], l [nsplit], acc [nsplit][hd].
-template <typename QT, typename PT, bool QUANT, int CH, int CPL>
+template <typename PT, bool QUANT, int CH, int CPL>
 __global__ void __launch_bounds__(NT)
-    paged_split_kernel(const QT* __restrict__ q, const PT* __restrict__ kp,
+    paged_split_kernel(const void* __restrict__ q, const PT* __restrict__ kp,
                        const PT* __restrict__ vp, const float* __restrict__ ks,
                        const float* __restrict__ vs,
                        const int* __restrict__ tables,
-                       const int* __restrict__ lengths, QT* __restrict__ out,
-                       float* __restrict__ part, int H, int hd, int bs,
-                       int maxb, int fps, int nsplit, long long frame_stride,
-                       long long scale_stride, float scale) {
+                       const int* __restrict__ lengths, void* __restrict__ out,
+                       float* __restrict__ part, int qdt, int H, int hd,
+                       int bs, int maxb, int fps, int nsplit,
+                       long long frame_stride, long long scale_stride,
+                       float scale) {
   __shared__ int tab[MAX_FPS];
   __shared__ float wm[NW], wl[NW];
   __shared__ float wacc[NW][MAX_HD];
@@ -137,7 +176,7 @@ __global__ void __launch_bounds__(NT)
       }
     } else {
       for (int d = tid; d < hd; d += NT)
-        out[(long long)bh * hd + d] = from_f<QT>(0.f);
+        store_o(out, qdt, (long long)bh * hd + d, 0.f);
     }
     return;
   }
@@ -157,7 +196,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int e = 0; e < CH; ++e) {
       const int d = (sub + i * lpr) * CH + e;
-      qv[i][e] = d < hd ? to_f(q[(long long)bh * hd + d]) : 0.f;
+      qv[i][e] = d < hd ? load_q(q, qdt, (long long)bh * hd + d) : 0.f;
       acc[i][e] = 0.f;
     }
   float m = NEG_INF, l = 0.f;
@@ -284,7 +323,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int w = 0; w < NW; ++w) a += wacc[w][d] * expf(wm[w] - ms);
     if (nsplit == 1)
-      out[(long long)bh * hd + d] = from_f<QT>(a / (L == 0.f ? 1.f : L));
+      store_o(out, qdt, (long long)bh * hd + d, a / (L == 0.f ? 1.f : L));
     else
       pb[2 * nsplit + split * hd + d] = a;
   }
@@ -298,10 +337,9 @@ __global__ void __launch_bounds__(NT)
 // m = -inf (past the row's length) adds nothing; a row with no column
 // gives zeros. The splits' (m, l) land in shared memory first, read in
 // parallel, and each split's weight is taken once.
-template <typename QT>
 __global__ void __launch_bounds__(NT_COMBINE)
-    paged_combine_kernel(const float* __restrict__ part, QT* __restrict__ out,
-                         int hd, int nsplit) {
+    paged_combine_kernel(const float* __restrict__ part, void* __restrict__ out,
+                         int qdt, int hd, int nsplit) {
   __shared__ float sm[MAX_SPLITS], sw[MAX_SPLITS];
   const int bh = blockIdx.x, tid = threadIdx.x;
   const float* pb = part + (long long)bh * nsplit * (hd + 2);
@@ -327,7 +365,102 @@ __global__ void __launch_bounds__(NT_COMBINE)
 #pragma unroll 8
     for (int s = 0; s < nsplit; ++s)
       if (sw[s] != 0.f) a += acc[s * hd + d] * sw[s];
-    out[(long long)bh * hd + d] = from_f<QT>(a / denom);
+    store_o(out, qdt, (long long)bh * hd + d, a / denom);
+  }
+}
+
+// The stream route: one (b, h, split) a block, any hd, bs and fps (see the
+// notes at the top). The split's accumulator is its slot of `part`, which
+// the host always allocates on this route.
+constexpr int TC = 32;  // columns a tile
+
+template <typename PT, bool QUANT>
+__global__ void __launch_bounds__(NT)
+    paged_stream_kernel(const void* __restrict__ q, const PT* __restrict__ kp,
+                        const PT* __restrict__ vp,
+                        const float* __restrict__ ks,
+                        const float* __restrict__ vs,
+                        const int* __restrict__ tables,
+                        const int* __restrict__ lengths,
+                        void* __restrict__ out, float* __restrict__ part,
+                        int qdt, int H, int hd, int bs, int maxb, int fps,
+                        int nsplit, long long frame_stride,
+                        long long scale_stride, float scale) {
+  __shared__ float sc[TC], pl[TC], pw[TC], svs[TC];
+  __shared__ long long roff[TC];
+  const int split = blockIdx.x % nsplit;
+  const int bh = blockIdx.x / nsplit;
+  const int b = bh / H, h = bh - b * H;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long c0 = (long long)split * fps * bs;
+  const int len = lengths[b];
+  float* pb = part + (long long)bh * nsplit * (hd + 2);
+  float* acc = pb + 2 * nsplit + (long long)split * hd;
+  const long long qo = (long long)bh * hd;
+  if (c0 >= len) {  // nothing of this row in the split
+    if (nsplit > 1) {
+      if (tid == 0) {
+        pb[split] = NEG_INF;
+        pb[nsplit + split] = 0.f;
+      }
+    } else {
+      for (int d = tid; d < hd; d += NT) store_o(out, qdt, qo + d, 0.f);
+    }
+    return;
+  }
+  const long long ncols = min((long long)len - c0, (long long)fps * bs);
+  for (int d = tid; d < hd; d += NT) acc[d] = 0.f;
+  float m = NEG_INF, l = 0.f;
+  for (long long t0 = 0; t0 < ncols; t0 += TC) {
+    const int nt = (int)min((long long)TC, ncols - t0);
+    // scores: a warp a column, its lanes over the head dim
+    for (int j = warp; j < nt; j += NW) {
+      const long long c = c0 + t0 + j;
+      const long long fi = c / bs;
+      const long long r = c - fi * bs;
+      const long long frame = tables[(long long)b * maxb + fi];
+      const long long row = frame * frame_stride + ((long long)h * bs + r) * hd;
+      float dot = 0.f;
+      for (int d = lane; d < hd; d += 32)
+        dot = fmaf(load_q(q, qdt, qo + d), to_f(kp[row + d]), dot);
+      dot = warp_sum(dot);
+      if (lane == 0) {
+        if constexpr (QUANT) {
+          const long long so = frame * scale_stride + (long long)h * bs + r;
+          dot *= ks[so];
+          svs[j] = vs[so];
+        }
+        sc[j] = dot * scale;
+        roff[j] = row;
+      }
+    }
+    __syncthreads();
+    float mx = m;
+    for (int j = 0; j < nt; ++j) mx = fmaxf(mx, sc[j]);
+    const float ms = mx > NEG_INF ? mx : 0.f;
+    const float alpha = expf(m - ms);
+    if (tid < nt) {
+      const float p = expf(sc[tid] - ms);
+      pl[tid] = p;
+      pw[tid] = QUANT ? p * svs[tid] : p;
+    }
+    __syncthreads();
+    l *= alpha;  // every thread keeps the same (m, l), summed in one order
+    for (int j = 0; j < nt; ++j) l += pl[j];
+    for (int d = tid; d < hd; d += NT) {
+      float a = acc[d] * alpha;
+      for (int j = 0; j < nt; ++j) a = fmaf(pw[j], to_f(vp[roff[j] + d]), a);
+      acc[d] = a;
+    }
+    m = mx;
+    __syncthreads();  // the tile's shared arrays are read before the next
+  }
+  if (nsplit == 1) {
+    const float denom = l == 0.f ? 1.f : l;
+    for (int d = tid; d < hd; d += NT) store_o(out, qdt, qo + d, acc[d] / denom);
+  } else if (tid == 0) {
+    pb[split] = m;
+    pb[nsplit + split] = l;
   }
 }
 
@@ -335,43 +468,55 @@ struct Args {  // one call's arguments
   const void *q, *kp, *vp, *ks, *vs, *tables, *lengths;
   void* out;
   float* part;
-  int B, H, hd, bs, maxb, fps, nsplit;
+  int qdt, B, H, hd, bs, maxb, fps, nsplit;
   long long frame_stride, scale_stride;
   float scale;
   cudaStream_t stream;
 };
 
-template <typename QT, typename PT, bool QUANT, int CH, int CPL>
-cudaError_t launch(const Args& a) {
-  const long long blocks = (long long)a.B * a.H * a.nsplit;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  paged_split_kernel<QT, PT, QUANT, CH, CPL>
-      <<<(unsigned)blocks, NT, 0, a.stream>>>(
-          static_cast<const QT*>(a.q), static_cast<const PT*>(a.kp),
-          static_cast<const PT*>(a.vp), static_cast<const float*>(a.ks),
-          static_cast<const float*>(a.vs), static_cast<const int*>(a.tables),
-          static_cast<const int*>(a.lengths), static_cast<QT*>(a.out), a.part,
-          a.H, a.hd, a.bs, a.maxb, a.fps, a.nsplit, a.frame_stride,
-          a.scale_stride, a.scale);
+cudaError_t combine(const Args& a) {
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || a.nsplit == 1) return e;
-  paged_combine_kernel<QT><<<a.B * a.H, NT_COMBINE, 0, a.stream>>>(
-      a.part, static_cast<QT*>(a.out), a.hd, a.nsplit);
+  paged_combine_kernel<<<a.B * a.H, NT_COMBINE, 0, a.stream>>>(
+      a.part, a.out, a.qdt, a.hd, a.nsplit);
   return cudaGetLastError();
 }
 
-// 16-byte loads when every row of both page arrays starts on 16 bytes,
-// else one element a load
-template <typename QT, typename PT, bool QUANT>
-cudaError_t dispatch(const Args& a) {
+template <typename PT, bool QUANT, int CH, int CPL>
+cudaError_t launch(const Args& a, unsigned blocks) {
+  paged_split_kernel<PT, QUANT, CH, CPL><<<blocks, NT, 0, a.stream>>>(
+      a.q, static_cast<const PT*>(a.kp), static_cast<const PT*>(a.vp),
+      static_cast<const float*>(a.ks), static_cast<const float*>(a.vs),
+      static_cast<const int*>(a.tables), static_cast<const int*>(a.lengths),
+      a.out, a.part, a.qdt, a.H, a.hd, a.bs, a.maxb, a.fps, a.nsplit,
+      a.frame_stride, a.scale_stride, a.scale);
+  return combine(a);
+}
+
+// route 0 (split): 16-byte loads when every row of both page arrays
+// starts on 16 bytes, else one element a load; route 1: the stream kernel
+template <typename PT, bool QUANT>
+cudaError_t dispatch(const Args& a, int route) {
+  const long long blocks = (long long)a.B * a.H * a.nsplit;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (route == 1) {
+    paged_stream_kernel<PT, QUANT><<<(unsigned)blocks, NT, 0, a.stream>>>(
+        a.q, static_cast<const PT*>(a.kp), static_cast<const PT*>(a.vp),
+        static_cast<const float*>(a.ks), static_cast<const float*>(a.vs),
+        static_cast<const int*>(a.tables), static_cast<const int*>(a.lengths),
+        a.out, a.part, a.qdt, a.H, a.hd, a.bs, a.maxb, a.fps, a.nsplit,
+        a.frame_stride, a.scale_stride, a.scale);
+    return combine(a);
+  }
   constexpr int CH = 16 / sizeof(PT);
   const bool vec = ((reinterpret_cast<uintptr_t>(a.kp) |
                      reinterpret_cast<uintptr_t>(a.vp)) & 15) == 0 &&
                    (a.frame_stride * (long long)sizeof(PT)) % 16 == 0 &&
                    (a.hd * sizeof(PT)) % 16 == 0;
-  if (!vec) return launch<QT, PT, QUANT, 1, MAX_HD / 32>(a);
-  if (a.hd / CH <= 32) return launch<QT, PT, QUANT, CH, 1>(a);
-  if constexpr (MAX_HD / CH > 32) return launch<QT, PT, QUANT, CH, 2>(a);
+  if (!vec) return launch<PT, QUANT, 1, MAX_HD / 32>(a, (unsigned)blocks);
+  if (a.hd / CH <= 32) return launch<PT, QUANT, CH, 1>(a, (unsigned)blocks);
+  if constexpr (MAX_HD / CH > 32)
+    return launch<PT, QUANT, CH, 2>(a, (unsigned)blocks);
   return cudaErrorInvalidValue;  // unreachable: hd <= MAX_HD
 }
 
@@ -379,37 +524,42 @@ cudaError_t dispatch(const Args& a) {
 
 extern "C" {
 
-// q_dtype: 0 = f32, 1 = bf16. int8_pages: 0 = pages of q's type (ks, vs
-// unused), 1 = int8 pages with f32 row scales. Strides are in elements.
-// Each row's frames are cut into nsplit splits of fps frames (fps * nsplit
-// >= maxb; fps <= 128, nsplit <= 1024); with nsplit > 1, `part` is an fp32
-// workspace of B * H * nsplit * (hd + 2) values. Returns a cudaError_t:
-// cudaErrorInvalidValue for arguments the kernel does not take, else the
+// q_dtype (q and out): 0 = f32, 1 = bf16, 2 = f16. page_dtype: 0 = f32,
+// 1 = bf16, 2 = f16 (ks, vs unused), 3 = int8 with f32 row scales. route:
+// 0 = the split kernel (hd <= 256, bs <= 256, fps <= 128), 1 = the stream
+// kernel (any hd, bs, fps). Strides are in elements. Each row's frames are
+// cut into nsplit splits of fps frames (fps * nsplit >= maxb, nsplit <=
+// 1024); `part` is an fp32 workspace of B * H * nsplit * (hd + 2) values,
+// needed with nsplit > 1 and on route 1. Returns a cudaError_t:
+// cudaErrorInvalidValue for arguments the kernels do not take, else the
 // launches' own error.
 int paged_attention(const void* q, const void* kp, const void* vp,
                     const void* ks, const void* vs, const void* tables,
                     const void* lengths, void* out, void* part, int B, int H,
                     int hd, int bs, int maxb, int fps, int nsplit,
                     long long frame_stride, long long scale_stride,
-                    float scale, int q_dtype, int int8_pages, void* stream) {
-  if (B < 1 || H < 1 || hd < 1 || hd > MAX_HD || bs < 1 || bs > MAX_BS ||
-      maxb < 1 || fps < 1 || fps > MAX_FPS || nsplit < 1 ||
-      nsplit > MAX_SPLITS ||
-      (long long)fps * nsplit < maxb || (long long)fps * nsplit * bs > 0x7fffffffLL ||
-      (nsplit > 1 && part == nullptr) || q_dtype < 0 || q_dtype > 1)
+                    float scale, int q_dtype, int page_dtype, int route,
+                    void* stream) {
+  if (B < 1 || H < 1 || hd < 1 || bs < 1 || maxb < 1 || fps < 1 ||
+      nsplit < 1 || nsplit > MAX_SPLITS || (long long)fps * nsplit < maxb ||
+      (long long)fps * nsplit * bs > 0x7fffffffLL || q_dtype < 0 ||
+      q_dtype > 2 || page_dtype < 0 || page_dtype > 3 || route < 0 ||
+      route > 1 || ((nsplit > 1 || route == 1) && part == nullptr))
     return cudaErrorInvalidValue;
-  if (int8_pages && (ks == nullptr || vs == nullptr))
+  if (route == 0 && (hd > MAX_HD || bs > MAX_BS || fps > MAX_FPS))
+    return cudaErrorInvalidValue;
+  if (page_dtype == 3 && (ks == nullptr || vs == nullptr))
     return cudaErrorInvalidValue;
   const Args a{q, kp, vp, ks, vs, tables, lengths, out,
-               static_cast<float*>(part), B, H, hd, bs, maxb, fps, nsplit,
-               frame_stride, scale_stride, scale,
+               static_cast<float*>(part), q_dtype, B, H, hd, bs, maxb, fps,
+               nsplit, frame_stride, scale_stride, scale,
                static_cast<cudaStream_t>(stream)};
-  using bf = __nv_bfloat16;
-  if (q_dtype == 0)
-    return int8_pages ? dispatch<float, int8_t, true>(a)
-                      : dispatch<float, float, false>(a);
-  return int8_pages ? dispatch<bf, int8_t, true>(a)
-                    : dispatch<bf, bf, false>(a);
+  switch (page_dtype) {
+    case 0: return dispatch<float, false>(a, route);
+    case 1: return dispatch<__nv_bfloat16, false>(a, route);
+    case 2: return dispatch<__half, false>(a, route);
+    default: return dispatch<int8_t, true>(a, route);
+  }
 }
 
 const char* paged_attention_error_string(int err) {

@@ -464,6 +464,12 @@ def flash_attention(q, k, v, causal=False, window=None):
     W tokens; tiles wholly outside the band are skipped by the kernels."""
     window = _check_window(window, causal)
     _block_for(q.shape[1])
+    if q.is_cuda:
+        # copy what the kernels cannot read (the `_aligned_copy` rule): a
+        # strided head_dim, and in bf16 a view off 16 bytes
+        q, k, v = (_aligned_copy(t) if t.dtype == torch.bfloat16
+                   else t if t.stride(-1) == 1 else t.contiguous()
+                   for t in (q, k, v))
     if q.is_cuda and not (torch.is_grad_enabled() and (
             q.requires_grad or k.requires_grad or v.requires_grad)):
         # inference: the kernel without the autograd Function around it,

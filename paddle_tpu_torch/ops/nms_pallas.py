@@ -138,6 +138,11 @@ def nms_keep_mask(boxes, iou_threshold):
     if not boxes.is_cuda:
         return nms_keep_mask_ref(boxes, iou_threshold)
     b = _as_problems(boxes).contiguous()
+    if b.data_ptr() % 16:
+        # a contiguous view that starts off 16 bytes (the kernel reads a
+        # box as one float4): a fresh copy, as the reference copies its
+        # boxes into a padded array
+        b = b.clone()
     if b.numel() == 0:
         return torch.ones(boxes.shape[:-1], dtype=torch.bool,
                           device=boxes.device)

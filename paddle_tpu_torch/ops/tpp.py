@@ -31,7 +31,11 @@ Both run with autocast off, so an enclosing bf16 autocast never turns
 that fp32 math into bf16 products. ``matmul`` alone has no backward, as
 in the reference.
 
-A tensor on a CUDA device launches the kernel or raises; a tensor on the
+A tensor on a CUDA device launches the kernel or raises; each public
+entry first copies what its kernel cannot read as it is (a strided
+operand, a w with no contiguous dimension, an fp16 row array or q
+computed in fp32 and cast back, pages of another dtype than the kernel
+takes), and the private ``_launch*`` functions refuse it. A tensor on the
 CPU takes the plain version (``_matmul_ref``, ``_row_stats_ref``,
 ``_bias_act_ref``,
 ``_softmax_rows_ref``, ``_masked_reduce_ref``, ``paged_attention_ref``).
@@ -41,8 +45,9 @@ CPU takes the plain version (``_matmul_ref``, ``_row_stats_ref``,
 ``"tpp_softmax_rows:<dtype>"``, ``"tpp_masked_reduce:<kind>:<dtype>"`` and
 ``"tpp_paged_attention.<dense|int8>:<q dtype>"``, where each kernel is
 launched and nowhere else; ``routes`` splits the TPP matmul's launches
-by the kernel the C entry chose (``wgmma`` or ``simt``), and
-softmax_rows's (``register`` or ``block``).
+by the kernel the C entry chose (``wgmma`` or ``simt``), softmax_rows's
+(``register`` or ``block``) and paged attention's (``split`` or
+``stream``).
 """
 import collections
 import ctypes
@@ -243,11 +248,20 @@ def _launch(x, w, bias, in_act, act, gamma=None, beta=None):
     return out
 
 
+def _contiguous(t):
+    return t if t is None or t.is_contiguous() else t.contiguous()
+
+
 def _run(x, w, bias, in_act, act, gamma=None, beta=None):
     """The kernel on a CUDA tensor (no autocast-affected op runs there),
-    else the plain version with autocast off."""
+    else the plain version with autocast off. What the kernel cannot read
+    as it is goes in as a contiguous copy: a strided x, bias, gamma or
+    beta, and a w with no contiguous dimension."""
     if x.is_cuda:
-        return _launch(x, w, bias, in_act, act, gamma, beta)
+        if w.stride(0) != 1 and w.stride(1) != 1:
+            w = w.contiguous()
+        return _launch(_contiguous(x), w, _contiguous(bias), in_act, act,
+                       _contiguous(gamma), _contiguous(beta))
     with _autocast_off():
         return _matmul_ref(x, w, bias, in_act, act, gamma, beta)
 
@@ -358,7 +372,7 @@ def ln_matmul(x, gamma, beta, w, bias):
         raise ValueError(f"tpp.ln_matmul cannot tile [{m},{k}]@[{k},{n}] "
                          f"{x.dtype}")
     if x.is_cuda and not _grad_needed(x, gamma, beta, w, bias):
-        return _launch(x, w, bias, "none", "none", gamma, beta)
+        return _run(x, w, bias, "none", "none", gamma, beta)
     return _LnMatmul.apply(x, gamma, beta, w, bias)
 
 
@@ -386,7 +400,7 @@ def _fused_tail(pre, w2, b2, approx):
         raise ValueError(f"tpp.matmul cannot tile [{m},{k}]@[{k},{n}] "
                          f"{pre.dtype}")
     if pre.is_cuda and not _grad_needed(pre, w2, b2):
-        return _launch(pre, w2, b2, "gelu_tanh" if approx else "gelu", "none")
+        return _run(pre, w2, b2, "gelu_tanh" if approx else "gelu", "none")
     return _FusedTail.apply(pre, w2, b2, approx)
 
 
@@ -448,6 +462,17 @@ def _check_rows(what, x, *others):
     return dtype
 
 
+def _rows_readable(x):
+    """(x as the row kernels read it, the dtype to return): a contiguous
+    fp32 or bf16 array; any other floating x computes in fp32 (as the
+    reference's kernel does in every dtype) and its result is cast back."""
+    want = x.dtype
+    if x.dtype not in (torch.float32, torch.bfloat16) \
+            and x.is_floating_point():
+        x = x.float()
+    return _contiguous(x), want
+
+
 def _bias_act_ref(x, bias, act):
     """Plain version: ``act(x + bias)`` in fp32, cast to x's dtype."""
     return _apply_act(x.float() + bias.float(), act).to(x.dtype)
@@ -481,7 +506,8 @@ def bias_act(x, bias, act="gelu"):
     if pick_block(m) is None or pick_block(n) is None:
         raise ValueError(f"tpp.bias_act cannot tile [{m},{n}]")
     if x.is_cuda:
-        return _launch_bias_act(x, bias, act)
+        xk, want = _rows_readable(x)
+        return _launch_bias_act(xk, bias, act).to(want)
     return _bias_act_ref(x, bias, act)
 
 
@@ -515,7 +541,8 @@ def softmax_rows(x):
     if pick_block(m) is None:
         raise ValueError(f"tpp.softmax_rows cannot tile {m} rows")
     if x.is_cuda:
-        return _launch_softmax_rows(x)
+        xk, want = _rows_readable(x)
+        return _launch_softmax_rows(xk).to(want)
     return _softmax_rows_ref(x)
 
 
@@ -571,7 +598,8 @@ def masked_reduce(x, mask, kind="sum"):
     if pick_block(m) is None:
         raise ValueError(f"tpp.masked_reduce cannot tile {m} rows")
     if x.is_cuda:
-        return _launch_masked_reduce(x, mask, kind)
+        xk, want = _rows_readable(x)
+        return _launch_masked_reduce(xk, _contiguous(mask), kind).to(want)
     return _masked_reduce_ref(x, mask, kind)
 
 
@@ -591,6 +619,12 @@ _PAGED_MAX_FPS, _PAGED_MAX_SPLITS = 128, 1024
 
 _PAGED_FN = []
 
+#: the C entry's dtype codes: q (and out), and the pages
+_PAGED_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_PAGED_PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+                      torch.int8: 3}
+_PAGED_ROUTES = ("split", "stream")
+
 
 def _paged_splits(B, H, bs, maxb):
     """(frames a split, splits a row) of the paged-attention kernel's grid
@@ -609,28 +643,46 @@ def _paged_kernel():
         lib = _build.load("paged_attention")
         fn = lib.paged_attention
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp] * 9 + [i] * 7 + [ll, ll, ctypes.c_float, i, i, vp]
+        fn.argtypes = [vp] * 9 + [i] * 7 + [ll, ll, ctypes.c_float, i, i, i,
+                                            vp]
         fn.restype = ctypes.c_int
         _PAGED_FN.append((lib, fn))
     return _PAGED_FN[0]
 
 
-def _launch_paged_attention(q, kp, vp, tables, lengths, k_scales, v_scales):
+def _paged_stream_route(hd, bs, maxb):
+    """Do these shapes need the stream route (past the split kernel's
+    registers and shared memory)?"""
+    return hd > _PAGED_MAX_HD or bs > _PAGED_MAX_BS \
+        or maxb > _PAGED_MAX_FPS * _PAGED_MAX_SPLITS
+
+
+def _check_paged(q, kp, vp, tables, lengths, k_scales, v_scales, stream):
+    """Raise unless the kernel reads these operands as they are: a
+    contiguous fp32 / bf16 / fp16 q; pages of one dtype (fp32, bf16 or
+    fp16, or int8 with scales), shape and strides, their last three dims
+    contiguous; fp32 scales [NB, H, bs, 1] with their last dims
+    contiguous; table entries and lengths in range; everything on q's
+    device; and, on the split route (not `stream`), hd and bs up to 256
+    and maxb up to 131,072. Returns (tables, lengths) as contiguous int32
+    arrays on q's device."""
     B, H, hd = q.shape
     NB, _, bs, _ = kp.shape
     maxb = tables.shape[1]
     quantized = k_scales is not None
     dtype = _dtype_name(q.dtype)
-    if dtype not in ("float32", "bfloat16") or not q.is_contiguous():
-        raise ValueError(f"paged_attention kernel takes a contiguous fp32 or "
-                         f"bf16 q, got {dtype}")
-    page_dt = torch.int8 if quantized else q.dtype
-    if kp.dtype != page_dt or vp.dtype != page_dt:
-        raise ValueError(f"paged_attention kernel: {dtype} q takes "
-                         f"{_dtype_name(page_dt)} pages, got "
-                         f"{kp.dtype} / {vp.dtype}")
-    if hd > _PAGED_MAX_HD or bs > _PAGED_MAX_BS \
-            or maxb > _PAGED_MAX_FPS * _PAGED_MAX_SPLITS:
+    if q.dtype not in _PAGED_Q_DTYPES or not q.is_contiguous():
+        raise ValueError(f"paged_attention kernel takes a contiguous fp32, "
+                         f"bf16 or fp16 q, got {dtype}")
+    if quantized and (kp.dtype != torch.int8 or vp.dtype != torch.int8):
+        raise ValueError(f"paged_attention kernel: scales come with int8 "
+                         f"pages, got {kp.dtype} / {vp.dtype}")
+    if not quantized and (kp.dtype != vp.dtype or kp.dtype
+                          not in (torch.float32, torch.bfloat16,
+                                  torch.float16)):
+        raise ValueError(f"paged_attention kernel takes dense pages of one "
+                         f"floating dtype, got {kp.dtype} / {vp.dtype}")
+    if not stream and _paged_stream_route(hd, bs, maxb):
         raise ValueError(f"paged_attention kernel takes hd and bs up to "
                          f"{_PAGED_MAX_HD} and maxb up to "
                          f"{_PAGED_MAX_FPS * _PAGED_MAX_SPLITS}, got hd {hd}, "
@@ -671,12 +723,23 @@ def _launch_paged_attention(q, kp, vp, tables, lengths, k_scales, v_scales):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"paged_attention kernel: operands must lie on "
                              f"{q.device}, got {t.device}")
-    return _paged_kernel_call(q, kp, vp, tables, lengths, k_scales, v_scales)
+    return tables, lengths
 
 
-def _paged_kernel_call(q, kp, vp, tables, lengths, k_scales, v_scales):
-    """The launch itself, on operands _launch_paged_attention has checked
-    (int32 contiguous tables and lengths on q's device)."""
+def _launch_paged_attention(q, kp, vp, tables, lengths, k_scales, v_scales,
+                            route="split"):
+    """The kernel of `route` ("split", or "stream" for any hd, bs and
+    maxb), on operands it reads as they are (else raises)."""
+    tables, lengths = _check_paged(q, kp, vp, tables, lengths, k_scales,
+                                   v_scales, stream=route == "stream")
+    return _paged_kernel_call(q, kp, vp, tables, lengths, k_scales, v_scales,
+                              route=route)
+
+
+def _paged_kernel_call(q, kp, vp, tables, lengths, k_scales, v_scales,
+                       route="split"):
+    """The launch itself, on operands _check_paged has checked (int32
+    contiguous tables and lengths on q's device)."""
     B, H, hd = q.shape
     bs, maxb = kp.shape[2], tables.shape[1]
     quantized = k_scales is not None
@@ -684,9 +747,11 @@ def _paged_kernel_call(q, kp, vp, tables, lengths, k_scales, v_scales):
     out = torch.empty_like(q)
     fps, nsplit = _paged_splits(B, H, bs, maxb)
     # each split's partial (m, l, acc[hd]) in fp32, merged by the combine
-    # pass; one split writes out itself
+    # pass; on the split route one split writes out itself, the stream
+    # route accumulates in its slot whatever the split count
     part = torch.empty(B * H * nsplit * (hd + 2), dtype=torch.float32,
-                       device=q.device) if nsplit > 1 else None
+                       device=q.device) \
+        if nsplit > 1 or route == "stream" else None
     lib, fn = _paged_kernel()
     err = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
              k_scales.data_ptr() if quantized else None,
@@ -695,12 +760,39 @@ def _paged_kernel_call(q, kp, vp, tables, lengths, k_scales, v_scales):
              None if part is None else part.data_ptr(),
              B, H, hd, bs, maxb, fps, nsplit, kp.stride(0),
              k_scales.stride(0) if quantized else 0, 1.0 / (hd ** 0.5),
-             0 if dtype == "float32" else 1, int(quantized),
-             _build.stream(q))
+             _PAGED_Q_DTYPES[q.dtype], _PAGED_PAGE_DTYPES[kp.dtype],
+             _PAGED_ROUTES.index(route), _build.stream(q))
     _build.check(lib, "paged_attention", err)
-    launches[f"tpp_paged_attention.{'int8' if quantized else 'dense'}:"
-             f"{dtype}"] += 1
+    kind = f"{'int8' if quantized else 'dense'}:{dtype}"
+    launches[f"tpp_paged_attention.{kind}"] += 1
+    routes[f"tpp_paged_attention.{kind}:{route}"] += 1
     return out
+
+
+def _paged_readable(q, kp, vp, k_scales, v_scales):
+    """The operands as the kernel reads them: q contiguous, in fp32 unless
+    it is fp32, bf16 or fp16; dense pages in one of those dtypes (their
+    promoted one), both with the same strides and their last three dims
+    contiguous; scales fp32 with their last dims contiguous. What the
+    kernel reads as it is stays as it is; anything else is copied."""
+    if q.dtype not in _PAGED_Q_DTYPES:
+        q = q.float()
+    q = q.contiguous()
+    if k_scales is None:
+        dt = torch.promote_types(kp.dtype, vp.dtype)
+        if dt not in (torch.float32, torch.bfloat16, torch.float16):
+            dt = torch.float32
+        kp, vp = kp.to(dt), vp.to(dt)
+    else:
+        k_scales, v_scales = (s.float() for s in (k_scales, v_scales))
+        bs = kp.shape[2]
+        if k_scales.stride()[1:3] != (bs, 1) or v_scales.stride()[1:3] \
+                != (bs, 1) or k_scales.stride(0) != v_scales.stride(0):
+            k_scales, v_scales = k_scales.contiguous(), v_scales.contiguous()
+    NB, H, bs, hd = kp.shape
+    if kp.stride()[1:] != (bs * hd, hd, 1) or vp.stride() != kp.stride():
+        kp, vp = kp.contiguous(), vp.contiguous()
+    return q, kp, vp, k_scales, v_scales
 
 
 def paged_attention(q, kp, vp, tables, lengths, k_scales=None,
@@ -709,14 +801,16 @@ def paged_attention(q, kp, vp, tables, lengths, k_scales=None,
 
     ``q`` [B, H, hd]; ``kp``/``vp`` [NB, H, bs, hd] frames of the KV pool
     (on the card, a view with the last three dims contiguous, such as one
-    layer ``pool.kp[:, l]`` of the serving pool, goes in without a copy);
-    ``tables`` int [B, maxb] frame indices; ``lengths`` int [B]: row b
-    attends columns ``0..lengths[b]-1`` of its logical cache, column
-    ``j * bs + r`` living at ``[tables[b, j], :, r]``. With ``k_scales`` /
-    ``v_scales`` (float32 [NB, H, bs, 1]) the frames hold int8 pages of the
-    row codec (distributed/compress.py) and dequantize on load. f32
-    accumulation; the output takes q's dtype; a row of length 0 gives
-    zeros."""
+    layer ``pool.kp[:, l]`` of the serving pool, goes in without a copy;
+    any other view is copied first); ``tables`` int [B, maxb] frame
+    indices; ``lengths`` int [B]: row b attends columns
+    ``0..lengths[b]-1`` of its logical cache, column ``j * bs + r`` living
+    at ``[tables[b, j], :, r]``. With ``k_scales`` / ``v_scales`` (float32
+    [NB, H, bs, 1]) the frames hold int8 pages of the row codec
+    (distributed/compress.py) and dequantize on load. Dense pages may have
+    another floating dtype than q. f32 accumulation; the output takes q's
+    dtype; a row of length 0 gives zeros. On the card, head dims or frames
+    above 256 and more than 131,072 frames a row take the stream route."""
     B, H, hd = q.shape
     NB, Hk, bs, hd_k = kp.shape
     if Hk != H or hd_k != hd:
@@ -727,11 +821,15 @@ def paged_attention(q, kp, vp, tables, lengths, k_scales=None,
     quantized = k_scales is not None
     if quantized != (v_scales is not None):
         raise ValueError("pass both k_scales and v_scales, or neither")
-    if q.is_cuda:
-        return _launch_paged_attention(q, kp, vp, tables, lengths, k_scales,
-                                       v_scales)
-    return paged_attention_ref(q, kp, vp, tables, lengths, k_scales,
-                               v_scales)
+    if not q.is_cuda:
+        return paged_attention_ref(q, kp, vp, tables, lengths, k_scales,
+                                   v_scales)
+    qk, kp, vp, k_scales, v_scales = _paged_readable(q, kp, vp, k_scales,
+                                                     v_scales)
+    route = "stream" if _paged_stream_route(hd, bs, tables.shape[1]) \
+        else "split"
+    return _launch_paged_attention(qk, kp, vp, tables, lengths, k_scales,
+                                   v_scales, route=route).to(q.dtype)
 
 
 def gather_pages(pool, tables, scales=None):

@@ -1,4 +1,5 @@
-"""Optimizers (ports paddle_tpu/optimizer/): Adam and AdamW."""
-from .optimizer import Adam, AdamW, Optimizer
+"""Optimizers (ports paddle_tpu/optimizer/): SGD, Momentum, Adam and
+AdamW."""
+from .optimizer import SGD, Adam, AdamW, Momentum, Optimizer
 
-__all__ = ["Adam", "AdamW", "Optimizer"]
+__all__ = ["Adam", "AdamW", "Momentum", "Optimizer", "SGD"]

@@ -1,10 +1,13 @@
-"""Optimizer base, Adam and AdamW.
+"""Optimizer base, SGD, Momentum, Adam and AdamW.
 
 Ports paddle_tpu/optimizer/optimizer.py: ``Optimizer`` (``step``,
 ``clear_grad``, ``state_dict``, ``set_state_dict``, ``functional_init``,
-``functional_apply``), ``Adam`` and ``AdamW`` with the reference's update
-rules (operators/optimizers/adam_op.cc, adamw.py), which differ from
-``torch.optim.AdamW``:
+``functional_apply``), ``SGD`` (:181, ``p - lr * g``), ``Momentum``
+(:188, ``v = momentum * v + g``, then ``p - lr * v``, or with Nesterov
+``p - lr * (g + momentum * v)``: operators/optimizers/momentum_op.cc),
+``Adam`` and ``AdamW`` with the reference's update rules
+(operators/optimizers/adam_op.cc, adamw.py). Adam's and AdamW's differ
+from ``torch.optim.AdamW``:
 
 - bias correction goes into the step size, lr_t = lr * sqrt(1 - beta2^t) /
   (1 - beta1^t), and epsilon is added to the *uncorrected* sqrt(v);
@@ -164,6 +167,39 @@ class Optimizer:
             self._rule_with_decay(p, g, states[n], *scalars[p.device])
         states["__step__"] += 1
         return params, states
+
+
+class SGD(Optimizer):
+    """operators/optimizers/sgd_op.cc parity."""
+
+    def _rule(self, p, g, state, lr):
+        p.sub_((lr.to(p.dtype) * g).to(p.dtype))
+
+
+class Momentum(Optimizer):
+    """operators/optimizers/momentum_op.cc parity (incl. nesterov): the
+    velocity starts in the parameter's dtype and widens with a wider grad,
+    as the reference's sum does."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 name=None):
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+
+    def _init_state(self, p):
+        return {"velocity": torch.zeros_like(p)}
+
+    def _rule(self, p, g, state, lr):
+        mu = self._momentum
+        v = state["velocity"]
+        if v.dtype != torch.promote_types(v.dtype, g.dtype):
+            v = state["velocity"] = (v * mu).to(g.dtype) + g
+        else:
+            v.mul_(mu).add_(g)
+        step = g + mu * v if self._nesterov else v
+        p.sub_((lr.to(p.dtype) * step).to(p.dtype))
 
 
 class Adam(Optimizer):

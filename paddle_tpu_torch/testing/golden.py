@@ -281,3 +281,107 @@ def same_detections(got, want, tol):
         return False, float("inf")
     err = float(np.abs(got - want).max())
     return err <= tol, err
+
+
+# ---- the narrow detector's training fixture ---------------------------------
+
+#: the JAX package's SpmdTrainer run of DET_TRAIN_STEPS Momentum steps of
+#: the narrow detector (detector_state, detector_images, the targets of
+#: detector_targets), as bench.py trains PP-YOLOE (:493-545):
+#: loss(decode(model(x))) with Momentum(lr 0.01, momentum 0.9) under bf16
+#: auto_cast, which casts nothing on the detector. ``python
+#: tests/test_torch_ppyolo_train.py --write-fixture`` rewrites it.
+DET_TRAIN_FIXTURE = FIXTURE.with_name("ppyoloe_tiny_train_128.npz")
+DET_TRAIN_STEPS = 3
+DET_TRAIN_LR = 0.01
+DET_TRAIN_MOMENTUM = 0.9
+DET_TARGET_SEED = 1            # bench.py:529's RandomState(1)
+DET_STRIDES = (8, 16, 32)
+#: the first this many values of each parameter and velocity (flattened)
+#: are kept whole; every other value enters through its tensor's norm
+DET_KEPT_VALUES = 64
+#: a run against the fixture, fp32 throughout (the reference's auto_cast
+#: casts nothing on the detector): the losses and every kept value
+#: (parameters, velocities, running statistics) within this of
+#: max(1, max |kept fixture values|) of its tensor; the convolutions'
+#: grads sum in another order (oneDNN's or cuDNN's against XLA's), and
+#: three Momentum steps at lr 0.01 carry that into the weights, the
+#: velocities and the next steps' statistics. The CPU reads 9.2e-5 (a
+#: velocity); about 10x that allows the card's other sums.
+DET_TRAIN_RTOL = 1e-3
+#: each tensor's update and velocity norm, relative: the CPU reads 5.1e-4
+#: (a BatchNorm bias's update norm)
+DET_TRAIN_NORM_RTOL = 5e-3
+
+
+def detector_targets(batch=DET_BATCH, size=DET_SIZE, seed=DET_TARGET_SEED,
+                     num_classes=DET_CLASSES):
+    """(gt_boxes [batch, A, 4] float32 pixels, gt_labels [batch, A] int64
+    in [0, num_classes], num_classes being background), drawn as bench.py
+    draws them (:528-533) over the A anchors of the three strides."""
+    A = sum((size // s) ** 2 for s in DET_STRIDES)
+    rng = np.random.RandomState(seed)
+    gt_boxes = (rng.rand(batch, A, 4) * size).astype(np.float32)
+    gt_labels = rng.randint(0, num_classes + 1, (batch, A)).astype(np.int64)
+    return gt_boxes, gt_labels
+
+
+def detector_train_summary(losses, params, velocities, buffers, init):
+    """What the training fixture keeps of a run, from numpy arrays keyed by
+    the trainer's names: the losses; each parameter's first
+    DET_KEPT_VALUES values and the norm of its update (from `init`); each
+    velocity's first values and norm; every buffer (the BatchNorm running
+    statistics) whole."""
+    out = {"loss": np.asarray(losses, np.float32)}
+    for n, p in params.items():
+        p = np.asarray(p, np.float32).ravel()
+        v = np.asarray(velocities[n], np.float32).ravel()
+        d = p.astype(np.float64) - np.asarray(init[n], np.float64).ravel()
+        out[f"kept__{n}"] = p[:DET_KEPT_VALUES]
+        out[f"update_norm__{n}"] = np.float64(np.linalg.norm(d))
+        out[f"velocity__{n}"] = v[:DET_KEPT_VALUES]
+        out[f"velocity_norm__{n}"] = np.float64(
+            np.linalg.norm(v.astype(np.float64)))
+    for n, b in buffers.items():
+        out[f"buffer__{n}"] = np.asarray(b, np.float32)
+    return out
+
+
+def detector_train_errors(got, want):
+    """{"loss", "values", "norms"}: the largest relative differences of the
+    summary `got` from `want` (losses relative to each loss, kept values
+    to max(1, max |want|) of their tensor, norms to the norm)."""
+    if set(got) != set(want):
+        raise ValueError(f"summaries differ in keys: "
+                         f"{sorted(set(got) ^ set(want))[:4]}")
+    err = {"loss": float(np.max(np.abs(got["loss"] / want["loss"] - 1))),
+           "values": 0.0, "norms": 0.0}
+    for key, w in want.items():
+        g = np.asarray(got[key], np.float64)
+        w = np.asarray(w, np.float64)
+        if key.startswith(("kept__", "velocity__", "buffer__")):
+            e = float(np.max(np.abs(g - w))) / max(1.0, float(np.abs(w).max()))
+            err["values"] = max(err["values"], e)
+        elif key.startswith(("update_norm__", "velocity_norm__")):
+            e = float(abs(g - w) / max(float(w), 1e-12))
+            err["norms"] = max(err["norms"], e)
+    return err
+
+
+def detector_train_step(det, loss_fn):
+    """The layer the trainer drives: ``loss_fn(det.decode(det(x)),
+    (gt_boxes, gt_labels))``, bench.py's TrainStep (:511-521), over the
+    port's detector and loss."""
+    from torch import nn
+
+    class TrainStep(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.det = det
+            self.det_loss = loss_fn
+
+        def forward(self, x, gt_boxes, gt_labels):
+            return self.det_loss(self.det.decode(self.det(x)),
+                                 (gt_boxes, gt_labels))
+
+    return TrainStep()

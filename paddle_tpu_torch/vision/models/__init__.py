@@ -1,6 +1,7 @@
-"""Vision models (ports paddle_tpu/vision/models/): PP-YOLOE inference."""
+"""Vision models (ports paddle_tpu/vision/models/): PP-YOLOE inference
+and training loss."""
 from .ppyolo import (PPYOLOE, CSPBackbone, CSPBlock, ConvBNLayer, PANNeck,
-                     PPYOLOEHead, ppyoloe_tiny)
+                     PPYOLOEHead, PPYOLOELoss, ppyoloe_tiny)
 
 __all__ = ["CSPBackbone", "CSPBlock", "ConvBNLayer", "PANNeck", "PPYOLOE",
-           "PPYOLOEHead", "ppyoloe_tiny"]
+           "PPYOLOEHead", "PPYOLOELoss", "ppyoloe_tiny"]

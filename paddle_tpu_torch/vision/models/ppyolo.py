@@ -1,13 +1,14 @@
-"""PP-YOLOE-style anchor-free detector: inference.
+"""PP-YOLOE-style anchor-free detector: inference and its training loss.
 
 Ports ``ConvBNLayer``, ``CSPBlock``, ``CSPBackbone``, ``PANNeck``,
-``PPYOLOEHead``, ``PPYOLOE`` (``forward``, ``decode``, ``postprocess``)
-and ``ppyoloe_tiny`` of paddle_tpu/vision/models/ppyolo.py (:20-199,
-:254), NCHW, with the reference's module and parameter names, so
+``PPYOLOEHead``, ``PPYOLOE`` (``forward``, ``decode``, ``postprocess``),
+``PPYOLOELoss`` and ``ppyoloe_tiny`` of paddle_tpu/vision/models/ppyolo.py
+(:20-254), NCHW, with the reference's module and parameter names, so
 ``models.convert.ppyoloe_params_from_jax`` loads the JAX model's
-``state_dict()`` unchanged. BatchNorm runs on its running statistics
-(call ``eval()``); training the detector (``PPYOLOELoss``, batch
-statistics, Momentum) is not ported yet.
+``state_dict()`` unchanged. In eval mode BatchNorm runs on its running
+statistics; in training mode on the batch's, updating the running ones
+(``nn.functional.batch_norm``). A training step is
+``PPYOLOELoss(decode(model(x)), targets)``, as bench.py trains it.
 
 ``postprocess`` decodes the head's per-level outputs into boxes and
 sigmoid scores and runs ``vision.ops.multiclass_nms`` with no background
@@ -200,6 +201,54 @@ class PPYOLOE(nn.Module):
         return multiclass_nms(boxes, scores, score_threshold=score_threshold,
                               nms_threshold=nms_threshold,
                               keep_top_k=keep_top_k, background_label=-1)
+
+
+class PPYOLOELoss(nn.Module):
+    """The reference's simplified PP-YOLOE loss over decoded predictions
+    (boxes [B, A, 4] xyxy, sigmoid scores [B, C, A]) and per-anchor
+    targets (gt_boxes [B, A, 4], gt_labels [B, A], ``num_classes`` for
+    background): focal BCE on the scores clipped to [1e-6, 1 - 1e-6], and
+    1 - IoU on the positive anchors, each summed and divided by the count
+    of positives (at least 1). Maxima split the gradient at ties, as
+    jnp.maximum does."""
+
+    def __init__(self, num_classes=80, cls_weight=1.0, iou_weight=2.5):
+        super().__init__()
+        self.num_classes = num_classes
+        self.cls_weight = cls_weight
+        self.iou_weight = iou_weight
+
+    def forward(self, decoded, targets):
+        boxes, scores = decoded
+        gt_b, gt_l = targets
+        C = self.num_classes
+        gt_l = torch.as_tensor(gt_l, device=boxes.device).long()
+        gt_b = torch.as_tensor(gt_b, device=boxes.device)
+        pos = gt_l < C                                          # [B, A]
+        # background (C) -> an all-zero row
+        onehot = torch.nn.functional.one_hot(gt_l, C + 1)[..., :C].float()
+        p = torch.clamp(scores.transpose(1, 2), 1e-6, 1 - 1e-6)
+        focal = -(onehot * (1 - p) ** 2 * torch.log(p)
+                  + (1 - onehot) * p ** 2 * torch.log(1 - p))
+        n_pos = pos.sum().clamp_min(1)
+        cls_loss = focal.sum() / n_pos
+
+        zero = boxes.new_zeros(())
+
+        def area(b):
+            return torch.maximum(b[..., 2] - b[..., 0], zero) \
+                * torch.maximum(b[..., 3] - b[..., 1], zero)
+
+        ix1 = torch.maximum(boxes[..., 0], gt_b[..., 0])
+        iy1 = torch.maximum(boxes[..., 1], gt_b[..., 1])
+        ix2 = torch.minimum(boxes[..., 2], gt_b[..., 2])
+        iy2 = torch.minimum(boxes[..., 3], gt_b[..., 3])
+        inter = torch.maximum(ix2 - ix1, zero) * torch.maximum(iy2 - iy1,
+                                                               zero)
+        iou = inter / torch.maximum(area(boxes) + area(gt_b) - inter,
+                                    boxes.new_tensor(1e-9))
+        iou_loss = ((1 - iou) * pos).sum() / n_pos
+        return self.cls_weight * cls_loss + self.iou_weight * iou_loss
 
 
 def ppyoloe_tiny(num_classes=80, device=None, generator=None):

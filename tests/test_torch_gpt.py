@@ -215,13 +215,17 @@ class TestGenerate:
         assert out.shape == (2, 11) and out.dtype == torch.int64
         assert bool(((out >= 0) & (out < TINY["vocab_size"])).all())
 
-    @pytest.mark.parametrize("kwargs", [
-        dict(num_beams=2), dict(cache_dtype="int8"),
-        dict(attention_mask=np.ones((2, 5))), dict(tp_mesh=object())],
+    @pytest.mark.parametrize("kwargs, error", [
+        (dict(num_beams=2), NotImplementedError),
+        # int8 and fp8 caches are ported; any other cache_dtype raises
+        # ValueError, as the reference's _decode_fns does
+        (dict(cache_dtype="int4"), ValueError),
+        (dict(attention_mask=np.ones((2, 5))), NotImplementedError),
+        (dict(tp_mesh=object()), NotImplementedError)],
         ids=["beams", "cache_dtype", "mask", "tp"])
-    def test_unported_options_raise(self, kwargs):
+    def test_unported_options_raise(self, kwargs, error):
         _, tm = _pair(TINY)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(error):
             tm.generate(torch.zeros((2, 5), dtype=torch.long),
                         max_new_tokens=2, **kwargs)
 

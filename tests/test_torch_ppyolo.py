@@ -265,9 +265,22 @@ def test_batch_norm_eval_matches_jax():
 
 
 def test_batch_statistics_are_not_ported():
+    """Batch statistics are ported: in training mode the layer normalises
+    by the batch's mean and biased variance and updates its running
+    statistics as the JAX package's BatchNorm2D does (momentum 0.9); in
+    eval mode it normalises by the running statistics."""
+    x = np.random.RandomState(4).randn(2, 3, 4, 4).astype(np.float32) + 1.0
+    jbn = paddle.nn.BatchNorm2D(3)
+    jbn.train()
+    want = np.asarray(jbn(paddle.to_tensor(x))._data)
     bn = BatchNorm2D(3)
-    with pytest.raises(NotImplementedError, match="batch statistics"):
-        bn(torch.zeros(2, 3, 4, 4))
+    got = bn(torch.from_numpy(x))
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-5,
+                               rtol=0)
+    for name in ("_mean", "_variance"):
+        np.testing.assert_allclose(getattr(bn, name).numpy(), np.asarray(
+            getattr(jbn, name)._data), atol=1e-6, rtol=0)
+    bn = BatchNorm2D(3)
     bn.eval()
     assert torch.equal(bn(torch.ones(1, 3, 2, 2)),
                        torch.ones(1, 3, 2, 2) / torch.sqrt(torch.tensor(

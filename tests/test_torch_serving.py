@@ -626,10 +626,11 @@ class TestUnported:
             with pytest.raises(NotImplementedError, match="not ported"):
                 ServingEngine(tm, max_batch=2, **kw)
         pt.set_flags({"paged_kv": False})
-        for kw in (dict(tp_mesh=object()), dict(draft_model=tm),
-                   dict(cache_dtype="int8")):
+        for kw in (dict(tp_mesh=object()), dict(draft_model=tm)):
             with pytest.raises(NotImplementedError, match="not ported"):
                 ServingEngine(tm, max_batch=2, **kw)
+        with pytest.raises(ValueError, match="cache_dtype"):
+            ServingEngine(tm, max_batch=2, cache_dtype="int4")
         eng = ServingEngine(tm, max_batch=2)
         for call in (lambda: eng.warmup(),
                      lambda: eng.admit_prefilled([1], None, None),
@@ -664,8 +665,9 @@ class TestUnported:
             decode_model.get_decode_model("nope")
         with pytest.raises(TypeError, match="no registered decode model"):
             decode_model.resolve(object())
-        for call in (lambda: dm.decode_fns(tm.cfg, None, cache_dtype="int8"),
-                     lambda: dm.decode_fns(tm.cfg, None, tp_axis="mp"),
+        with pytest.raises(ValueError, match="cache_dtype"):
+            dm.decode_fns(tm.cfg, None, cache_dtype="int4")
+        for call in (lambda: dm.decode_fns(tm.cfg, None, tp_axis="mp"),
                      lambda: dm.tp_setup(None, tm.cfg, {}),
                      lambda: dm.lora_init(tm.cfg, 2, 4)):
             with pytest.raises(NotImplementedError, match="not ported"):
