@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's GPT-2 serving, decoding and training
-paths, its PP-YOLOE detection serving and training paths, the TPP row
-primitives and the continuous-batching ServingEngine (dense and paged) on
-one GPU.
+paths, its PP-YOLOE detection serving and training paths, ResNet-50,
+LeNet and BERT-base training, the TPP row primitives and the
+continuous-batching ServingEngine (dense and paged) on one GPU.
 
 Run from the repository root, on a machine with a CUDA device and nvcc:
 
@@ -47,9 +47,14 @@ bytes; the narrow model's quantized generate against the CPU's), trains
 PP-YOLOE as bench.py's ppyolo train half does (the narrow detector's
 three Momentum steps against the JAX package's committed run first; then
 8 x 640 x 640 under bf16 auto_cast: imgs/s, step ms, peak memory, idle
-share), profiles each configuration once for the device time by
-kernel and the device's idle share, and times every kernel. Each phase prints one JSON line; then a ``kernels``
-line, the card's name and power limit, and last
+share), trains ResNet-50 (64 x 224 x 224, Momentum, bf16 auto_cast:
+imgs/s), LeNet through ``Model.train_batch`` (batch 64, Adam: steps/s)
+and BERT-base (16 x 512, AdamW, bf16 auto_cast: tokens/s, every
+attention call on SDPA's naive route) as bench.py does, each after its
+narrow model's three steps against the JAX package's committed run,
+profiles each configuration once for the device time by kernel and the
+device's idle share, and times every kernel. Each phase prints one JSON
+line; then a ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits nonzero and prints no result; it also exits nonzero at once when
 torch.cuda.is_available() is false. It imports neither jax nor the JAX
@@ -214,6 +219,15 @@ ENGINE_TIE_BF16 = 2 * BF16_VS_FP32_MATH_TOL
 # PP-YOLOE training (bench.py run_ppyolo_train :493-545): 1 warm-up step,
 # then this many timed steps, then one profiled
 DET_TRAIN_STEPS_TIMED = 5
+# the training paths of ResNet-50, LeNet and BERT-base at bench.py's
+# shapes (run_resnet50 :1055-1057 and :1351, run_lenet :1229-1231,
+# run_bert :1060-1063): 1 warm-up step, then this many timed, then one
+# profiled (LeNet's steps are ~ms, so more of them)
+RESNET_BATCH, RESNET_SIZE = 64, 224
+LENET_BATCH = 64
+BERT_BATCH, BERT_SEQ = 16, 512
+MODEL_STEPS_TIMED = 5
+LENET_STEPS_TIMED = 50
 
 
 def torch_dtypes():
@@ -1708,8 +1722,6 @@ def train_detector(dev):
     from paddle_tpu_torch.amp import auto_cast
     from paddle_tpu_torch.distributed import SpmdTrainer
     from paddle_tpu_torch.models import ppyoloe_params_from_jax
-    from paddle_tpu_torch.ops import flash_attention as fa
-    from paddle_tpu_torch.ops import nms_pallas, tpp
     from paddle_tpu_torch.optimizer import Momentum
     from paddle_tpu_torch.testing import golden
     from paddle_tpu_torch.vision.models import PPYOLOE, PPYOLOELoss, \
@@ -1765,9 +1777,6 @@ def train_detector(dev):
     gt_labels = torch.as_tensor(rng.randint(
         0, DET_CONFIG["num_classes"] + 1, (DET_BATCH, A)).astype(np.int64),
         device=dev)
-    for counter in (fa.launches, tpp.launches, tpp.routes,
-                    nms_pallas.launches):
-        counter.clear()
     losses = []
 
     def step():
@@ -1776,37 +1785,274 @@ def train_detector(dev):
         losses.append(loss.item())
         return loss
 
+    _zero_counters()
+    row, trace = _timed_training(step, DET_TRAIN_STEPS_TIMED, det_group)
+    counts = _read_kernel_counts()
+    check(all(math.isfinite(x) for x in losses),
+          f"PP-YOLOE training: finite losses {losses}")
+    check(trace.get("kernels", 0) > 0, "PP-YOLOE training: the profiled "
+          "step ran on the device")
+    emit({"phase": "ppyoloe_train", "config": DET_CONFIG,
+          "batch": DET_BATCH, "size": DET_SIZE, "anchors": A,
+          "optimizer": f"Momentum lr {golden.DET_TRAIN_LR} momentum "
+                       f"{golden.DET_TRAIN_MOMENTUM}",
+          "auto_cast": "bfloat16 (casts nothing on the detector)",
+          "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32, **row,
+          "imgs_per_s": DET_BATCH / (row["step_ms"] / 1e3),
+          "losses": losses, "loss_falls": losses[-1] < losses[0],
+          "profiled": trace, "main_path_launches": counts})
+    del det, tr, images, gt_boxes, gt_labels
+    torch.cuda.empty_cache()
+    return counts
+
+
+def model_group(name):
+    """The training paths' kernel groups (ResNet, LeNet, BERT)."""
+    n = name.lower()
+    if any(t in n for t in ("conv", "fprop", "dgrad", "wgrad", "implicit",
+                            "winograd", "nchwtonhwc", "nhwctonchw")):
+        return "convolution"
+    if any(t in n for t in ("gemm", "nvjet", "cutlass", "xmma", "cublas")):
+        return "gemm"
+    if "softmax" in n:
+        return "softmax"
+    if "norm" in n or "welford" in n:
+        return "norm"
+    if "pool" in n:
+        return "pool"
+    if "reduce" in n:
+        return "reduce"
+    if any(t in n for t in ("elementwise", "vectorized", "unrolled")):
+        return "elementwise"
+    return "rest"
+
+
+def _path_counters():
+    """Every kernel launch and route counter of the port, and SDPA's count
+    of its routes."""
+    from paddle_tpu_torch.nn.functional import transformer as sdpa
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import nms_pallas, tpp
+
+    return (fa.launches, fa.routes, tpp.launches, tpp.routes,
+            nms_pallas.launches, nms_pallas.routes, sdpa.routes)
+
+
+def _zero_counters():
+    for counter in _path_counters():
+        counter.clear()
+
+
+def _read_kernel_counts():
+    """The kernel launches and routes counted since _zero_counters (SDPA's
+    route count apart)."""
+    return {k: n for c in _path_counters()[:-1] for k, n in c.items() if n}
+
+
+def _timed_training(step, steps, group=None):
+    """One warm-up step, `steps` timed ones (host clock around a
+    synchronised step), then one profiled (device ms by `group`, default
+    model_group). Returns (timing row, the profile)."""
+    import torch
+
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for i in range(1 + DET_TRAIN_STEPS_TIMED):        # one warm-up step
+    for i in range(1 + steps):
         torch.cuda.synchronize()
         t = time.perf_counter()
         step()
         torch.cuda.synchronize()
         if i:
             times.append((time.perf_counter() - t) * 1e3)
-    _, trace = device_breakdown(step, det_group)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    counts = {k: n for c in (fa.launches, tpp.launches, tpp.routes,
-                             nms_pallas.launches)
-              for k, n in c.items() if n}
+    _, trace = device_breakdown(step, group or model_group)
+    return {"step_ms": statistics.median(times), "step_ms_min": min(times),
+            "step_ms_max": max(times), "step_ms_all": times,
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 2 ** 30}, trace
+
+
+def _narrow_vs_fixture(phase, kind, fixture, summary, losses):
+    """Hold a narrow model's three steps against its JAX fixture."""
+    import numpy as np
+
+    from paddle_tpu_torch.testing import golden
+
+    fix = dict(np.load(fixture))
+    err = golden.model_train_errors(summary, fix)
+    tol = golden.MODEL_TRAIN_TOL[kind]
+    check(golden.within(err, tol), f"{phase}: {err} within {tol}")
+    emit({"phase": phase, "steps": golden.MODEL_TRAIN_STEPS,
+          "losses": losses, "jax_losses": fix["loss"].tolist(),
+          "rel_err": err, "tol": tol})
+
+
+def train_models(dev):
+    """ResNet-50, LeNet and BERT-base training as bench.py runs them
+    (run_resnet50 :357-392, run_lenet :446-470, run_bert :397-443), each
+    at the bench's full width and depth after its narrow model's three
+    steps against the JAX package's committed run. TF32 stays off (the
+    reference's fp32 is fp32). Returns each full-size path's kernel
+    launches (counted from zero just before it)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.distributed import SpmdTrainer
+    from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
+                                         BertPretrainLoss, state_from_jax)
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.nn.functional import transformer as sdpa
+    from paddle_tpu_torch.optimizer import Adam, AdamW, Momentum
+    from paddle_tpu_torch.testing import golden
+    from paddle_tpu_torch.vision.models import LeNet, resnet50
+
+    tf32 = {"matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}
+    counts = {}
+
+    def bf16_steps(trainer, batch, n):
+        with auto_cast(True, dtype="bfloat16"):
+            return [float(trainer.train_step(*batch)) for _ in range(n)]
+
+    # ---- ResNet: the narrow model, then resnet50 at 64 x 224 x 224 -------
+    m = golden.resnet_narrow(device=dev)
+    m.load_state_dict(state_from_jax(golden.resnet_state(m), m))
+    tr = SpmdTrainer(m, Momentum(learning_rate=golden.RESNET_LR,
+                                 momentum=golden.RESNET_MOMENTUM,
+                                 parameters=m.parameters()),
+                     loss_fn=CrossEntropyLoss())
+    init = golden.jax_layout(tr.params, m)
+    losses = bf16_steps(tr, [torch.as_tensor(a, device=dev)
+                             for a in golden.resnet_batch()],
+                        golden.MODEL_TRAIN_STEPS)
+    _narrow_vs_fixture("resnet_narrow_train_vs_jax_fixture", "resnet",
+                       golden.RESNET_FIXTURE, golden.port_train_summary(
+                           tr, m, init, losses, ["velocity"]), losses)
+    del m, tr
+    m = resnet50(num_classes=1000, device=dev,
+                 generator=torch.Generator().manual_seed(0))
+    tr = SpmdTrainer(m, Momentum(learning_rate=0.1, momentum=0.9,
+                                 parameters=m.parameters()),
+                     loss_fn=CrossEntropyLoss())
+    rng = np.random.RandomState(0)
+    images = rng.rand(RESNET_BATCH, 3, RESNET_SIZE, RESNET_SIZE)
+    labels = rng.randint(0, 1000, (RESNET_BATCH,))
+    batch = [torch.as_tensor(images.astype(np.float32), device=dev),
+             torch.as_tensor(labels.astype(np.int32), device=dev)]
+    losses = []
+    _zero_counters()
+    row, trace = _timed_training(
+        lambda: losses.extend(bf16_steps(tr, batch, 1)), MODEL_STEPS_TIMED)
+    counts["resnet_train"] = _read_kernel_counts()
     check(all(math.isfinite(x) for x in losses),
-          f"PP-YOLOE training: finite losses {losses}")
-    check(trace.get("kernels", 0) > 0, "PP-YOLOE training: the profiled "
-          "step ran on the device")
-    ms = statistics.median(times)
-    emit({"phase": "ppyoloe_train", "config": DET_CONFIG,
-          "batch": DET_BATCH, "size": DET_SIZE, "anchors": A,
-          "optimizer": f"Momentum lr {golden.DET_TRAIN_LR} momentum "
-                       f"{golden.DET_TRAIN_MOMENTUM}",
-          "auto_cast": "bfloat16 (casts nothing on the detector)",
-          "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
-          "step_ms": ms, "step_ms_all": times,
-          "imgs_per_s": DET_BATCH / (ms / 1e3),
-          "losses": losses, "loss_falls": losses[-1] < losses[0],
-          "max_memory_allocated_gb": peak, "profiled": trace,
-          "main_path_launches": counts})
-    del det, tr, images, gt_boxes, gt_labels
+          f"resnet50 training: finite losses {losses}")
+    check(trace.get("kernels", 0) > 0, "resnet50: the profiled step ran "
+          "on the device")
+    emit({"phase": "resnet50_train", "config": "bench.py run_resnet50",
+          "batch": RESNET_BATCH, "size": RESNET_SIZE, "num_classes": 1000,
+          "optimizer": "Momentum lr 0.1 momentum 0.9",
+          "auto_cast": "bfloat16 (casts fc only)", **tf32, **row,
+          "imgs_per_s": RESNET_BATCH / (row["step_ms"] / 1e3),
+          "losses": losses, "profiled": trace,
+          "main_path_launches": counts["resnet_train"]})
+    del m, tr, batch
+    torch.cuda.empty_cache()
+
+    # ---- LeNet through Model.train_batch: the narrow run, then batch 64 --
+    state = golden.jax_state(golden.jax_shapes(LeNet(device=dev)),
+                             golden.LENET_SEED)
+    net = LeNet(device=dev)
+    net.load_state_dict(state_from_jax(state, net))
+    model = Model(net).prepare(Adam(learning_rate=golden.LENET_LR,
+                                    parameters=net.parameters()),
+                               CrossEntropyLoss())
+    images, labels = golden.lenet_batch()
+    losses = [model.train_batch([images], [labels])[0]
+              for _ in range(golden.MODEL_TRAIN_STEPS)]
+    _narrow_vs_fixture("lenet_narrow_train_batch_vs_jax_fixture", "lenet",
+                       golden.LENET_FIXTURE, golden.model_train_summary(
+                           losses, golden.jax_layout(
+                               dict(net.named_parameters()), net), state),
+                       losses)
+    net = LeNet(device=dev, generator=torch.Generator().manual_seed(0))
+    model = Model(net).prepare(Adam(learning_rate=1e-3,
+                                    parameters=net.parameters()),
+                               CrossEntropyLoss())
+    rng = np.random.RandomState(0)
+    images = rng.rand(LENET_BATCH, 1, 28, 28).astype(np.float32)
+    labels = rng.randint(0, 10, (LENET_BATCH, 1)).astype(np.int64)
+    losses = []
+    _zero_counters()
+    row, trace = _timed_training(
+        lambda: losses.extend(model.train_batch([images], [labels])),
+        LENET_STEPS_TIMED)
+    counts["lenet_train"] = _read_kernel_counts()
+    check(all(math.isfinite(x) for x in losses),
+          f"LeNet training: finite losses {losses}")
+    check(trace.get("kernels", 0) > 0, "LeNet: the profiled step ran on "
+          "the device")
+    emit({"phase": "lenet_train_batch", "config": "bench.py run_lenet",
+          "batch": LENET_BATCH, "optimizer": "Adam lr 1e-3",
+          "inputs": "numpy images and labels each step, as bench.py "
+                    "passes them", **tf32, **row,
+          "steps_per_s": 1e3 / row["step_ms"],
+          "loss_first_last": [losses[0], losses[-1]], "profiled": trace,
+          "main_path_launches": counts["lenet_train"]})
+    del net, model
+
+    # ---- BERT: tiny against the fixture, then base at 16 x 512 -----------
+    m = BertForPretraining(BertConfig.tiny(), device=dev)
+    m.load_state_dict(state_from_jax(golden.jax_state(
+        golden.jax_shapes(m), golden.BERT_SEED, std_2d=0.02,
+        bias_std=0.02), m))
+    tr = SpmdTrainer(m, AdamW(learning_rate=golden.BERT_LR,
+                              parameters=m.parameters()),
+                     loss_fn=BertPretrainLoss())
+    init = golden.jax_layout(tr.params, m)
+    losses = bf16_steps(tr, [torch.as_tensor(a, device=dev)
+                             for a in golden.bert_batch()],
+                        golden.MODEL_TRAIN_STEPS)
+    _narrow_vs_fixture("bert_tiny_pretrain_vs_jax_fixture", "bert",
+                       golden.BERT_FIXTURE, golden.port_train_summary(
+                           tr, m, init, losses, ["moment1", "moment2"]),
+                       losses)
+    del m, tr
+    cfg = BertConfig(dropout=0.0)
+    m = BertForPretraining(cfg, device=dev,
+                           generator=torch.Generator().manual_seed(0))
+    tr = SpmdTrainer(m, AdamW(learning_rate=1e-4, parameters=m.parameters()),
+                     loss_fn=BertPretrainLoss())
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, (BERT_BATCH, BERT_SEQ))
+    mlm = rng.randint(0, cfg.vocab_size, (BERT_BATCH, BERT_SEQ))
+    batch = [torch.as_tensor(a.astype(np.int32), device=dev)
+             for a in (ids, np.zeros_like(ids), mlm)]
+    losses = []
+    _zero_counters()
+    row, trace = _timed_training(
+        lambda: losses.extend(bf16_steps(tr, batch, 1)), MODEL_STEPS_TIMED)
+    counts["bert_train"] = _read_kernel_counts()
+    routes = dict(sdpa.routes)
+    steps = MODEL_STEPS_TIMED + 2
+    check(routes.get("flash", 0) == 0
+          and routes.get("naive", 0) == cfg.num_layers * steps,
+          f"BERT-base: every attention call on the naive route ({routes} "
+          f"over {steps} steps of {cfg.num_layers} layers)")
+    check(all(math.isfinite(x) for x in losses),
+          f"BERT-base training: finite losses {losses}")
+    check(trace.get("kernels", 0) > 0, "BERT-base: the profiled step ran "
+          "on the device")
+    emit({"phase": "bert_base_pretrain", "config": "bench.py run_bert",
+          "batch": BERT_BATCH, "seq": BERT_SEQ, "layers": cfg.num_layers,
+          "hidden": cfg.hidden_size, "heads": cfg.num_heads,
+          "optimizer": "AdamW lr 1e-4",
+          "auto_cast": "bfloat16 (Linear layers and the tied head)", **tf32,
+          **row, "tokens_per_s": BERT_BATCH * BERT_SEQ
+          / (row["step_ms"] / 1e3), "losses": losses,
+          "sdpa_routes": routes, "profiled": trace,
+          "main_path_launches": counts["bert_train"]})
+    del m, tr, batch
     torch.cuda.empty_cache()
     return counts
 
@@ -2587,6 +2833,9 @@ def main():
     # ---- 4g. PP-YOLOE training -------------------------------------------
     counts_det_train = train_detector(dev)
 
+    # ---- 4h. ResNet-50, LeNet and BERT-base training -----------------------
+    counts_models = train_models(dev)
+
     # ---- 5. times at the main path's shapes -------------------------------
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > L2
 
@@ -2645,7 +2894,8 @@ def main():
                    "tpp_rows": count(counts_rows),
                    "gpt_paged_serving": count(counts_paged),
                    "gpt_decode": count(counts_decode),
-                   "detect_train": count(counts_det_train)}
+                   "detect_train": count(counts_det_train),
+                   **{path: count(c) for path, c in counts_models.items()}}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 

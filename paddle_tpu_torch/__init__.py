@@ -18,14 +18,21 @@ continuous-batching ``inference.ServingEngine``, dense or on the paged KV
 pool of ``serving`` (``FLAGS_paged_kv``), with the block-table decode
 kernel ``ops.tpp.paged_attention``. KV caches may be kept as int8 or fp8
 codes (``cache_dtype``), and the detector trains (``PPYOLOELoss``,
-BatchNorm with batch statistics, ``optimizer.Momentum``). Entry points
-run on ``cuda`` unless the caller passes ``device="cpu"``.
+BatchNorm with batch statistics, ``optimizer.Momentum``). ResNet
+(``vision.models.resnet50`` and the rest of the family) and BERT
+(``models.BertForPretraining``) train through ``SpmdTrainer``, and LeNet
+through the high-level ``Model`` (``hapi``: ``prepare`` and
+``train_batch`` / ``eval_batch`` / ``predict_batch``), over the pooling,
+LayerNorm, embedding, cross-entropy and transformer-encoder layers of
+``nn``. Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``.
 """
-from . import (amp, distributed, inference, models, optimizer, serving,
-               tensor, vision)
+from . import (amp, distributed, hapi, inference, models, nn, optimizer,
+               serving, tensor, vision)
 from .core.generator import seed
 from .flags import get_flag, get_flags, set_flags
+from .hapi import Model
 
-__all__ = ["amp", "distributed", "get_flag", "get_flags", "inference",
-           "models", "optimizer", "seed", "serving", "set_flags", "tensor",
-           "vision"]
+__all__ = ["Model", "amp", "distributed", "get_flag", "get_flags", "hapi",
+           "inference", "models", "nn", "optimizer", "seed", "serving",
+           "set_flags", "tensor", "vision"]

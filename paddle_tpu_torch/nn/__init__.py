@@ -1,4 +1,6 @@
 """Neural-network functionals and layers (ports paddle_tpu/nn/)."""
-from .layer import BatchNorm2D, Conv2D, Linear
+from . import functional
+from .layer import *  # noqa: F401,F403
+from .layer import __all__ as _layers
 
-__all__ = ["BatchNorm2D", "Conv2D", "Linear"]
+__all__ = ["functional", *_layers]

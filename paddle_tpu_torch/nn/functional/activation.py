@@ -1,7 +1,11 @@
-"""Activation functionals: ``sigmoid``, ``silu`` and ``softplus``.
+"""Activation functionals: ``relu``, ``sigmoid``, ``tanh``, ``gelu``,
+``silu`` and ``softplus``.
 
-Ports those three of paddle_tpu/nn/functional/activation.py with the
-formulas of the jax.nn functions they call: ``silu`` (:78) is
+Ports those six of paddle_tpu/nn/functional/activation.py with the
+formulas of the jax.nn functions they call. ``relu`` (:19) and ``tanh``
+(:37) are torch's; ``gelu`` (:41) is exact, ``x * Phi(x)`` through erf,
+unless ``approximate`` asks for the tanh form, as ``jax.nn.gelu`` is; each
+keeps its input's dtype. ``silu`` (:78) is
 ``x * sigmoid(x)`` as ``jax.nn.silu`` is, and ``softplus`` (:121) is
 ``x`` above the threshold and ``jax.nn.softplus(beta x) / beta`` below,
 ``jax.nn.softplus`` being ``logaddexp(x, 0) = max(x, 0) +
@@ -10,10 +14,23 @@ from XLA's, so results agree with the reference to about one ulp, not bit
 for bit.
 """
 import torch
+import torch.nn.functional as F
+
+
+def relu(x, name=None):
+    return torch.relu(x)
 
 
 def sigmoid(x, name=None):
     return torch.sigmoid(x)
+
+
+def tanh(x, name=None):
+    return torch.tanh(x)
+
+
+def gelu(x, approximate=False, name=None):
+    return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
 def silu(x, name=None):

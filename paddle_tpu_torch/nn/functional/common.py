@@ -1,11 +1,13 @@
-"""Common functionals: linear, dropout and interpolate.
+"""Common functionals: linear, dropout, interpolate and embedding.
 
-Ports ``linear`` (:22), ``dropout`` and ``interpolate`` (:121) of
-paddle_tpu/nn/functional/common.py. ``linear`` takes the reference's
-weight layout, [in, out] (``x @ weight + bias``), and is one of the two
-ops that read ``amp.auto_cast``'s state (``tensor.matmul`` is the other):
-under it a floating x, the weight and the bias are cast to the amp dtype
-first. The reference draws its dropout
+Ports ``linear`` (:22), ``dropout``, ``interpolate`` (:121) and
+``embedding`` (:315) of paddle_tpu/nn/functional/common.py.
+``embedding`` gathers rows of the weight by integer ids; ``padding_idx``
+and ``sparse=True`` are not ported yet and raise NotImplementedError.
+``linear`` takes the reference's weight layout, [in, out] (``x @ weight
++ bias``), and is one of the two ops that read ``amp.auto_cast``'s state
+(``tensor.matmul`` is the other): under it a floating x, the weight and
+the bias are cast to the amp dtype first. The reference draws its dropout
 keep-mask from the framework's PRNG key; here the mask comes from a
 ``torch.Generator`` — the caller's, or the default generator of the
 tensor's device (``paddle_tpu_torch.seed`` reseeds those) — never from
@@ -80,3 +82,12 @@ def interpolate(x, size=None, scale_factor=None, mode="nearest",
                                   " is not ported (positive integers only)")
     return F.interpolate(x, scale_factor=tuple(float(f) for f in factors),
                          mode="nearest")
+
+
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    """Rows of `weight` [num, dim] at the integer ids `x`: [*x.shape,
+    dim]."""
+    if padding_idx is not None or sparse:
+        raise NotImplementedError("embedding padding_idx and sparse=True "
+                                  "are not ported yet")
+    return F.embedding(x.long(), weight)

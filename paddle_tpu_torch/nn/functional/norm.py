@@ -1,4 +1,4 @@
-"""Normalization functionals: ``batch_norm``.
+"""Normalization functionals: ``batch_norm`` and ``layer_norm``.
 
 Ports ``batch_norm`` of paddle_tpu/nn/functional/norm.py (:19) by the
 reference's formula ``(x - mean) / sqrt(var + eps) * weight + bias`` over
@@ -41,4 +41,20 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
         out = out * weight.reshape(shape)
     if bias is not None:
         out = out + bias.reshape(shape)
+    return out
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
+               name=None):
+    if isinstance(normalized_shape, int):
+        normalized_shape = [normalized_shape]
+    axes = tuple(range(x.ndim - len(normalized_shape), x.ndim))
+    xf = x.float()
+    mean = xf.mean(axes, keepdim=True).to(x.dtype)
+    var = xf.var(axes, correction=0, keepdim=True).to(x.dtype)
+    out = (x - mean) / torch.sqrt(var + epsilon)
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
     return out

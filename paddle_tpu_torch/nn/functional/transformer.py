@@ -8,8 +8,10 @@ window and mask handling. Gradients flow through both paths; attention
 dropout draws its mask from a torch.Generator. The naive path runs with
 torch's autocast off: the reference's auto_cast reaches only linear and
 matmul, so its scores, softmax and probabilities keep q's dtype (under
-torch's autocast a CUDA softmax would come out fp32).
+torch's autocast a CUDA softmax would come out fp32). ``routes`` counts
+the calls by the route they took (``flash`` or ``naive``).
 """
+import collections
 import math
 
 import torch
@@ -19,6 +21,9 @@ from ...ops import flash_attention as fa
 from .common import dropout
 
 _NEG = -1e30
+
+#: calls of scaled_dot_product_attention by route
+routes = collections.Counter()
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
@@ -36,9 +41,11 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         raise ValueError("window requires is_causal=True")
     if (use_flash and attn_mask is None and dropout_p == 0.0
             and fa.supported(tuple(query.shape), query.dtype, query.device)):
+        routes["flash"] += 1
         return fa.flash_attention(query, key, value, causal=is_causal,
                                   window=window)
 
+    routes["naive"] += 1
     with _autocast_off():
         return _naive(query, key, value, attn_mask, dropout_p, is_causal,
                       training, window)

@@ -1,5 +1,6 @@
 """The narrow models whose JAX-package outputs are committed as fixtures:
-a GPT and a PP-YOLOE detector.
+a GPT, a PP-YOLOE detector, and (see "ResNet, LeNet and BERT" below)
+three training runs of a narrow ResNet, LeNet and a tiny BERT.
 
 ``chip_smoke.py`` runs the port's eval forward and greedy ``generate`` of
 this model on the card and holds them against
@@ -385,3 +386,266 @@ def detector_train_step(det, loss_fn):
                                  (gt_boxes, gt_labels))
 
     return TrainStep()
+
+
+# ---- ResNet, LeNet and BERT: three training steps each ----------------------
+
+#: the JAX package's runs of MODEL_TRAIN_STEPS steps of three narrow models,
+#: each as bench.py trains the full one, from the weights of jax_state and
+#: the batches below: ``ResNet(BottleneckBlock, depth=18,
+#: num_classes=10)`` (resnet50's block and code with two blocks a stage,
+#: as the JAX package's three steps of resnet50 and its build take ~27 s
+#: of this CPU's test budget) at RESNET_BATCH x 3 x
+#: RESNET_SIZE^2 through SpmdTrainer with Momentum and CrossEntropyLoss
+#: under bf16 auto_cast (bench.py:357-392); LeNet through
+#: ``Model.prepare(Adam(1e-3), CrossEntropyLoss())`` and ``train_batch``
+#: (:446-470); ``BertConfig.tiny()`` at BERT_BATCH x BERT_SEQ through
+#: SpmdTrainer with AdamW(1e-4) and BertPretrainLoss under bf16 auto_cast
+#: (:397-443). ``python tests/test_torch_resnet.py --write-fixture``,
+#: ``tests/test_torch_hapi.py`` and ``tests/test_torch_bert.py`` rewrite
+#: them; each file's test_committed_*_fixture_matches_jax checks that its
+#: fixture still matches a fresh run.
+MODEL_TRAIN_STEPS = 3
+RESNET_FIXTURE = FIXTURE.with_name("resnet_bottleneck18_train_64.npz")
+RESNET_DEPTH = 18
+RESNET_SEED = 5
+RESNET_CLASSES = 10
+RESNET_BATCH = 2
+#: 64, not 32: at 32 x 32 the last stage is 1 x 1 and its BatchNorm
+#: normalises two values a channel to +-1, so the logits hang on the signs
+#: of differences and the second step already fits the two images (loss
+#: 0 in both packages); at 64 x 64 it normalises eight
+RESNET_SIZE = 64
+#: bench.py's momentum; the learning rate a hundredth of bench's 0.1, so
+#: that the losses stay off zero, where bf16's relative rounding grows
+#: (at lr 0.1 the second and third losses read ~1e-4)
+RESNET_LR = 0.001
+RESNET_MOMENTUM = 0.9
+#: the weight of each residual branch's last BatchNorm (``bn3``) is drawn
+#: around this, not around 1. At initialisation the grads of a deep
+#: BatchNorm network grow with depth: with every BatchNorm weight near 1,
+#: resnet50's grads at this batch have a norm of ~2,000 for a loss of
+#: 3.2, its fp32 grads lie 1% from an fp64 run overall (up to 15% within
+#: a tensor) in both packages, and three steps wander (losses 3.20, 0.91,
+#: 2.08 in the JAX package's run at lr 0.01, the two packages' third
+#: losses 18% apart even at lr 1e-4): rounding would decide the fixture.
+#: With the branches' last BatchNorm near 0.1 (the practice of
+#: zero-initialised residual branches, kept off zero so that the branches
+#: learn) resnet50's grad norm is ~22 and its fp32 grads lie 3e-6 from
+#: fp64 overall.
+RESNET_BRANCH_GAMMA = 0.1
+LENET_FIXTURE = FIXTURE.with_name("lenet_train_batch8.npz")
+LENET_SEED = 6
+LENET_BATCH = 8
+LENET_LR = 1e-3
+BERT_FIXTURE = FIXTURE.with_name("bert_tiny_pretrain_128.npz")
+BERT_SEED = 7
+BERT_BATCH = 2
+BERT_SEQ = 128
+BERT_LR = 1e-4
+#: the first this many values of each parameter and optimizer slot
+#: (flattened) are kept; every value enters through its tensor's norms
+MODEL_KEPT_VALUES = 64
+#: a run against its fixture (model_train_errors), by key:
+#: - loss: each loss relative. Under bf16 auto_cast ResNet's and BERT's
+#:   losses are bf16 (the logits' dtype), whose last bit is 2^-8 relative:
+#:   two rounding-sized fp32 differences may round to neighbouring bf16
+#:   values, so the bands allow two bf16 steps;
+#: - updates: sqrt(sum |Δgot - Δwant|^2 / sum |Δwant|^2) over every kept
+#:   value (Δ a parameter's change from its initial value): as
+#:   update_rel_err for the GPT, Adam's normalised step turns a
+#:   rounding-sized grad difference into an lr-sized one where a grad is
+#:   near zero;
+#: - slots: the same ratio over the kept optimizer slots against the
+#:   fixture's (velocity; moment1 and moment2);
+#: - norms: the same ratio over every tensor's update norm and slot norms
+#:   (a ratio over all of them: a tensor whose grad is rounding alone, as
+#:   k_proj's bias in attention, has norms of rounding);
+#: - buffers: the BatchNorm running statistics, whole, relative to
+#:   max(1, max |fixture|) of their tensor.
+#: The port's plain versions on the CPU read, against the fixtures:
+#: resnet loss 0, updates 7.6e-3, slots 1.1e-2, norms 2.6e-4, buffers
+#: 9.8e-5; lenet (fp32) loss 5.9e-7, updates 3.9e-6, norms 2.3e-6; bert
+#: loss 0, updates 3.3e-2, slots 6.0e-3, norms 7.2e-4. The bands allow
+#: about three to five times those, for the card's other sums (cuDNN's
+#: convolutions, cuBLAS's bf16 products), as the GPT's bf16 band does.
+MODEL_TRAIN_TOL = {
+    "resnet": {"loss": 2e-2, "updates": 5e-2, "slots": 5e-2, "norms": 1e-2,
+               "buffers": 1e-3},
+    "lenet": {"loss": 1e-5, "updates": 1e-3, "slots": 1e-3, "norms": 1e-3,
+              "buffers": 0.0},
+    "bert": {"loss": 2e-2, "updates": 0.1, "slots": 5e-2, "norms": 1e-2,
+             "buffers": 0.0},
+}
+
+
+def jax_shapes(model):
+    """{name: shape} of a port model's state dict in the JAX package's
+    layout (the weights of its Linear layers [in, out])."""
+    from ..models.convert import linear_weights
+
+    linear = linear_weights(model)
+    return {n: tuple(t.shape)[::-1] if n in linear else tuple(t.shape)
+            for n, t in model.state_dict().items()}
+
+
+def jax_state(shapes, seed, std_2d=None, bias_std=0.1, small=(),
+              small_gamma=0.1):
+    """{name: float32 array} in `shapes`' order and layout: conv weights
+    N(0, 2 / fan_in); 2-D weights N(0, std_2d^2), or N(0, 1 / rows) when
+    std_2d is None (a [in, out] Linear's fan-in); other weights (BatchNorm
+    and LayerNorm) 1 + N(0, 0.01), or small_gamma (1 + N(0, 0.01)) for
+    names ending in one of `small`; biases N(0, bias_std^2); BatchNorm's
+    _mean N(0, 0.01) and _variance U(0.5, 1.5), so no norm is the
+    identity."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for name, shape in shapes.items():
+        if name.endswith("._mean"):
+            a = 0.1 * rng.standard_normal(shape)
+        elif name.endswith("._variance"):
+            a = rng.uniform(0.5, 1.5, shape)
+        elif len(shape) == 4:
+            a = rng.standard_normal(shape) * np.sqrt(2.0 / np.prod(shape[1:]))
+        elif len(shape) == 2:
+            std = std_2d if std_2d is not None else 1.0 / np.sqrt(shape[0])
+            a = std * rng.standard_normal(shape)
+        elif name.endswith("weight"):
+            a = 1.0 + 0.1 * rng.standard_normal(shape)
+            if name.endswith(tuple(small)):
+                a = small_gamma * a
+        else:
+            a = bias_std * rng.standard_normal(shape)
+        out[name] = a.astype(np.float32)
+    return out
+
+
+def resnet_batch(seed=RESNET_SEED):
+    """(images [RESNET_BATCH, 3, RESNET_SIZE, RESNET_SIZE] float32 in
+    [0, 1), labels [RESNET_BATCH] int32), as bench.py draws them."""
+    rng = np.random.RandomState(seed + 1)
+    images = rng.rand(RESNET_BATCH, 3, RESNET_SIZE, RESNET_SIZE)
+    labels = rng.randint(0, RESNET_CLASSES, (RESNET_BATCH,))
+    return images.astype(np.float32), labels.astype(np.int32)
+
+
+def lenet_batch(seed=LENET_SEED):
+    """(images [LENET_BATCH, 1, 28, 28] float32, labels [LENET_BATCH, 1]
+    int64), as bench.py draws them."""
+    rng = np.random.RandomState(seed + 1)
+    images = rng.rand(LENET_BATCH, 1, 28, 28).astype(np.float32)
+    return images, rng.randint(0, 10, (LENET_BATCH, 1)).astype(np.int64)
+
+
+def bert_batch(seed=BERT_SEED, vocab_size=1024):
+    """(ids, token types (zeros), MLM labels), each [BERT_BATCH, BERT_SEQ]
+    int32, as bench.py draws them."""
+    rng = np.random.RandomState(seed + 1)
+    ids = rng.randint(0, vocab_size, (BERT_BATCH, BERT_SEQ))
+    labels = rng.randint(0, vocab_size, (BERT_BATCH, BERT_SEQ))
+    return (ids.astype(np.int32), np.zeros_like(ids, np.int32),
+            labels.astype(np.int32))
+
+
+def model_train_summary(losses, params, init, slots=None, buffers=None):
+    """What a model's training fixture keeps of a run, from numpy arrays
+    keyed by the JAX package's names and in its layout: the losses; each
+    parameter's first MODEL_KEPT_VALUES values, its initial ones and the
+    norm of its update; each optimizer slot's (``slots``: {slot: {name:
+    array}}) first values and norm; every buffer whole."""
+    out = {"loss": np.asarray(losses, np.float32)}
+    for n, p in params.items():
+        p = np.asarray(p, np.float32).ravel()
+        p0 = np.asarray(init[n], np.float32).ravel()
+        out[f"kept__{n}"] = p[:MODEL_KEPT_VALUES]
+        out[f"init__{n}"] = p0[:MODEL_KEPT_VALUES]
+        out[f"update_norm__{n}"] = np.float64(np.linalg.norm(
+            p.astype(np.float64) - p0))
+    for slot, arrays in (slots or {}).items():
+        for n, a in arrays.items():
+            a = np.asarray(a, np.float32).ravel()
+            out[f"{slot}__{n}"] = a[:MODEL_KEPT_VALUES]
+            out[f"{slot}_norm__{n}"] = np.float64(np.linalg.norm(
+                a.astype(np.float64)))
+    for n, b in (buffers or {}).items():
+        out[f"buffer__{n}"] = np.asarray(b, np.float32)
+    return out
+
+
+def model_train_errors(got, want):
+    """{"loss", "updates", "slots", "norms", "buffers"} of the summary
+    `got` against `want` (see MODEL_TRAIN_TOL)."""
+    if set(got) != set(want):
+        raise ValueError(f"summaries differ in keys: "
+                         f"{sorted(set(got) ^ set(want))[:4]}")
+    f64 = lambda k, s: np.asarray(s[k], np.float64)  # noqa: E731
+    err = {"loss": float(np.max(np.abs(f64("loss", got) / f64("loss", want)
+                                       - 1))), "buffers": 0.0}
+    sums = {"updates": [0.0, 0.0], "slots": [0.0, 0.0], "norms": [0.0, 0.0]}
+
+    def add(kind, g, w):
+        sums[kind][0] += float(np.square(g - w).sum())
+        sums[kind][1] += float(np.square(w).sum())
+
+    for key in want:
+        kind, _, name = key.partition("__")
+        if kind == "kept":
+            add("updates", f64(key, got) - f64(f"init__{name}", got),
+                f64(key, want) - f64(f"init__{name}", want))
+        elif kind.endswith("_norm"):
+            add("norms", f64(key, got), f64(key, want))
+        elif kind == "buffer":
+            w = f64(key, want)
+            e = float(np.abs(f64(key, got) - w).max()) \
+                / max(1.0, float(np.abs(w).max()))
+            err["buffers"] = max(err["buffers"], e)
+        elif kind not in ("loss", "init"):
+            add("slots", f64(key, got), f64(key, want))
+    for k, (num, den) in sums.items():
+        err[k] = (num / den) ** 0.5 if den else 0.0
+    return err
+
+
+def within(err, tol):
+    """Whether every error of model_train_errors lies within its band."""
+    return all(err[k] <= tol[k] for k in tol)
+
+
+def jax_layout(tensors, model):
+    """{name: numpy array} of the port's tensors {name: tensor} under
+    the same names, in the JAX package's layout (the weights of `model`'s
+    Linear layers, and their 2-D optimizer slots, transposed)."""
+    from ..models.convert import linear_weights
+
+    linear = linear_weights(model)
+    out = {}
+    for n, t in tensors.items():
+        a = t.detach().float().cpu().numpy().copy()
+        out[n] = a.T.copy() if n in linear and a.ndim == 2 else a
+    return out
+
+
+def port_train_summary(trainer, model, init, losses, slots):
+    """model_train_summary of a port SpmdTrainer's run (`init`: the
+    parameters before it, as jax_layout gives them; `slots`: the
+    optimizer's slot names to keep)."""
+    return model_train_summary(
+        losses, jax_layout(trainer.params, model), init,
+        {s: jax_layout({n: trainer.opt_state[n][s] for n in trainer.params},
+                       model) for s in slots},
+        jax_layout(trainer.buffers, model))
+
+
+def resnet_narrow(device=None):
+    """The narrow ResNet of the fixture, in the port."""
+    from ..vision.models import BottleneckBlock, ResNet
+
+    return ResNet(BottleneckBlock, RESNET_DEPTH, num_classes=RESNET_CLASSES,
+                  device=device)
+
+
+def resnet_state(model):
+    """jax_state of a port ResNet (the names and shapes of both packages),
+    its residual branches' last BatchNorm near RESNET_BRANCH_GAMMA."""
+    return jax_state(jax_shapes(model), RESNET_SEED, small=("bn3.weight",),
+                     small_gamma=RESNET_BRANCH_GAMMA)

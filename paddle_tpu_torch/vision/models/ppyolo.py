@@ -17,11 +17,10 @@ class: one NMS kernel launch per call on the card.
 import torch
 from torch import nn
 
-from ...core import generator as _generator
 from ...core.device import resolve_device
 from ...nn import functional as F
 from ...nn.functional.activation import _softplus
-from ...nn.layer import BatchNorm2D, Conv2D
+from ...nn.layer import BatchNorm2D, Conv2D, init_weights
 
 
 class ConvBNLayer(nn.Module):
@@ -147,12 +146,7 @@ class PPYOLOE(nn.Module):
             self.neck = PANNeck(self.backbone.out_channels)
             self.head = PPYOLOEHead(self.neck.out_channels, num_classes)
         self.to_empty(device="cpu")
-        gen = generator or _generator.default_generator("cpu")
-        for mod in self.modules():
-            if isinstance(mod, Conv2D):
-                mod.reset_parameters(gen)
-            elif isinstance(mod, BatchNorm2D):
-                mod.reset_parameters()
+        init_weights(self, generator)
         self.to(dev)
         self.num_classes = num_classes
         self.strides = (8, 16, 32)
