@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's GPT-2 serving, decoding and training
-paths, its PP-YOLOE detection serving and training paths, ResNet-50,
-LeNet and BERT-base training, the TPP row primitives and the
-continuous-batching ServingEngine (dense and paged) on one GPU.
+paths (GPT-2 small and medium, recompute, gradient merge, loss scaling),
+its PP-YOLOE detection serving and training paths, ResNet-50, LeNet and
+BERT-base training, the TPP row primitives and the continuous-batching
+ServingEngine (dense and paged) on one GPU.
 
 Run from the repository root, on a machine with a CUDA device and nvcc:
 
@@ -52,6 +53,14 @@ imgs/s), LeNet through ``Model.train_batch`` (batch 64, Adam: steps/s)
 and BERT-base (16 x 512, AdamW, bf16 auto_cast: tokens/s, every
 attention call on SDPA's naive route) as bench.py does, each after its
 narrow model's three steps against the JAX package's committed run,
+then the rest of GPT training: the narrow model's pretraining recipe
+(warmup plus cosine LR, global-norm clipping, two micro-batches of
+gradient merge and recompute; fp32 and bf16, FLAGS_tpp_kernels off and
+on) against the JAX package's committed run, with a no-clip control
+that must fail it, bench.py's gpt2m (GPT-2 medium, 8 x 1024) and
+gpt2s_16k (GPT-2 small, 1 x 16,384) and gpt2m under the recipe (tokens/s,
+MFU, peak memory, flash launches a step), and GPT-2 small's fp16 eager
+loop under ``amp.GradScaler`` with an overflowing 2^40 control; it
 profiles each configuration once for the device time by kernel and the
 device's idle share, and times every kernel. Each phase prints one JSON
 line; then a ``kernels`` line, the card's name and power limit, and last
@@ -228,6 +237,9 @@ LENET_BATCH = 64
 BERT_BATCH, BERT_SEQ = 16, 512
 MODEL_STEPS_TIMED = 5
 LENET_STEPS_TIMED = 50
+# GPT-2 small's fp16 eager loop under the loss scaler (the naive SDPA
+# route: fp16 takes no flash kernel in either package)
+FP16_BATCH = 8
 
 
 def torch_dtypes():
@@ -2057,6 +2069,338 @@ def train_models(dev):
     return counts
 
 
+def _gpt_flops_per_token(cfg, seq):
+    """bench.py's _model_flops_per_token (:246-253): 6 N (N counts the
+    embedding and the tied head once each) plus the attention matmuls."""
+    h, L, v = cfg.hidden_size, cfg.num_layers, cfg.vocab_size
+    return 6 * (v * h + L * 12 * h * h + h * v) + L * 12 * seq * h
+
+
+def _gpt_bench_batch(cfg, batch, seq, dev):
+    """bench.py's _gpt2s_setup batch: ids, then labels, from
+    RandomState(0)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(0)
+    return [torch.as_tensor(rng.randint(0, cfg.vocab_size, (batch, seq))
+                            .astype(np.int32)).long().to(dev)
+            for _ in range(2)]
+
+
+def _flash_step_counts(delta):
+    """The flash launches of one step from the counter deltas."""
+    return {k: n for k, n in delta.items() if k.startswith("flash_")}
+
+
+def train_recipes(dev):
+    """The rest of GPT training (optimizer.lr, nn.clip, SpmdTrainer's
+    recompute and gradient merge, amp.GradScaler): the narrow recipe against
+    the JAX package's committed run, bench.py's gpt2m and gpt2s_16k as
+    run_config builds them (:1156-1199), gpt2m under the recipe, and GPT-2
+    small's fp16 eager loop under the loss scaler with its overflow
+    control. Returns each full-size path's kernel launches (counted from
+    zero just before it)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.amp import GradScaler, auto_cast
+    from paddle_tpu_torch.distributed import SpmdTrainer
+    from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                         GPTPretrainLoss, params_from_jax)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.nn.functional import transformer as sdpa
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import tpp
+    from paddle_tpu_torch.testing import golden
+
+    counts = {}
+
+    def launches_now():
+        return {**fa.launches, **tpp.launches}
+
+    def delta_of(before):
+        after = launches_now()
+        return {k: n - before.get(k, 0) for k, n in after.items()
+                if n != before.get(k, 0)}
+
+    # ---- the narrow recipe against the JAX package's committed run ------
+    fix = np.load(golden.RECIPE_FIXTURE)
+    ids, labels = (torch.as_tensor(a, device=dev).long()
+                   for a in golden.recipe_batch())
+    L = golden.NARROW["num_layers"]
+    runs = L * golden.RECIPE_ACCUM          # layer forwards a step
+
+    def recipe(amp, clip=True):
+        m = GPTForCausalLM(GPTConfig(**golden.NARROW), device=dev)
+        m.load_state_dict(params_from_jax(golden.jax_layout_params()))
+        sched = golden.recipe_schedule()
+        opt = AdamW(learning_rate=sched, parameters=m.parameters(),
+                    grad_clip=ClipGradByGlobalNorm(golden.RECIPE_CLIP)
+                    if clip else None)
+        tr = SpmdTrainer(m, opt, loss_fn=GPTPretrainLoss(),
+                         accumulate_steps=golden.RECIPE_ACCUM,
+                         recompute=True)
+        out = {"losses": [], "lrs": [], "norms": [], "launches": []}
+        for _ in range(golden.RECIPE_STEPS):
+            out["lrs"].append(opt.get_lr())
+            before = launches_now()
+            with auto_cast(amp, dtype="bfloat16"):
+                out["losses"].append(float(tr.train_step(ids, labels)))
+            out["launches"].append(delta_of(before))
+            if clip:
+                out["norms"].append(float(opt._global_norm))
+            sched.step()
+        out["rows"] = golden.port_kept_rows(dict(m.named_parameters()))
+        return out
+
+    narrow = {}
+    for tag, amp in (("fp32", False), ("bf16", True)):
+        dname = "bfloat16" if amp else "float32"
+        want_rows = {n: fix[f"rows_{tag}__{n}"] for n in golden.KEPT_PARAMS}
+        for on in (False, True):
+            set_flags({"tpp_kernels": on})
+            r = recipe(amp)
+            # the forward and its recompute launch the flash forward (and
+            # the TPP kernels); the backward launches once a layer and
+            # micro-batch
+            want = {f"flash_fwd:{dname}": 2 * runs,
+                    **{f"flash_{k}:{dname}": runs
+                       for k in ("delta", "dq", "dkv")}}
+            if on:
+                want.update({k: 2 * runs for k in (
+                    "tpp_matmul.ln:float32", "tpp_matmul.in_act:float32",
+                    "tpp_row_stats:float32")})
+            check(all(d == want for d in r["launches"]),
+                  f"narrow recipe {tag} tpp={on}: launches a step "
+                  f"{r['launches']}, expected {want}")
+            check(r["lrs"] == fix["lr"].tolist(),
+                  f"narrow recipe: the schedule's rates {r['lrs']}")
+            check(all(n > golden.RECIPE_CLIP for n in r["norms"]),
+                  f"narrow recipe: the clip binds at every step "
+                  f"({r['norms']} > {golden.RECIPE_CLIP})")
+            norm_err = float(np.max(np.abs(np.asarray(r["norms"])
+                                           / fix[f"norm_{tag}"] - 1)))
+            loss_err = float(np.abs(np.asarray(r["losses"])
+                                    - fix[f"loss_{tag}"]).max())
+            row_err = max(float(np.abs(r["rows"][n] - want_rows[n]).max())
+                          for n in want_rows)
+            update_err = golden.update_rel_err(r["rows"], want_rows)
+            key = f"{tag}_tpp_{'on' if on else 'off'}"
+            narrow[key] = {"losses": r["losses"], "lrs": r["lrs"],
+                           "norms": r["norms"], "loss_err": loss_err,
+                           "norm_rel_err": norm_err,
+                           "row_max_abs_err": row_err,
+                           "update_rel_err": update_err,
+                           "kept_rows_head": {
+                               n: np.ravel(r["rows"][n])[:4].tolist()
+                               for n in want_rows},
+                           "launches_per_step": r["launches"][0]}
+            if amp:
+                ok = loss_err <= TRAIN_BF16_LOSS_TOL and norm_err <= 0.02 \
+                    and update_err <= golden.TRAIN_BF16_UPDATE_RTOL
+            else:
+                ok = loss_err <= TRAIN_FP32_TOL and norm_err <= 1e-4 \
+                    and row_err <= TRAIN_FP32_TOL
+            check(ok, f"narrow recipe {key} vs JAX: {narrow[key]}")
+    set_flags({"tpp_kernels": False})
+    # the control: the same run without the clip fails the row check
+    r = recipe(False, clip=False)
+    control = max(float(np.abs(r["rows"][n] - fix[f"rows_fp32__{n}"]).max())
+                  for n in golden.KEPT_PARAMS)
+    check(control > TRAIN_FP32_TOL,
+          f"the recipe without its clip fails the fp32 row check: {control}")
+    emit({"phase": "gpt_narrow_recipe_vs_jax_fixture",
+          "recipe": "AdamW under LinearWarmup(CosineAnnealingDecay("
+                    f"{golden.RECIPE_LR}, T_max={golden.RECIPE_STEPS}), "
+                    f"warmup_steps={golden.RECIPE_WARMUP}, 0 -> "
+                    f"{golden.RECIPE_LR}), ClipGradByGlobalNorm("
+                    f"{golden.RECIPE_CLIP}), accumulate_steps="
+                    f"{golden.RECIPE_ACCUM}, recompute=True",
+          "batch": golden.RECIPE_BATCH, "seq": golden.SEQ, **narrow,
+          "no_clip_control_row_max_abs_err": control,
+          "jax_losses": {t: fix[f"loss_{t}"].tolist() for t in
+                         ("fp32", "bf16")},
+          "jax_norms": {t: fix[f"norm_{t}"].tolist() for t in
+                        ("fp32", "bf16")},
+          "tol": {"fp32_loss_and_rows": TRAIN_FP32_TOL,
+                  "fp32_norm_rel": 1e-4, "bf16_loss": TRAIN_BF16_LOSS_TOL,
+                  "bf16_norm_rel": 0.02,
+                  "bf16_update_rel_err": golden.TRAIN_BF16_UPDATE_RTOL}})
+
+    # ---- gpt2m, gpt2s_16k and gpt2m under the recipe ---------------------
+    gpt2m = GPTConfig(vocab_size=50304, hidden_size=1024, num_layers=24,
+                      num_heads=16, max_seq_len=1024, dropout=0.0)
+    gpt2s_16k = GPTConfig(vocab_size=50304, hidden_size=768, num_layers=12,
+                          num_heads=12, max_seq_len=16384, dropout=0.0)
+    peaks = {}
+
+    def bench_train(phase, cfg, batch, seq, config, recipe_on=False):
+        torch.cuda.empty_cache()
+        model = GPTForCausalLM(cfg, device=dev,
+                               generator=torch.Generator().manual_seed(0))
+        kwargs, sched, opt_kw = {}, None, {}
+        if recipe_on:
+            sched = golden.recipe_schedule()
+            opt_kw = dict(grad_clip=ClipGradByGlobalNorm(golden.RECIPE_CLIP))
+            kwargs = dict(accumulate_steps=golden.RECIPE_ACCUM,
+                          recompute=True)
+        opt = AdamW(learning_rate=sched if recipe_on else 1e-4,
+                    parameters=model.parameters(), **opt_kw)
+        trainer = SpmdTrainer(model, opt, loss_fn=GPTPretrainLoss(),
+                              **kwargs)
+        batch_t = _gpt_bench_batch(cfg, batch, seq, dev)
+        losses, lrs, norms, per_step = [], [], [], []
+
+        def step():
+            before = launches_now()
+            lrs.append(opt.get_lr())
+            with auto_cast(True, dtype="bfloat16"):
+                loss = trainer.train_step(*batch_t)
+            per_step.append(_flash_step_counts(delta_of(before)))
+            if sched is not None:
+                norms.append(opt._global_norm)      # read after the run
+                sched.step()
+            return loss
+
+        _zero_counters()
+        losses_t = []
+        row, trace = _timed_training(
+            lambda: losses_t.append(step()), MODEL_STEPS_TIMED,
+            group=kernel_group)
+        counts[phase] = _read_kernel_counts()
+        losses = [float(x) for x in losses_t]
+        norms = [float(x) for x in norms]
+        runs = cfg.num_layers * (golden.RECIPE_ACCUM if recipe_on else 1)
+        want = {"flash_fwd:bfloat16": (2 if recipe_on else 1) * runs,
+                **{f"flash_{k}:bfloat16": runs
+                   for k in ("delta", "dq", "dkv")}}
+        check(all(d == want for d in per_step),
+              f"{phase}: flash launches a step {per_step[0]}, expected "
+              f"{want}")
+        check(all(math.isfinite(x) for x in losses),
+              f"{phase}: finite losses {losses}")
+        check(trace.get("kernels", 0) > 0,
+              f"{phase}: the profiled step ran on the device")
+        tok_s = batch * seq / (row["step_ms"] / 1e3)
+        flops = _gpt_flops_per_token(cfg, seq)
+        peaks[phase] = row["max_memory_allocated_gb"]
+        out = {"phase": phase, "config": config, "batch": batch, "seq": seq,
+               "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+               "heads": cfg.num_heads, "auto_cast": "bfloat16", **row,
+               "tokens_per_s": tok_s, "flops_per_token": flops,
+               "mfu": tok_s * flops / PEAK_FLOPS["bfloat16"],
+               "mfu_peak": "989 TFLOP/s bfloat16 dense", "losses": losses,
+               "flash_launches_per_step": per_step[0], "profiled": trace,
+               "main_path_launches": counts[phase]}
+        if recipe_on:
+            out.update({"optimizer": "AdamW under the narrow recipe's "
+                        "schedule and ClipGradByGlobalNorm("
+                        f"{golden.RECIPE_CLIP}), accumulate_steps="
+                        f"{golden.RECIPE_ACCUM}, recompute=True",
+                        "lrs": lrs, "global_norms": norms})
+        else:
+            out["optimizer"] = "AdamW lr 1e-4"
+        del model, trainer, opt, batch_t
+        torch.cuda.empty_cache()
+        return out
+
+    emit(bench_train("gpt2m_train", gpt2m, 8, 1024,
+                     "bench.py gpt2m (_gpt2m_cfg :268)"))
+    emit(bench_train("gpt2s_16k_train", gpt2s_16k, 1, 16384,
+                     "bench.py gpt2s_16k (_gpt2s_cfg, seq 16384)"))
+    row = bench_train("gpt2m_recipe", gpt2m, 8, 1024,
+                      "bench.py gpt2m under the recipe", recipe_on=True)
+    row["peak_gb_vs_gpt2m_train"] = [peaks["gpt2m_recipe"],
+                                     peaks["gpt2m_train"]]
+    check(peaks["gpt2m_recipe"] < peaks["gpt2m_train"],
+          f"recompute lowers gpt2m's peak memory: "
+          f"{row['peak_gb_vs_gpt2m_train']}")
+    emit(row)
+
+    # ---- GPT-2 small, fp16 eager loop under the loss scaler --------------
+    cfg = GPTConfig(hidden_size=768, num_layers=12, num_heads=12,
+                    dropout=0.0)
+    model = GPTForCausalLM(cfg, device=dev,
+                           generator=torch.Generator().manual_seed(0))
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    scaler = GradScaler()
+    ids, labels = _gpt_bench_batch(cfg, FP16_BATCH, 1024, dev)
+    losses, scales, found = [], [], []
+
+    def fp16_step():
+        with auto_cast(True, dtype="float16"):
+            loss = model.loss(ids, labels)
+        scaler.minimize(opt, scaler.scale(loss))
+        losses.append(loss)
+        scales.append(scaler._scale)
+
+    w0 = model.gpt.wte.weight.detach().clone()
+    _zero_counters()
+    row, trace = _timed_training(fp16_step, MODEL_STEPS_TIMED,
+                                 group=kernel_group)
+    counts["gpt2_fp16_scaler"] = _read_kernel_counts()
+    routes = dict(sdpa.routes)
+    losses = [float(x) for x in losses]
+    steps = MODEL_STEPS_TIMED + 2     # the warm-up and the profiled step
+    check(not any(k.startswith("flash_")
+                  for k in counts["gpt2_fp16_scaler"]),
+          f"fp16: no flash launch ({counts['gpt2_fp16_scaler']})")
+    check(routes.get("naive", 0) == cfg.num_layers * steps
+          and not routes.get("flash"),
+          f"fp16: every attention call on SDPA's naive route ({routes})")
+    check(all(math.isfinite(x) for x in losses),
+          f"fp16: finite losses {losses}")
+    check(not torch.equal(model.gpt.wte.weight, w0),
+          "fp16: the scaled steps moved the weights")
+    # the control: at 2^40 the fp16 scaled loss overflows, every step is
+    # skipped (parameters and moments bit-equal) and the scale halves
+    # after decr_every_n_nan_or_inf bad steps
+    params0 = [p.detach().clone() for p in model.parameters()]
+    state0 = {k: v.clone() for k, v in opt.state_dict().items()
+              if isinstance(v, torch.Tensor)}
+    big = GradScaler(init_loss_scaling=2.0 ** 40)
+    big_scales = []
+    for _ in range(big._decr_every):
+        with auto_cast(True, dtype="float16"):
+            loss = model.loss(ids, labels)
+        scaled = big.scale(loss)
+        scaled.backward()
+        big.unscale_(opt)
+        found.append(big._found_inf)
+        big.update()
+        opt.clear_grad()
+        big_scales.append(big._scale)
+    state = opt.state_dict()
+    check(all(found) and big_scales[-1] == 2.0 ** 39
+          and all(torch.equal(p, q) for p, q in zip(model.parameters(),
+                                                    params0))
+          and all(torch.equal(state[k], v) for k, v in state0.items()),
+          f"fp16 overflow control: skipped ({found}), parameters and "
+          f"moments bit-equal, scale {big_scales}")
+    tok_s = FP16_BATCH * 1024 / (row["step_ms"] / 1e3)
+    emit({"phase": "gpt2_small_fp16_grad_scaler",
+          "batch": FP16_BATCH, "seq": 1024,
+          "loop": "auto_cast(float16); loss = model.loss(ids, labels); "
+                  "scaler.minimize(opt, scaler.scale(loss))",
+          "optimizer": "AdamW lr 1e-4", **row, "tokens_per_s": tok_s,
+          "mfu": tok_s * _gpt_flops_per_token(cfg, 1024)
+          / PEAK_FLOPS["bfloat16"],
+          "mfu_peak": "989 TFLOP/s (fp16 dense = bf16 dense)",
+          "losses": losses, "scales": scales,
+          "inf_steps": steps - opt._step_count,
+          "sdpa_routes": routes, "profiled": trace,
+          "overflow_control": {"init_loss_scaling": 2.0 ** 40,
+                               "found_inf": found, "scales": big_scales,
+                               "params_and_moments_bit_equal": True},
+          "main_path_launches": counts["gpt2_fp16_scaler"]})
+    del model, opt
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     import torch
 
@@ -2836,6 +3180,9 @@ def main():
     # ---- 4h. ResNet-50, LeNet and BERT-base training -----------------------
     counts_models = train_models(dev)
 
+    # ---- 4i. the rest of GPT training: the recipe, gpt2m, gpt2s_16k, fp16 -
+    counts_recipes = train_recipes(dev)
+
     # ---- 5. times at the main path's shapes -------------------------------
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > L2
 
@@ -2895,7 +3242,8 @@ def main():
                    "gpt_paged_serving": count(counts_paged),
                    "gpt_decode": count(counts_decode),
                    "detect_train": count(counts_det_train),
-                   **{path: count(c) for path, c in counts_models.items()}}
+                   **{path: count(c) for path, c in counts_models.items()},
+                   **{path: count(c) for path, c in counts_recipes.items()}}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 

@@ -24,15 +24,20 @@ BatchNorm with batch statistics, ``optimizer.Momentum``). ResNet
 through the high-level ``Model`` (``hapi``: ``prepare`` and
 ``train_batch`` / ``eval_batch`` / ``predict_batch``), over the pooling,
 LayerNorm, embedding, cross-entropy and transformer-encoder layers of
-``nn``. Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``.
+``nn``. The rest of training: the learning-rate schedules
+(``optimizer.lr``), the regularizers (``regularizer``), the gradient clips
+(``nn.clip``), the other optimizers and the averaging wrappers, loss
+scaling and O2 (``amp.GradScaler``, ``amp.decorate``), NaN / inf checks
+(``amp.debugging``), every option of ``cross_entropy``, and recompute
+and gradient merge in ``SpmdTrainer``. Entry points run on ``cuda``
+unless the caller passes ``device="cpu"``.
 """
 from . import (amp, distributed, hapi, inference, models, nn, optimizer,
-               serving, tensor, vision)
+               regularizer, serving, tensor, vision)
 from .core.generator import seed
 from .flags import get_flag, get_flags, set_flags
 from .hapi import Model
 
 __all__ = ["Model", "amp", "distributed", "get_flag", "get_flags", "hapi",
-           "inference", "models", "nn", "optimizer", "seed", "serving",
-           "set_flags", "tensor", "vision"]
+           "inference", "models", "nn", "optimizer", "regularizer", "seed",
+           "serving", "set_flags", "tensor", "vision"]

@@ -18,14 +18,26 @@ for the ops that must not be cast by it (the trainer's backward, the
 kernel Functions of ops/, ``conv2d``, SDPA's naive path, the decode
 math).
 
-``level="O2"`` and custom white/black lists are not ported yet and raise
-NotImplementedError.
+``level`` (``"O2"`` too) and the custom white and black lists are
+stored in ``amp_state()`` beside the reference's ``white_list`` and
+``black_list``, and read by nothing, as in the reference, where only
+``amp_dtype()`` is read (``nn/functional/common.py`` and
+``tensor/math.py``) and ``maybe_cast_inputs`` has no caller: they change
+no dtype. ``amp.decorate(level="O2")`` is what casts a model's
+parameters.
 """
 import contextlib
 
 import torch
 
-_STATE = {"enabled": False, "dtype": None}
+# imperative/amp_auto_cast.cc's op lists, as the reference keeps them
+white_list = {"matmul", "conv2d", "conv1d", "conv3d", "linear", "einsum",
+              "bmm", "mm", "mv", "addmm"}
+black_list = {"exp", "log", "softmax", "log_softmax", "cross_entropy",
+              "mean", "sum", "cosh", "sinh", "softmax_with_cross_entropy"}
+
+_STATE = {"enabled": False, "dtype": None, "level": "O1",
+          "custom_white": set(), "custom_black": set()}
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -47,17 +59,14 @@ def _convert_dtype(dtype):
 def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
               level="O1", dtype="bfloat16"):
     """Run the enclosed code with the amp state set: linear and matmul
-    compute in `dtype`, every other op in its input dtype. Nested contexts
-    restore the outer state on exit."""
-    if level != "O1":
-        raise NotImplementedError(f"auto_cast(level={level!r}) is not ported "
-                                  "yet (O1 only)")
-    if custom_white_list or custom_black_list:
-        raise NotImplementedError("auto_cast custom white/black lists are "
-                                  "not ported yet")
+    compute in `dtype`, every other op in its input dtype, whatever the
+    level and lists (stored, not read). Nested contexts restore the outer
+    state on exit."""
     d = _convert_dtype(dtype)
     old = dict(_STATE)
-    _STATE.update(enabled=bool(enable), dtype=d)
+    _STATE.update(enabled=bool(enable), dtype=d, level=level,
+                  custom_white=set(custom_white_list or ()),
+                  custom_black=set(custom_black_list or ()))
     try:
         yield
     finally:

@@ -3,9 +3,33 @@
 Ports ``SpmdTrainer`` of paddle_tpu/distributed/spmd.py on one device:
 ``__init__``, ``_forward_loss`` (the layer and loss under the trainer's
 ``amp_dtype``, or ``layer(*inputs, label)`` without a ``loss_fn``), the
-step of ``_build`` (loss and grads, the optimizer's ``functional_apply``,
-the ``FLAGS_check_nan_inf`` guard), ``train_step``, the non-finite streak
-and ``stats``.
+step of ``_build`` (loss and grads, gradient merge, the optimizer's
+``functional_apply``, the ``FLAGS_check_nan_inf`` guard), recompute
+(``_wrapped_forward``), ``train_step``, ``return_outputs`` /
+``last_outputs``, the non-finite streak and ``stats``.
+
+- ``recompute=True``: the forward and the loss run under
+  ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, so backward
+  runs the forward a second time. ``recompute_policy`` (``dots``,
+  ``dots_no_batch``, ``nothing``, ``everything``: the reference's
+  ``jax.checkpoint_policies``) becomes a selective-checkpoint policy:
+  ``dots`` saves the output of every aten matmul (mm, addmm, bmm,
+  baddbmm), ``dots_no_batch`` those without batch dimensions (mm,
+  addmm), ``nothing`` saves none and ``everything`` every op, the kernel
+  launches of ops/ included (they are ``torch.library`` custom ops), so
+  that under ``everything`` no kernel runs twice. A recompute leaves no
+  trace of its own: it runs from the generator states and the buffers the
+  forward started from (dropout draws the same masks; BatchNorm reads the
+  same running statistics) and puts back those that the forward left.
+- ``accumulate_steps=k > 1`` (gradient merge): the batch splits
+  contiguously along dim 0 into k micro-batches; each one's forward reads
+  the step's input buffers (the step keeps the last micro-batch's new
+  ones), the grads and the fp32 losses are summed and divided by k, and
+  the optimizer updates once.
+- ``return_outputs=True``: ``last_outputs`` holds the layer's outputs of
+  the step (detached), the micro-batches' concatenated along dim 0; None
+  without a ``loss_fn``, as in the reference.
+- ``metrics_fn`` is accepted and never read, as in the reference.
 
 What differs from the reference:
 - PyTorch runs eagerly, so there is no compiled step: ``train_step`` runs
@@ -27,20 +51,68 @@ What differs from the reference:
   cost registry is ported.
 
 Only one device: a mesh other than None or one device, ZeRO stages,
-recompute, gradient merge, tensor-parallel specs, localsgd, DGC,
-compressed data parallelism (FLAGS_quantized_allreduce /
-FLAGS_shard_weight_update), ``return_outputs``, ``metrics_fn`` and every
-other extra knob raise NotImplementedError.
+tensor-parallel specs, localsgd, DGC, compressed data parallelism
+(FLAGS_quantized_allreduce / FLAGS_shard_weight_update),
+``remat_offload`` and every other extra knob raise NotImplementedError.
 """
 import contextlib
+import functools
 import time
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as _checkpoint
+from torch.utils._python_dispatch import _disable_current_modes as _no_modes
 
 from .. import flags as _flags
 from ..amp.auto_cast import auto_cast, disabled as _autocast_off
+from ..core import generator as _generator
 from ..optimizer.optimizer import Optimizer
+
+_aten = torch.ops.aten
+#: the matmul ops a ``dots`` policy saves; those with batch dimensions
+#: (``bmm``, ``baddbmm``) are left out by ``dots_no_batch``
+_DOTS = {_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+         _aten.baddbmm.default}
+_DOTS_NO_BATCH = {_aten.mm.default, _aten.addmm.default}
+
+#: recompute_policy -> the ops whose outputs a recompute keeps (None: all)
+_REMAT_POLICIES = {"dots": _DOTS, "dots_no_batch": _DOTS_NO_BATCH,
+                   "nothing": frozenset(), "everything": None}
+
+
+def _resolve_remat_policy(name):
+    if name not in _REMAT_POLICIES:
+        raise ValueError(f"recompute_policy must be one of "
+                         f"{sorted(_REMAT_POLICIES)}, got {name!r}")
+    saved = _REMAT_POLICIES[name]
+    CP = _checkpoint.CheckpointPolicy
+
+    def policy(ctx, op, *args, **kwargs):
+        # an op that writes into its inputs (BatchNorm's running
+        # statistics) runs again: its cached output would be a tensor
+        # that later writes change
+        keep = (saved is None and not op._schema.is_mutable) \
+            or (saved is not None and op in saved)
+        return CP.MUST_SAVE if keep else CP.PREFER_RECOMPUTE
+
+    return functools.partial(_checkpoint.create_selective_checkpoint_contexts,
+                             policy)
+
+
+def _concat_outputs(parts):
+    """The micro-batches' outputs (tensors, or tuples / lists / dicts of
+    them) concatenated along dim 0, detached."""
+    first = parts[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat([t.detach() for t in parts]) if len(parts) > 1 \
+            else first.detach()
+    if isinstance(first, (tuple, list)):
+        return type(first)(_concat_outputs([p[i] for p in parts])
+                           for i in range(len(first)))
+    if isinstance(first, dict):
+        return {k: _concat_outputs([p[k] for p in parts]) for k in first}
+    return first
 
 
 def _one_device(mesh):
@@ -71,17 +143,10 @@ class SpmdTrainer:
             refused.append("a mesh of more than one device")
         if sharding_stage:
             refused.append(f"sharding_stage={sharding_stage}")
-        if recompute:
-            refused.append("recompute=True")
-        if accumulate_steps != 1:
-            refused.append(f"accumulate_steps={accumulate_steps}")
         if extra_param_specs:
             refused.append("extra_param_specs (tensor parallelism)")
-        if metrics_fn is not None:
-            refused.append("metrics_fn")
-        if return_outputs:
-            refused.append("return_outputs=True")
-        refused += [f"{k}=" for k in sorted(extra_kwargs)]
+        refused += [f"{k}=" for k in sorted(extra_kwargs)
+                    if k != "recompute_policy"]
         for flag in ("quantized_allreduce", "shard_weight_update"):
             if _flags.get_flag(flag, False):
                 refused.append(f"FLAGS_{flag} (compressed data parallelism)")
@@ -94,11 +159,27 @@ class SpmdTrainer:
         if not isinstance(optimizer, Optimizer):
             raise TypeError(f"optimizer must be a paddle_tpu_torch optimizer, "
                             f"got {type(optimizer).__name__}")
+        pol = extra_kwargs.get("recompute_policy")
+        self._context_fn = None
+        if pol is not None:
+            self._context_fn = _resolve_remat_policy(pol)
+            if not recompute:
+                raise ValueError("recompute_policy requires recompute=True "
+                                 "(the policy selects what the checkpoint "
+                                 "saves; without recompute it changes "
+                                 "nothing)")
+        if int(accumulate_steps) < 1:
+            raise ValueError(f"accumulate_steps must be >= 1, got "
+                             f"{accumulate_steps}")
         self.layer = layer
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.mesh = mesh
+        self.recompute = bool(recompute)
+        self.accumulate_steps = int(accumulate_steps)
         self.amp_dtype = amp_dtype
+        self.return_outputs = bool(return_outputs)
+        self.last_outputs = None
         self.params = {n: p for n, p in layer.named_parameters()
                        if p.requires_grad}
         self.buffers = dict(layer.named_buffers())
@@ -111,14 +192,62 @@ class SpmdTrainer:
         self._step_ms_sum = 0.0
 
     def _forward_loss(self, batch):
+        """(loss, outputs): outputs is the layer's output with a
+        ``loss_fn`` and ``return_outputs``, else None (so that nothing
+        holds the logits through the backward)."""
         inputs, label = batch[:-1], batch[-1]
         amp_ctx = contextlib.nullcontext()
         if self.amp_dtype is not None:
             amp_ctx = auto_cast(True, dtype=self.amp_dtype)
         with amp_ctx:
             if self.loss_fn is not None:
-                return self.loss_fn(self.layer(*inputs), label)
-            return self.layer(*inputs, label)
+                out = self.layer(*inputs)
+                return self.loss_fn(out, label), \
+                    out if self.return_outputs else None
+            return self.layer(*inputs, label), None
+
+    def _recomputed_forward_loss(self, batch):
+        """_forward_loss under the checkpoint. The first run (the forward)
+        notes the port's generator states and the buffers it starts from;
+        a second run (the recompute inside backward) starts from them and
+        puts back what it found, so that the step's dropout masks, running
+        statistics and later draws are those of one forward."""
+        _generator.default_generator(self._device)   # exists before a note
+        gens = list(_generator._GENERATORS.values())
+        buffers = list(self.buffers.values())
+        noted = []
+
+        # outside the selective checkpoint's dispatch modes, which would
+        # count these copies as ops of the checkpointed region
+        def note():
+            with _no_modes():
+                return ([g.get_state() for g in gens],
+                        [b.clone() for b in buffers])
+
+        @torch.no_grad()
+        def put(state):
+            with _no_modes():
+                for g, st in zip(gens, state[0]):
+                    g.set_state(st)
+                for b, v in zip(buffers, state[1]):
+                    b.copy_(v)
+
+        def run(*batch):
+            if not noted:
+                noted.append(note())
+                return self._forward_loss(batch)
+            now = note()
+            put(noted[0])
+            try:
+                return self._forward_loss(batch)
+            finally:
+                put(now)
+
+        kwargs = {}
+        if self._context_fn is not None:
+            kwargs["context_fn"] = self._context_fn
+        return _checkpoint.checkpoint(run, *batch, use_reentrant=False,
+                                      **kwargs)
 
     def _to_device(self, b):
         t = b if isinstance(b, torch.Tensor) else torch.as_tensor(
@@ -127,20 +256,55 @@ class SpmdTrainer:
             t = t.long()             # ids and labels index as int64
         return t.to(self._device)
 
+    def _micro_batches(self, batch):
+        """The batch split contiguously along dim 0 into
+        ``accumulate_steps`` micro-batches (the reference's
+        ``reshape(accum, B // accum, ...)``)."""
+        k = self.accumulate_steps
+        if k == 1:
+            return [batch]
+        for b in batch:
+            if b.shape[0] % k:
+                raise ValueError(f"accumulate_steps={k} must divide the "
+                                 f"batch's dim 0, {b.shape[0]}")
+        return [[b.narrow(0, i * (b.shape[0] // k), b.shape[0] // k)
+                 for b in batch] for i in range(k)]
+
     def train_step(self, *batch):
-        """One step: forward, backward, (guarded) update. Returns the loss
-        as a detached fp32 tensor."""
+        """One step: forward and backward of each micro-batch, then the
+        (guarded) update. Returns the loss, the micro-batches' mean, as a
+        detached fp32 tensor."""
         t_step = time.perf_counter()
         batch = [self._to_device(b) for b in batch]
         for p in self.params.values():
             p.grad = None
         guard = _flags.get_flag("check_nan_inf", False)
+        k = self.accumulate_steps
         saved = {n: b.clone() for n, b in self.buffers.items()} \
-            if guard else None
-        loss = self._forward_loss(batch).float()
-        with _autocast_off():
-            loss.backward()
+            if guard or k > 1 else None
+        fwd = self._recomputed_forward_loss if self.recompute \
+            else self._forward_loss
+        loss, outputs = None, []
+        for i, micro in enumerate(self._micro_batches(batch)):
+            if i:      # each micro-batch reads the step's input buffers
+                with torch.no_grad():
+                    for n, b in self.buffers.items():
+                        b.copy_(saved[n])
+            part, out = fwd(micro)
+            part = part.float()
+            with _autocast_off():
+                part.backward()
+            loss = part.detach() if loss is None else loss + part.detach()
+            outputs.append(out)
         grads = {n: p.grad for n, p in self.params.items()}
+        if k > 1:
+            loss = loss / k
+            present = [g for g in grads.values() if g is not None]
+            if present:
+                torch._foreach_div_(present, k)
+        if self.return_outputs:
+            self.last_outputs = None if outputs[0] is None \
+                else _concat_outputs(outputs)
         if guard and not self._all_finite(loss, grads):
             with torch.no_grad():
                 for n, b in self.buffers.items():
@@ -156,7 +320,7 @@ class SpmdTrainer:
             p.grad = None
         self._step_count += 1
         self._step_ms_sum += (time.perf_counter() - t_step) * 1e3
-        return loss.detach()
+        return loss
 
     @staticmethod
     def _all_finite(loss, grads):

@@ -22,6 +22,12 @@ from .common import dropout
 
 _NEG = -1e30
 
+
+def _neg(dtype):
+    """The masked scores' value: -1e30 as the reference's
+    ``jnp.asarray(-1e30, dtype)`` holds it (-inf in fp16)."""
+    return torch.tensor(_NEG, dtype=dtype).item()
+
 #: calls of scaled_dot_product_attention by route
 routes = collections.Counter()
 
@@ -62,7 +68,7 @@ def _naive(query, key, value, attn_mask, dropout_p, is_causal, training,
         1.0 / math.sqrt(q.shape[-1]))
     if attn_mask is not None:
         if attn_mask.dtype == torch.bool:
-            scores = scores.masked_fill(~attn_mask, _NEG)
+            scores = scores.masked_fill(~attn_mask, _neg(scores.dtype))
         else:
             scores = scores + attn_mask.to(scores.dtype)
     if is_causal:
@@ -73,7 +79,7 @@ def _naive(query, key, value, attn_mask, dropout_p, is_causal, training,
             qp = torch.arange(s_q, device=scores.device)[:, None]
             kp = torch.arange(s_k, device=scores.device)[None, :]
             keep &= (qp - kp) < window
-        scores = scores.masked_fill(~keep, _NEG)
+        scores = scores.masked_fill(~keep, _neg(scores.dtype))
     probs = torch.softmax(scores, dim=-1)
     if dropout_p and training:
         probs = dropout(probs, p=dropout_p, training=True)

@@ -4,9 +4,8 @@ Ports ``CrossEntropyLoss`` of paddle_tpu/nn/layer/loss.py (:6): the
 layer keeps its options and calls ``nn.functional.cross_entropy``, whose
 hard-label path takes integer labels of the logits' shape without the
 class axis ([B], as ResNet's bench run gives them) or with it of size 1
-([B, 1], as LeNet's). The options that the functional refuses (soft
-labels, ``weight``, ``label_smoothing``, ``use_softmax=False``) raise
-NotImplementedError at the first forward.
+([B, 1], as LeNet's); every option (soft labels, ``weight``,
+``label_smoothing``, ``use_softmax=False``) passes through to it.
 """
 from torch import nn
 

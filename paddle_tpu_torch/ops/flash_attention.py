@@ -19,7 +19,10 @@ columns at a time. The backward's C
 entry computes delta = rowsum(dO o) by a pre-pass kernel unless the
 caller passes it. ``flash_attention`` is a
 ``torch.autograd.Function`` (the reference's ``jax.custom_vjp``): it saves
-q, k, v, o and lse, and its backward returns dq, dk, dv in q's dtype.
+q, k, v, o and lse, and its backward returns dq, dk, dv in q's dtype. Its
+forward launches on the card through the custom op
+``paddle_tpu_torch::flash_fwd``, which a selective checkpoint sees as one
+op (the trainer's ``everything`` recompute policy keeps its outputs).
 
 A tensor on a CUDA device launches the kernel or raises; a tensor on the
 CPU takes the plain version, ``flash_attention_ref`` forward and
@@ -33,6 +36,7 @@ import collections
 import ctypes
 import math
 import operator
+from typing import Optional
 
 import torch
 
@@ -411,17 +415,35 @@ def _flash_bwd(q3, k3, v3, o3, lse, do3, causal, scale, delta=None,
     return tuple(g.squeeze(2) for g in grads)
 
 
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, scale: float,
+                  window: Optional[int]) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's launch as one op that the dispatcher sees, so
+    that a selective checkpoint can keep its outputs instead of launching
+    it again in the recompute."""
+    return _launch(q, k, v, causal, scale, window)
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, causal, scale, window):
+    B, S, H, D = q.shape
+    return (q.new_empty((B, S, H, D)),
+            q.new_empty((B * H, S), dtype=torch.float32))
+
+
 class _FlashAttention(torch.autograd.Function):
     """The reference's ``_flash`` custom_vjp: forward saves (q, k, v, o,
     lse), backward runs the dQ and dK/dV kernels (or their plain version
-    on the CPU)."""
+    on the CPU). On the card the forward launches through the custom op
+    ``paddle_tpu_torch::flash_fwd``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
         b, s, h, d = q.shape
         scale = 1.0 / math.sqrt(d)
         if q.is_cuda:      # the launch runs no autocast-affected op
-            o, lse = _launch(q, k, v, causal, scale, window)
+            o, lse = _flash_fwd_op(q, k, v, causal, scale, window)
         else:
             with _autocast_off():
                 o3, lse = flash_attention_ref(_heads(q), _heads(k),

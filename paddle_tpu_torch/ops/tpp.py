@@ -29,7 +29,9 @@ backward is ``jax.vjp`` of its ``_ln_matmul_ref`` / ``_mlp_ref`` /
 ``_fused_tail_ref``, with grads cast back to the input dtypes.
 Both run with autocast off, so an enclosing bf16 autocast never turns
 that fp32 math into bf16 products. ``matmul`` alone has no backward, as
-in the reference.
+in the reference. The Functions' forwards launch on the card through the
+custom op ``paddle_tpu_torch::tpp_matmul``, which a selective checkpoint
+sees as one op.
 
 A tensor on a CUDA device launches the kernel or raises; each public
 entry first copies what its kernel cannot read as it is (a strided
@@ -51,6 +53,7 @@ by the kernel the C entry chose (``wgmma`` or ``simt``), softmax_rows's
 """
 import collections
 import ctypes
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -266,6 +269,33 @@ def _run(x, w, bias, in_act, act, gamma=None, beta=None):
         return _matmul_ref(x, w, bias, in_act, act, gamma, beta)
 
 
+@torch.library.custom_op("paddle_tpu_torch::tpp_matmul", mutates_args=())
+def _tpp_matmul_op(x: torch.Tensor, w: torch.Tensor,
+                   bias: Optional[torch.Tensor], in_act: str, act: str,
+                   gamma: Optional[torch.Tensor],
+                   beta: Optional[torch.Tensor]) -> torch.Tensor:
+    """The kernel's launch as one op that the dispatcher sees, so that a
+    selective checkpoint can keep its output instead of launching it again
+    in the recompute."""
+    return _launch(x, w, bias, in_act, act, gamma, beta)
+
+
+@_tpp_matmul_op.register_fake
+def _(x, w, bias, in_act, act, gamma, beta):
+    return x.new_empty((x.shape[0], w.shape[1]))
+
+
+def _run_fwd(x, w, bias, in_act, act, gamma=None, beta=None):
+    """_run in an autograd Function's forward: on the card through the
+    custom op ``paddle_tpu_torch::tpp_matmul``."""
+    if not x.is_cuda:
+        return _run(x, w, bias, in_act, act, gamma, beta)
+    if w.stride(0) != 1 and w.stride(1) != 1:
+        w = w.contiguous()
+    return _tpp_matmul_op(_contiguous(x), w, _contiguous(bias), in_act, act,
+                          _contiguous(gamma), _contiguous(beta))
+
+
 def matmul(x, w, bias=None, in_act="none", act="none"):
     """Blocked matmul-accumulate: ``act(in_act(x) @ w + bias)``.
     x [m, k], w [k, n] (an nn.Linear weight passes as ``weight.t()``);
@@ -319,7 +349,7 @@ class _LnMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gamma, beta, w, bias):
         ctx.save_for_backward(x, gamma, beta, w, bias)
-        return _run(x, w, bias, "none", "none", gamma, beta)
+        return _run_fwd(x, w, bias, "none", "none", gamma, beta)
 
     @staticmethod
     def backward(ctx, g):
@@ -335,8 +365,8 @@ class _FusedMlp(torch.autograd.Function):
         act = "gelu_tanh" if approx else "gelu"
         # leg 1: x @ w1 + b1, the one intermediate in device memory;
         # leg 2: gelu on the second matmul's loads, + b2 on the way out
-        h = _run(x, w1, b1, "none", "none")
-        return _run(h, w2, b2, act, "none")
+        h = _run_fwd(x, w1, b1, "none", "none")
+        return _run_fwd(h, w2, b2, act, "none")
 
     @staticmethod
     def backward(ctx, g):
@@ -350,7 +380,8 @@ class _FusedTail(torch.autograd.Function):
     def forward(ctx, pre, w2, b2, approx):
         ctx.save_for_backward(pre, w2, b2)
         ctx.approx = approx
-        return _run(pre, w2, b2, "gelu_tanh" if approx else "gelu", "none")
+        return _run_fwd(pre, w2, b2, "gelu_tanh" if approx else "gelu",
+                        "none")
 
     @staticmethod
     def backward(ctx, g):

@@ -66,6 +66,46 @@ KEPT_ROWS = 4
 TRAIN_BF16_UPDATE_RTOL = 0.1
 
 
+#: the pretraining recipe on the narrow model (chip_smoke.py's
+#: gpt_narrow_recipe_vs_jax_fixture): AdamW (lr from the schedule, weight
+#: decay 0.01) under LinearWarmup(CosineAnnealingDecay(RECIPE_LR,
+#: T_max=RECIPE_STEPS), warmup_steps=RECIPE_WARMUP, start_lr=0,
+#: end_lr=RECIPE_LR), ClipGradByGlobalNorm(RECIPE_CLIP), SpmdTrainer with
+#: accumulate_steps=RECIPE_ACCUM and recompute=True, RECIPE_STEPS steps on
+#: one RECIPE_BATCH x SEQ batch (recipe_batch), in fp32 and under bf16
+#: auto_cast. ``python tests/test_torch_recipe.py --write-fixture``
+#: rewrites the fixture from the JAX package's trainer;
+#: test_committed_recipe_fixture_matches_jax checks that it still matches.
+RECIPE_FIXTURE = FIXTURE.with_name("gpt_narrow_recipe_seq1024.npz")
+RECIPE_STEPS = 4
+RECIPE_LR = 1e-3
+RECIPE_WARMUP = 2
+RECIPE_BATCH = 2
+RECIPE_ACCUM = 2
+#: below the narrow model's global grad norm at every step of the run
+#: (the fixture keeps the JAX package's norms; its test asserts each
+#: exceeds this), so that the clip binds at every step
+RECIPE_CLIP = 0.25
+
+
+def recipe_schedule():
+    """The recipe's learning-rate schedule, in the port."""
+    from ..optimizer.lr import CosineAnnealingDecay, LinearWarmup
+
+    return LinearWarmup(CosineAnnealingDecay(RECIPE_LR, T_max=RECIPE_STEPS),
+                        warmup_steps=RECIPE_WARMUP, start_lr=0.0,
+                        end_lr=RECIPE_LR)
+
+
+def recipe_batch(seed=SEED, cfg=NARROW):
+    """([RECIPE_BATCH, SEQ] int32 ids, their next-token labels: the ids
+    shifted left by one, the last label wrapping to the row's first id)."""
+    rng = np.random.RandomState(seed + 2)
+    ids = rng.randint(0, cfg["vocab_size"], (RECIPE_BATCH, SEQ)).astype(
+        np.int32)
+    return ids, np.roll(ids, -1, axis=1)
+
+
 def param_shapes(cfg=NARROW):
     """{name: shape} of GPTForCausalLM's parameters in the JAX layout."""
     h, v, t = cfg["hidden_size"], cfg["vocab_size"], cfg["max_seq_len"]

@@ -170,16 +170,25 @@ def test_state_dict_keys_and_step_match_the_reference():
 
 
 def test_unported_options_raise():
+    """LRScheduler rates, regularizer objects and grad_clip are ported
+    (tests/test_torch_lr.py and test_torch_optimizers.py hold them against
+    the reference); what stays refused is a learning rate or clip that is
+    not the port's own: the JAX package's scheduler objects, or a
+    grad_clip that is no clip."""
     from paddle_tpu.optimizer.lr import StepDecay
 
-    with pytest.raises(NotImplementedError, match="LRScheduler"):
-        AdamW(learning_rate=StepDecay(0.1, step_size=2))
-    with pytest.raises(NotImplementedError, match="grad_clip"):
-        AdamW(learning_rate=0.1, grad_clip=object())
-    from paddle_tpu.regularizer import L2Decay
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import lr
+    from paddle_tpu_torch.regularizer import L2Decay
 
-    with pytest.raises(NotImplementedError, match="weight_decay"):
-        Adam(learning_rate=0.1, weight_decay=L2Decay(0.1))
+    with pytest.raises(TypeError, match="LRScheduler"):
+        AdamW(learning_rate=StepDecay(0.1, step_size=2))
+    with pytest.raises(TypeError, match="grad_clip"):
+        AdamW(learning_rate=0.1, grad_clip=object())
+    opt = Adam(learning_rate=lr.StepDecay(0.1, step_size=2),
+               weight_decay=L2Decay(0.1),
+               grad_clip=ClipGradByGlobalNorm(1.0))
+    assert opt.get_lr() == 0.1 and opt._wd == 0.1 and opt._wd_is_l2
 
 
 TINY = dict(vocab_size=1024, hidden_size=64, num_layers=2, num_heads=4,

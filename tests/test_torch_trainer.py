@@ -205,11 +205,13 @@ def test_auto_cast_state_and_unported_options():
             assert pt.amp.amp_dtype() is None
         assert pt.amp.amp_dtype() == torch.bfloat16
     assert pt.amp.amp_state()["enabled"] is False
+    # O2 and the custom lists are stored and read by nothing, as in the
+    # reference (tests/test_torch_grad_scaler.py holds them against it)
     for kwargs in (dict(level="O2"), dict(custom_white_list={"gelu"}),
                    dict(custom_black_list={"linear"})):
-        with pytest.raises(NotImplementedError):
-            with pt.amp.auto_cast(True, **kwargs):
-                pass
+        with pt.amp.auto_cast(True, **kwargs):
+            assert pt.amp.amp_dtype() == torch.bfloat16
+    assert pt.amp.amp_state()["level"] == "O1"
     with pytest.raises(ValueError, match="dtype"):
         with pt.amp.auto_cast(True, dtype="int8"):
             pass
@@ -229,11 +231,22 @@ def test_cross_entropy_matches_reference():
         got = cross_entropy(torch.from_numpy(logits),
                             torch.from_numpy(labels), reduction=reduction)
         np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=1e-6)
-    for kwargs in (dict(soft_label=True), dict(label_smoothing=0.1),
-                   dict(weight=torch.ones(7)), dict(use_softmax=False)):
-        with pytest.raises(NotImplementedError):
-            cross_entropy(torch.from_numpy(logits),
-                          torch.from_numpy(labels), **kwargs)
+    # the other options (tests/test_torch_loss.py holds each of them)
+    soft = np.full((12, 7), 1 / 7, np.float32)
+    for kwargs, label in ((dict(soft_label=True), soft),
+                          (dict(label_smoothing=0.1), labels),
+                          (dict(weight=np.ones(7, np.float32)), labels),
+                          (dict(use_softmax=False), labels)):
+        x = np.abs(logits) if "use_softmax" in kwargs else logits
+        want = np.asarray(JF.cross_entropy(
+            paddle.to_tensor(x), paddle.to_tensor(label),
+            **{k: paddle.to_tensor(v) if isinstance(v, np.ndarray) else v
+               for k, v in kwargs.items()})._data)
+        got = cross_entropy(
+            torch.from_numpy(x), torch.from_numpy(label),
+            **{k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+               for k, v in kwargs.items()})
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=1e-6)
 
 
 def test_model_loss_and_dropout_in_train_mode():
@@ -346,11 +359,10 @@ class _TwoDeviceMesh:
 
 @pytest.mark.parametrize("kwargs", [
     dict(mesh=_TwoDeviceMesh()), dict(sharding_stage=2),
-    dict(recompute=True), dict(accumulate_steps=2), dict(localsgd_k=2),
-    dict(return_outputs=True), dict(extra_param_specs={"w": None}),
-    dict(metrics_fn=len), dict(dgc_rampup=1)],
-    ids=["mesh2", "zero", "recompute", "accumulate", "localsgd", "outputs",
-         "tp_specs", "metrics_fn", "extra_knob"])
+    dict(localsgd_k=2), dict(extra_param_specs={"w": None}),
+    dict(dgc_rampup=1), dict(recompute=True, remat_offload=True)],
+    ids=["mesh2", "zero", "localsgd", "tp_specs", "extra_knob",
+         "remat_offload"])
 def test_refused_constructor_options_raise(kwargs):
     lin = torch.nn.Linear(4, 1)
     with pytest.raises(NotImplementedError, match="not ported"):
