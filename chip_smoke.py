@@ -60,9 +60,20 @@ on) against the JAX package's committed run, with a no-clip control
 that must fail it, bench.py's gpt2m (GPT-2 medium, 8 x 1024) and
 gpt2s_16k (GPT-2 small, 1 x 16,384) and gpt2m under the recipe (tokens/s,
 MFU, peak memory, flash launches a step), and GPT-2 small's fp16 eager
-loop under ``amp.GradScaler`` with an overflowing 2^40 control; it
-profiles each configuration once for the device time by kernel and the
-device's idle share, and times every kernel. Each phase prints one JSON
+loop under ``amp.GradScaler`` with an overflowing 2^40 control, and the
+rest of serving: the narrow model's ragged generate, beam search and
+speculative decoding against the port's CPU run, then GPT-2 small's ragged
+batch and beam search and speculative decoding with a GPT-2 medium target
+(a GPT-2 small draft, and the target as its own fp32 draft, every
+proposal accepted), each token the target's greedy pick within the tie
+band and each beam score near the fp32 log-prob of its sequence, and the
+engine on GPT-2 small: speculative (the medium target), multi-LoRA under
+adapter eviction (base requests bit-equal a plain engine's), hot swap to
+a seed-1 model (later requests bit-equal a fresh engine's), the
+disaggregated pool and the async step (each bit-equal the plain drain),
+all with no kernel launch; it profiles each configuration once for the
+device time by kernel and the device's idle share, and times every
+kernel. Each phase prints one JSON
 line; then a ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits nonzero and prints no result; it also exits nonzero at once when
@@ -225,6 +236,29 @@ QUANT_TIE_F32 = 1e-3
 # each lie within BF16_VS_FP32_MATH_TOL of fp32 math, so a token may be
 # another only within twice that below the largest logit
 ENGINE_TIE_BF16 = 2 * BF16_VS_FP32_MATH_TOL
+# the rest of generate on GPT-2 small (bf16, seed 0): a ragged batch of
+# prompts of 64-128 tokens left-padded to 128; beam search at batch 2;
+# speculative decoding with a GPT-2 medium target and a GPT-2 small draft
+RAGGED_BATCH, RAGGED_PAD_TO, RAGGED_NEW = 8, 128, 128
+BEAM_BATCH, BEAM_K, BEAM_PROMPT, BEAM_NEW = 2, 4, 128, 64
+SPEC_PROMPT, SPEC_NEW, SPEC_K = 128, 128, 4
+# a bf16 beam's score against the fp32 log-prob of its sequence: a token's
+# log-softmax moves at most twice its logits' error (BF16_VS_FP32_MATH_TOL),
+# summed over the new tokens
+BEAM_SCORE_TOL_BF16 = BEAM_NEW * 2 * BF16_VS_FP32_MATH_TOL
+# the narrow model's beam scores on the card against the CPU's: fp32 sums
+# of its new tokens' log-probs in another order
+NARROW_BEAM_TOL = 1e-3
+# the engine: multi-LoRA at rank 16, three adapters on all four sites
+# (B drawn from N(0, 0.3)), two adapter slots; hot swap after this many
+# steps of the drain
+LORA_RANK, LORA_SLOTS, LORA_B_STD = 16, 2, 0.3
+SWAP_AT_STEP = LORA_LOAD_AT_STEP = 48
+# GPT-2 small and medium (bench.py's gpt2s and gpt2m) for those phases
+GPT2_SMALL_CFG = dict(vocab_size=50304, hidden_size=768, num_layers=12,
+                      num_heads=12, max_seq_len=1024, dropout=0.0)
+GPT2_MEDIUM_CFG = dict(GPT2_SMALL_CFG, hidden_size=1024, num_layers=24,
+                       num_heads=16)
 # PP-YOLOE training (bench.py run_ppyolo_train :493-545): 1 warm-up step,
 # then this many timed steps, then one profiled
 DET_TRAIN_STEPS_TIMED = 5
@@ -1717,6 +1751,562 @@ def gpt2_decode_legs(dev):
     return {"legs": legs, "counts": counts}
 
 
+_GPT2_MODELS = {}
+
+
+def gpt2_model(cfg, seed, dev):
+    """GPT-2 small or medium (GPT2_SMALL_CFG / GPT2_MEDIUM_CFG) with
+    random weights from `seed`, built once for the generate and engine
+    phases (drop_gpt2_models frees them)."""
+    import torch
+
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    key = (tuple(sorted(cfg.items())), seed)
+    if key not in _GPT2_MODELS:
+        _GPT2_MODELS[key] = GPTForCausalLM(
+            GPTConfig(**cfg), device=dev,
+            generator=torch.Generator().manual_seed(seed)).eval()
+    return _GPT2_MODELS[key]
+
+
+def drop_gpt2_models():
+    import torch
+
+    _GPT2_MODELS.clear()
+    torch.cuda.empty_cache()
+
+
+def teacher_forced_rows(model, prompts, toks, dtype=None):
+    """teacher_forced_gaps for many rows at once: each prompt prefilled
+    into its own row of one cache, then the rows' tokens fed together at
+    per-row positions (the engine's decode math, one batched step a
+    token). prompts: int arrays; toks: token lists of one length n.
+    Returns the gaps as a float64 [rows, n]."""
+    import torch
+
+    from paddle_tpu_torch.models import gpt as pgpt
+    from paddle_tpu_torch.serving.decode_model import cast_params
+
+    dev = model.device
+    fwd, logits_of, cache_init = pgpt._decode_fns(model.cfg)
+    compute = pgpt._decode_compute_dtype(dtype)
+    p = cast_params({n: t.detach() for n, t in model.named_parameters()},
+                    compute)
+    R, n = len(prompts), len(toks[0])
+    T = max(len(q) for q in prompts) + n
+    tk = torch.as_tensor([list(t) for t in toks], device=dev).long()
+    gaps = []
+    with torch.no_grad():
+        kc, vc = cache_init(R, T, p["gpt.wte.weight"].dtype, dev)
+        x = torch.cat([fwd(p, torch.as_tensor(q, device=dev).long()[None],
+                           0, kc[:, r:r + 1], vc[:, r:r + 1])[:, -1]
+                       for r, q in enumerate(prompts)])
+        pos = torch.as_tensor([len(q) for q in prompts], device=dev).long()
+        for i in range(n):
+            lg = logits_of(p, x).float()
+            gaps.append(lg.max(-1).values
+                        - lg.gather(-1, tk[:, i:i + 1]).squeeze(-1))
+            if i + 1 < n:
+                x = fwd(p, tk[:, i:i + 1], pos + i, kc, vc)[:, 0]
+    return torch.stack(gaps, 1).double().cpu()
+
+
+def beam_logprob_fp32(model, prompts, seqs):
+    """The fp32 joint log-prob of each sequence's new tokens after its
+    prompt (teacher forced through the decode math): [rows] float64."""
+    import torch
+
+    from paddle_tpu_torch.models import gpt as pgpt
+
+    dev = model.device
+    fwd, logits_of, cache_init = pgpt._decode_fns(model.cfg)
+    p = {n: t.detach() for n, t in model.named_parameters()}
+    out = []
+    with torch.no_grad():
+        for q, s in zip(prompts, seqs):
+            ids = torch.as_tensor(s, device=dev).long()[None]
+            kc, vc = cache_init(1, ids.shape[1], torch.float32, dev)
+            x = fwd(p, ids, 0, kc, vc)
+            lp = torch.log_softmax(logits_of(p, x[0, len(q) - 1:-1]).float(),
+                                   -1)
+            out.append(float(lp.gather(-1, ids[0, len(q):, None]).sum()))
+    return torch.tensor(out, dtype=torch.float64)
+
+
+def narrow_generate_ext(dev):
+    """The narrow model's ragged generate, beam search and speculative
+    decoding on the card (fp32) against the port's CPU run of the same
+    weights (which tests/test_torch_ragged_beam.py and
+    test_torch_speculative.py hold to the JAX package): every card token
+    the CPU's greedy pick along the card's tokens within TIE_GAP; beam
+    scores within NARROW_BEAM_TOL of the CPU's."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM, \
+        params_from_jax
+    from paddle_tpu_torch.testing import golden
+
+    state = params_from_jax(golden.jax_layout_params())
+    cpu = GPTForCausalLM(GPTConfig(**golden.NARROW), device="cpu").eval()
+    cpu.load_state_dict(state)
+    card = GPTForCausalLM(GPTConfig(**golden.NARROW), device=dev).eval()
+    card.load_state_dict(state)
+    draft_cfg = dict(golden.NARROW, num_layers=1)
+    draft = GPTForCausalLM(GPTConfig(**draft_cfg), device=dev,
+                           generator=torch.Generator().manual_seed(1)).eval()
+    ids = golden.input_ids()[0, :golden.PROMPT]
+    pads = (0, 9, 30, 17)
+    batch = np.stack([ids] * len(pads))
+    mask = np.ones_like(batch)
+    for r, n in enumerate(pads):
+        mask[r, :n] = 0
+        batch[r, :n] = 0
+    out = {}
+    new = golden.NEW_TOKENS
+    got = card.generate(torch.as_tensor(batch, device=dev).long(),
+                        max_new_tokens=new, temperature=0.0,
+                        attention_mask=torch.as_tensor(mask, device=dev))
+    want = cpu.generate(torch.as_tensor(batch).long(), max_new_tokens=new,
+                        temperature=0.0, attention_mask=torch.as_tensor(mask))
+    toks = got[:, golden.PROMPT:].cpu()
+    gaps = torch.cat([teacher_forced_gaps(cpu, ids[n:], toks[r])
+                      for r, n in enumerate(pads)])
+    check(float(gaps.max()) <= TIE_GAP,
+          f"narrow ragged generate on the card: every token the CPU's "
+          f"greedy pick of its unpadded prompt within {TIE_GAP} (max gap "
+          f"{float(gaps.max())})")
+    out["ragged"] = {"rows": len(pads), "left_pad": list(pads),
+                     "tokens_equal_cpu": int((toks == want[:, golden.PROMPT:])
+                                             .sum()),
+                     "of": int(toks.numel()), "max_gap": float(gaps.max())}
+    kw = dict(max_new_tokens=16, num_beams=3, eos_token_id=None,
+              length_penalty=0.8)
+    seq, score = card.generate(torch.as_tensor(batch[:2], device=dev).long(),
+                               attention_mask=torch.as_tensor(
+                                   mask[:2], device=dev), **kw)
+    wseq, wscore = cpu.generate(torch.as_tensor(batch[:2]).long(),
+                                attention_mask=torch.as_tensor(mask[:2]),
+                                **kw)
+    err = float((score.cpu() - wscore).abs().max())
+    check(err <= NARROW_BEAM_TOL,
+          f"narrow beam search on the card: scores within "
+          f"{NARROW_BEAM_TOL} of the CPU's (err {err})")
+    out["beam"] = {"batch": 2, "num_beams": 3, "new_tokens": 16,
+                   "sequences_equal_cpu": bool(torch.equal(seq.cpu(), wseq)),
+                   "score_max_abs_err": err}
+    spec = {}
+    for name, d in (("random_draft", draft), ("self_draft", card)):
+        seq, rounds = card.generate_speculative(
+            d, torch.as_tensor(ids[None], device=dev).long(),
+            max_new_tokens=new, k=4)
+        cpu_d = cpu if d is card else None
+        if cpu_d is None:
+            cpu_d = GPTForCausalLM(GPTConfig(**draft_cfg), device="cpu")
+            cpu_d.load_state_dict({k: v.cpu() for k, v in
+                                   d.state_dict().items()})
+        wseq, wrounds = cpu.generate_speculative(
+            cpu_d.eval(), torch.as_tensor(ids[None]).long(),
+            max_new_tokens=new, k=4)
+        toks = seq[0, golden.PROMPT:].cpu()
+        gaps = teacher_forced_gaps(cpu, ids, toks)
+        check(float(gaps.max()) <= TIE_GAP,
+              f"narrow speculative ({name}) on the card: every token the "
+              f"CPU's greedy pick within {TIE_GAP} (max gap "
+              f"{float(gaps.max())})")
+        spec[name] = {"rounds": rounds, "cpu_rounds": wrounds,
+                      "tokens_equal_cpu": int((toks == wseq[0,
+                                                            golden.PROMPT:])
+                                              .sum()),
+                      "of": new, "max_gap": float(gaps.max())}
+    check(spec["self_draft"]["rounds"] == -(-new // 5),
+          f"narrow self-draft: every proposal accepted, "
+          f"{spec['self_draft']['rounds']} rounds")
+    out["speculative"] = spec
+    return out
+
+
+def gpt2_generate_ext(dev):
+    """The rest of generate at full width, bf16, seed 0: GPT-2 small on a
+    ragged batch (RAGGED_BATCH prompts of 64-128 tokens left-padded to
+    RAGGED_PAD_TO, RAGGED_NEW new), beam search (BEAM_BATCH x BEAM_K beams,
+    prompt BEAM_PROMPT, BEAM_NEW new) and speculative decoding with a
+    GPT-2 medium target and a GPT-2 small draft (prompt SPEC_PROMPT,
+    SPEC_NEW new, k SPEC_K), plus the target as its own draft in fp32,
+    where every proposal is accepted. Every greedy token is the target's
+    pick along the returned tokens within ENGINE_TIE_BF16 (TIE_GAP in
+    fp32); every beam score within BEAM_SCORE_TOL_BF16 of the fp32
+    log-prob of its sequence. Returns the phase's dict."""
+    import numpy as np
+    import torch
+
+    model = gpt2_model(GPT2_SMALL_CFG, 0, dev)
+    rng = np.random.RandomState(0)
+    V = model.cfg.vocab_size
+
+    def timed(fn, warm):
+        warm()                 # a short run of the same path first
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    # ---- ragged ----------------------------------------------------------
+    lens = [int(rng.randint(64, RAGGED_PAD_TO + 1))
+            for _ in range(RAGGED_BATCH)]
+    prompts = [rng.randint(0, V, (n,)).astype(np.int32) for n in lens]
+    batch = np.zeros((RAGGED_BATCH, RAGGED_PAD_TO), np.int32)
+    mask = np.zeros_like(batch)
+    for r, q in enumerate(prompts):
+        batch[r, RAGGED_PAD_TO - len(q):] = q
+        mask[r, RAGGED_PAD_TO - len(q):] = 1
+    ids = torch.as_tensor(batch, device=dev).long()
+    am = torch.as_tensor(mask, device=dev)
+    def ragged_run(n):
+        return model.generate(ids, max_new_tokens=n, temperature=0.0,
+                              dtype="bfloat16", attention_mask=am)
+
+    out, dt = timed(lambda: ragged_run(RAGGED_NEW), lambda: ragged_run(2))
+    toks = out[:, RAGGED_PAD_TO:].tolist()
+    gaps = teacher_forced_rows(model, prompts, toks, dtype="bfloat16")
+    check(float(gaps.max()) <= ENGINE_TIE_BF16,
+          f"ragged generate: every token the greedy pick of its unpadded "
+          f"prompt within {ENGINE_TIE_BF16} (max gap {float(gaps.max())})")
+    ragged = {"batch": RAGGED_BATCH, "prompt_lens": lens,
+              "padded_to": RAGGED_PAD_TO, "new_tokens": RAGGED_NEW,
+              "new_tok_per_s": RAGGED_BATCH * RAGGED_NEW / dt, "wall_s": dt,
+              "max_gap": float(gaps.max()),
+              "steps_off_greedy": int((gaps > 0).sum()), "tie":
+              ENGINE_TIE_BF16}
+
+    # ---- beam search -----------------------------------------------------
+    bprompts = [rng.randint(0, V, (BEAM_PROMPT,)).astype(np.int32)
+                for _ in range(BEAM_BATCH)]
+    bids = torch.as_tensor(np.stack(bprompts), device=dev).long()
+    def beam_run(n):
+        return model.generate(bids, max_new_tokens=n, num_beams=BEAM_K,
+                              dtype="bfloat16", length_penalty=1.0)
+
+    (seq, score), dt = timed(lambda: beam_run(BEAM_NEW),
+                             lambda: beam_run(2))
+    check(tuple(seq.shape) == (BEAM_BATCH, BEAM_PROMPT + BEAM_NEW)
+          and bool(torch.isfinite(score).all()),
+          f"beam search: [{BEAM_BATCH}, {BEAM_PROMPT + BEAM_NEW}] ids, "
+          f"finite scores")
+    want = beam_logprob_fp32(model, bprompts, seq.tolist())
+    err = float((score.double().cpu() - want).abs().max())
+    check(err <= BEAM_SCORE_TOL_BF16,
+          f"beam search: each score within {BEAM_SCORE_TOL_BF16} of the "
+          f"fp32 teacher-forced log-prob of its sequence (err {err})")
+    beam = {"batch": BEAM_BATCH, "num_beams": BEAM_K, "prompt": BEAM_PROMPT,
+            "new_tokens": BEAM_NEW, "scores": score.tolist(),
+            "fp32_log_probs": want.tolist(), "score_max_abs_err": err,
+            "tol": BEAM_SCORE_TOL_BF16,
+            "new_tok_per_s": BEAM_BATCH * BEAM_NEW / dt, "wall_s": dt}
+    del seq, score
+
+    # ---- speculative: GPT-2 medium target, GPT-2 small draft -------------
+    target = gpt2_model(GPT2_MEDIUM_CFG, 0, dev)
+    sprompt = rng.randint(0, V, (SPEC_PROMPT,)).astype(np.int32)
+    sids = torch.as_tensor(sprompt[None], device=dev).long()
+    spec = {}
+    for name, d, dtype in (("small_draft", model, "bfloat16"),
+                           ("self_draft_fp32", target, None)):
+        def spec_run(n):
+            return target.generate_speculative(d, sids, max_new_tokens=n,
+                                               k=SPEC_K, dtype=dtype)
+
+        (seq, rounds), dt = timed(lambda: spec_run(SPEC_NEW),
+                                  lambda: spec_run(8))
+        toks = seq[0, SPEC_PROMPT:].tolist()
+        gaps = teacher_forced_rows(target, [sprompt], [toks], dtype=dtype)
+        tie = ENGINE_TIE_BF16 if dtype else TIE_GAP
+        check(float(gaps.max()) <= tie,
+              f"speculative ({name}): every token the target's greedy pick "
+              f"within {tie} (max gap {float(gaps.max())})")
+        spec[name] = {"rounds": rounds, "tokens_per_round": SPEC_NEW / rounds,
+                      "new_tok_per_s": SPEC_NEW / dt, "wall_s": dt,
+                      "max_gap": float(gaps.max()), "tie": tie,
+                      "dtype": dtype or "float32"}
+    check(spec["self_draft_fp32"]["rounds"] == -(-SPEC_NEW // (SPEC_K + 1)),
+          f"self-draft control: every proposal accepted, "
+          f"{spec['self_draft_fp32']['rounds']} rounds, expected "
+          f"{-(-SPEC_NEW // (SPEC_K + 1))}")
+    def greedy_run(n):
+        return target.generate(sids, max_new_tokens=n, temperature=0.0,
+                               dtype="bfloat16")
+
+    _, dt = timed(lambda: greedy_run(SPEC_NEW), lambda: greedy_run(2))
+    spec["target_generate_bf16_new_tok_per_s"] = SPEC_NEW / dt
+    return {"ragged": ragged, "beam": beam, "speculative": spec,
+            "target": "GPT-2 medium (24 x 1024, 16 heads)",
+            "draft": "GPT-2 small", "spec_k": SPEC_K}
+
+
+def gpt2_engine_ext(dev):
+    """The rest of the engine on GPT-2 small, bf16, SERVE_SLOTS slots,
+    SERVE_REQUESTS requests of SERVE_NEW new tokens (prompts of 32-127
+    tokens, RandomState(5)): the plain dense drain first (the reference of
+    the bit-equal checks); the speculative engine (GPT-2 medium target,
+    GPT-2 small draft, spec_k SPEC_K), each token the target's greedy pick
+    within ENGINE_TIE_BF16; the multi-LoRA paged engine (three rank-16
+    adapters on all four sites, LORA_SLOTS slots, so that adapters are
+    evicted under load and their sessions restart), its base requests
+    bit-equal the plain drain's; hot_swap to a seed-1 model after
+    SWAP_AT_STEP steps, the requests submitted after it bit-equal a fresh
+    seed-1 engine's; the disaggregated pool (1 worker, 2 engines) and the
+    async step, each bit-equal the plain drain. Returns the phase's
+    dict."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.incubate import lora
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models import GPTForCausalLM
+    from paddle_tpu_torch.serving.disagg import DisaggregatedPool
+
+    model = gpt2_model(GPT2_SMALL_CFG, 0, dev)
+    small = model.cfg
+    rng = np.random.RandomState(5)
+    lens = [int(rng.randint(32, 128)) for _ in range(SERVE_REQUESTS)]
+    prompts = [rng.randint(0, small.vocab_size, (n,)).astype(np.int32)
+               for n in lens]
+
+    def engine(m, **kw):
+        """An engine warmed by one 2-token request (bench.py's warm-up)."""
+        eng = ServingEngine(m, max_batch=SERVE_SLOTS, dtype="bfloat16", **kw)
+        eng.submit(prompts[0], max_new_tokens=2)
+        eng.run_until_complete()
+        return eng
+
+    def drain(eng, kws=None, hook=None, profile_at=32):
+        """Submit every prompt, step to the end (hook(eng, n) after step
+        n), one step profiled; returns (tokens, stats, host s, trace)."""
+        rids = [eng.submit(q, max_new_tokens=SERVE_NEW,
+                           **(kws[i] if kws else {}))
+                for i, q in enumerate(prompts)]
+        n, trace = 0, None
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        while eng.has_work():
+            if n == profile_at:
+                _, trace = device_breakdown(eng.step)
+            else:
+                eng.step()
+            n += 1
+            if hook is not None:
+                hook(eng, n)
+        dt = time.perf_counter() - t
+        res = [eng.get_request(r) for r in rids]
+        check(all(r.finish_reason == "length"
+                  and len(r.output_ids) == SERVE_NEW for r in res),
+              "engine drain: every request ends at max_new_tokens")
+        return [list(r.output_ids) for r in res], eng.stats(), dt, trace
+
+    def row(stats, dt, trace):
+        return {"new_tok_per_s": SERVE_REQUESTS * SERVE_NEW / dt,
+                "timed_s": dt, "steps": stats["steps"],
+                "profiled_step_32": trace}
+
+    out = {}
+    plain, stats, dt, trace = drain(engine(model))
+    out["plain"] = row(stats, dt, trace)
+    # the async step against the sync one, in turns (sync, async, async,
+    # sync): every drain bit-equal the first
+    rates = {"sync": [out["plain"]["new_tok_per_s"]], "async": []}
+    for mode in ("async", "async", "sync"):
+        set_flags({"async_dispatch": mode == "async"})
+        toks, stats, dt, trace = drain(engine(model))
+        check(toks == plain, f"{mode} step: the drain bit-equal the first "
+              "sync drain")
+        rates[mode].append(SERVE_REQUESTS * SERVE_NEW / dt)
+        if mode == "async":
+            out["async"] = {**row(stats, dt, trace), "bit_equal_sync": True}
+    set_flags({"async_dispatch": False})
+    out["async"].update(new_tok_per_s_runs=rates["async"],
+                        sync_new_tok_per_s_runs=rates["sync"],
+                        order="sync, async, async, sync")
+
+    # ---- speculative continuous batching -------------------------------
+    target = gpt2_model(GPT2_MEDIUM_CFG, 0, dev)
+    toks, stats, dt, trace = drain(engine(target, draft_model=model,
+                                          spec_k=SPEC_K), profile_at=8)
+    gaps = teacher_forced_rows(target, prompts, toks, dtype="bfloat16")
+    check(float(gaps.max()) <= ENGINE_TIE_BF16,
+          f"speculative engine: every token the target's greedy pick "
+          f"within {ENGINE_TIE_BF16} (max gap {float(gaps.max())})")
+    out["speculative"] = {**row(stats, dt, trace),
+                          "speculative": stats["speculative"],
+                          # a slot's round emits its accepted proposals
+                          # and the target's fix-up token
+                          "tokens_per_slot_round": 1 + SPEC_K
+                          * stats["speculative"]["accepted"]
+                          / max(1, stats["speculative"]["proposed"]),
+                          "max_gap": float(gaps.max()),
+                          "steps_off_greedy": int((gaps > 0).sum())}
+    dense_t, stats_t, dt, _ = drain(engine(target), profile_at=-1)
+    out["speculative"]["dense_target_new_tok_per_s"] = \
+        SERVE_REQUESTS * SERVE_NEW / dt
+    out["speculative"]["tokens_equal_dense_target"] = sum(
+        a == b for x, y in zip(toks, dense_t) for a, b in zip(x, y))
+    del target
+    drop_gpt2_models()
+
+    # ---- multi-LoRA under eviction -------------------------------------
+    names = ("a", "b", "c")
+    wrapped = GPTForCausalLM(small, device=dev)
+    wrapped.load_state_dict(model.state_dict())
+    lora.apply_lora(wrapped, r=LORA_RANK, alpha=LORA_RANK,
+                    generator=torch.Generator().manual_seed(7))
+    exps = {}
+    gen = torch.Generator(device=dev)
+    for i, name in enumerate(names):
+        gen.manual_seed(10 + i)
+        with torch.no_grad():
+            for n, p in wrapped.named_parameters():
+                if "lora_" in n:
+                    p.normal_(0.0, LORA_B_STD if "lora_B" in n else 0.02,
+                              generator=gen)
+        exps[name] = lora.export_lora(wrapped)
+    del wrapped
+    # 18 requests on a (pinned), b and the base first; after
+    # LORA_LOAD_AT_STEP steps c is loaded (evicting b while its sessions run)
+    # and 6 requests on c follow
+    kinds = [("a", "b", None)[i % 3] if i < 18 else "c"
+             for i in range(SERVE_REQUESTS)]
+    loads = {"forced": 0, "restarted": 0, "loads": 2}
+
+    def lora_step(eng, n):
+        """After step n: at LORA_LOAD_AT_STEP load c and submit its requests;
+        later, load the adapter the queue head waits for once the
+        adapter it evicts has no session in flight."""
+        if n == LORA_LOAD_AT_STEP:
+            busy = sum(1 for r in eng._slot_req
+                       if r is not None and r.adapter == "b")
+            eng.load_adapter("c", exps["c"])
+            loads["forced"] += 1
+            loads["restarted"] += busy
+            loads["loads"] += 1
+            rids.extend(eng.submit(prompts[i], max_new_tokens=SERVE_NEW,
+                                   adapter="c")
+                        for i in range(18, SERVE_REQUESTS))
+            return
+        if not eng._queue or eng._queue[0].adapter is None:
+            return
+        want = eng._queue[0].adapter
+        if eng._adapters.peek(want) is not None:
+            return
+        victim = next(v for v in eng._adapters._lru
+                      if v not in eng._adapters._pinned)
+        if any(r is not None and r.adapter == victim
+               for r in eng._slot_req):
+            return
+        eng.load_adapter(want, exps[want])
+        loads["loads"] += 1
+
+    set_flags({"paged_kv": True})
+    eng = engine(model, max_adapters=LORA_SLOTS, lora_rank=LORA_RANK)
+    eng.load_adapter("a", exps["a"], pin=True)
+    eng.load_adapter("b", exps["b"])
+    rids = [eng.submit(prompts[i], max_new_tokens=SERVE_NEW,
+                       adapter=kinds[i]) for i in range(18)]
+    n, trace = 0, None
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    while eng.has_work():
+        if n == 32:
+            _, trace = device_breakdown(eng.step)
+        else:
+            eng.step()
+        n += 1
+        lora_step(eng, n)
+    dt = time.perf_counter() - t
+    stats = eng.stats()
+    set_flags({"paged_kv": False})
+    res = [eng.get_request(r) for r in rids]
+    check(all(r.finish_reason == "length"
+              and len(r.output_ids) == SERVE_NEW for r in res),
+          "multi-LoRA drain: every request ends at max_new_tokens")
+    toks = [list(r.output_ids) for r in res]
+    base = [i for i, k in enumerate(kinds) if k is None]
+    check(all(toks[i] == plain[i] for i in base),
+          "multi-LoRA engine: base requests bit-equal the plain engine's")
+    differ = sum(toks[i] != plain[i] for i, k in enumerate(kinds) if k)
+    n_ad = len(kinds) - len(base)
+    check(2 * differ > n_ad, f"multi-LoRA engine: adapter tokens differ "
+          f"from the base model's on most requests ({differ} of {n_ad})")
+    check(loads["restarted"] > 0,
+          "multi-LoRA engine: loading c evicted b under load and restarted "
+          "its sessions")
+    out["multi_lora"] = {**row(stats, dt, trace), "rank": LORA_RANK,
+                         "adapters": len(names), "slots": LORA_SLOTS,
+                         "adapter_loads": loads["loads"],
+                         "sessions_restarted": loads["restarted"],
+                         "adapter_requests_differing_from_base": differ,
+                         "of": n_ad, "base_requests_bit_equal_plain": True,
+                         "adapters_state": stats["paging"]["adapters"]}
+    del eng
+    torch.cuda.empty_cache()
+
+    # ---- hot swap mid-drain --------------------------------------------
+    model1 = GPTForCausalLM(small, device=dev,
+                            generator=torch.Generator().manual_seed(1)).eval()
+    half = SERVE_REQUESTS // 2
+    eng = engine(model)
+    rids = [eng.submit(q, max_new_tokens=SERVE_NEW) for q in prompts[:half]]
+    for _ in range(SWAP_AT_STEP):
+        eng.step()
+    t = time.perf_counter()
+    version = eng.hot_swap(model1)
+    torch.cuda.synchronize()
+    swap_ms = (time.perf_counter() - t) * 1e3
+    rids += [eng.submit(q, max_new_tokens=SERVE_NEW) for q in prompts[half:]]
+    eng.run_until_complete()
+    after = [list(eng.get_request(r).output_ids) for r in rids[half:]]
+    stamps = sorted({str(eng.get_request(r).weight_version).split(":", 1)[1]
+                     for r in rids})
+    fresh = engine(model1)
+    frids = [fresh.submit(q, max_new_tokens=SERVE_NEW)
+             for q in prompts[half:]]
+    fresh.run_until_complete()
+    check(after == [list(fresh.get_request(r).output_ids) for r in frids],
+          "hot_swap: requests after the swap bit-equal a fresh seed-1 "
+          "engine's")
+    out["hot_swap"] = {"at_step": SWAP_AT_STEP, "swap_ms": swap_ms,
+                       "version": str(version).split(":", 1)[1],
+                       "request_stamps": stamps,
+                       "after_swap_bit_equal_fresh_engine": True}
+    del eng, fresh, model1
+    torch.cuda.empty_cache()
+
+    # ---- disaggregated pool --------------------------------------------
+    pool = DisaggregatedPool(model, prefill_workers=1, decode_engines=2,
+                             max_batch=SERVE_SLOTS, dtype="bfloat16")
+    prids = [pool.submit(q, max_new_tokens=SERVE_NEW) for q in prompts]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = pool.run_until_complete()
+    dt = time.perf_counter() - t
+    check([list(res[r].output_ids) for r in prids] == plain,
+          "disaggregated pool: completions bit-equal the plain engine's")
+    pst = pool.stats()["pool"]
+    out["disaggregated"] = {"workers": 1, "engines": 2,
+                            "new_tok_per_s": SERVE_REQUESTS * SERVE_NEW / dt,
+                            "timed_s": dt, "handoffs": pst["handoffs"],
+                            "handoff_bytes": pst["handoff_bytes"],
+                            "per_engine": pst["per_engine"],
+                            "bit_equal_plain": True}
+    del pool
+    torch.cuda.empty_cache()
+
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def train_detector(dev):
     """PP-YOLOE training as bench.py runs it (run_ppyolo_train :493-545):
     loss(decode(model(x))) through SpmdTrainer(loss_fn=None) with Momentum
@@ -3174,6 +3764,33 @@ def main():
           "narrow_quantized_vs_cpu": narrow_q,
           "narrow_tie": QUANT_TIE_F32, "main_path_launches": counts_decode})
 
+    # ---- 4f2. the rest of generate and the engine --------------------------
+    _zero_counters()
+    narrow_ext = narrow_generate_ext(dev)
+    emit({"phase": "narrow_generate_ext", **narrow_ext, "tie": TIE_GAP,
+          "beam_tol": NARROW_BEAM_TOL})
+    t0 = time.perf_counter()
+    gen_ext = gpt2_generate_ext(dev)
+    counts_gen_ext = _read_kernel_counts()
+    check(not counts_gen_ext, f"generate (ragged, beam, speculative): no "
+          f"kernel launch (the reference's decode runs none), got "
+          f"{counts_gen_ext}")
+    emit({"phase": "gpt2_generate_ext", "dtype": "bfloat16", **gen_ext,
+          "wall_s": time.perf_counter() - t0,
+          "main_path_launches": counts_gen_ext})
+    _zero_counters()
+    t0 = time.perf_counter()
+    engine_ext = gpt2_engine_ext(dev)
+    counts_engine_ext = _read_kernel_counts()
+    check(not counts_engine_ext, f"the engine's speculative, multi-LoRA, "
+          f"hot-swap, disaggregated and async paths: no kernel launch, got "
+          f"{counts_engine_ext}")
+    emit({"phase": "gpt2_engine_ext", "dtype": "bfloat16",
+          "slots": SERVE_SLOTS, "requests": SERVE_REQUESTS,
+          "new_tokens": SERVE_NEW, **engine_ext,
+          "wall_s": time.perf_counter() - t0,
+          "main_path_launches": counts_engine_ext})
+
     # ---- 4g. PP-YOLOE training -------------------------------------------
     counts_det_train = train_detector(dev)
 
@@ -3241,6 +3858,8 @@ def main():
                    "tpp_rows": count(counts_rows),
                    "gpt_paged_serving": count(counts_paged),
                    "gpt_decode": count(counts_decode),
+                   "gpt_generate_ext": count(counts_gen_ext),
+                   "gpt_engine_ext": count(counts_engine_ext),
                    "detect_train": count(counts_det_train),
                    **{path: count(c) for path, c in counts_models.items()},
                    **{path: count(c) for path, c in counts_recipes.items()}}
@@ -3314,11 +3933,17 @@ def main():
 
             bms, by = bound(4.0 * 2 * pairs * ds,
                             4 * 2 * s * ds * item + 2 * s * 4, dname)
+            heads_s = [fa._heads(t).contiguous() for t in (q, k, v, o, do)]
             stream_rows = {"forward": rates({
-                "ms": time_ms(stream_fwd, reps=5), "bound_ms": bms,
+                "ms": time_ms(stream_fwd, reps=5),
+                "plain_ms": time_ms(lambda: fa.flash_attention_ref(
+                    *heads_s[:3], True, sscale), reps=5),
+                "bound_ms": bms,
                 "bound_by": by, "library_ms": time_ms(sdpa_fwd, reps=5),
                 "shape": [1, s, 2, ds]}, 4.0 * 2 * pairs * ds, stream_fwd,
                 sdpa_fwd)}
+            bwd_plain_ms = time_ms(lambda: fa.flash_attention_bwd_ref(
+                *heads_s[:4], lse, heads_s[4], True, sscale), reps=5)
         out = torch.nn.functional.scaled_dot_product_attention(
             *bhsd, is_causal=True)
         bdo = do.transpose(1, 2).contiguous()
@@ -3332,12 +3957,13 @@ def main():
         bms, by = bound(10.0 * 2 * pairs * ds,
                         8 * 2 * s * ds * item + 2 * 2 * s * 4, dname)
         stream_rows["backward"] = rates({
-            "ms": time_ms(stream_bwd, reps=5), "bound_ms": bms,
+            "ms": time_ms(stream_bwd, reps=5), "plain_ms": bwd_plain_ms,
+            "bound_ms": bms,
             "bound_by": by, "library_ms": time_ms(sdpa_bwd_stream, reps=5),
             "covers": "delta pre-pass + dQ + dK/dV (one C call) against "
                       "SDPA's backward", "shape": [1, s, 2, ds]},
             10.0 * 2 * pairs * ds, stream_bwd, sdpa_bwd_stream)
-        del q, k, v, do, o, lse, bhsd, out, bdo
+        del q, k, v, do, o, lse, bhsd, out, bdo, heads_s
         # bf16: flash_fwd_mma_kernel; fp32: flash_fwd_tf32_kernel (three
         # TF32 passes a product), counted by that route
         route, tag = ("mma", "") if dname == "bfloat16" \

@@ -29,15 +29,21 @@ LayerNorm, embedding, cross-entropy and transformer-encoder layers of
 (``nn.clip``), the other optimizers and the averaging wrappers, loss
 scaling and O2 (``amp.GradScaler``, ``amp.decorate``), NaN / inf checks
 (``amp.debugging``), every option of ``cross_entropy``, and recompute
-and gradient merge in ``SpmdTrainer``. Entry points run on ``cuda``
-unless the caller passes ``device="cpu"``.
+and gradient merge in ``SpmdTrainer``. The rest of serving: ragged
+prompts, beam search and speculative decoding in ``generate``;
+speculative continuous batching, multi-LoRA serving (``incubate.lora``),
+``hot_swap`` with weight lineage (``framework.lineage``), prefill/decode
+disaggregation (``serving.disagg``) and the async engine step in the
+engine. Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``.
 """
-from . import (amp, distributed, hapi, inference, models, nn, optimizer,
-               regularizer, serving, tensor, vision)
+from . import (amp, distributed, framework, hapi, incubate, inference,
+               models, nn, optimizer, regularizer, serving, tensor, vision)
 from .core.generator import seed
 from .flags import get_flag, get_flags, set_flags
 from .hapi import Model
 
-__all__ = ["Model", "amp", "distributed", "get_flag", "get_flags", "hapi",
-           "inference", "models", "nn", "optimizer", "regularizer", "seed",
-           "serving", "set_flags", "tensor", "vision"]
+__all__ = ["Model", "amp", "distributed", "framework", "get_flag",
+           "get_flags", "hapi", "incubate", "inference", "models", "nn",
+           "optimizer", "regularizer", "seed", "serving", "set_flags",
+           "tensor", "vision"]

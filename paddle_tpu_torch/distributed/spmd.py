@@ -52,8 +52,9 @@ What differs from the reference:
 
 Only one device: a mesh other than None or one device, ZeRO stages,
 tensor-parallel specs, localsgd, DGC, compressed data parallelism
-(FLAGS_quantized_allreduce / FLAGS_shard_weight_update),
-``remat_offload`` and every other extra knob raise NotImplementedError.
+(FLAGS_quantized_allreduce / FLAGS_shard_weight_update), the async
+dispatch of steps (FLAGS_async_dispatch), ``remat_offload`` and every
+other extra knob raise NotImplementedError.
 """
 import contextlib
 import functools
@@ -150,6 +151,9 @@ class SpmdTrainer:
         for flag in ("quantized_allreduce", "shard_weight_update"):
             if _flags.get_flag(flag, False):
                 refused.append(f"FLAGS_{flag} (compressed data parallelism)")
+        if _flags.get_flag("async_dispatch", False):
+            refused.append("FLAGS_async_dispatch (the trainer's lazy "
+                           "StepHandle)")
         if type(optimizer).__name__.startswith("DGC"):
             refused.append("a DGC optimizer")
         if refused:

@@ -99,3 +99,11 @@ define_flag("paged_kv", False,
             "int8 cold pages (page_cold_steps=). Read at ENGINE "
             "CONSTRUCTION; disarming it under a live paged engine raises "
             "at the next step")
+define_flag("async_dispatch", False,
+            "double-buffered step dispatch: ServingEngine.step overlaps "
+            "admission/bookkeeping for the next round with the current "
+            "round's device compute (enqueue the decode, admit, then read "
+            "the tokens). Read at ENGINE CONSTRUCTION; speculative and "
+            "paged engines keep the synchronous step. The trainer half "
+            "(SpmdTrainer's lazy StepHandle) is not ported: SpmdTrainer "
+            "raises NotImplementedError at construction while it is set")

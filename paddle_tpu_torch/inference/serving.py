@@ -25,13 +25,34 @@ following ``step()``.
   isolation (reason "error"), ``drain``/``health``, and a
   non-converging ``run_until_complete`` failing its requests with reason
   "engine_stalled".
+- ``draft_model=`` (speculative continuous batching): a round has the
+  draft propose ``spec_k`` tokens a slot and the target verify every slot
+  in ONE (spec_k + 1)-token forward at per-slot positions, emitting
+  1..spec_k + 1 tokens a slot; the tokens are plain greedy's. Rounds run
+  while every active slot is greedy with spec_k + 1 columns of headroom;
+  otherwise a single-token step runs, with the fed token mirrored into
+  the draft's cache.
 - ``FLAGS_paged_kv`` (read at construction): the dense
   ``[max_batch, max_seq]`` cache becomes the block pool of
   serving/paging.py. Each decode step gathers the pool through the block
   tables into the dense layout, runs the same decode math and writes each
   row's new column back, so the paged engine's tokens are the dense
-  engine's. It serves base requests only (the reference's base requests
-  add an exact-zero adapter delta).
+  engine's. The paged engine also serves multi-LoRA adapters
+  (``max_adapters``, ``lora_rank``; ``load_adapter``, ``evict_adapter``,
+  ``submit(adapter=)``, ``register_prefix(adapter=)``): every loaded
+  adapter decodes in the same batched step, slot 0 of the stacked factors
+  being the base model's all-zero delta. A step whose rows are all base
+  skips the adapter products (they would add exact zeros), so base
+  requests give the plain engine's bits.
+- ``hot_swap(model)`` replaces the served weights in place and bumps the
+  engine's ``WeightVersion`` (framework/lineage.py); each request carries
+  the version it was submitted under.
+- ``admit_prefilled`` takes a KV row prefilled elsewhere
+  (serving/disagg.py), checked against ``HANDOFF_SCHEMA``.
+- ``FLAGS_async_dispatch`` (read at construction): a step enqueues the
+  round's decode, runs the next round's admissions and chunked-prefill
+  advances while the card computes, and only then reads the tokens (not
+  with a draft model or paging, as in the reference).
 
 The engine runs on its model's device (``cuda`` unless the model was
 built with ``device="cpu"``) and updates its caches in place. The
@@ -43,13 +64,9 @@ same), and ``prompt_buckets`` is validated as the reference validates it.
 decode model's ``decode_fns`` lays it out (GPT: each side a (values,
 scales) pair; ``cache_spec()["quantized"]``); the paged engine refuses it,
 as the reference's does. Not ported, each raising
-``NotImplementedError``: ``tp_mesh``, ``draft_model``,
-``max_adapters``/``lora_rank`` > 0,
-``load_adapter``, ``evict_adapter``, ``submit(adapter=)``, ``hot_swap``,
-``admit_prefilled`` and ``warmup``. Not ported at all: the reference's
-``FLAGS_async_dispatch`` step, monitor counters, trace spans, blackbox
-recorder, failpoints, perf ledger, AOT cache, weight lineage and
-``stats()["breakdown"]``.
+``NotImplementedError``: ``tp_mesh`` and ``warmup``. Not ported at all:
+the reference's monitor counters, trace spans, blackbox recorder,
+failpoints, perf ledger, AOT cache and ``stats()["breakdown"]``.
 """
 import time
 
@@ -57,8 +74,10 @@ import numpy as np
 import torch
 
 from .. import flags as _flags
+from ..framework import lineage as _lineage
 from ..serving import decode_model as _dm_registry
 from ..serving import paging as _paging
+from ..serving.decode_model import cache_leaves, cache_map, cast_params
 
 __all__ = ["ServingEngine", "Request", "QueueFullError"]
 
@@ -68,14 +87,10 @@ class QueueFullError(RuntimeError):
     request's priority does not outrank any queued entry."""
 
 
-def _cache_map(f, c):
-    """f over a cache side: a tensor, or a tuple of tensors (a quantized
-    side's values and scales)."""
-    return tuple(f(x) for x in c) if isinstance(c, tuple) else f(c)
-
-
-def _cache_leaves(c):
-    return c if isinstance(c, tuple) else (c,)
+class _AdapterUnavailable(RuntimeError):
+    """Paged admission found the request's adapter not loaded (evicted
+    mid-flight): the request waits at the queue head, as on a full page
+    pool, and regenerates its tokens once the adapter is loaded again."""
 
 
 def _not_ported(what):
@@ -133,7 +148,7 @@ class Request:
 
     def __init__(self, rid, prompt_ids, max_new_tokens, temperature=0.0,
                  top_k=None, top_p=None, seed=None, prefix_id=None,
-                 prefix_len=0, deadline_ms=None, priority=0):
+                 prefix_len=0, deadline_ms=None, priority=0, adapter=None):
         self.rid = rid
         self.prompt_ids = np.asarray(prompt_ids, np.int32).ravel()
         self.max_new_tokens = int(max_new_tokens)
@@ -143,6 +158,7 @@ class Request:
         self.seed = rid if seed is None else int(seed)
         self.prefix_id = prefix_id          # registered shared prefix, or
         self.prefix_len = int(prefix_len)   # 0 = no prefix reuse
+        self.adapter = adapter    # loaded LoRA adapter name (paged engines)
         self.deadline_ms = deadline_ms      # None = no deadline
         self.priority = int(priority)       # higher outranks on a full queue
         self.output_ids = []                # generated tokens, no prompt
@@ -156,6 +172,10 @@ class Request:
         self.last_token_time = None
         self.finish_time = None
         self._inter_token = _MsSummary()
+        # the weight (and adapter) version this request decodes under,
+        # stamped at submission; a hot_swap mid-stream leaves it as it was
+        self.weight_version = None
+        self.adapter_version = None
 
     @property
     def tokens(self):
@@ -181,6 +201,10 @@ class Request:
                "prompt_tokens": int(len(self.prompt_ids)),
                "prefix_tokens": self.prefix_len,
                "new_tokens": len(self.output_ids)}
+        if self.weight_version is not None:
+            out["weight_version"] = str(self.weight_version)
+        if self.adapter_version is not None:
+            out["adapter_version"] = str(self.adapter_version)
         if self.submit_time is not None and self.admit_time is not None:
             out["queue_wait_ms"] = (self.admit_time - self.submit_time) * 1e3
         if self.submit_time is not None \
@@ -259,26 +283,36 @@ class ServingEngine:
                     "reserved up front)")
         if tp_mesh is not None:
             _not_ported("tensor-parallel serving (tp_mesh=)")
+        dm_d = None
         if draft_model is not None:
-            _not_ported("speculative continuous batching (draft_model=)")
-        if max_adapters or lora_rank:
-            _not_ported("multi-LoRA serving (max_adapters=, lora_rank=)")
+            dm_d = _dm_registry.resolve(draft_model, None)
+            if draft_model.cfg.vocab_size != cfg.vocab_size:
+                raise ValueError("draft and target must share a vocabulary")
+            if not 1 <= int(spec_k) <= 16:
+                raise ValueError(f"spec_k must be in [1, 16], got {spec_k}")
+            if draft_model.cfg.max_seq_len < self.T:
+                raise ValueError(
+                    f"draft max_seq_len ({draft_model.cfg.max_seq_len}) "
+                    f"must cover the target's ({self.T})")
+            dm_d.check_config(draft_model.cfg)
         self._buckets = tuple(sorted(b for b in prompt_buckets
                                      if b <= self.T))
         if not self._buckets:
             raise ValueError("no prompt bucket fits max_seq_len")
         params, dm_aux = dm.extract_params(model, "the model")
         self._compute_dtype = dm.compute_dtype(dtype)
-        if self._compute_dtype is not None:
-            params = {k: (v.to(self._compute_dtype)
-                          if v.is_floating_point() else v)
-                      for k, v in params.items()}
+        params = cast_params(params, self._compute_dtype)
         self._params = params
+        # the served tensors may be the model's own parameters (an fp32
+        # engine); hot_swap copies into private ones
+        self._params_private = False
         self._dev = next(iter(params.values())).device
         self._fwd, self._logits_of, self._cache_init = dm.decode_fns(
             cfg, dm_aux, cache_dtype=cache_dtype)
         self._cache_dt = self._compute_dtype or torch.float32
 
+        self._lora = None
+        self._adapters = None
         if paged:
             # no dense [B, T] cache: K/V lives in the block pool
             side = self._cache_init(1, 1, self._cache_dt,
@@ -298,22 +332,55 @@ class ServingEngine:
                 (int(L), int(KVh), int(hd)), self._cache_dt, bs_pg, n_blocks,
                 self.B, self.T, cold_after=page_cold_steps, device=self._dev)
             self._kc = self._vc = None
+            n_ad = 8 if max_adapters is None else int(max_adapters)
+            self._lora_rank = 8 if lora_rank is None else int(lora_rank)
+            if n_ad > 0:
+                try:
+                    # slot 0 is the permanent all-zero BASE adapter
+                    self._lora = dm.lora_init(cfg, n_ad + 1, self._lora_rank,
+                                              dtype=self._compute_dtype,
+                                              device=self._dev)
+                    self._adapters = _paging.AdapterRegistry(n_ad)
+                except NotImplementedError:
+                    pass   # the pool serves base only; adapter APIs raise
+            self._adapter_slot = np.zeros(self.B, np.int32)
         else:
             self._pool = None
             self._kc, self._vc = self._cache_init(self.B, self.T,
                                                   self._cache_dt, self._dev)
 
         self._chunk = None if prefill_chunk is None else int(prefill_chunk)
-        # slot -> [req, kc1, vc1, consumed_offset, chunk_width]
+        # slot -> [req, kc1, vc1, consumed_offset, chunk_width, kc1d, vc1d]
         self._prefilling = {}
-        # registered shared prefixes: pid -> (ids, kc1, vc1); paged
-        # engines keep the KV in the pool (kc1 = vc1 = None)
+        # registered shared prefixes: pid -> (ids, kc1, vc1, kc1d, vc1d);
+        # paged engines keep the KV in the pool: (ids, "paged", adapter,
+        # None, None)
         self._prefixes = {}
         self._next_pid = 0
 
+        # speculative decoding: the draft's params, decode math and its
+        # own [B, T] cache (it stays dense)
+        self._draft = None
+        if draft_model is not None:
+            self._spec_k = int(spec_k)
+            params_d, dm_d_aux = dm_d.extract_params(draft_model,
+                                                     "the draft model")
+            self._params_d = cast_params(params_d, self._compute_dtype)
+            self._fwd_d, self._logits_d, self._cache_init_d = \
+                dm_d.decode_fns(draft_model.cfg, dm_d_aux,
+                                cache_dtype=cache_dtype)
+            self._kc_d, self._vc_d = self._cache_init_d(
+                self.B, self.T, self._cache_dt, self._dev)
+            self._draft = draft_model
+
+        # FLAGS_async_dispatch, read at construction: step() enqueues the
+        # round's decode first and admits while the card computes
+        self._async = bool(_flags.get_flag("async_dispatch", False))
+
         # engine-local accounting for stats()
         self._m = {"submitted": 0, "finished": {}, "tokens": 0,
-                   "steps": {}, "prefix_hit": 0, "prefix_miss": 0,
+                   "steps": {}, "spec_proposed": 0, "spec_accepted": 0,
+                   "prefix_hit": 0, "prefix_miss": 0,
                    "occupancy_sum": 0, "occupancy_steps": 0,
                    "queue_wait_ms": _MsSummary(), "ttft_ms": _MsSummary(),
                    "inter_token_ms": _MsSummary()}
@@ -327,23 +394,48 @@ class ServingEngine:
         self._topp = np.ones(self.B, np.float32)     # 1.0 = no nucleus
         self._seeds = np.zeros(self.B, np.int32)
         self._queue = []
+        # prefilled rows (admit_prefilled) waiting for a slot:
+        # [req, kc1, vc1, logits]
+        self._handoff = []
         self._next_rid = 0
         self._finished = {}
         self._draining = False
         self._deadline_live = 0   # unfinished requests carrying deadline_ms
         self._step_no = 0
         self._last_error_step = None
+        # the version of the weights served now, and each loaded
+        # adapter's load-time stamp
+        self._weight_version = _lineage.WeightVersion(
+            _lineage.new_run_id(), 0, "init")
+        self._adapter_versions = {}
 
     # -- the decode math ----------------------------------------------------
     def _cache_row(self):
         return self._cache_init(1, self.T, self._cache_dt, self._dev)
 
-    def _prefill_cols(self, ids, offset, kc1, vc1):
-        """Run `ids` at columns offset.. of a single-row cache (written in
-        place); returns the hidden state of the last token [1, h]."""
-        toks = torch.as_tensor(np.asarray(ids, np.int64)[None],
+    def _draft_row(self):
+        return self._cache_init_d(1, self.T, self._cache_dt, self._dev)
+
+    def _ids_tensor(self, ids):
+        return torch.as_tensor(np.asarray(ids, np.int64)[None],
                                device=self._dev)
-        return self._fwd(self._params, toks, int(offset), kc1, vc1)[:, -1]
+
+    def _prefill_cols(self, ids, offset, kc1, vc1, aid=0):
+        """Run `ids` at columns offset.. of a single-row cache (written in
+        place); returns the hidden state of the last token [1, h]. `aid`:
+        the adapter slot whose delta applies (0 = base)."""
+        lora = {}
+        if aid:
+            lora = {"lora": self._lora, "adapter_ids": torch.tensor(
+                [aid], device=self._dev)}
+        return self._fwd(self._params, self._ids_tensor(ids), int(offset),
+                         kc1, vc1, **lora)[:, -1]
+
+    def _draft_feed(self, ids, offset, kc1d, vc1d):
+        """The draft's KV of `ids` at columns offset.. of its single-row
+        cache (a whole prompt at 0, or one chunk)."""
+        self._fwd_d(self._params_d, self._ids_tensor(ids), int(offset),
+                    kc1d, vc1d)
 
     def _logits1(self, x_last):
         return self._logits_of(self._params, x_last).float()[0]
@@ -385,25 +477,37 @@ class ServingEngine:
         using it prefill only their suffix. Paged engines write the
         prefix's full blocks into the pool once and map them into every
         session on it (refcounted; a partial boundary block is copied
-        private at admission)."""
-        if adapter is not None:
-            _not_ported("register_prefix(adapter=) (multi-LoRA serving)")
+        private at admission); ``adapter=`` prefills the prefix under
+        that loaded adapter's delta, and sessions share its frames only
+        when their adapter matches."""
+        if adapter is not None and not self._paged:
+            raise ValueError(
+                "register_prefix(adapter=) needs FLAGS_paged_kv=1")
         ids = _as_ids(prefix_ids)
         if len(ids) == 0:
             raise ValueError("empty prefix")
         if len(ids) + 2 > self.T:
             raise ValueError(
                 f"prefix ({len(ids)}) too long for max_seq_len {self.T}")
-        kc1, vc1 = self._cache_row()
-        self._prefill_cols(ids, 0, kc1, vc1)
+        with torch.no_grad():
+            kc1, vc1 = self._cache_row()
+            if self._paged:
+                aid = self._resolve_adapter_slot(adapter)
+                self._prefill_cols(ids, 0, kc1, vc1, aid=aid)
+                pid = self._next_pid
+                # may raise PagePoolFullError: nothing is registered then
+                self._pool.put_prefix(pid, kc1[:, 0], vc1[:, 0], len(ids))
+                self._next_pid += 1
+                self._prefixes[pid] = (ids, "paged", adapter, None, None)
+                return pid
+            self._prefill_cols(ids, 0, kc1, vc1)
+            kc1d = vc1d = None
+            if self._draft is not None:   # the draft replays suffixes from
+                kc1d, vc1d = self._draft_row()   # its own prefix KV
+                self._draft_feed(ids, 0, kc1d, vc1d)
         pid = self._next_pid
         self._next_pid += 1
-        if self._paged:
-            # may raise PagePoolFullError: nothing is registered then
-            self._pool.put_prefix(pid, kc1[:, 0], vc1[:, 0], len(ids))
-            self._prefixes[pid] = (ids, None, None)
-        else:
-            self._prefixes[pid] = (ids, kc1, vc1)
+        self._prefixes[pid] = (ids, kc1, vc1, kc1d, vc1d)
         return pid
 
     def unregister_prefix(self, prefix_id):
@@ -420,18 +524,151 @@ class ServingEngine:
     def warmup(self, batch_shapes=None, sampling=True):
         _not_ported("warmup() (the reference's AOT program cache)")
 
-    def admit_prefilled(self, prompt_ids, kv_row, logits, max_new_tokens=32,
-                        **kwargs):
-        _not_ported("admit_prefilled() (prefill/decode disaggregation)")
+    # -- multi-LoRA adapters (paged engines) --------------------------------
+    def _require_adapters(self):
+        if not self._paged:
+            raise RuntimeError(
+                "multi-LoRA adapters need FLAGS_paged_kv=1 — the paged "
+                "engine owns the adapter registry")
+        if self._adapters is None:
+            raise RuntimeError(
+                f"decode model {self._dm.name!r} does not support "
+                "multi-LoRA serving (no lora_init), or the engine was "
+                "built with max_adapters=0")
+
+    def _resolve_adapter_slot(self, name):
+        """Loaded adapter name -> its slot of the stacked factors (None ->
+        0, the base)."""
+        if name is None:
+            return 0
+        self._require_adapters()
+        slot = self._adapters.peek(name)
+        if slot is None:
+            raise ValueError(
+                f"adapter {name!r} is not loaded — load_adapter() it "
+                f"first (loaded: {sorted(self._adapters.loaded())})")
+        return slot
 
     def load_adapter(self, name, exported, pin=False):
-        _not_ported("load_adapter() (multi-LoRA serving)")
+        """Load one exported LoRA adapter (``incubate.lora.export_lora``)
+        into a slot of the stacked factors; returns the slot index.
+        Requests select it with submit(adapter=name); every loaded adapter
+        decodes in the same batched step. A full registry evicts the least
+        recently used unpinned adapter, whose in-flight sessions restart
+        from the queue head (greedy and seeded decoding regenerate the
+        same tokens once it is back). pin=True exempts this adapter from
+        eviction; loading raises RuntimeError while every slot is pinned,
+        ValueError for a malformed or duplicate adapter (a bad adapter
+        never evicts a healthy one)."""
+        self._require_adapters()
+        if not isinstance(name, str) or not name:
+            raise ValueError(
+                f"adapter name must be a non-empty str, got {name!r}")
+        if self._adapters.peek(name) is not None:
+            raise ValueError(f"adapter {name!r} is already loaded")
+        # pack before claiming a slot: a malformed adapter leaves the
+        # registry and the factors as they were
+        packed = self._dm.lora_pack(self.cfg, exported, self._lora_rank)
+        slot, evicted = self._adapters.admit(name, pin=pin)
+        if evicted is not None:
+            self._restart_adapter_sessions(evicted)
+            self._adapter_versions.pop(evicted, None)
+        self._write_adapter_slot(slot, packed)
+        self._adapter_versions[name] = _lineage.WeightVersion(
+            self._weight_version.run_id, self._weight_version.counter,
+            "adapter_load")
+        return slot
 
     def evict_adapter(self, name):
-        _not_ported("evict_adapter() (multi-LoRA serving)")
+        """Evict a loaded adapter: its slot zeroes and its in-flight
+        sessions restart from the queue head (they wait there until the
+        adapter is loaded again). Returns the freed slot; KeyError for an
+        unknown name."""
+        self._require_adapters()
+        slot = self._adapters.evict(name)
+        self._write_adapter_slot(slot, None)
+        self._restart_adapter_sessions(name)
+        self._adapter_versions.pop(name, None)
+        return slot
+
+    def _write_adapter_slot(self, slot, packed):
+        """Write (packed) or zero (None) ONE slot of the stacked factors,
+        in place."""
+        lora = self._lora
+        with torch.no_grad():
+            lora["scale"][slot] = 0.0 if packed is None \
+                else float(packed["scale"])
+            for kind, fac in lora.items():
+                if kind == "scale":
+                    continue
+                for side in ("A", "B"):
+                    if packed is None:
+                        fac[side][slot].zero_()
+                    else:
+                        fac[side][slot].copy_(torch.as_tensor(
+                            packed[kind][side]).to(fac[side].dtype))
+
+    def _restart_adapter_sessions(self, name):
+        """An evicted adapter's in-flight sessions cannot keep decoding:
+        free each one's blocks, reset it to its state before admission
+        and requeue it at the head."""
+        for s in range(self.B):
+            req = self._slot_req[s]
+            if req is None or req.adapter != name:
+                continue
+            self._pool.free_slot(s)
+            self._slot_req[s] = None
+            self._prefilling.pop(s, None)
+            self._adapter_slot[s] = 0
+            req.output_ids.clear()
+            req.first_token_time = None
+            req.last_token_time = None
+            req._inter_token = _MsSummary()
+            self._queue.insert(0, req)
 
     def hot_swap(self, model, decode_model=None):
-        _not_ported("hot_swap()")
+        """Replace the served weights IN PLACE with `model`'s (same
+        architecture, keys, shapes and dtypes) without dropping sessions,
+        and bump the engine's weight version (origin ``hot_swap``).
+        In-flight sessions finish under the new weights and keep their
+        submission-time stamp; later requests carry the new version.
+        Returns the new ``WeightVersion``. A replacement whose param tree
+        differs in keys, shapes or dtypes raises ValueError before any
+        served state changes."""
+        dm = _dm_registry.resolve(model, decode_model)
+        if type(dm) is not type(self._dm):
+            raise ValueError(
+                f"hot_swap: replacement model resolves to decode adapter "
+                f"{type(dm).__name__}, engine serves "
+                f"{type(self._dm).__name__}")
+        dm.check_config(model.cfg)
+        params, _ = dm.extract_params(model, "the replacement model")
+        params = cast_params(params, self._compute_dtype)
+        if set(params) != set(self._params):
+            missing = sorted(set(self._params) - set(params))
+            extra = sorted(set(params) - set(self._params))
+            raise ValueError(
+                f"hot_swap: param tree mismatch (missing {missing[:3]}, "
+                f"unexpected {extra[:3]}) — the replacement must be the "
+                "same architecture")
+        for k in sorted(params):
+            new, cur = params[k], self._params[k]
+            if tuple(new.shape) != tuple(cur.shape) \
+                    or new.dtype != cur.dtype:
+                raise ValueError(
+                    f"hot_swap: param {k!r} is {tuple(new.shape)}/"
+                    f"{new.dtype}, engine serves {tuple(cur.shape)}/"
+                    f"{cur.dtype} — shapes and dtypes must match exactly")
+        with torch.no_grad():
+            if not self._params_private:
+                # never write into the model the engine was built from
+                self._params = {k: torch.empty_like(v)
+                                for k, v in self._params.items()}
+                self._params_private = True
+            for k, v in params.items():
+                self._params[k].copy_(v)
+        self._weight_version = self._weight_version.bump("hot_swap")
+        return self._weight_version
 
     def _count_step(self, kind):
         self._m["steps"][kind] = self._m["steps"].get(kind, 0) + 1
@@ -439,8 +676,9 @@ class ServingEngine:
     def stats(self):
         """Engine-lifetime snapshot from host-side accounting: requests by
         outcome, tokens, steps by kind, average batch occupancy, prefix
-        hits, queue-wait / TTFT / inter-token summaries, health, and on a
-        paged engine the pool's ``paging`` block."""
+        hits, the speculative accept rate, queue-wait / TTFT / inter-token
+        summaries, health, the served weight version (and each loaded
+        adapter's), and on a paged engine the pool's ``paging`` block."""
         m = self._m
         occ = (m["occupancy_sum"] / m["occupancy_steps"]
                if m["occupancy_steps"] else 0.0)
@@ -449,6 +687,7 @@ class ServingEngine:
             "slots": self.B,
             "requests": {"submitted": m["submitted"],
                          "queued": len(self._queue),
+                         "handoff": len(self._handoff),
                          "prefilling": len(self._prefilling),
                          # decoding slots only: a mid-prefill slot holds a
                          # reservation but counts under "prefilling"
@@ -463,11 +702,21 @@ class ServingEngine:
                              "miss": m["prefix_miss"],
                              "hit_rate": (m["prefix_hit"] / prefix_n
                                           if prefix_n else None)},
+            "speculative": {"proposed": m["spec_proposed"],
+                            "accepted": m["spec_accepted"],
+                            "accept_rate": (m["spec_accepted"]
+                                            / m["spec_proposed"]
+                                            if m["spec_proposed"]
+                                            else None)},
             "queue_wait_ms": m["queue_wait_ms"].to_dict(),
             "ttft_ms": m["ttft_ms"].to_dict(),
             "inter_token_ms": m["inter_token_ms"].to_dict(),
             "health": self.health(),
+            "weight_version": str(self._weight_version),
         }
+        if self._adapter_versions:
+            out["adapter_versions"] = {
+                n: str(v) for n, v in sorted(self._adapter_versions.items())}
         if self._paged:
             pg = self._pool.stats()
             live = sum(1 for r in self._slot_req if r is not None)
@@ -478,26 +727,33 @@ class ServingEngine:
                 self._pool.bytes_in_use() / live if live else 0.0)
             pg["dense_bytes_per_session"] = (
                 self._pool.block_bytes * self._pool.maxb)
+            if self._adapters is not None:
+                ad = self._adapters.stats()
+                ad["loaded_names"] = sorted(self._adapters.loaded())
+                pg["adapters"] = ad
             out["paging"] = pg
         return out
 
     def get_request(self, rid):
-        """The Request of a submitted id — queued, in flight or finished.
-        Raises KeyError for an unknown id."""
+        """The Request of a submitted id — queued, handed off, in flight
+        or finished. Raises KeyError for an unknown id."""
         for req in self._queue:
             if req.rid == rid:
                 return req
         for req in self._slot_req:
             if req is not None and req.rid == rid:
                 return req
+        for entry in self._handoff:
+            if entry[0].rid == rid:
+                return entry[0]
         if rid in self._finished:
             return self._finished[rid]
         raise KeyError(f"unknown request id {rid}")
 
     def _validate_decode_args(self, ids, max_new_tokens, temperature,
                               deadline_ms, top_k, top_p, seed):
-        """submit()'s argument validation; returns the int seed (None
-        stays None)."""
+        """submit()'s and admit_prefilled()'s argument validation; returns
+        the int seed (None stays None)."""
         if max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")
@@ -519,6 +775,27 @@ class ServingEngine:
             raise ValueError("empty prompt")
         return seed
 
+    def _new_request(self, ids, max_new_tokens, temperature, top_k, top_p,
+                     seed, prefix_id, prefix_len, deadline_ms, priority,
+                     adapter=None):
+        """An accepted request: its rid, submit time, version stamps and
+        the submission count."""
+        rid = self._next_rid
+        self._next_rid += 1
+        req = Request(rid, ids, max_new_tokens, temperature=temperature,
+                      top_k=top_k, top_p=top_p, seed=seed,
+                      prefix_id=prefix_id, prefix_len=prefix_len,
+                      deadline_ms=deadline_ms, priority=priority,
+                      adapter=adapter)
+        req.submit_time = time.perf_counter()
+        req.weight_version = self._weight_version
+        if adapter is not None:
+            req.adapter_version = self._adapter_versions.get(adapter)
+        if deadline_ms is not None:
+            self._deadline_live += 1
+        self._m["submitted"] += 1
+        return req
+
     def submit(self, prompt_ids, max_new_tokens=32, temperature=0.0,
                top_k=None, top_p=None, seed=None, prefix_id=None,
                deadline_ms=None, priority=0, adapter=None):
@@ -531,13 +808,19 @@ class ServingEngine:
         finishes with reason "deadline" at the next step(). priority: on a
         FULL bounded queue (max_queue=) a strictly higher-priority arrival
         sheds the lowest-priority queued request (reason "shed");
-        otherwise submit raises QueueFullError."""
+        otherwise submit raises QueueFullError. adapter: the name of a
+        loaded LoRA adapter (paged engines); None = the base weights."""
         if self._draining:
             raise RuntimeError(
                 "ServingEngine is draining — not accepting new requests "
                 "(in-flight work runs to completion; see drain())")
         if adapter is not None:
-            _not_ported("submit(adapter=) (multi-LoRA serving)")
+            self._require_adapters()
+            if self._adapters.lookup(adapter) is None:
+                raise ValueError(
+                    f"adapter {adapter!r} is not loaded — load_adapter() "
+                    f"it first (loaded: "
+                    f"{sorted(self._adapters.loaded())})")
         ids = _as_ids(prompt_ids)
         seed = self._validate_decode_args(ids, max_new_tokens, temperature,
                                           deadline_ms, top_k, top_p, seed)
@@ -565,9 +848,10 @@ class ServingEngine:
                     "request")
         priority = int(priority)
         if self._max_queue is not None \
-                and len(self._queue) >= self._max_queue:
+                and len(self._queue) + len(self._handoff) >= self._max_queue:
             # shed the lowest-priority queued request (the newest among
-            # ties: it has waited least) iff the arrival outranks it
+            # ties: it has waited least) iff the arrival outranks it;
+            # hand-off rows are never shed (their prefill is paid)
             victim_idx = None
             for i, r in enumerate(self._queue):
                 if victim_idx is None \
@@ -578,21 +862,75 @@ class ServingEngine:
                 self._finish_req(self._queue.pop(victim_idx), "shed")
             else:
                 raise QueueFullError(
-                    f"admission queue full ({len(self._queue)} queued / "
-                    f"{self._max_queue}); request rejected — retry later "
-                    "or submit with a higher priority")
-        rid = self._next_rid
-        self._next_rid += 1
-        req = Request(rid, ids, max_new_tokens, temperature=temperature,
-                      top_k=top_k, top_p=top_p, seed=seed,
-                      prefix_id=prefix_id, prefix_len=prefix_len,
-                      deadline_ms=deadline_ms, priority=priority)
-        req.submit_time = time.perf_counter()
-        if deadline_ms is not None:
-            self._deadline_live += 1
-        self._m["submitted"] += 1
+                    f"admission queue full ({len(self._queue)} queued "
+                    f"+ {len(self._handoff)} handoff / {self._max_queue});"
+                    " request rejected — retry later or submit with a "
+                    "higher priority")
+        req = self._new_request(ids, max_new_tokens, temperature, top_k,
+                                top_p, seed, prefix_id, prefix_len,
+                                deadline_ms, priority, adapter=adapter)
         self._queue.append(req)
-        return rid
+        return req.rid
+
+    def admit_prefilled(self, prompt_ids, kv_row, logits, max_new_tokens=32,
+                        temperature=0.0, top_k=None, top_p=None, seed=None,
+                        deadline_ms=None, priority=0):
+        """Prefill/decode disaggregation: admit a request whose prompt KV
+        was prefilled elsewhere. ``kv_row`` is the (kc1, vc1) single-row
+        cache pair of this engine's decode model (a
+        ``serving.disagg.PrefillWorker`` built from the same model, dtype
+        and cache_dtype makes it); ``logits`` the prompt's last-position
+        logits [V] (fp32). The row is checked against ``HANDOFF_SCHEMA``
+        (``HandoffMismatch``, a ValueError, names the leaf), waits for a
+        slot, then takes the standard admission tail: its copy into the
+        slot and the first token through the same pick, so the tokens
+        equal those of submitting the prompt here. Returns the request
+        id. Raises while draining, on a full bounded queue
+        (QueueFullError), and on a speculative or paged engine
+        (RuntimeError)."""
+        from ..serving.disagg import HANDOFF_SCHEMA, validate
+
+        if self._draining:
+            raise RuntimeError(
+                "ServingEngine is draining — not accepting new requests "
+                "(in-flight work runs to completion; see drain())")
+        if self._draft is not None:
+            raise RuntimeError(
+                "admit_prefilled does not compose with speculative "
+                "decoding (draft_model=): the handoff row carries no "
+                "draft-model KV — disaggregate with a plain engine")
+        if self._paged:
+            raise RuntimeError(
+                "admit_prefilled does not compose with FLAGS_paged_kv: "
+                "the handoff row targets the dense big cache, a paged "
+                "engine re-blocks prompts locally — disaggregate with "
+                "dense decode engines")
+        ids = _as_ids(prompt_ids)
+        seed = self._validate_decode_args(ids, max_new_tokens, temperature,
+                                          deadline_ms, top_k, top_p, seed)
+        if len(ids) + 1 > self.T:
+            raise ValueError(
+                f"prompt ({len(ids)}) too long for max_seq_len {self.T}")
+        kc1, vc1 = kv_row
+        side = cache_leaves(self._kc)[0]
+        L, _, KVh, T, hd = side.shape
+        validate(HANDOFF_SCHEMA, {"kc": kc1, "vc": vc1, "logits": logits},
+                 dims={"L": int(L), "KVh": int(KVh), "T": int(T),
+                       "hd": int(hd), "V": int(self.cfg.vocab_size)},
+                 dtypes={"cache": side.dtype})
+        # the bound is checked after validation: an unservable row fails
+        # for good (ValueError), never as retryable backpressure
+        if self._max_queue is not None \
+                and len(self._queue) + len(self._handoff) >= self._max_queue:
+            raise QueueFullError(
+                f"admission queue full ({len(self._queue)} queued + "
+                f"{len(self._handoff)} handoff / {self._max_queue}); "
+                "handoff rejected — back off or target another engine")
+        req = self._new_request(ids, max_new_tokens, temperature, top_k,
+                                top_p, seed, None, 0, deadline_ms,
+                                int(priority))
+        self._handoff.append([req, kc1, vc1, logits])
+        return req.rid
 
     def _bucket(self, n):
         for b in self._buckets:
@@ -603,8 +941,8 @@ class ServingEngine:
     def _finish_req(self, req, reason, slot=None):
         """Terminal transition of a request wherever it lives; with `slot`
         it also frees the slot, its prefill in flight and (paged) its
-        frames. A freed dense row needs no scrubbing: the next admission's
-        row copy overwrites it."""
+        frames and adapter slot. A freed dense row needs no scrubbing: the
+        next admission's row copy overwrites it."""
         req.finished = True
         req.finish_reason = reason
         req.finish_time = time.perf_counter()
@@ -617,6 +955,7 @@ class ServingEngine:
             self._prefilling.pop(slot, None)
             if self._paged:
                 self._pool.free_slot(slot)
+                self._adapter_slot[slot] = 0
 
     def _finish(self, slot, reason):
         self._finish_req(self._slot_req[slot], reason, slot=slot)
@@ -625,13 +964,19 @@ class ServingEngine:
         self._last_error_step = self._step_no
 
     def cancel(self, rid):
-        """Cancel a queued or in-flight request: it finishes at once with
-        reason "cancelled" and frees its slot. Returns True if cancelled,
-        False if it had already finished; KeyError for an unknown id."""
+        """Cancel a queued, handed-off or in-flight request: it finishes at
+        once with reason "cancelled" and frees its slot. Returns True if
+        cancelled, False if it had already finished; KeyError for an
+        unknown id."""
         for i, req in enumerate(self._queue):
             if req.rid == rid:
                 self._queue.pop(i)
                 self._finish_req(req, "cancelled")
+                return True
+        for entry in list(self._handoff):
+            if entry[0].rid == rid:
+                self._handoff.remove(entry)
+                self._finish_req(entry[0], "cancelled")
                 return True
         for slot in range(self.B):
             req = self._slot_req[slot]
@@ -650,8 +995,9 @@ class ServingEngine:
     def health(self):
         """"draining" after drain(), "degraded" when a request finished
         with reason "error" in the last 100 steps or the bounded queue is
-        at >= 80% depth, else "ok"."""
-        depth = len(self._queue)
+        at >= 80% depth, else "ok". The depth counts the queue and the
+        hand-off rows."""
+        depth = len(self._queue) + len(self._handoff)
         state = "ok"
         if self._draining:
             state = "draining"
@@ -684,23 +1030,35 @@ class ServingEngine:
         for req in [r for r in self._queue if overdue(r)]:
             self._queue.remove(req)
             self._finish_req(req, "deadline")
+        for entry in [e for e in self._handoff if overdue(e[0])]:
+            self._handoff.remove(entry)
+            self._finish_req(entry[0], "deadline")
         for slot in range(self.B):
             req = self._slot_req[slot]
             if req is not None and overdue(req):
                 self._finish_req(req, "deadline", slot=slot)
 
     # -- admission ----------------------------------------------------------
-    def _activate(self, slot, req, kc1, vc1, x_last):
-        """Admission tail: copy the single-row cache into the slot and emit
-        the first generated token through the standard pick."""
+    def _activate(self, slot, req, kc1, vc1, logits, draft_caches=None):
+        """Admission tail: copy the single-row cache(s) into the slot and
+        emit the first generated token through the standard pick over the
+        prompt's last logits [V]."""
         n = len(req.prompt_ids)
         if self._paged:
             # the row goes into the slot's reserved PRIVATE frames
             self._pool.admit_row(slot, kc1[:, 0], vc1[:, 0])
+            self._adapter_slot[slot] = self._resolve_adapter_slot(
+                req.adapter)
         else:
-            for big, row in zip(_cache_leaves(self._kc)
-                                + _cache_leaves(self._vc),
-                                _cache_leaves(kc1) + _cache_leaves(vc1)):
+            for big, row in zip(cache_leaves(self._kc)
+                                + cache_leaves(self._vc),
+                                cache_leaves(kc1) + cache_leaves(vc1)):
+                big[:, slot] = row[:, 0]
+        if draft_caches is not None:
+            for big, row in zip(cache_leaves(self._kc_d)
+                                + cache_leaves(self._vc_d),
+                                cache_leaves(draft_caches[0])
+                                + cache_leaves(draft_caches[1])):
                 big[:, slot] = row[:, 0]
         self._slot_req[slot] = req
         self._pos[slot] = n
@@ -712,7 +1070,7 @@ class ServingEngine:
         # the context's last token (each emission has its own position)
         pos = np.array([n - 1], np.int32)
         rows = [0] if req.temperature > 0 else []
-        tok = int(self._pick(self._logits1(x_last)[None], rows,
+        tok = int(self._pick(logits[None], rows,
                              self._temps[slot:slot + 1],
                              self._topk[slot:slot + 1],
                              self._topp[slot:slot + 1],
@@ -736,6 +1094,7 @@ class ServingEngine:
             # combined prompt is already in prompt_ids — whole-prefill it
             prefix_len = 0
         self._note_admission(req)
+        draft = self._draft is not None
         if prefix_len:
             # suffix-only prefill from a COPY of the prefix's KV (each
             # admission writes its suffix into its own copy); chunk width
@@ -744,11 +1103,12 @@ class ServingEngine:
             end = prefix_len + -(-(n - prefix_len) // C) * C
             if end <= self.T:
                 self._m["prefix_hit"] += 1
-                _, kc_p, vc_p = self._prefixes[req.prefix_id]
+                copies = [None if c is None else cache_map(torch.clone, c)
+                          for c in self._prefixes[req.prefix_id][1:]]
                 self._slot_req[slot] = req
-                self._prefilling[slot] = [req, _cache_map(torch.clone, kc_p),
-                                          _cache_map(torch.clone, vc_p),
-                                          prefix_len, C]
+                self._prefilling[slot] = [req, copies[0], copies[1],
+                                          prefix_len, C, copies[2],
+                                          copies[3]]
                 return
             # else: whole-prompt prefill (the reference's chunk schedule
             # would write past max_seq_len)
@@ -760,23 +1120,41 @@ class ServingEngine:
             # chunked admission: reserve the slot, consume the prompt one
             # chunk a step() so running decodes go on in between
             self._slot_req[slot] = req
+            rows_d = self._draft_row() if draft else (None, None)
             self._prefilling[slot] = [req, *self._cache_row(), 0,
-                                      self._chunk]
+                                      self._chunk, *rows_d]
             return
         kc1, vc1 = self._cache_row()
-        x_last = self._prefill_cols(req.prompt_ids, 0, kc1, vc1)
-        self._activate(slot, req, kc1, vc1, x_last)
+        logits = self._logits1(self._prefill_cols(req.prompt_ids, 0, kc1,
+                                                  vc1))
+        draft_caches = None
+        if draft:
+            draft_caches = self._draft_row()
+            self._draft_feed(req.prompt_ids, 0, *draft_caches)
+        self._activate(slot, req, kc1, vc1, logits, draft_caches)
 
     def _admit_one_paged(self, slot, req):
         """Reserve the session's WHOLE block budget first — a pool that
         cannot cover it raises PagePoolFullError before any prefill or
-        state change (the caller requeues the request). A registered
-        prefix maps its full blocks shared; then one whole-prompt prefill
+        state change (the caller requeues the request), as does an
+        adapter evicted while the request waited (_AdapterUnavailable). A
+        registered prefix under the same adapter maps its full blocks
+        shared; then one whole-prompt prefill under the request's adapter
         and _activate copies the row into the private frames."""
+        aid = 0
+        if req.adapter is not None:
+            aid = None if self._adapters is None \
+                else self._adapters.peek(req.adapter)
+            if aid is None:
+                raise _AdapterUnavailable(
+                    f"adapter {req.adapter!r} is not loaded (evicted "
+                    "mid-flight?) — the request waits at the queue head "
+                    "for a reload")
         n = len(req.prompt_ids)
         shared = ()
         prefix_len = req.prefix_len
-        if prefix_len and req.prefix_id in self._prefixes:
+        entry = self._prefixes.get(req.prefix_id) if prefix_len else None
+        if entry is not None and entry[2] == req.adapter:
             # may raise PagePoolFullError while bringing cold pages back —
             # before reserve(), so backpressure changes nothing
             shared = self._pool.prefix_frames(req.prefix_id)
@@ -787,27 +1165,32 @@ class ServingEngine:
             self._m[f"prefix_{ev}"] += 1
         self._note_admission(req)
         kc1, vc1 = self._cache_row()
-        x_last = self._prefill_cols(req.prompt_ids, 0, kc1, vc1)
-        self._activate(slot, req, kc1, vc1, x_last)
+        logits = self._logits1(self._prefill_cols(req.prompt_ids, 0, kc1,
+                                                  vc1, aid=aid))
+        self._activate(slot, req, kc1, vc1, logits)
 
     def _advance_prefill(self, slot):
-        """Consume one chunk of a reserved slot's prompt; on the last
-        chunk, activate the slot."""
-        req, kc1, vc1, off, C = self._prefilling[slot]
+        """Consume one chunk of a reserved slot's prompt (the draft's
+        too); on the last chunk, activate the slot."""
+        req, kc1, vc1, off, C, kc1d, vc1d = self._prefilling[slot]
         self._count_step("prefill_chunk")
         n = len(req.prompt_ids)
         end = min(off + C, n)
         x_last = self._prefill_cols(req.prompt_ids[off:end], off, kc1, vc1)
+        if self._draft is not None:
+            self._draft_feed(req.prompt_ids[off:end], off, kc1d, vc1d)
         if end >= n:
             del self._prefilling[slot]
             self._slot_req[slot] = None   # _activate re-binds
-            self._activate(slot, req, kc1, vc1, x_last)
+            self._activate(slot, req, kc1, vc1, self._logits1(x_last),
+                           None if self._draft is None else (kc1d, vc1d))
         else:
-            self._prefilling[slot] = [req, kc1, vc1, end, C]
+            self._prefilling[slot] = [req, kc1, vc1, end, C, kc1d, vc1d]
 
     def _advance_and_admit(self):
         """Advance every chunked prefill in flight ONE chunk, then admit
-        queued requests into free slots. A failing request finishes with
+        hand-off rows and queued requests into free slots (hand-off rows
+        first: their prefill is paid). A failing request finishes with
         reason "error" and the pass goes on."""
         for slot in list(self._prefilling):
             req = self._prefilling[slot][0]
@@ -819,28 +1202,40 @@ class ServingEngine:
         for slot in range(self.B):
             # while, not if: a request finishing DURING admission (eos on
             # its first token, max_new_tokens=1) frees the slot for the
-            # next queued request in the same pass
-            while self._slot_req[slot] is None and self._queue:
-                req = self._queue.pop(0)
-                try:
-                    self._admit_one(slot, req)
-                except _paging.PagePoolFullError:
-                    # backpressure, not a failure: nothing ran and nothing
-                    # was reserved; finishing sessions free frames
-                    self._queue.insert(0, req)
-                    return
-                except Exception:
-                    self._finish_req(req, "error", slot=slot)
-                    self._note_error()
-                    continue
+            # next request in the same pass
+            while self._slot_req[slot] is None and (self._handoff
+                                                    or self._queue):
+                if self._handoff:
+                    req, kc1, vc1, logits = self._handoff.pop(0)
+                    try:
+                        self._note_admission(req)
+                        self._activate(slot, req, kc1, vc1, logits)
+                    except Exception:
+                        self._finish_req(req, "error", slot=slot)
+                        self._note_error()
+                        continue
+                else:
+                    req = self._queue.pop(0)
+                    try:
+                        self._admit_one(slot, req)
+                    except (_paging.PagePoolFullError, _AdapterUnavailable):
+                        # backpressure, not a failure: nothing ran and
+                        # nothing was reserved; finishing sessions free
+                        # frames, a reload brings the adapter back
+                        self._queue.insert(0, req)
+                        return
+                    except Exception:
+                        self._finish_req(req, "error", slot=slot)
+                        self._note_error()
+                        continue
                 if self._slot_req[slot] is not None:
                     break
 
     # -- the step -----------------------------------------------------------
     def _dispatch_decode(self, active):
-        """ONE decode for every slot at its own position (inactive rows
-        ride along: their rows are don't-care until the next admission);
-        returns the host tokens [B]."""
+        """Enqueue ONE decode for every slot at its own position (inactive
+        rows ride along: their rows are don't-care until the next
+        admission); returns the tokens [B] on the device, not yet read."""
         sampled = [s for s in active if self._temps[s] > 0]
         kind = "decode_sample" if sampled else "decode_greedy"
         last = torch.as_tensor(self._last, device=self._dev).long()
@@ -849,8 +1244,14 @@ class ServingEngine:
         if self._paged:
             pool = self._pool
             tables = pool.tables_device()
+            lora = {}
+            if self._lora is not None and self._adapter_slot.any():
+                # a step of base rows only skips the products: they add
+                # exact zeros
+                lora = {"lora": self._lora, "adapter_ids": torch.as_tensor(
+                    self._adapter_slot, device=self._dev).long()}
             kc, vc = _paging.gather_dense(pool.kp, pool.vp, tables)
-            x = self._fwd(p, last[:, None], pos, kc, vc)
+            x = self._fwd(p, last[:, None], pos, kc, vc, **lora)
             _paging.scatter_cols(pool.kp, pool.vp, kc, vc, tables, pos)
         else:
             x = self._fwd(p, last[:, None], pos, self._kc, self._vc)
@@ -858,7 +1259,7 @@ class ServingEngine:
         toks = self._pick(logits, sampled, self._temps, self._topk,
                           self._topp, self._seeds, self._pos)
         self._count_step(kind)
-        return toks.cpu().numpy()
+        return toks
 
     def _apply_decode(self, active, next_toks):
         for s in active:
@@ -899,12 +1300,21 @@ class ServingEngine:
                 "engine instead of toggling it mid-flight")
         return self._paged
 
+    def _active(self):
+        return [s for s in range(self.B)
+                if self._slot_req[s] is not None
+                and s not in self._prefilling]
+
+    def _note_occupancy(self, active):
+        self._m["occupancy_sum"] += len(active)
+        self._m["occupancy_steps"] += 1
+
     def step(self):
         """Advance chunked prefills, admit queued requests into free slots,
-        then run ONE decode step for every active slot. Returns the
-        requests finished in this step. Host-side per-slot failures finish
-        only that slot's request (reason "error"); a failure of the
-        batched decode itself propagates."""
+        then run ONE decode step (or speculative round) for every active
+        slot. Returns the requests finished in this step. Host-side
+        per-slot failures finish only that slot's request (reason
+        "error"); a failure of the batched decode itself propagates."""
         with torch.no_grad():
             if self._paged_active():
                 # cold-page sweep on the step cadence
@@ -912,19 +1322,112 @@ class ServingEngine:
             self._step_no += 1
             before = set(self._finished)
             self._expire_deadlines()
-            self._advance_and_admit()
-            active = [s for s in range(self.B)
-                      if self._slot_req[s] is not None
-                      and s not in self._prefilling]
-            self._m["occupancy_sum"] += len(active)
-            self._m["occupancy_steps"] += 1
-            if active:
-                self._apply_decode(active, self._dispatch_decode(active))
+            if self._async and self._draft is None and not self._paged:
+                self._step_async()
+            else:
+                self._step_sync()
         return [self._finished[r] for r in set(self._finished) - before]
 
+    def _step_sync(self):
+        self._advance_and_admit()
+        active = self._active()
+        self._note_occupancy(active)
+        if not active:
+            return
+        # a speculative round: every active slot greedy AND spec_k + 1
+        # columns of headroom
+        if (self._draft is not None
+                and all(self._temps[s] == 0 for s in active)
+                and all(int(self._pos[s]) + self._spec_k + 1 <= self.T
+                        for s in active)):
+            self._step_speculative(active)
+            return
+        if self._draft is not None:
+            # a single-token step with a draft around: mirror the fed
+            # token into the draft's cache, so later rounds see an intact
+            # context
+            self._fwd_d(self._params_d,
+                        torch.as_tensor(self._last, device=self._dev)
+                        .long()[:, None],
+                        torch.as_tensor(self._pos, device=self._dev).long(),
+                        self._kc_d, self._vc_d)
+        toks = self._dispatch_decode(active)
+        self._apply_decode(active, toks.cpu().numpy())
+
+    def _step_async(self):
+        """The async round: enqueue the decode of the slots active at
+        entry, run the next round's chunked-prefill advances and
+        admissions while the card computes, and only then read the
+        tokens: the round's one host sync. The admissions' row copies are
+        enqueued on the same stream after the decode, so they write the
+        cache after it has read it. Each slot's tokens equal the sync
+        step's; a request admitted in the window decodes from the next
+        round on."""
+        active = self._active()
+        self._note_occupancy(active)
+        toks = self._dispatch_decode(active) if active else None
+        self._advance_and_admit()
+        if toks is not None:
+            self._apply_decode(active, toks.cpu().numpy())
+
+    def _step_speculative(self, active):
+        """One speculative round for the active (greedy) slots: spec_k
+        draft proposals a slot, one batched (spec_k + 1)-token target
+        verify at per-slot positions, 1..spec_k + 1 tokens emitted a slot
+        through _after_emit one at a time (so eos, length and capacity
+        finish as in the single-token engine). One host read a round:
+        the emitted tokens and the accepted counts together."""
+        self._count_step("speculative")
+        K = self._spec_k
+        dev = self._dev
+        last = torch.as_tensor(self._last, device=dev).long()
+        pos = torch.as_tensor(self._pos, device=dev).long()
+        pd = self._params_d
+        d_cur = last
+        props = []
+        for j in range(K):
+            xd = self._fwd_d(pd, d_cur[:, None], pos + j, self._kc_d,
+                             self._vc_d)
+            d_cur = torch.argmax(self._logits_d(pd, xd[:, 0]).float(), -1)
+            props.append(d_cur)
+        # the K-th proposal's KV too: an all-accepted round continues past
+        # that column
+        self._fwd_d(pd, d_cur[:, None], pos + K, self._kc_d, self._vc_d)
+        props = torch.stack(props, dim=1)                        # [B, K]
+        seq = torch.cat([last[:, None], props], dim=1)
+        x = self._fwd(self._params, seq, pos, self._kc, self._vc)
+        preds = torch.argmax(self._logits_of(self._params, x).float(), -1)
+        m = torch.cumprod((props == preds[:, :K]).long(), dim=1).sum(1)
+        fix = preds.gather(1, m[:, None])
+        j_idx = torch.arange(K + 1, device=dev)[None]
+        emit = torch.where(j_idx < m[:, None],
+                           torch.nn.functional.pad(props, (0, 1)), fix)
+        host = torch.cat([emit, m[:, None]], dim=1).cpu().numpy()
+        emit, m = host[:, :K + 1], host[:, K + 1]
+        self._m["spec_proposed"] += K * len(active)
+        self._m["spec_accepted"] += int(sum(int(m[s]) for s in active))
+        for s in active:
+            req = self._slot_req[s]
+            try:
+                toks = emit[s, :int(m[s]) + 1]
+                old_pos = int(self._pos[s])
+                self._last[s] = int(toks[-1])
+                for i, t in enumerate(toks):
+                    # pos advances per token, so _after_emit decides at
+                    # the state the single-token engine would have
+                    self._pos[s] = old_pos + i + 1
+                    req.output_ids.append(int(t))
+                    self._after_emit(s, req)
+                    if req.finished:
+                        break
+            except Exception:
+                if self._slot_req[s] is not None:
+                    self._finish_req(req, "error", slot=s)
+                self._note_error()
+
     def has_work(self):
-        return bool(self._queue) or any(r is not None
-                                        for r in self._slot_req)
+        return bool(self._queue) or bool(self._handoff) \
+            or any(r is not None for r in self._slot_req)
 
     def run_until_complete(self, max_steps=100_000):
         """Step until nothing is queued or in flight; returns {rid:
@@ -940,6 +1443,10 @@ class ServingEngine:
                     self._queue.remove(req)
                     self._finish_req(req, "engine_stalled")
                     stalled.append(req.rid)
+                for entry in list(self._handoff):
+                    self._handoff.remove(entry)
+                    self._finish_req(entry[0], "engine_stalled")
+                    stalled.append(entry[0].rid)
                 for slot in range(self.B):
                     req = self._slot_req[slot]
                     if req is not None:

@@ -20,26 +20,34 @@ The protocol:
 
     - ``cache_init(b, T, dtype, device) -> (kc, vc)``, each
       ``[L, b, KVh, T, hd]``; row 0..b-1 is one slot;
-    - ``fwd(params, tok_ids [B, t], pos, kc, vc) -> x``: run the stack,
-      writing K/V at column(s) ``pos`` (an int, or a [B] tensor of per-row
-      columns) INTO kc/vc in place (the reference returns new caches);
+    - ``fwd(params, tok_ids [B, t], pos, kc, vc, lora=None,
+      adapter_ids=None) -> x``: run the stack, writing K/V at column(s)
+      ``pos`` (an int, or a [B] tensor of per-row columns) INTO kc/vc in
+      place (the reference returns new caches); ``lora`` / ``adapter_ids``
+      (paged engines) add each row's adapter delta;
     - ``logits_of(params, x_last) -> logits``.
 ``tp_setup`` / ``tp_wrap``
     Tensor-parallel serving; not ported (they raise).
 ``cache_spec(cfg)``
     A description of the cache pair (layout, axes, quantized or not).
-``lora_init`` / ``lora_pack``
-    Multi-LoRA batched decode; not ported (they raise).
+``lora_init(cfg, n_slots, rank, dtype=None, device="cpu")``, ``lora_pack``
+    Multi-LoRA batched decode: the zeroed stacked factors of n_slots
+    adapters, and one exported adapter laid out as one slot of them (the
+    base class raises: the engine then serves base requests only).
 ``matches(model)``
     True when this adapter serves ``model`` (used by :func:`resolve`).
 
 The adapter delegates to the model module's decode helpers and never
 re-implements the math, so an engine's outputs equal those helpers'.
+``cache_row_bytes``, ``cache_map``, ``cache_leaves`` and ``cast_params``
+are the helpers the engine and the model modules share for cache sides
+and param snapshots.
 """
 import importlib
 
 __all__ = ["DecodeModel", "register_decode_model", "get_decode_model",
-           "registered_decode_models", "resolve", "cache_row_bytes"]
+           "registered_decode_models", "resolve", "cache_row_bytes",
+           "cache_map", "cache_leaves", "cast_params"]
 
 
 class DecodeModel:
@@ -160,3 +168,23 @@ def cache_row_bytes(row):
     if isinstance(row, (tuple, list)):
         return sum(cache_row_bytes(x) for x in row)
     return int(row.numel() * row.element_size())
+
+
+def cache_map(f, c):
+    """f over a cache side: a tensor, or a quantized (values, scales)
+    tuple."""
+    return tuple(f(x) for x in c) if isinstance(c, tuple) else f(c)
+
+
+def cache_leaves(c):
+    """A cache side's tensors: itself, or its (values, scales)."""
+    return c if isinstance(c, tuple) else (c,)
+
+
+def cast_params(params, dtype):
+    """Serving precision: a param snapshot's floating tensors cast to
+    `dtype` (None = fp32: unchanged)."""
+    if dtype is None:
+        return params
+    return {k: v.to(dtype) if v.is_floating_point() else v
+            for k, v in params.items()}

@@ -27,9 +27,10 @@ the paged engine's tokens are those of the dense engine.
 Frames are PyTorch tensors on the engine's device, updated in place (the
 reference threads new arrays through its programs). The free list pops
 frame 1 first, as the reference's does, so the same operations give the
-same tables. Not ported: the reference's handoff-schema validation of
-``admit_row`` (it reads the analysis package), its monitor counters, and
-``AdapterRegistry`` (multi-LoRA serving).
+same tables. ``AdapterRegistry`` keeps the named multi-LoRA adapter slots
+of the paged engine (LRU eviction, pinning). Not ported: the reference's
+handoff-schema validation of ``admit_row`` (it reads the analysis
+package) and its monitor counters.
 """
 import numpy as np
 import torch
@@ -37,7 +38,8 @@ import torch
 from ..core.device import resolve_device
 from ..distributed import compress as _compress
 
-__all__ = ["PagePool", "PagePoolFullError", "gather_dense", "scatter_cols"]
+__all__ = ["AdapterRegistry", "PagePool", "PagePoolFullError",
+           "gather_dense", "scatter_cols"]
 
 
 class PagePoolFullError(RuntimeError):
@@ -351,3 +353,84 @@ class PagePool:
             "prefixes": len(self._prefixes),
             "sweeps": self._sweeps,
         }
+
+
+class AdapterRegistry:
+    """Named multi-LoRA adapter slots with LRU eviction and pinning.
+
+    Slot 0 is reserved (all-zero factors: base-model requests); the usable
+    slots are ``1..n_slots``. The registry is bookkeeping only: the engine
+    owns the stacked device factors and writes or zeroes a slot on load or
+    evict."""
+
+    def __init__(self, n_slots):
+        if n_slots < 1:
+            raise ValueError(f"n_slots must be >= 1, got {n_slots}")
+        self.n_slots = int(n_slots)
+        self._slots = {}                       # name -> slot index
+        self._pinned = set()
+        self._lru = []                         # oldest first
+        self._free = list(range(self.n_slots, 0, -1))
+
+    def lookup(self, name):
+        """A loaded adapter's slot (touching its LRU place), else None."""
+        slot = self._slots.get(name)
+        if slot is not None:
+            self._touch(name)
+        return slot
+
+    def peek(self, name):
+        """A loaded adapter's slot without touching the LRU order."""
+        return self._slots.get(name)
+
+    def _touch(self, name):
+        if name in self._lru:
+            self._lru.remove(name)
+        self._lru.append(name)
+
+    def admit(self, name, pin=False):
+        """Claim a slot for ``name``: a free one if any, else the least
+        recently used unpinned adapter's. Returns ``(slot, evicted_name)``
+        (not None when an adapter was displaced: the engine overwrites its
+        device slot and requeues its sessions). Raises RuntimeError when
+        every slot is pinned."""
+        if name in self._slots:
+            raise ValueError(f"adapter {name!r} is already loaded")
+        evicted = None
+        if self._free:
+            slot = self._free.pop()
+        else:
+            victim = next((n for n in self._lru
+                           if n not in self._pinned), None)
+            if victim is None:
+                raise RuntimeError(
+                    f"all {self.n_slots} adapter slots are pinned — "
+                    "evict_adapter() one or raise max_adapters=")
+            slot = self._slots.pop(victim)
+            self._lru.remove(victim)
+            evicted = victim
+        self._slots[name] = slot
+        if pin:
+            self._pinned.add(name)
+        self._touch(name)
+        return slot, evicted
+
+    def evict(self, name):
+        """Evict ``name`` (pinned or not); returns its slot."""
+        if name not in self._slots:
+            raise KeyError(f"adapter {name!r} is not loaded")
+        slot = self._slots.pop(name)
+        self._pinned.discard(name)
+        if name in self._lru:
+            self._lru.remove(name)
+        self._free.append(slot)
+        return slot
+
+    def loaded(self):
+        return dict(self._slots)
+
+    def stats(self):
+        return {"n_slots": self.n_slots,
+                "loaded": len(self._slots),
+                "pinned": len(self._pinned),
+                "free_slots": len(self._free)}

@@ -216,11 +216,15 @@ class TestGenerate:
         assert bool(((out >= 0) & (out < TINY["vocab_size"])).all())
 
     @pytest.mark.parametrize("kwargs, error", [
-        (dict(num_beams=2), NotImplementedError),
+        # beam search and ragged prompts are ported: what the reference
+        # refuses there raises its ValueError (a sampling knob with beams,
+        # a right-padded mask)
+        (dict(num_beams=2, top_k=5), ValueError),
         # int8 and fp8 caches are ported; any other cache_dtype raises
         # ValueError, as the reference's _decode_fns does
         (dict(cache_dtype="int4"), ValueError),
-        (dict(attention_mask=np.ones((2, 5))), NotImplementedError),
+        (dict(attention_mask=np.array([[1, 1, 1, 0, 0], [1] * 5])),
+         ValueError),
         (dict(tp_mesh=object()), NotImplementedError)],
         ids=["beams", "cache_dtype", "mask", "tp"])
     def test_unported_options_raise(self, kwargs, error):
@@ -230,9 +234,14 @@ class TestGenerate:
                         max_new_tokens=2, **kwargs)
 
     def test_speculative_not_ported(self):
+        """generate_speculative is ported but for tp_mesh; batch 2 raises
+        the reference's ValueError."""
         _, tm = _pair(TINY)
-        with pytest.raises(NotImplementedError):
-            tm.generate_speculative(tm, torch.zeros((1, 3), dtype=torch.long))
+        with pytest.raises(NotImplementedError, match="tp_mesh"):
+            tm.generate_speculative(tm, torch.zeros((1, 3), dtype=torch.long),
+                                    tp_mesh=object())
+        with pytest.raises(ValueError, match="batch-1"):
+            tm.generate_speculative(tm, torch.zeros((2, 3), dtype=torch.long))
 
 
 class TestConfigErrors:

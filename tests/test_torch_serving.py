@@ -545,9 +545,8 @@ class TestPaged:
         _, tm = models
         eng = ServingEngine(tm, max_batch=4)
         _drain(eng, _paged_jobs())
-        want = {k: v for k, v in jax_runs["paged_stats"].items()
-                if k != "adapters"}     # multi-LoRA is not ported
-        assert eng.stats()["paging"] == want
+        # the adapter registry's block included (8 slots, none loaded)
+        assert eng.stats()["paging"] == jax_runs["paged_stats"]
 
     def test_tiny_pool_requeues_to_bit_exact_completion(self, models,
                                                         paged):
@@ -574,8 +573,7 @@ class TestPaged:
                        for s in sufs]
         hits, pool = jax_runs["paged_prefix_stats"]
         assert eng.stats()["prefix_cache"] == hits
-        assert eng.stats()["paging"] == {k: v for k, v in pool.items()
-                                         if k != "adapters"}
+        assert eng.stats()["paging"] == pool
         eng.unregister_prefix(pid)
         assert eng.stats()["paging"]["live_blocks"] == 0
 
@@ -621,25 +619,38 @@ class TestPaged:
 
 class TestUnported:
     def test_left_out_options_raise(self, models, paged):
+        """tp_mesh and warmup() are still left out; every option this
+        slice ported refuses what the reference's refuses, with its
+        error."""
         _, tm = models
-        for kw in (dict(max_adapters=2), dict(lora_rank=4)):
-            with pytest.raises(NotImplementedError, match="not ported"):
-                ServingEngine(tm, max_batch=2, **kw)
+        eng = ServingEngine(tm, max_batch=2, max_adapters=2, lora_rank=4)
+        wide = {"rank": 8, "scaling": 1.0, "factors": {}}
+        with pytest.raises(ValueError, match="lora_rank"):
+            eng.load_adapter("a", wide)
+        with pytest.raises(RuntimeError, match="paged_kv"):
+            eng.admit_prefilled([1], None, None)
         pt.set_flags({"paged_kv": False})
-        for kw in (dict(tp_mesh=object()), dict(draft_model=tm)):
-            with pytest.raises(NotImplementedError, match="not ported"):
-                ServingEngine(tm, max_batch=2, **kw)
+        with pytest.raises(NotImplementedError, match="not ported"):
+            ServingEngine(tm, max_batch=2, tp_mesh=object())
+        with pytest.raises(ValueError, match="spec_k"):
+            ServingEngine(tm, max_batch=2, draft_model=tm, spec_k=0)
         with pytest.raises(ValueError, match="cache_dtype"):
             ServingEngine(tm, max_batch=2, cache_dtype="int4")
         eng = ServingEngine(tm, max_batch=2)
-        for call in (lambda: eng.warmup(),
-                     lambda: eng.admit_prefilled([1], None, None),
-                     lambda: eng.load_adapter("a", {}),
-                     lambda: eng.evict_adapter("a"),
-                     lambda: eng.hot_swap(tm),
-                     lambda: eng.submit([1, 2], adapter="a"),
-                     lambda: eng.register_prefix([1, 2], adapter="a")):
-            with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            eng.warmup()
+        bad = (torch.zeros(2, 1, 4, 64, 16), torch.zeros(2, 1, 4, 64, 16))
+        for call, error in (
+                (lambda: eng.admit_prefilled([1], bad, torch.zeros(256)),
+                 ValueError),
+                (lambda: eng.load_adapter("a", {}), RuntimeError),
+                (lambda: eng.evict_adapter("a"), RuntimeError),
+                (lambda: eng.hot_swap(GPTForCausalLM(GPTConfig(
+                    **dict(CFG, num_layers=1)), device="cpu")), ValueError),
+                (lambda: eng.submit([1, 2], adapter="a"), RuntimeError),
+                (lambda: eng.register_prefix([1, 2], adapter="a"),
+                 ValueError)):
+            with pytest.raises(error):
                 call()
 
     def test_validation_matches_the_reference(self, models):
@@ -668,10 +679,15 @@ class TestUnported:
         with pytest.raises(ValueError, match="cache_dtype"):
             dm.decode_fns(tm.cfg, None, cache_dtype="int4")
         for call in (lambda: dm.decode_fns(tm.cfg, None, tp_axis="mp"),
-                     lambda: dm.tp_setup(None, tm.cfg, {}),
-                     lambda: dm.lora_init(tm.cfg, 2, 4)):
+                     lambda: dm.tp_setup(None, tm.cfg, {})):
             with pytest.raises(NotImplementedError, match="not ported"):
                 call()
+        pack = dm.lora_init(tm.cfg, 2, 4)
+        assert pack["qkv"]["A"].shape == (2, 2, 64, 4) and \
+            not pack["fc2"]["B"].any()
+        with pytest.raises(ValueError, match="lora_rank"):
+            dm.lora_pack(tm.cfg, {"rank": 8, "scaling": 1.0,
+                                  "factors": {}}, 4)
         kc, vc = pgpt._decode_fns(tm.cfg)[2](2, 8, torch.float32, "cpu")
         assert decode_model.cache_row_bytes((kc, vc)) == \
             2 * 2 * 2 * 4 * 8 * 16 * 4
