@@ -71,7 +71,13 @@ engine on GPT-2 small: speculative (the medium target), multi-LoRA under
 adapter eviction (base requests bit-equal a plain engine's), hot swap to
 a seed-1 model (later requests bit-equal a fresh engine's), the
 disaggregated pool and the async step (each bit-equal the plain drain),
-all with no kernel launch; it profiles each configuration once for the
+all with no kernel launch, and the runtime services on GPT-2 small: a
+checkpoint resume bit-equal the uninterrupted run, the cost registry's
+FLOP count of a step against bench.py's analytic count and its MFU,
+failed and torn checkpoints, the Chrome trace, Prometheus text and
+goodput buckets, the engine's breakdown, spans and one failed slot, and
+the overhead of the monitor, trace and goodput flags on a training step
+and on the engine; it profiles each configuration once for the
 device time by kernel and the device's idle share, and times every
 kernel. Each phase prints one JSON
 line; then a ``kernels`` line, the card's name and power limit, and last
@@ -2683,6 +2689,400 @@ def _flash_step_counts(delta):
     return {k: n for k, n in delta.items() if k.startswith("flash_")}
 
 
+# the runtime services phase: GPT-2 small training at bench.py's shapes
+# (RUNTIME_BATCH x RUNTIME_SEQ, bf16 auto_cast, AdamW lr 1e-4, seed 0), 3
+# steps, a checkpoint, 3 more; the overhead legs time RUNTIME_OVERHEAD_
+# ROUNDS steps a mode, the three modes' trainers (and engines) stepped in
+# turns so that the host's drift falls on all three alike
+RUNTIME_BATCH, RUNTIME_SEQ = TRAIN_BATCH, 1024
+RUNTIME_OVERHEAD_ROUNDS = 6
+# the cost registry's FLOP count of a step against bench.py's analytic
+# count, once the two are put on the same footing (see runtime_services)
+RUNTIME_FLOPS_REL = 0.05
+# what the defaults (the monitor on) may cost against every flag off: a
+# training step's median ms and the engine's new tok/s
+RUNTIME_OVERHEAD_MAX = 0.02
+# the modes of the overhead legs: (monitor, trace, goodput)
+RUNTIME_MODES = {"off": (False, False, False), "defaults": (True, False, False),
+                 "trace_goodput": (True, True, True)}
+
+
+def runtime_services(dev):
+    """The runtime services of the port (monitor/, trace/, trace/costs.py,
+    profiler/, testing/failpoints.py, framework/io.py, incubate/checkpoint,
+    monitor/goodput.py) in SpmdTrainer and the ServingEngine on GPT-2
+    small:
+
+    (a) resume: FLAGS_trace, FLAGS_goodput and the monitor armed, 3 steps,
+        a CheckpointSaver save, 3 more; a fresh trainer loads the
+        checkpoint and runs the same 3 steps: losses and final parameters
+        bit-equal the uninterrupted run's;
+    (b) MFU: stats()'s flops_per_step (the FLOP counter over the first
+        step) against bench.py's analytic count, and stats()'s mfu beside
+        the MFU from tokens/s;
+    (c) durability: a save under ckpt/write=error raises, leaves the
+        previous checkpoint loadable with its footer verified and no tmp
+        file; a torn newest checkpoint falls back to the older one;
+    (d) exports: the Chrome trace's train_step and checkpoint spans, the
+        Prometheus text parsed back, the goodput buckets against wall time;
+    (e) the engine (bf16, SERVE_SLOTS slots, SERVE_REQUESTS requests of
+        SERVE_NEW new tokens): breakdown with FLOPs, a span tree and a
+        trace_id a request, serving/slot=error:1 ending one request while
+        the others keep the plain tokens;
+    (f) overhead: training step ms and engine new tok/s with every flag
+        off, the defaults, and trace + goodput, one trainer (engine) a
+        mode stepped in turns; the defaults' cost from the median steps.
+
+    Returns the kernel launches and routes of the phase (counted from
+    zero)."""
+    import os
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import monitor, set_flags, trace
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.distributed import SpmdTrainer
+    from paddle_tpu_torch.framework import io
+    from paddle_tpu_torch.incubate.checkpoint import CheckpointSaver
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                         GPTPretrainLoss)
+    from paddle_tpu_torch.monitor import goodput
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.testing import failpoints
+    from paddle_tpu_torch.trace import costs
+
+    t_phase = time.perf_counter()
+    cfg = GPTConfig(**GPT2_SMALL_CFG)
+    B, S = RUNTIME_BATCH, RUNTIME_SEQ
+    L, h, V = cfg.num_layers, cfg.hidden_size, cfg.vocab_size
+    rng = np.random.RandomState(0)
+    batches = [[torch.as_tensor(rng.randint(0, V, (B, S)).astype(np.int32))
+                .long().to(dev) for _ in range(2)] for _ in range(6)]
+
+    def set_mode(mon, tr, gp):
+        (monitor.enable if mon else monitor.disable)()
+        (trace.enable if tr else trace.disable)()
+        set_flags({"goodput": gp})
+
+    def trainer():
+        model = GPTForCausalLM(cfg, device=dev,
+                               generator=torch.Generator().manual_seed(0))
+        return model, SpmdTrainer(model, AdamW(
+            learning_rate=1e-4, parameters=model.parameters()),
+            loss_fn=GPTPretrainLoss())
+
+    def step(tr, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with auto_cast(True, dtype="bfloat16"):
+            loss = tr.train_step(*batch)
+        loss.item()
+        return loss, (time.perf_counter() - t) * 1e3
+
+    _zero_counters()
+    set_mode(True, True, True)
+    trace.clear()
+    costs.reset()
+    run = goodput.start_run("runtime_services")
+    tmp = tempfile.TemporaryDirectory()
+    saver = CheckpointSaver(os.path.join(tmp.name, "ck"), max_num=3,
+                            device=dev)
+    out = {}
+
+    # (a) resume -------------------------------------------------------
+    model_a, tr_a = trainer()
+    losses_a, ms_a = [], []
+    for i, batch in enumerate(batches):
+        if i == 3:
+            t = time.perf_counter()
+            saver.save_checkpoint(tr_a.state_dict(), meta={"step": 3})
+            save_ms = [(time.perf_counter() - t) * 1e3]
+        loss, ms = step(tr_a, batch)
+        losses_a.append(loss)
+        ms_a.append(ms)
+    st_a = tr_a.stats()
+    final_a = {n: p.detach().clone() for n, p in model_a.named_parameters()}
+    state_final = tr_a.state_dict()
+    del model_a, tr_a
+    torch.cuda.empty_cache()
+    model_b, tr_b = trainer()
+    t = time.perf_counter()
+    state, meta = saver.load_checkpoint(0)
+    tr_b.set_state_dict(state)
+    load_ms = [(time.perf_counter() - t) * 1e3]
+    del state
+    losses_b = [step(tr_b, batch)[0] for batch in batches[3:]]
+    loss_equal = all(torch.equal(a, b) for a, b in zip(losses_a[3:],
+                                                        losses_b))
+    differ = [n for n, p in model_b.named_parameters()
+              if not torch.equal(p, final_a[n])]
+    check(meta["step"] == 3 and loss_equal and not differ,
+          f"runtime_services (a): a resumed run is bit-equal the "
+          f"uninterrupted one (losses {[x.item() for x in losses_a[3:]]} "
+          f"vs {[x.item() for x in losses_b]}; parameters that differ: "
+          f"{differ[:5]})")
+    out["resume"] = {
+        "losses": [x.item() for x in losses_a],
+        "resumed_losses": [x.item() for x in losses_b],
+        "bit_equal": True, "weight_version": str(tr_b.weight_version)}
+    del model_b, tr_b, final_a
+    torch.cuda.empty_cache()
+
+    # (b) MFU ------------------------------------------------------------
+    tokens = B * S
+    analytic = _gpt_flops_per_token(cfg, S) * tokens
+    # bench.py's count puts 6 V h a token on the embedding lookup (6 N
+    # with N counting the table) and 12 L S h on attention (every q-k pair
+    # of both products, forward and backward). What runs: no matmul reads
+    # the embedding (a gather; its grad a scatter), and the flash kernels
+    # compute the causal pairs only, S (S + 1) / 2 a head, at 4 d
+    # forward, 6 d dQ and 8 d dK/dV (each backward kernel recomputes the
+    # scores)
+    embedding = 6 * V * h * tokens
+    attention_bench = L * 12 * S * h * tokens
+    attention_flash = 18 * h * L * B * S * (S + 1) // 2
+    same_footing = analytic - embedding - attention_bench + attention_flash
+    counted = st_a["flops_per_step"]
+    rel = abs(counted - same_footing) / same_footing
+    check(counted is not None and rel <= RUNTIME_FLOPS_REL,
+          f"runtime_services (b): the counted FLOPs a step {counted} "
+          f"within {RUNTIME_FLOPS_REL:.0%} of the analytic count on the "
+          f"same footing {same_footing} (bench.py's {analytic})")
+    tok_s = tokens / (statistics.median(ms_a[1:]) / 1e3)
+    out["mfu"] = {
+        "flops_per_step": counted, "bench_analytic_flops": analytic,
+        "embedding_term": embedding, "attention_bench_term":
+            attention_bench, "attention_flash_term": attention_flash,
+        "analytic_same_footing": same_footing,
+        "rel_diff_same_footing": rel,
+        "counted_over_bench": counted / analytic,
+        "stats_mfu": st_a["mfu"], "peak_flops": st_a["peak_flops"],
+        "stats_step_ms_avg": st_a["step_ms_avg"],
+        "step_ms": ms_a, "tokens_per_s": tok_s,
+        "mfu_from_tokens_per_s": tok_s * _gpt_flops_per_token(cfg, S)
+        / PEAK_FLOPS["bfloat16"],
+        "hbm": st_a["hbm"]}
+
+    # (c) durability -----------------------------------------------------
+    ck_dir = saver.directory
+    with failpoints.scoped("ckpt/write=error:1"):
+        try:
+            saver.save_checkpoint(state_final, meta={"step": 6})
+            raised = False
+        except failpoints.FailpointError:
+            raised = True
+    leftovers = [f for _, _, fs in os.walk(ck_dir) for f in fs
+                 if ".tmp." in f]
+    swept = saver.sweep_tmp()
+    f0 = os.path.join(saver._ckpt_dir(0), "state.pdparams")
+    with open(f0, "rb") as f:
+        _, verified = io._verify_footer(f, f0)
+    check(raised and not leftovers and swept == 1 and verified
+          and saver.get_checkpoint_numbers() == [0],
+          f"runtime_services (c): the failed save raised ({raised}), left "
+          f"no tmp file ({leftovers}), its staging directory swept "
+          f"({swept}), checkpoint 0 verified ({verified})")
+    t = time.perf_counter()
+    saver.save_checkpoint(state_final, meta={"step": 6})
+    save_ms.append((time.perf_counter() - t) * 1e3)
+    ck_bytes = os.path.getsize(os.path.join(saver._ckpt_dir(1),
+                                            "state.pdparams"))
+    newest = os.path.join(saver._ckpt_dir(1), "state.pdparams")
+    os.truncate(newest, ck_bytes // 2)
+    recover = monitor.counter("checkpoint_recover_total",
+                              labelnames=("reason",)).labels(reason="corrupt")
+    n0 = recover.value
+    t = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        _, meta = saver.load_checkpoint()
+    load_ms.append((time.perf_counter() - t) * 1e3)
+    check(meta["step"] == 3 and recover.value == n0 + 1
+          and saver.get_checkpoint_numbers() == [0],
+          f"runtime_services (c): a torn newest checkpoint falls back to "
+          f"the older one (meta {meta})")
+    del state_final
+    out["checkpoint"] = {"bytes": ck_bytes, "save_ms": save_ms,
+                         "load_ms": load_ms,
+                         "load_ms_is": "clean load of checkpoint 0; then "
+                         "the fall-back load (the torn file's footer check "
+                         "first)"}
+    tmp.cleanup()
+
+    # (d) exports ----------------------------------------------------------
+    row = goodput.end_run()
+    wall = row["wall_s"]
+    booked = sum(row["buckets"].values())
+    check(abs(booked - wall) <= 0.01 * wall and row["buckets"]["step"] > 0
+          and row["buckets"]["ckpt_save"] > 0
+          and row["buckets"]["ckpt_restore"] > 0,
+          f"runtime_services (d): goodput buckets {row['buckets']} sum to "
+          f"the run's wall time {wall}")
+    doc = trace.export_chrome(None, include_host_events=False)
+    spans = [e for e in doc["traceEvents"] if e.get("cat") == "span"]
+    n_steps = sum(e["name"] == "train_step" for e in spans)
+    saves = [e for e in spans if e["name"] == "checkpoint/save"]
+    loads = [e for e in spans if e["name"] == "checkpoint/load"]
+    check(n_steps == 9 and len(saves) == 3 and len(loads) >= 2
+          and sum(bool(e["args"].get("error")) for e in saves) == 1,
+          f"runtime_services (d): the Chrome trace holds one train_step "
+          f"span a step (9: {n_steps}) and the checkpoint spans "
+          f"({len(saves)} saves, {len(loads)} loads)")
+    text = monitor.to_prometheus(monitor.snapshot())
+    parsed = monitor.parse_prometheus(text)
+    n_saves = parsed.get(("checkpoint_total", frozenset({("op", "save")})))
+    check(n_saves is not None and n_saves >= 2,
+          f"runtime_services (d): checkpoint_total{{op=save}} parses back "
+          f"from the Prometheus text ({n_saves})")
+    out["exports"] = {
+        "chrome_events": len(doc["traceEvents"]), "train_step_spans":
+            n_steps, "checkpoint_save_spans": len(saves),
+        "checkpoint_load_spans": len(loads), "prometheus_bytes": len(text),
+        "prometheus_samples": len(parsed),
+        "checkpoint_total_save": n_saves,
+        "goodput": {"wall_s": wall, "buckets": row["buckets"],
+                    "booked_over_wall": booked / wall,
+                    "goodput": row["goodput"]}}
+
+    # (f) training overhead: three trainers, one a mode, stepped in turns --
+    trainers = {}
+    for mode, flags in RUNTIME_MODES.items():
+        set_mode(*flags)
+        trainers[mode] = trainer()[1]
+        step(trainers[mode], batches[0])     # warm-up (trace: counted)
+    train_ms = {mode: [] for mode in RUNTIME_MODES}
+    order = list(RUNTIME_MODES)
+    for r in range(RUNTIME_OVERHEAD_ROUNDS):
+        for mode in (order if r % 2 == 0 else order[::-1]):
+            set_mode(*RUNTIME_MODES[mode])
+            train_ms[mode].append(step(trainers[mode], batches[r % 6])[1])
+    del trainers
+    torch.cuda.empty_cache()
+
+    # (e) + (f) the engine: three engines, one a mode, stepped in turns ---
+    model = gpt2_model(GPT2_SMALL_CFG, 0, dev)
+    prng = np.random.RandomState(0)
+    lens = [int(prng.randint(32, 128)) for _ in range(SERVE_REQUESTS)]
+    prompts = [prng.randint(0, V, (n,)).astype(np.int32) for n in lens]
+    engines, rids, eng_ms = {}, {}, {}
+    for mode, flags in RUNTIME_MODES.items():
+        set_mode(*flags)
+        engines[mode] = ServingEngine(model, max_batch=SERVE_SLOTS,
+                                      dtype="bfloat16")
+        # a warm-up request first: the process's first calls at these
+        # shapes pay one-time costs (one step of ~0.5 s on an H100)
+        engines[mode].submit(prompts[0], max_new_tokens=2)
+        engines[mode].run_until_complete()
+    trace.clear()
+    for mode, flags in RUNTIME_MODES.items():
+        set_mode(*flags)
+        rids[mode] = [engines[mode].submit(p, max_new_tokens=SERVE_NEW)
+                      for p in prompts]
+        eng_ms[mode] = []
+    n = 0
+    while any(e.has_work() for e in engines.values()):
+        for mode in (order if n % 2 == 0 else order[::-1]):
+            eng = engines[mode]
+            if not eng.has_work():
+                continue
+            set_mode(*RUNTIME_MODES[mode])
+            t = time.perf_counter()
+            eng.step()
+            eng_ms[mode].append((time.perf_counter() - t) * 1e3)
+        n += 1
+    toks = {mode: [list(engines[mode].get_request(r).output_ids)
+                   for r in rids[mode]] for mode in RUNTIME_MODES}
+    check(toks["off"] == toks["defaults"] == toks["trace_goodput"],
+          "runtime_services (e): the engine's tokens are bit-equal with "
+          "every flag off, the defaults and trace + goodput")
+    on = engines["trace_goodput"]
+    bd = on.stats()["breakdown"]
+    kinds = bd["kinds"]
+    decode = [k for k in kinds if k.startswith("decode")]
+    check("prefill" in kinds and decode and all(
+        kinds[k].get("device_flops_total", 0) > 0
+        for k in ["prefill"] + decode),
+          f"runtime_services (e): breakdown holds prefill and decode with "
+          f"device_flops_total ({kinds})")
+    traced = [on.get_request(r) for r in rids["trace_goodput"]]
+    by_trace = {}
+    for sp in trace.spans():
+        by_trace.setdefault(sp.trace_id, set()).add(sp.name)
+    check(all(r.stats()["trace_id"] and {"request", "queue_wait",
+                                         "prefill", "decode"}
+              <= by_trace.get(r.trace_id, set()) for r in traced),
+          "runtime_services (e): every request has its trace_id and its "
+          "request, queue_wait, prefill and decode spans")
+    new_tokens = SERVE_REQUESTS * SERVE_NEW
+    overhead = {
+        "train_step_ms": {m: {"median": statistics.median(v),
+                              "min": min(v), "max": max(v), "all": v}
+                          for m, v in train_ms.items()},
+        "engine_new_tok_per_s": {
+            m: {"all_steps": new_tokens / (sum(v) / 1e3),
+                "step_ms_median": statistics.median(v),
+                "step_ms_min": min(v), "step_ms_max": max(v),
+                "steps": len(v)}
+            for m, v in eng_ms.items()}}
+    # the costs from the medians (a step's time wanders with the host; a
+    # mode's total carries its outliers)
+    o_train = (overhead["train_step_ms"]["defaults"]["median"]
+               / overhead["train_step_ms"]["off"]["median"] - 1)
+    o_engine = (overhead["engine_new_tok_per_s"]["defaults"]["step_ms_median"]
+                / overhead["engine_new_tok_per_s"]["off"]["step_ms_median"]
+                - 1)
+    overhead["defaults_cost"] = {"train_step_ms_median": o_train,
+                                 "engine_step_ms_median": o_engine}
+    check(o_train <= RUNTIME_OVERHEAD_MAX and o_engine <= RUNTIME_OVERHEAD_MAX,
+          f"runtime_services (f): the defaults cost at most "
+          f"{RUNTIME_OVERHEAD_MAX:.0%} (training {o_train:+.2%}, engine "
+          f"{o_engine:+.2%})")
+    out["overhead"] = overhead
+    out["engine"] = {"breakdown": bd, "spans": len(trace.spans()),
+                     "requests_traced": len(traced)}
+    del engines, on
+
+    # (e) serving/slot=error:1 ends one request; the others keep the plain
+    # tokens
+    set_mode(True, True, False)
+    eng = ServingEngine(model, max_batch=SERVE_SLOTS, dtype="bfloat16")
+    rs = [eng.submit(p, max_new_tokens=SERVE_NEW) for p in prompts]
+    for _ in range(SERVE_NEW // 2):     # the first wave mid-decode
+        eng.step()
+    with failpoints.scoped("serving/slot=error:1"):
+        eng.step()
+    eng.run_until_complete()
+    got = [eng.get_request(r) for r in rs]
+    errs = [i for i, r in enumerate(got) if r.finish_reason == "error"]
+    check(len(errs) == 1 and all(
+        list(r.output_ids) == toks["off"][i]
+        for i, r in enumerate(got) if i not in errs),
+          f"runtime_services (e): serving/slot=error:1 ends one request "
+          f"({errs}) and the other {len(got) - len(errs)} keep the plain "
+          f"drain's tokens")
+    out["engine"]["slot_error"] = {"errored": errs,
+                                   "tokens_equal_plain": len(got) - 1}
+    set_mode(True, False, False)            # the defaults again
+    trace.clear()
+    drop_gpt2_models()
+    counts = _read_kernel_counts()
+    for kind in ("fwd", "dq", "dkv", "delta"):
+        check(counts.get(f"flash_{kind}:bfloat16", 0) > 0,
+              f"runtime_services: flash_{kind} launched on the phase's "
+              f"training path ({counts})")
+    out["wall_s"] = time.perf_counter() - t_phase
+    emit({"phase": "runtime_services", "batch": B, "seq": S,
+          "dtype": "bfloat16 auto_cast", "optimizer": "AdamW lr 1e-4",
+          "modes": {m: dict(zip(("monitor", "trace", "goodput"), f))
+                    for m, f in RUNTIME_MODES.items()}, **out,
+          "main_path_launches": counts})
+    return counts
+
+
 def train_recipes(dev):
     """The rest of GPT training (optimizer.lr, nn.clip, SpmdTrainer's
     recompute and gradient merge, amp.GradScaler): the narrow recipe against
@@ -3734,6 +4134,9 @@ def main():
           "flash_routes": flash_routes_checked("training path"),
           "tpp_routes": tpp_routes_checked("training path")})
 
+    # ---- 4b2. runtime services in the trainer and the engine --------------
+    counts_runtime = runtime_services(dev)
+
     # ---- 4c. PP-YOLOE detection serving; 4d. the TPP row primitives -----
     det_path = serve_detector(dev, gen)
     rows_path = call_row_primitives(randn)
@@ -3853,6 +4256,7 @@ def main():
 
         by_path = {"gpt_serve": count(counts_serve),
                    "gpt_train": count(counts_train),
+                   "runtime_services": count(counts_runtime),
                    "detect_serve": count(counts_detect),
                    "detect_anchors_nms": count(counts_anchors),
                    "tpp_rows": count(counts_rows),

@@ -46,9 +46,32 @@ What differs from the reference:
   than ``FLAGS_max_skip_steps`` consecutive skips raise FloatingPointError
   from the step that makes the streak too long.
 - ``stats()`` times each step on the host clock without a device sync, as
-  the reference does without FLAGS_benchmark; its cost-registry keys
-  (``flops_per_step``, ``hbm``, ``peak_flops``, ``mfu``) are None until the
-  cost registry is ported.
+  the reference does without FLAGS_benchmark. Its cost-registry keys come
+  from trace/costs.py: with ``FLAGS_trace`` on, the first step of each
+  batch signature runs under the FLOP counter (``costs.count``; the same
+  ops and kernels, so bit-equal results) and files its FLOPs, bytes and
+  memory under ``site="trainer"``, as the reference records its compiled
+  step's cost analysis under the same condition. That step's wall time is
+  kept out of ``step_ms_total`` (the reference keeps compile time out of
+  it), and ``mfu`` = flops / (``step_ms_avg`` × ``costs.peak_flops()``).
+
+Runtime services, as in the reference: ``step_latency_ms{site=trainer}``
+and ``train_step_skipped_total{reason}`` (monitor); a ``train_step`` span
+a step (subsystem ``trainer``; trace) and a ``guard/skip`` span a skipped
+update; the ``trainer/step`` failpoint before the step and the
+``trainer/batch`` transform on the batch (``scale:F`` multiplies the float
+inputs only); the ``step`` goodput bucket (FLAGS_goodput, read at
+construction); a ``weight_version`` (framework/lineage.py) bumped each
+step; ``state_dict`` / ``set_state_dict`` over ``gather_train_state`` /
+``restore_train_state`` with the reference's ``CHECKPOINT_SCHEMA`` payload
+plus ``buffers``, ``shard_specs`` recording the one-device layout, the
+learning-rate scheduler's state riding along (the trainer takes no
+GradScaler, as in the reference: its state is ``GradScaler.state_dict()``).
+The reference's ``compile_ms`` and ``benchmark_sync_total`` have no
+counterpart (nothing compiles; no FLAGS_benchmark). With dropout, the
+port's generator is stateful and not in the checkpoint (the reference
+derives each step's key from the step count), so a resumed run draws
+other masks; at dropout 0 a resume is bit-exact.
 
 Only one device: a mesh other than None or one device, ZeRO stages,
 tensor-parallel specs, localsgd, DGC, compressed data parallelism
@@ -66,9 +89,60 @@ from torch.utils import checkpoint as _checkpoint
 from torch.utils._python_dispatch import _disable_current_modes as _no_modes
 
 from .. import flags as _flags
+from .. import monitor as _monitor
+from .. import trace as _trace
 from ..amp.auto_cast import auto_cast, disabled as _autocast_off
 from ..core import generator as _generator
+from ..framework import lineage as _lineage
 from ..optimizer.optimizer import Optimizer
+from ..testing import failpoints as _failpoints
+from ..trace import costs as _costs
+
+#: The checkpoint edge: the train-state tree gather_train_state writes
+#: and restore_train_state re-places (the reference's CHECKPOINT_SCHEMA,
+#: the same payload keys; state_dict() adds ``buffers``).
+CHECKPOINT_SCHEMA = {
+    "edge": "checkpoint_state",
+    "producer": "paddle_tpu_torch/distributed/spmd.py::gather_train_state",
+    "consumer": "paddle_tpu_torch/distributed/spmd.py::restore_train_state",
+    "runtime_checked": False,
+    "doc": "host snapshot of the train state; shard_specs records the "
+           "one-device layout that wrote it; __weight_version__ stamps "
+           "the writer's weight lineage",
+    "payload": {
+        "params": {"kind": "opaque",
+                   "layout": "{param_name: host tensor}"},
+        "opt_state": {"kind": "opaque",
+                      "layout": "{param_name: {moment: host tensor}} + "
+                                "__step__"},
+        "optimizer_step_count": {"kind": "scalar", "dtype": "int"},
+        "lr_scheduler": {"kind": "opaque",
+                         "layout": "scheduler state_dict or None"},
+        "shard_specs": {"kind": "opaque",
+                        "layout": "writer topology metadata: {v, mode, "
+                                  "ndp, dp_axis, shard_update, quantized, "
+                                  "sharding_stage, params: {name: {shape, "
+                                  "size}}, shard_ps, sharded_keys, "
+                                  "qar_eligible} or None"},
+        "__weight_version__": {"kind": "opaque",
+                               "layout": "{run_id, counter, origin} "
+                                         "weight-version lineage stamp "
+                                         "(framework/lineage.py) or "
+                                         "absent — a pre-version "
+                                         "checkpoint restores as "
+                                         "version 0"},
+    },
+}
+
+_STEP_MS = _monitor.histogram(
+    "step_latency_ms",
+    "Executor.run / train_step wall time (host dispatch; device-complete "
+    "when FLAGS_benchmark=1 forces a sync)", labelnames=("site",))
+_SKIPPED = _monitor.counter(
+    "train_step_skipped_total",
+    "updates skipped by the FLAGS_check_nan_inf non-finite guard (params/"
+    "optimizer state left bit-identical; > FLAGS_max_skip_steps "
+    "consecutive skips raise)", labelnames=("reason",))
 
 _aten = torch.ops.aten
 #: the matmul ops a ``dots`` policy saves; those with batch dimensions
@@ -114,6 +188,99 @@ def _concat_outputs(parts):
     if isinstance(first, dict):
         return {k: _concat_outputs([p[k] for p in parts]) for k in first}
     return first
+
+
+def _batch_sig_label(batch):
+    """The reference's batch-signature label: ``dtype[d0,d1]|...``."""
+    return "|".join(
+        f"{str(t.dtype).replace('torch.', '')}"
+        f"[{','.join(str(d) for d in t.shape)}]" for t in batch) or "-"
+
+
+def _validate_state_keys(what, got, expected):
+    missing = sorted(set(expected) - set(got))
+    unexpected = sorted(set(got) - set(expected))
+    if missing or unexpected:
+        raise ValueError(
+            f"checkpoint {what} mismatch — missing: {missing or 'none'}, "
+            f"unexpected: {unexpected or 'none'} (stale checkpoint for a "
+            "changed model?)")
+
+
+def _host(t):
+    """An independent host copy of a tensor."""
+    return t.detach().to("cpu", copy=True)
+
+
+def gather_train_state(params, opt_state, optimizer, layout=None,
+                       weight_version=None):
+    """Host-side {params, opt_state, optimizer_step_count, lr_scheduler,
+    shard_specs[, __weight_version__]} snapshot (CHECKPOINT_SCHEMA):
+    independent CPU copies of every tensor."""
+    lr = optimizer._lr
+    out = {
+        "params": {k: _host(v) for k, v in params.items()},
+        "opt_state": {
+            pname: (_host(st) if pname == "__step__"
+                    else {k: _host(v) for k, v in st.items()})
+            for pname, st in opt_state.items()},
+        "optimizer_step_count": int(optimizer._step_count),
+        "lr_scheduler": (lr.state_dict()
+                         if hasattr(lr, "state_dict") else None),
+        "shard_specs": layout,
+    }
+    if weight_version is not None:
+        out["__weight_version__"] = weight_version.to_dict()
+    return out
+
+
+@torch.no_grad()
+def _copy_into(dst, src, what):
+    """Copy a checkpoint tensor into a live one, bit for bit: the shape
+    and the dtype must match."""
+    src = torch.as_tensor(src)
+    if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
+        raise ValueError(
+            f"checkpoint {what}: {src.dtype} {tuple(src.shape)} does not "
+            f"match the live {dst.dtype} {tuple(dst.shape)}")
+    dst.copy_(src)
+
+
+def restore_train_state(state, params, opt_state, optimizer, layout=None):
+    """Put a gather_train_state snapshot into the live train state: the
+    params are copied in place (they are the layer's own tensors), the
+    optimizer state's entries are replaced by device copies (an update
+    may widen a moment past its initial dtype), and the step counter and
+    the LR scheduler are restored. Key mismatches fail fast with names.
+    A snapshot written under another layout (``shard_specs`` of a sharded
+    or compressed writer) raises: cross-topology restore is not ported
+    (one device)."""
+    src = state.get("shard_specs")
+    if src is not None and layout is not None and (
+            src.get("mode") != layout["mode"] or src.get("sharded_keys")
+            or src.get("qar_eligible")):
+        raise NotImplementedError(
+            f"restoring a checkpoint written under layout mode "
+            f"{src.get('mode')!r} with sharded or quantized state is not "
+            "ported yet (cross-topology resharding; the port runs on one "
+            "device)")
+    _validate_state_keys("params", state["params"], params)
+    _validate_state_keys("opt_state", state["opt_state"], opt_state)
+    for k, v in state["params"].items():
+        _copy_into(params[k], v, f"params[{k!r}]")
+    device = opt_state["__step__"].device
+    for pname, st in state["opt_state"].items():
+        if pname == "__step__":
+            opt_state[pname] = torch.as_tensor(st).to(device, copy=True)
+            continue
+        _validate_state_keys(f"opt_state[{pname!r}]", st, opt_state[pname])
+        opt_state[pname] = {k: torch.as_tensor(v).to(device, copy=True)
+                            for k, v in st.items()}
+    optimizer._step_count = int(state.get("optimizer_step_count", 0))
+    lr = optimizer._lr
+    if state.get("lr_scheduler") and hasattr(lr, "set_state_dict"):
+        lr.set_state_dict(state["lr_scheduler"])
+    return params, opt_state
 
 
 def _one_device(mesh):
@@ -193,7 +360,23 @@ class SpmdTrainer:
         self._nonfinite_streak = 0   # consecutive skipped steps
         self._nonfinite_total = 0    # lifetime skipped steps (stats())
         self._step_count = 0
-        self._step_ms_sum = 0.0
+        self._step_ms_sum = 0.0      # steps not under the FLOP counter
+        self._counted_steps = 0      # steps run under the FLOP counter
+        self._last_sig = None        # batch-sig label of the last step
+        self._cost_entries = {}      # THIS trainer's sig -> cost entry
+        self._step_span = None
+        # weight-version lineage (framework/lineage.py): host metadata,
+        # bumped each step and on restore, stamped into checkpoints
+        self.weight_version = _lineage.WeightVersion(
+            _lineage.new_run_id(), 0, "init")
+        # goodput accountant (FLAGS_goodput), consumed at construction;
+        # disarmed, every hook is one `is not None`
+        self._goodput = None
+        if _flags.get_flag("goodput", False):
+            from ..monitor import goodput as _goodput
+
+            _goodput.ensure_run(self.weight_version.run_id)
+            self._goodput = _goodput
 
     def _forward_loss(self, batch):
         """(loss, outputs): outputs is the layer's output with a
@@ -278,8 +461,64 @@ class SpmdTrainer:
         """One step: forward and backward of each micro-batch, then the
         (guarded) update. Returns the loss, the micro-batches' mean, as a
         detached fp32 tensor."""
+        if self._goodput is not None:
+            with self._goodput.bucket("step"):
+                return self._train_step_impl(batch)
+        return self._train_step_impl(batch)
+
+    def _train_step_impl(self, batch):
+        _failpoints.failpoint("trainer/step")
         t_step = time.perf_counter()
         batch = [self._to_device(b) for b in batch]
+        # value-transforming failpoint (scale:F): one boolean check when
+        # nothing is armed
+        batch = _failpoints.transform("trainer/batch", batch)
+        sig = _batch_sig_label(batch)
+        self._last_sig = sig
+        # the first step of each batch signature runs under the FLOP
+        # counter while tracing (the reference records its compiled
+        # step's cost analysis under the same condition)
+        counter = _costs.count(self._device) \
+            if _trace._ENABLED[0] and sig not in self._cost_entries \
+            else None
+        self._step_span = _trace.start_span(
+            "train_step", subsystem="trainer", sig=sig,
+            step=int(self.optimizer._step_count),
+            guarded=bool(_flags.get_flag("check_nan_inf", False)),
+            counted=counter is not None,
+            weight_version=str(self.weight_version))
+        try:
+            with counter if counter is not None else \
+                    contextlib.nullcontext():
+                loss = self._step_body(batch)
+        except BaseException:
+            if self._step_span is not None:
+                self._step_span.end(error=True)
+                self._step_span = None
+            raise
+        if counter is not None:
+            self._cost_entries[sig] = _costs.record(
+                "trainer", sig, counter.flops, counter.bytes_accessed,
+                counter.memory)
+        # the params this step produced are a new weight state (a skipped
+        # update included, as in the reference)
+        self.weight_version = self.weight_version.bump("step")
+        step_ms = (time.perf_counter() - t_step) * 1e3
+        if _monitor.is_enabled():
+            _STEP_MS.labels(site="trainer").observe(step_ms)
+        self._step_count += 1
+        if counter is not None:
+            self._counted_steps += 1
+        else:
+            self._step_ms_sum += step_ms
+        sp = self._step_span
+        if sp is not None:
+            sp.end(step_ms=step_ms)
+            self._step_span = None
+            _trace.add_counter_sample("trainer_step_ms", step_ms)
+        return loss
+
+    def _step_body(self, batch):
         for p in self.params.values():
             p.grad = None
         guard = _flags.get_flag("check_nan_inf", False)
@@ -322,8 +561,6 @@ class SpmdTrainer:
             self.optimizer._step_count += 1
         for p in self.params.values():
             p.grad = None
-        self._step_count += 1
-        self._step_ms_sum += (time.perf_counter() - t_step) * 1e3
         return loss
 
     @staticmethod
@@ -340,6 +577,11 @@ class SpmdTrainer:
         the consecutive streak passes FLAGS_max_skip_steps."""
         self._nonfinite_streak += 1
         self._nonfinite_total += 1
+        _SKIPPED.labels(reason="nonfinite").inc()
+        if _trace.is_enabled():
+            with _trace.span("guard/skip", subsystem="trainer",
+                             step=int(self.optimizer._step_count)):
+                pass
         max_skip = int(_flags.get_flag("max_skip_steps", 3))
         if self._nonfinite_streak > max_skip:
             raise FloatingPointError(
@@ -349,21 +591,98 @@ class SpmdTrainer:
                 "skipped step left parameters and optimizer state "
                 "untouched; inspect the data pipeline / learning rate")
 
+    # -- checkpoint / resume --------------------------------------------
+    def _checkpoint_layout(self):
+        """The ``shard_specs`` leaf: this trainer's one-device layout in
+        the reference's form (pure data, so it pickles through
+        framework/io.py)."""
+        return {
+            "v": 1,
+            "mode": "plain",
+            "ndp": 1,
+            "dp_axis": None,
+            "shard_update": False,
+            "quantized": False,
+            "sharding_stage": 0,
+            "params": {k: {"shape": [int(d) for d in v.shape],
+                           "size": int(v.numel())}
+                       for k, v in self.params.items()},
+            "shard_ps": {},
+            "sharded_keys": {},
+            "qar_eligible": [],
+        }
+
+    def state_dict(self):
+        """Host-side checkpoint of the FULL train state — params, buffers,
+        optimizer moments, step counters, LR-scheduler state, the layout
+        and the weight version. ``framework.io.save(trainer.state_dict(),
+        path)`` + ``set_state_dict(framework.io.load(path))`` resumes bit
+        for bit."""
+        state = gather_train_state(self.params, self.opt_state,
+                                   self.optimizer,
+                                   layout=self._checkpoint_layout(),
+                                   weight_version=self.weight_version)
+        state["buffers"] = {k: _host(v) for k, v in self.buffers.items()}
+        return state
+
+    def set_state_dict(self, state):
+        """Restore a state_dict() checkpoint into the live tensors (on the
+        trainer's device, in place). Key, shape or dtype mismatches fail
+        fast with names. The restored ``__weight_version__`` (absent: a
+        pre-version checkpoint, counter 0) re-joins this trainer's lineage
+        at ``max(live, loaded) + 1`` with origin ``restore``."""
+        with (self._goodput.bucket("ckpt_restore")
+              if self._goodput is not None else contextlib.nullcontext()):
+            restore_train_state(state, self.params, self.opt_state,
+                                self.optimizer,
+                                layout=self._checkpoint_layout())
+            _validate_state_keys("buffers", state.get("buffers", {}),
+                                 self.buffers)
+            for k, v in state.get("buffers", {}).items():
+                _copy_into(self.buffers[k], v, f"buffers[{k!r}]")
+        loaded = _lineage.WeightVersion.from_dict(
+            state.get("__weight_version__"),
+            run_id=self.weight_version.run_id)
+        self.weight_version = _lineage.WeightVersion(
+            self.weight_version.run_id,
+            max(self.weight_version.counter, loaded.counter) + 1,
+            "restore")
+
     def stats(self):
-        """Step counts and host wall time (no device sync), plus the
-        non-finite guard's counters. The cost-registry keys are None (no
-        cost registry in the port yet)."""
+        """Trainer observability snapshot: step counts and host wall time
+        (no device sync) joined with the cost registry into an MFU
+        estimate.
+
+        ``mfu`` = the step's FLOPs (counted under ``site="trainer"`` for
+        this batch signature, FLAGS_trace on) / (``step_ms_avg`` seconds ×
+        ``costs.peak_flops()``); ``step_ms_total`` / ``step_ms_avg`` leave
+        out the steps run under the FLOP counter. None until a step has
+        run outside the counter and the registry holds this signature."""
+        entry = (self._cost_entries.get(self._last_sig)
+                 or _costs.get("trainer", self._last_sig)
+                 if self._last_sig else None)
         n = self._step_count
+        timed = n - self._counted_steps
+        avg_ms = self._step_ms_sum / timed if timed else None
+        flops = entry.get("flops") if entry else None
+        peak = _costs.peak_flops(self._device)
+        mfu = None
+        if flops and avg_ms and peak:
+            mfu = float(flops) / ((avg_ms / 1e3) * peak)
         return {
             "steps": n,
             "step_ms_total": self._step_ms_sum,
-            "step_ms_avg": self._step_ms_sum / n if n else None,
-            "flops_per_step": None,
-            "hbm": None,
-            "peak_flops": None,
-            "mfu": None,
+            "step_ms_avg": avg_ms,
+            "batch_sig": self._last_sig,
+            "flops_per_step": flops,
+            "hbm": ({k: entry[k] for k in ("peak_bytes", "argument_bytes",
+                                           "output_bytes", "temp_bytes")
+                     if k in entry} if entry else None),
+            "peak_flops": peak,
+            "mfu": mfu,
             "breakdown": {
                 "nonfinite_skipped_total": self._nonfinite_total,
                 "nonfinite_streak": self._nonfinite_streak,
             },
+            "device_memory": _costs.sample_device_memory(),
         }

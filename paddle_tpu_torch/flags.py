@@ -4,11 +4,35 @@ Ports paddle_tpu/flags.py: the same define_flag / get_flag / set_flags /
 get_flags semantics (FLAGS_xxx environment seeding, an error on a
 conflicting re-definition, provisional entries made by set_flags before a
 flag is defined), with only the flags the ported serving and training
-paths read.
+paths read. As in the reference, the runtime services define their own
+flags where they live (``monitor``, ``trace``, ``testing.failpoints``,
+``trace.costs``); ``goodput`` is defined here so that hook sites can read
+it without importing monitor/goodput.py.
+
+Flags of modules not ported yet are refused: ``set_flags`` raises
+NotImplementedError when one of them is set to a true value (and the
+monitor package raises at import when the environment arms one).
 """
 import os
 
 _REGISTRY = {}
+
+#: flags whose module is not ported yet -> what is missing
+NOT_PORTED = {
+    "blackbox": "monitor/blackbox.py (the flight recorder)",
+    "numerics": "monitor/numerics.py (the numerics telescope)",
+    "perf_ledger": "monitor/perfledger.py (the perf ledger)",
+    "jit_cache_dir": "framework/aot.py (the persistent AOT compile cache)",
+}
+
+
+def refuse_unported(name, value):
+    """Raise NotImplementedError when `value` arms a flag of a module that
+    is not ported yet."""
+    if value and name in NOT_PORTED:
+        raise NotImplementedError(
+            f"FLAGS_{name} is not ported yet (it needs "
+            f"{NOT_PORTED[name]})")
 
 
 def define_flag(name, default, help_str=""):
@@ -47,6 +71,7 @@ def set_flags(flags):
     """Set flags by name (with or without the FLAGS_ prefix)."""
     for k, v in flags.items():
         k = k[6:] if k.startswith("FLAGS_") else k
+        refuse_unported(k, v)
         if k not in _REGISTRY:
             _REGISTRY[k] = {"value": v, "default": v, "help": "",
                             "provisional": True}
@@ -107,3 +132,24 @@ define_flag("async_dispatch", False,
             "paged engines keep the synchronous step. The trainer half "
             "(SpmdTrainer's lazy StepHandle) is not ported: SpmdTrainer "
             "raises NotImplementedError at construction while it is set")
+define_flag("goodput", False,
+            "goodput ledger + weight-version lineage metrics "
+            "(monitor/goodput.py): a per-run wall-clock accountant "
+            "classifies every second into exclusive buckets {step, "
+            "compile, ckpt_save, ckpt_restore, reshard, resume_backoff, "
+            "stall, edge_wait, other} via hooks in the trainer's step, "
+            "framework/io, CheckpointSaver and set_state_dict — published "
+            "as goodput_seconds_total{bucket} + goodput_fraction. Also "
+            "gates the serving lineage families (serving_weight_version / "
+            "serving_stale_sessions_total). Host-side accounting only: "
+            "armed and disarmed runs train bit-identically. Unset, "
+            "monitor/goodput.py is never imported and every hook is one "
+            "flag read. The reference's perf-ledger row per run is not "
+            "ported (FLAGS_perf_ledger raises)")
+define_flag("goodput_stall_s", 2.0,
+            "with FLAGS_goodput: an unattributed gap (no bucket active) "
+            "at least this many seconds books as `stall`; shorter gaps "
+            "book as `other` (loop/bookkeeping overhead)")
+for _name in NOT_PORTED:
+    define_flag(_name, "" if _name == "jit_cache_dir" else False,
+                f"not ported yet: needs {NOT_PORTED[_name]}")

@@ -17,16 +17,26 @@ Ports ``Model`` of paddle_tpu/hapi/model.py (:182: ``__init__``,
   network's device, and int32 / int16 / uint8 ones become int64, as
   ``distributed.SpmdTrainer`` moves a batch.
 
+``save`` / ``load`` (:322-345) go through framework/io: the network's
+``state_dict()`` to ``<path>.pdparams`` and the optimizer's to
+``<path>.pdopt``; ``load`` takes the path with or without ``.pdparams``,
+puts the tensors on the network's device, and restores the optimizer
+unless ``reset_optimizer`` (or there is no ``.pdopt``).
+
 Not ported yet (NotImplementedError, naming what is missing):
 ``use_jit=True`` (the compiled adapter), ``prepare(metrics=...)``
-(``metric/``), ``prepare(amp_configs=...)``, and ``fit``, ``evaluate``,
-``predict``, ``save``, ``load``, ``summary`` and ``flops`` (they need
-``io.DataLoader``, ``callbacks``, ``framework/io`` and the model summary).
+(``metric/``), ``prepare(amp_configs=...)``, ``save(training=False)``
+(``jit/``), and ``fit``, ``evaluate``, ``predict``, ``summary`` and
+``flops`` (they need ``io.DataLoader``, ``callbacks`` and the model
+summary).
 """
+import os
+
 import numpy as np
 import torch
 
 from ..amp.auto_cast import disabled as _autocast_off
+from ..framework import io as _io
 
 
 def _to_list(x):
@@ -146,11 +156,30 @@ class Model:
     def predict(self, *args, **kwargs):
         _not_ported("predict", "io.DataLoader and hapi.callbacks")
 
-    def save(self, *args, **kwargs):
-        _not_ported("save", "framework/io")
+    def save(self, path, training=True):
+        """hapi/model.py:1043 parity: the training state (parameters and
+        buffers, and the optimizer's) under `path`; ``training=False``
+        (an inference program) needs ``jit/``."""
+        if not training:
+            _not_ported("save(training=False)", "jit/ (jit.save)")
+        _io.save(self.network.state_dict(), path + ".pdparams")
+        if self._optimizer is not None:
+            _io.save(self._optimizer.state_dict(), path + ".pdopt")
 
-    def load(self, *args, **kwargs):
-        _not_ported("load", "framework/io")
+    def load(self, path, skip_mismatch=False, reset_optimizer=False):
+        """Load a :meth:`save` (`path` with or without ``.pdparams``)
+        onto the network's device; ``skip_mismatch`` loads the keys that
+        match and ignores the rest."""
+        base = path[:-len(".pdparams")] if path.endswith(".pdparams") \
+            else path
+        dev = self._adapter._device()
+        state = _io.load(base + ".pdparams", device=dev)
+        self.network.load_state_dict(state, strict=not skip_mismatch)
+        opt_path = base + ".pdopt"
+        if not reset_optimizer and self._optimizer is not None \
+                and os.path.exists(opt_path):
+            self._optimizer.set_state_dict(_io.load(opt_path, device=dev))
+        return self
 
     def summary(self, *args, **kwargs):
         _not_ported("summary", "hapi/model_summary.py")

@@ -1,6 +1,7 @@
 """Incubating APIs (ports paddle_tpu/incubate/): LoRA fine-tuning
-(``lora``). The reference's auto-checkpoint, segment reductions, readers,
+(``lora``) and auto-checkpoint (``checkpoint``: ``CheckpointSaver``,
+``TrainEpochRange``). The reference's segment reductions, readers,
 optimizers and contrib layers are not ported."""
-from . import lora
+from . import checkpoint, lora
 
-__all__ = ["lora"]
+__all__ = ["checkpoint", "lora"]

@@ -63,10 +63,36 @@ same), and ``prompt_buckets`` is validated as the reference validates it.
 ``cache_dtype="int8"`` or ``"fp8"`` keeps the dense cache quantized as the
 decode model's ``decode_fns`` lays it out (GPT: each side a (values,
 scales) pair; ``cache_spec()["quantized"]``); the paged engine refuses it,
-as the reference's does. Not ported, each raising
-``NotImplementedError``: ``tp_mesh`` and ``warmup``. Not ported at all:
-the reference's monitor counters, trace spans, blackbox recorder,
-failpoints, perf ledger, AOT cache and ``stats()["breakdown"]``.
+as the reference's does.
+
+Runtime services, as in the reference:
+- the ``serving_*`` / ``request_*`` metric families of the default
+  registry (monitor), every engine in the process sharing them;
+- tracing (FLAGS_trace): a ``request`` root span per request from submit
+  to its finish reason, with its ``trace_id`` (``Request.stats()
+  ["trace_id"]``; ``submit(trace_id=, parent_span=)`` joins a caller's
+  trace), a ``queue_wait`` child, ``admit`` / ``prefill`` /
+  ``prefill_chunk`` spans, a ``decode`` span a request a step (the batched
+  step's window), ``spec_draft`` / ``spec_verify`` and, on the async step,
+  ``dispatch/decode`` / ``dispatch/overlap`` / ``dispatch/fetch``. Spans
+  time the host: a window closing at the token read includes the device
+  work before it;
+- the ``serving/step``, ``serving/slot`` (an error finishes only that
+  slot's request with ``finish_reason="error"``) and ``serving/adapter``
+  failpoints;
+- ``stats()["breakdown"]``: each step kind's host wall ms and share of
+  the total; with FLAGS_trace on, each kind's FLOPs, counted once per call
+  shape under the FLOP counter (trace/costs.py) and kept per engine, so a
+  second engine in the process cannot bleed into this one's numbers:
+  ``flops_per_call``, ``device_flops_total``, and over all kinds
+  ``device_flops_per_sec`` and ``mfu`` against ``costs.peak_flops()``; on
+  the async step ``async_overlap``;
+- the lineage families ``serving_weight_version`` and
+  ``serving_stale_sessions_total`` under FLAGS_goodput.
+
+Not ported, each raising ``NotImplementedError``: ``tp_mesh`` and
+``warmup``. Not ported at all: the blackbox recorder (its facade is
+inert), the perf ledger and the AOT cache.
 """
 import time
 
@@ -74,10 +100,14 @@ import numpy as np
 import torch
 
 from .. import flags as _flags
+from .. import monitor as _monitor
+from .. import trace as _trace
 from ..framework import lineage as _lineage
 from ..serving import decode_model as _dm_registry
 from ..serving import paging as _paging
 from ..serving.decode_model import cache_leaves, cache_map, cast_params
+from ..testing import failpoints as _fp
+from ..trace import costs as _costs
 
 __all__ = ["ServingEngine", "Request", "QueueFullError"]
 
@@ -95,6 +125,53 @@ class _AdapterUnavailable(RuntimeError):
 
 def _not_ported(what):
     raise NotImplementedError(f"{what} is not ported yet")
+
+
+# engine metrics in the default registry (every engine in the process
+# shares them; per-engine views live on ServingEngine.stats())
+_REQ_SUBMITTED = _monitor.counter(
+    "serving_requests_submitted_total", "requests accepted by submit()")
+_REQ_FINISHED = _monitor.counter(
+    "serving_requests_finished_total",
+    "finished requests by reason (eos|length|capacity)",
+    labelnames=("reason",))
+_TOKENS = _monitor.counter(
+    "serving_tokens_total", "generated tokens across all requests")
+_QUEUE_WAIT_MS = _monitor.histogram(
+    "serving_queue_wait_ms", "submit() -> admission start wait")
+_TTFT_MS = _monitor.histogram(
+    "serving_ttft_ms", "submit() -> first generated token")
+_ITL_MS = _monitor.histogram(
+    "serving_inter_token_ms",
+    "gap between consecutive generated tokens of one request (a "
+    "speculative round lands its accepted run at once: near-zero gaps)")
+_STEPS = _monitor.counter(
+    "serving_steps_total",
+    "engine step slices by kind "
+    "(decode_greedy|decode_sample|prefill_chunk|speculative)",
+    labelnames=("kind",))
+_OCCUPANCY = _monitor.gauge(
+    "serving_batch_occupancy", "active decode slots at the last step()")
+_PREFIX = _monitor.counter(
+    "serving_prefix_cache_total",
+    "prefix-reuse admissions: hit = suffix-only prefill from cached KV, "
+    "miss = a prefix_id request that fell back to whole-prompt prefill",
+    labelnames=("event",))
+_SPEC = _monitor.counter(
+    "serving_spec_tokens_total",
+    "speculative decoding draft tokens (proposed vs accepted)",
+    labelnames=("event",))
+_SHED = _monitor.counter(
+    "request_shed_total",
+    "load-shedding on the bounded admission queue (queue_full = incoming "
+    "request rejected with QueueFullError; preempted = a lower-priority "
+    "queued request was finished with reason='shed' to admit a higher-"
+    "priority one)",
+    labelnames=("reason",))
+_DEADLINE = _monitor.counter(
+    "request_deadline_exceeded_total",
+    "requests finished with reason='deadline' (per-request deadline_ms "
+    "elapsed before completion)")
 
 
 def _as_ids(ids):
@@ -162,6 +239,11 @@ class Request:
         self.deadline_ms = deadline_ms      # None = no deadline
         self.priority = int(priority)       # higher outranks on a full queue
         self.output_ids = []                # generated tokens, no prompt
+        # tracing (FLAGS_trace): one trace_id per request; the root span
+        # lives submit() -> finish reason, queue_wait is its first child
+        self.trace_id = None
+        self._span = None
+        self._qspan = None
         self.finished = False
         # "eos" | "length" | "capacity" | "deadline" | "error" |
         # "cancelled" | "shed" | "engine_stalled"
@@ -197,6 +279,7 @@ class Request:
         """Per-request latency and throughput (ms), live at any point of
         the lifecycle."""
         out = {"rid": self.rid, "finished": self.finished,
+               "trace_id": self.trace_id,   # joins req stats to its spans
                "finish_reason": self.finish_reason,
                "prompt_tokens": int(len(self.prompt_ids)),
                "prefix_tokens": self.prefix_len,
@@ -376,10 +459,16 @@ class ServingEngine:
         # FLAGS_async_dispatch, read at construction: step() enqueues the
         # round's decode first and admits while the card computes
         self._async = bool(_flags.get_flag("async_dispatch", False))
+        self._async_ms = ({"dispatch_ms": 0.0, "overlap_ms": 0.0,
+                           "fetch_ms": 0.0, "rounds": 0}
+                          if self._async else None)
 
-        # engine-local accounting for stats()
+        # engine-local accounting for stats(): step_ms / flops by kind
+        # ([count, total]); FLOPs a call by (kind, call shape), counted
+        # once per shape while tracing
         self._m = {"submitted": 0, "finished": {}, "tokens": 0,
-                   "steps": {}, "spec_proposed": 0, "spec_accepted": 0,
+                   "steps": {}, "step_ms": {}, "flops": {},
+                   "spec_proposed": 0, "spec_accepted": 0,
                    "prefix_hit": 0, "prefix_miss": 0,
                    "occupancy_sum": 0, "occupancy_steps": 0,
                    "queue_wait_ms": _MsSummary(), "ttft_ms": _MsSummary(),
@@ -408,6 +497,15 @@ class ServingEngine:
         self._weight_version = _lineage.WeightVersion(
             _lineage.new_run_id(), 0, "init")
         self._adapter_versions = {}
+        self._flops_by_shape = {}
+        # the lineage metric families ride the goodput accountant,
+        # consumed here: disarmed costs one `is not None` per finish
+        self._goodput = None
+        if _flags.get_flag("goodput", False):
+            from ..monitor import goodput as _goodput
+
+            self._goodput = _goodput
+            _goodput.note_serving_version(self._weight_version.counter)
 
     # -- the decode math ----------------------------------------------------
     def _cache_row(self):
@@ -566,6 +664,7 @@ class ServingEngine:
                 f"adapter name must be a non-empty str, got {name!r}")
         if self._adapters.peek(name) is not None:
             raise ValueError(f"adapter {name!r} is already loaded")
+        _fp.failpoint("serving/adapter")
         # pack before claiming a slot: a malformed adapter leaves the
         # registry and the factors as they were
         packed = self._dm.lora_pack(self.cfg, exported, self._lora_rank)
@@ -585,6 +684,7 @@ class ServingEngine:
         adapter is loaded again). Returns the freed slot; KeyError for an
         unknown name."""
         self._require_adapters()
+        _fp.failpoint("serving/adapter")
         slot = self._adapters.evict(name)
         self._write_adapter_slot(slot, None)
         self._restart_adapter_sessions(name)
@@ -668,17 +768,91 @@ class ServingEngine:
             for k, v in params.items():
                 self._params[k].copy_(v)
         self._weight_version = self._weight_version.bump("hot_swap")
+        if self._goodput is not None:
+            self._goodput.note_serving_version(self._weight_version.counter)
         return self._weight_version
 
     def _count_step(self, kind):
         self._m["steps"][kind] = self._m["steps"].get(kind, 0) + 1
+        _STEPS.labels(kind=kind).inc()
+
+    def _acc_ms(self, kind, t0):
+        """Accumulate one step-kind slice's host wall time since `t0` for
+        stats()['breakdown']."""
+        self._acc_ms_value(kind, (time.perf_counter() - t0) * 1e3)
+
+    def _acc_ms_value(self, kind, ms):
+        st = self._m["step_ms"].setdefault(kind, [0, 0.0])
+        st[0] += 1
+        st[1] += ms
+
+    def _costed(self, kind, shape, fn):
+        """Run one device call of `kind` (``fn()``). While tracing, its
+        FLOPs are counted under the FLOP counter the first time this
+        engine meets the call shape `shape` (filed as ``site="serving"``,
+        ``sig="<kind>:<shape>"`` in the cost registry), and every call
+        adds its shape's count to this engine's total for the kind."""
+        if not _trace._ENABLED[0]:
+            return fn()
+        key = (kind, shape)
+        flops = self._flops_by_shape.get(key)
+        if flops is None:
+            with _costs.count(self._dev) as c:
+                out = fn()
+            flops = self._flops_by_shape[key] = c.flops
+            _costs.record("serving", f"{kind}:{shape}", c.flops,
+                          c.bytes_accessed, c.memory)
+        else:
+            out = fn()
+        st = self._m["flops"].setdefault(kind, [0, 0.0])
+        st[0] += 1
+        st[1] += flops
+        return out
+
+    def _breakdown(self):
+        """Step-time breakdown: host wall time per step kind joined with
+        THIS engine's FLOPs (FLAGS_trace on while the kind ran). Without
+        them the wall-time split stands on its own."""
+        total_ms = sum(st[1] for st in self._m["step_ms"].values())
+        kinds = {}
+        flops_total = 0.0
+        flops_known = False
+        for kind in sorted(self._m["step_ms"]):
+            count, ms = self._m["step_ms"][kind]
+            row = {"count": count, "wall_ms": ms,
+                   "wall_fraction": (ms / total_ms) if total_ms else 0.0}
+            calls, total = self._m["flops"].get(kind, (0, 0.0))
+            if calls:
+                row["flops_per_call"] = total / calls
+                row["device_flops_total"] = total
+                flops_total += total
+                flops_known = True
+            kinds[kind] = row
+        out = {"kinds": kinds, "wall_ms_total": total_ms}
+        if self._async_ms is not None:
+            # how much of the async rounds' wall time was dispatch, the
+            # overlapped admission window and the token fetch
+            a = dict(self._async_ms)
+            covered = a["dispatch_ms"] + a["overlap_ms"] + a["fetch_ms"]
+            a["dispatch_fraction"] = (
+                (a["dispatch_ms"] + a["overlap_ms"]) / covered
+                if covered else 0.0)
+            out["async_overlap"] = a
+        if flops_known:
+            out["device_flops_total"] = flops_total
+            peak = _costs.peak_flops(self._dev)
+            if total_ms > 0 and peak:
+                out["device_flops_per_sec"] = flops_total / (total_ms / 1e3)
+                out["mfu"] = out["device_flops_per_sec"] / peak
+        return out
 
     def stats(self):
         """Engine-lifetime snapshot from host-side accounting: requests by
         outcome, tokens, steps by kind, average batch occupancy, prefix
         hits, the speculative accept rate, queue-wait / TTFT / inter-token
-        summaries, health, the served weight version (and each loaded
-        adapter's), and on a paged engine the pool's ``paging`` block."""
+        summaries, the step-time ``breakdown``, health, the served weight
+        version (and each loaded adapter's), and on a paged engine the
+        pool's ``paging`` block."""
         m = self._m
         occ = (m["occupancy_sum"] / m["occupancy_steps"]
                if m["occupancy_steps"] else 0.0)
@@ -711,6 +885,7 @@ class ServingEngine:
             "queue_wait_ms": m["queue_wait_ms"].to_dict(),
             "ttft_ms": m["ttft_ms"].to_dict(),
             "inter_token_ms": m["inter_token_ms"].to_dict(),
+            "breakdown": self._breakdown(),
             "health": self.health(),
             "weight_version": str(self._weight_version),
         }
@@ -777,9 +952,10 @@ class ServingEngine:
 
     def _new_request(self, ids, max_new_tokens, temperature, top_k, top_p,
                      seed, prefix_id, prefix_len, deadline_ms, priority,
-                     adapter=None):
-        """An accepted request: its rid, submit time, version stamps and
-        the submission count."""
+                     adapter=None, trace_id=None, parent_span=None):
+        """An accepted request: its rid, submit time, version stamps, trace
+        spans (a caller's trace_id, and optionally its span as parent,
+        thread its spans through) and the submission count."""
         rid = self._next_rid
         self._next_rid += 1
         req = Request(rid, ids, max_new_tokens, temperature=temperature,
@@ -791,14 +967,26 @@ class ServingEngine:
         req.weight_version = self._weight_version
         if adapter is not None:
             req.adapter_version = self._adapter_versions.get(adapter)
+        if _trace._ENABLED[0]:
+            # every later span (queue-wait, prefill, per-step decode)
+            # parents back to this root span
+            req.trace_id = trace_id or _trace.new_trace_id()
+            req._span = _trace.start_span(
+                "request", subsystem="serving", trace_id=req.trace_id,
+                parent=parent_span, rid=rid, prompt_tokens=int(len(ids)),
+                prefix_tokens=prefix_len, priority=priority)
+            req._qspan = _trace.start_span(
+                "queue_wait", subsystem="serving", parent=req._span)
         if deadline_ms is not None:
             self._deadline_live += 1
         self._m["submitted"] += 1
+        _REQ_SUBMITTED.inc()
         return req
 
     def submit(self, prompt_ids, max_new_tokens=32, temperature=0.0,
                top_k=None, top_p=None, seed=None, prefix_id=None,
-               deadline_ms=None, priority=0, adapter=None):
+               deadline_ms=None, priority=0, trace_id=None,
+               parent_span=None, adapter=None):
         """Queue a prompt; returns the request id. temperature=0 (the
         default) decodes greedily; temperature > 0 samples (optionally
         top_k- and/or top_p-truncated) from a per-request stream (seed
@@ -809,7 +997,9 @@ class ServingEngine:
         FULL bounded queue (max_queue=) a strictly higher-priority arrival
         sheds the lowest-priority queued request (reason "shed");
         otherwise submit raises QueueFullError. adapter: the name of a
-        loaded LoRA adapter (paged engines); None = the base weights."""
+        loaded LoRA adapter (paged engines); None = the base weights.
+        trace_id / parent_span: a caller's trace the request's spans join
+        (FLAGS_trace)."""
         if self._draining:
             raise RuntimeError(
                 "ServingEngine is draining — not accepting new requests "
@@ -860,7 +1050,9 @@ class ServingEngine:
             if victim_idx is not None \
                     and self._queue[victim_idx].priority < priority:
                 self._finish_req(self._queue.pop(victim_idx), "shed")
+                _SHED.labels(reason="preempted").inc()
             else:
+                _SHED.labels(reason="queue_full").inc()
                 raise QueueFullError(
                     f"admission queue full ({len(self._queue)} queued "
                     f"+ {len(self._handoff)} handoff / {self._max_queue});"
@@ -868,13 +1060,15 @@ class ServingEngine:
                     "higher priority")
         req = self._new_request(ids, max_new_tokens, temperature, top_k,
                                 top_p, seed, prefix_id, prefix_len,
-                                deadline_ms, priority, adapter=adapter)
+                                deadline_ms, priority, adapter=adapter,
+                                trace_id=trace_id, parent_span=parent_span)
         self._queue.append(req)
         return req.rid
 
     def admit_prefilled(self, prompt_ids, kv_row, logits, max_new_tokens=32,
                         temperature=0.0, top_k=None, top_p=None, seed=None,
-                        deadline_ms=None, priority=0):
+                        deadline_ms=None, priority=0, trace_id=None,
+                        parent_span=None):
         """Prefill/decode disaggregation: admit a request whose prompt KV
         was prefilled elsewhere. ``kv_row`` is the (kc1, vc1) single-row
         cache pair of this engine's decode model (a
@@ -922,13 +1116,15 @@ class ServingEngine:
         # for good (ValueError), never as retryable backpressure
         if self._max_queue is not None \
                 and len(self._queue) + len(self._handoff) >= self._max_queue:
+            _SHED.labels(reason="queue_full").inc()
             raise QueueFullError(
                 f"admission queue full ({len(self._queue)} queued + "
                 f"{len(self._handoff)} handoff / {self._max_queue}); "
                 "handoff rejected — back off or target another engine")
         req = self._new_request(ids, max_new_tokens, temperature, top_k,
                                 top_p, seed, None, 0, deadline_ms,
-                                int(priority))
+                                int(priority), trace_id=trace_id,
+                                parent_span=parent_span)
         self._handoff.append([req, kc1, vc1, logits])
         return req.rid
 
@@ -946,9 +1142,23 @@ class ServingEngine:
         req.finished = True
         req.finish_reason = reason
         req.finish_time = time.perf_counter()
+        if req._qspan is not None:   # finished while still queued
+            req._qspan.end()
+            req._qspan = None
+        if req._span is not None:
+            req._span.end(finish_reason=reason,
+                          new_tokens=len(req.output_ids))
+            req._span = None
         if req.deadline_ms is not None:
             self._deadline_live -= 1
         self._m["finished"][reason] = self._m["finished"].get(reason, 0) + 1
+        _REQ_FINISHED.labels(reason=reason).inc()
+        if (self._goodput is not None and req.weight_version is not None
+                and req.weight_version.counter
+                < self._weight_version.counter):
+            # finished under weights older than those served now (a
+            # hot_swap landed mid-stream): once per stale finish
+            self._goodput.note_stale_session()
         self._finished[req.rid] = req
         if slot is not None:
             self._slot_req[slot] = None
@@ -1030,13 +1240,16 @@ class ServingEngine:
         for req in [r for r in self._queue if overdue(r)]:
             self._queue.remove(req)
             self._finish_req(req, "deadline")
+            _DEADLINE.inc()
         for entry in [e for e in self._handoff if overdue(e[0])]:
             self._handoff.remove(entry)
             self._finish_req(entry[0], "deadline")
+            _DEADLINE.inc()
         for slot in range(self.B):
             req = self._slot_req[slot]
             if req is not None and overdue(req):
                 self._finish_req(req, "deadline", slot=slot)
+                _DEADLINE.inc()
 
     # -- admission ----------------------------------------------------------
     def _activate(self, slot, req, kc1, vc1, logits, draft_caches=None):
@@ -1083,6 +1296,10 @@ class ServingEngine:
         req.admit_time = time.perf_counter()
         wait_ms = (req.admit_time - req.submit_time) * 1e3
         self._m["queue_wait_ms"].add(wait_ms)
+        _QUEUE_WAIT_MS.observe(wait_ms)
+        if req._qspan is not None:
+            req._qspan.end(wait_ms=wait_ms)
+            req._qspan = None
 
     def _admit_one(self, slot, req):
         if self._paged:
@@ -1103,17 +1320,24 @@ class ServingEngine:
             end = prefix_len + -(-(n - prefix_len) // C) * C
             if end <= self.T:
                 self._m["prefix_hit"] += 1
+                _PREFIX.labels(event="hit").inc()
+                sp = None if req._span is None else _trace.start_span(
+                    "admit", subsystem="serving", parent=req._span,
+                    slot=slot, prefix="hit", prefix_tokens=prefix_len)
                 copies = [None if c is None else cache_map(torch.clone, c)
                           for c in self._prefixes[req.prefix_id][1:]]
                 self._slot_req[slot] = req
                 self._prefilling[slot] = [req, copies[0], copies[1],
                                           prefix_len, C, copies[2],
                                           copies[3]]
+                if sp is not None:
+                    sp.end()
                 return
             # else: whole-prompt prefill (the reference's chunk schedule
             # would write past max_seq_len)
         if req.prefix_len:   # wanted prefix reuse, got a full recompute
             self._m["prefix_miss"] += 1
+            _PREFIX.labels(event="miss").inc()
         n_chunks_end = 0 if self._chunk is None else \
             -(-n // self._chunk) * self._chunk
         if self._chunk is not None and n_chunks_end <= self.T:
@@ -1124,14 +1348,28 @@ class ServingEngine:
             self._prefilling[slot] = [req, *self._cache_row(), 0,
                                       self._chunk, *rows_d]
             return
-        kc1, vc1 = self._cache_row()
-        logits = self._logits1(self._prefill_cols(req.prompt_ids, 0, kc1,
-                                                  vc1))
-        draft_caches = None
-        if draft:
-            draft_caches = self._draft_row()
-            self._draft_feed(req.prompt_ids, 0, *draft_caches)
-        self._activate(slot, req, kc1, vc1, logits, draft_caches)
+        t0 = time.perf_counter()
+        sp = None if req._span is None else _trace.start_span(
+            "prefill", subsystem="serving", parent=req._span, slot=slot,
+            tokens=n)
+        try:
+            kc1, vc1 = self._cache_row()
+            logits = self._costed("prefill", n, lambda: self._logits1(
+                self._prefill_cols(req.prompt_ids, 0, kc1, vc1)))
+            draft_caches = None
+            if draft:
+                draft_caches = self._draft_row()
+                self._draft_feed(req.prompt_ids, 0, *draft_caches)
+            self._activate(slot, req, kc1, vc1, logits, draft_caches)
+        except BaseException:
+            # the failing admission's span is recorded too (step()
+            # finishes the request with reason "error")
+            if sp is not None:
+                sp.end(error=True)
+            raise
+        self._acc_ms("prefill", t0)
+        if sp is not None:
+            sp.end()
 
     def _admit_one_paged(self, slot, req):
         """Reserve the session's WHOLE block budget first — a pool that
@@ -1151,41 +1389,72 @@ class ServingEngine:
                     "mid-flight?) — the request waits at the queue head "
                     "for a reload")
         n = len(req.prompt_ids)
-        shared = ()
+        shared, cow = (), False
         prefix_len = req.prefix_len
         entry = self._prefixes.get(req.prefix_id) if prefix_len else None
         if entry is not None and entry[2] == req.adapter:
             # may raise PagePoolFullError while bringing cold pages back —
             # before reserve(), so backpressure changes nothing
             shared = self._pool.prefix_frames(req.prefix_id)
+            cow = bool(shared) and prefix_len % self._pool.bs != 0
         self._pool.reserve(slot, min(self.T, n + req.max_new_tokens),
-                           shared_frames=shared)
+                           shared_frames=shared, cow=cow)
         if prefix_len:   # counted once the reservation holds
             ev = "hit" if shared else "miss"
             self._m[f"prefix_{ev}"] += 1
+            _PREFIX.labels(event=ev).inc()
         self._note_admission(req)
-        kc1, vc1 = self._cache_row()
-        logits = self._logits1(self._prefill_cols(req.prompt_ids, 0, kc1,
-                                                  vc1, aid=aid))
-        self._activate(slot, req, kc1, vc1, logits)
+        t0 = time.perf_counter()
+        sp = None if req._span is None else _trace.start_span(
+            "prefill", subsystem="serving", parent=req._span, slot=slot,
+            tokens=n, paged=True)
+        try:
+            kc1, vc1 = self._cache_row()
+            logits = self._costed("prefill", (n, bool(aid)), lambda: (
+                self._logits1(self._prefill_cols(req.prompt_ids, 0, kc1,
+                                                 vc1, aid=aid))))
+            self._activate(slot, req, kc1, vc1, logits)
+        except BaseException:
+            if sp is not None:
+                sp.end(error=True)
+            raise
+        self._acc_ms("prefill", t0)
+        if sp is not None:
+            sp.end()
 
     def _advance_prefill(self, slot):
         """Consume one chunk of a reserved slot's prompt (the draft's
         too); on the last chunk, activate the slot."""
         req, kc1, vc1, off, C, kc1d, vc1d = self._prefilling[slot]
         self._count_step("prefill_chunk")
+        t0 = time.perf_counter()
+        sp = None if req._span is None else _trace.start_span(
+            "prefill_chunk", subsystem="serving", parent=req._span,
+            slot=slot, offset=off, width=C)
         n = len(req.prompt_ids)
         end = min(off + C, n)
-        x_last = self._prefill_cols(req.prompt_ids[off:end], off, kc1, vc1)
-        if self._draft is not None:
-            self._draft_feed(req.prompt_ids[off:end], off, kc1d, vc1d)
-        if end >= n:
-            del self._prefilling[slot]
-            self._slot_req[slot] = None   # _activate re-binds
-            self._activate(slot, req, kc1, vc1, self._logits1(x_last),
-                           None if self._draft is None else (kc1d, vc1d))
-        else:
-            self._prefilling[slot] = [req, kc1, vc1, end, C, kc1d, vc1d]
+        try:
+            x_last = self._costed(
+                "prefill_chunk", end - off, lambda: self._prefill_cols(
+                    req.prompt_ids[off:end], off, kc1, vc1))
+            if self._draft is not None:
+                self._draft_feed(req.prompt_ids[off:end], off, kc1d, vc1d)
+            if end >= n:
+                del self._prefilling[slot]
+                self._slot_req[slot] = None   # _activate re-binds
+                self._activate(slot, req, kc1, vc1, self._logits1(x_last),
+                               None if self._draft is None
+                               else (kc1d, vc1d))
+            else:
+                self._prefilling[slot] = [req, kc1, vc1, end, C, kc1d,
+                                          vc1d]
+        except BaseException:
+            if sp is not None:   # record the failing chunk's span too
+                sp.end(error=True)
+            raise
+        self._acc_ms("prefill_chunk", t0)
+        if sp is not None:
+            sp.end(consumed=end)
 
     def _advance_and_admit(self):
         """Advance every chunked prefill in flight ONE chunk, then admit
@@ -1209,7 +1478,9 @@ class ServingEngine:
                     req, kc1, vc1, logits = self._handoff.pop(0)
                     try:
                         self._note_admission(req)
+                        t0 = time.perf_counter()
                         self._activate(slot, req, kc1, vc1, logits)
+                        self._acc_ms("handoff_admit", t0)
                     except Exception:
                         self._finish_req(req, "error", slot=slot)
                         self._note_error()
@@ -1235,9 +1506,18 @@ class ServingEngine:
     def _dispatch_decode(self, active):
         """Enqueue ONE decode for every slot at its own position (inactive
         rows ride along: their rows are don't-care until the next
-        admission); returns the tokens [B] on the device, not yet read."""
+        admission); returns (the tokens [B] on the device, not yet read,
+        the step kind)."""
         sampled = [s for s in active if self._temps[s] > 0]
         kind = "decode_sample" if sampled else "decode_greedy"
+        with_lora = self._paged and self._lora is not None \
+            and bool(self._adapter_slot.any())
+        toks = self._costed(kind, (self.B, with_lora),
+                            lambda: self._decode(sampled, with_lora))
+        self._count_step(kind)
+        return toks, kind
+
+    def _decode(self, sampled, with_lora):
         last = torch.as_tensor(self._last, device=self._dev).long()
         pos = torch.as_tensor(self._pos, device=self._dev).long()
         p = self._params
@@ -1245,7 +1525,7 @@ class ServingEngine:
             pool = self._pool
             tables = pool.tables_device()
             lora = {}
-            if self._lora is not None and self._adapter_slot.any():
+            if with_lora:
                 # a step of base rows only skips the products: they add
                 # exact zeros
                 lora = {"lora": self._lora, "adapter_ids": torch.as_tensor(
@@ -1256,18 +1536,25 @@ class ServingEngine:
         else:
             x = self._fwd(p, last[:, None], pos, self._kc, self._vc)
         logits = self._logits_of(p, x[:, 0]).float()
-        toks = self._pick(logits, sampled, self._temps, self._topk,
+        return self._pick(logits, sampled, self._temps, self._topk,
                           self._topp, self._seeds, self._pos)
-        self._count_step(kind)
-        return toks
 
-    def _apply_decode(self, active, next_toks):
+    def _apply_decode(self, active, next_toks, kind, t0_ns, t1_ns):
+        """Emit one fetched round's tokens slot by slot; a per-slot
+        failure finishes only that slot's request (reason "error"). Each
+        request's ``decode`` span gets the batched step's window."""
         for s in active:
             req = self._slot_req[s]
             try:
+                _fp.failpoint("serving/slot")
                 self._pos[s] += 1
                 self._last[s] = next_toks[s]
                 req.output_ids.append(int(next_toks[s]))
+                if req._span is not None:
+                    _trace.emit("decode", t0_ns, t1_ns,
+                                subsystem="serving", parent=req._span,
+                                slot=s, pos=int(self._pos[s]),
+                                kind=kind, token=int(next_toks[s]))
                 self._after_emit(s, req)
             except Exception:
                 if self._slot_req[s] is not None:
@@ -1278,10 +1565,14 @@ class ServingEngine:
         now = time.perf_counter()
         gap_ms = req._note_token(now)
         self._m["tokens"] += 1
+        _TOKENS.inc()
         if gap_ms is None:  # first generated token: TTFT
-            self._m["ttft_ms"].add((now - req.submit_time) * 1e3)
+            ttft = (now - req.submit_time) * 1e3
+            self._m["ttft_ms"].add(ttft)
+            _TTFT_MS.observe(ttft)
         else:
             self._m["inter_token_ms"].add(gap_ms)
+            _ITL_MS.observe(gap_ms)
         if self.eos is not None and req.output_ids[-1] == self.eos:
             self._finish(slot, "eos")
         elif len(req.output_ids) >= req.max_new_tokens:
@@ -1308,6 +1599,8 @@ class ServingEngine:
     def _note_occupancy(self, active):
         self._m["occupancy_sum"] += len(active)
         self._m["occupancy_steps"] += 1
+        _OCCUPANCY.set(len(active))
+        _trace.add_counter_sample("serving_batch_occupancy", len(active))
 
     def step(self):
         """Advance chunked prefills, admit queued requests into free slots,
@@ -1316,6 +1609,7 @@ class ServingEngine:
         per-slot failures finish only that slot's request (reason
         "error"); a failure of the batched decode itself propagates."""
         with torch.no_grad():
+            _fp.failpoint("serving/step")
             if self._paged_active():
                 # cold-page sweep on the step cadence
                 self._pool.sweep()
@@ -1342,6 +1636,7 @@ class ServingEngine:
                         for s in active)):
             self._step_speculative(active)
             return
+        t0_ns = time.perf_counter_ns()
         if self._draft is not None:
             # a single-token step with a draft around: mirror the fed
             # token into the draft's cache, so later rounds see an intact
@@ -1351,8 +1646,11 @@ class ServingEngine:
                         .long()[:, None],
                         torch.as_tensor(self._pos, device=self._dev).long(),
                         self._kc_d, self._vc_d)
-        toks = self._dispatch_decode(active)
-        self._apply_decode(active, toks.cpu().numpy())
+        toks, kind = self._dispatch_decode(active)
+        next_toks = toks.cpu().numpy()
+        t1_ns = time.perf_counter_ns()
+        self._acc_ms_value(kind, (t1_ns - t0_ns) / 1e6)
+        self._apply_decode(active, next_toks, kind, t0_ns, t1_ns)
 
     def _step_async(self):
         """The async round: enqueue the decode of the slots active at
@@ -1365,10 +1663,33 @@ class ServingEngine:
         round on."""
         active = self._active()
         self._note_occupancy(active)
-        toks = self._dispatch_decode(active) if active else None
+        am = self._async_ms
+        am["rounds"] += 1
+        t0_ns = time.perf_counter_ns()
+        dispatched = self._dispatch_decode(active) if active else None
+        t_disp_ns = time.perf_counter_ns()
+        am["dispatch_ms"] += (t_disp_ns - t0_ns) / 1e6
         self._advance_and_admit()
-        if toks is not None:
-            self._apply_decode(active, toks.cpu().numpy())
+        t_ov_ns = t1_ns = time.perf_counter_ns()
+        am["overlap_ms"] += (t_ov_ns - t_disp_ns) / 1e6
+        if dispatched is not None:
+            toks, kind = dispatched
+            next_toks = toks.cpu().numpy()   # the round's one host sync
+            t1_ns = time.perf_counter_ns()
+            am["fetch_ms"] += (t1_ns - t_ov_ns) / 1e6
+            # the kind's slice is the dispatch and fetch windows; the
+            # overlapped admissions book their own kinds
+            self._acc_ms_value(
+                kind, (t_disp_ns - t0_ns + t1_ns - t_ov_ns) / 1e6)
+            self._apply_decode(active, next_toks, kind, t0_ns, t1_ns)
+        if _trace._ENABLED[0]:
+            _trace.emit("dispatch/decode", t0_ns, t_disp_ns,
+                        subsystem="serving", slots=len(active))
+            _trace.emit("dispatch/overlap", t_disp_ns, t_ov_ns,
+                        subsystem="serving")
+            if dispatched is not None:
+                _trace.emit("dispatch/fetch", t_ov_ns, t1_ns,
+                            subsystem="serving")
 
     def _step_speculative(self, active):
         """One speculative round for the active (greedy) slots: spec_k
@@ -1380,38 +1701,73 @@ class ServingEngine:
         self._count_step("speculative")
         K = self._spec_k
         dev = self._dev
+        t0_ns = time.perf_counter_ns()
         last = torch.as_tensor(self._last, device=dev).long()
         pos = torch.as_tensor(self._pos, device=dev).long()
         pd = self._params_d
-        d_cur = last
-        props = []
-        for j in range(K):
-            xd = self._fwd_d(pd, d_cur[:, None], pos + j, self._kc_d,
-                             self._vc_d)
-            d_cur = torch.argmax(self._logits_d(pd, xd[:, 0]).float(), -1)
-            props.append(d_cur)
-        # the K-th proposal's KV too: an all-accepted round continues past
-        # that column
-        self._fwd_d(pd, d_cur[:, None], pos + K, self._kc_d, self._vc_d)
-        props = torch.stack(props, dim=1)                        # [B, K]
-        seq = torch.cat([last[:, None], props], dim=1)
-        x = self._fwd(self._params, seq, pos, self._kc, self._vc)
-        preds = torch.argmax(self._logits_of(self._params, x).float(), -1)
-        m = torch.cumprod((props == preds[:, :K]).long(), dim=1).sum(1)
-        fix = preds.gather(1, m[:, None])
-        j_idx = torch.arange(K + 1, device=dev)[None]
-        emit = torch.where(j_idx < m[:, None],
-                           torch.nn.functional.pad(props, (0, 1)), fix)
-        host = torch.cat([emit, m[:, None]], dim=1).cpu().numpy()
+
+        def propose():
+            d_cur = last
+            props = []
+            for j in range(K):
+                xd = self._fwd_d(pd, d_cur[:, None], pos + j, self._kc_d,
+                                 self._vc_d)
+                d_cur = torch.argmax(self._logits_d(pd, xd[:, 0]).float(),
+                                     -1)
+                props.append(d_cur)
+            # the K-th proposal's KV too: an all-accepted round continues
+            # past that column
+            self._fwd_d(pd, d_cur[:, None], pos + K, self._kc_d, self._vc_d)
+            return torch.stack(props, dim=1)                     # [B, K]
+
+        def verify(props):
+            seq = torch.cat([last[:, None], props], dim=1)
+            x = self._fwd(self._params, seq, pos, self._kc, self._vc)
+            preds = torch.argmax(self._logits_of(self._params, x).float(),
+                                 -1)
+            m = torch.cumprod((props == preds[:, :K]).long(), dim=1).sum(1)
+            fix = preds.gather(1, m[:, None])
+            j_idx = torch.arange(K + 1, device=dev)[None]
+            emit = torch.where(j_idx < m[:, None],
+                               torch.nn.functional.pad(props, (0, 1)), fix)
+            return torch.cat([emit, m[:, None]], dim=1)
+
+        t_draft = [t0_ns]
+
+        def round_():
+            props = propose()
+            t_draft[0] = time.perf_counter_ns()
+            return verify(props)
+
+        host = self._costed("speculative", (self.B, K),
+                            round_).cpu().numpy()
+        t_draft_ns = t_draft[0]
+        t1_ns = time.perf_counter_ns()
+        self._acc_ms_value("speculative", (t1_ns - t0_ns) / 1e6)
+        if _trace._ENABLED[0]:
+            _trace.emit("spec_draft", t0_ns, t_draft_ns,
+                        subsystem="serving", slots=len(active), k=K)
+            _trace.emit("spec_verify", t_draft_ns, t1_ns,
+                        subsystem="serving", slots=len(active))
         emit, m = host[:, :K + 1], host[:, K + 1]
-        self._m["spec_proposed"] += K * len(active)
-        self._m["spec_accepted"] += int(sum(int(m[s]) for s in active))
+        proposed = K * len(active)
+        accepted = int(sum(int(m[s]) for s in active))
+        self._m["spec_proposed"] += proposed
+        self._m["spec_accepted"] += accepted
+        _SPEC.labels(event="proposed").inc(proposed)
+        _SPEC.labels(event="accepted").inc(accepted)
         for s in active:
             req = self._slot_req[s]
             try:
+                _fp.failpoint("serving/slot")
                 toks = emit[s, :int(m[s]) + 1]
                 old_pos = int(self._pos[s])
                 self._last[s] = int(toks[-1])
+                if req._span is not None:
+                    _trace.emit("decode", t0_ns, t1_ns,
+                                subsystem="serving", parent=req._span,
+                                slot=s, pos=old_pos, kind="speculative",
+                                accepted=int(m[s]), emitted=len(toks))
                 for i, t in enumerate(toks):
                     # pos advances per token, so _after_emit decides at
                     # the state the single-token engine would have

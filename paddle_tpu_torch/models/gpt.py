@@ -992,11 +992,13 @@ class GPTDecodeModel(_decode_model.DecodeModel):
         return {"qkv": (h, (Hh + 2 * KVh) * hd), "proj": (h, h),
                 "fc1": (h, inner), "fc2": (inner, h)}
 
-    def lora_init(self, cfg, n_slots, rank, dtype=None, device="cpu"):
+    def lora_init(self, cfg, n_slots, rank, dtype=None, device=None):
         """The stacked factors of n_slots adapters, all zero: {"scale":
         fp32 [S], kind: {"A": [S, L, din, rank], "B": [S, L, rank,
-        dout]}} in `dtype` (None = fp32) on `device`."""
+        dout]}} in `dtype` (None = fp32) on `device` (``cuda`` unless the
+        caller passes another)."""
         dt = dtype or torch.float32
+        device = resolve_device(device)
         L = cfg.num_layers
         pack = {"scale": torch.zeros((n_slots,), dtype=torch.float32,
                                      device=device)}

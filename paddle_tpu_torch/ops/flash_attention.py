@@ -22,7 +22,14 @@ caller passes it. ``flash_attention`` is a
 q, k, v, o and lse, and its backward returns dq, dk, dv in q's dtype. Its
 forward launches on the card through the custom op
 ``paddle_tpu_torch::flash_fwd``, which a selective checkpoint sees as one
-op (the trainer's ``everything`` recompute policy keeps its outputs).
+op (the trainer's ``everything`` recompute policy keeps its outputs), and
+its backward through ``paddle_tpu_torch::flash_bwd``. Both ops carry flop
+formulas (``torch.utils.flop_counter``) for the cost registry
+(trace/costs.py): 4·d a key-query pair forward, 6·d dQ and 8·d dK/dV
+(the backward recomputes the scores in both kernels), the pairs counted
+as the mask keeps them (s² a head; s(s+1)/2 causal; fewer in a window).
+The inference fast path also launches through the op while a dispatch
+mode (the FLOP counter) is active, so that it is counted too.
 
 A tensor on a CUDA device launches the kernel or raises; a tensor on the
 CPU takes the plain version, ``flash_attention_ref`` forward and
@@ -39,6 +46,8 @@ import operator
 from typing import Optional
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import flags as _flags
 from ..amp.auto_cast import disabled as _autocast_off
@@ -432,11 +441,54 @@ def _(q, k, v, causal, scale, window):
             q.new_empty((B * H, S), dtype=torch.float32))
 
 
+@torch.library.custom_op("paddle_tpu_torch::flash_bwd", mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                  causal: bool, scale: float, window: Optional[int]
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward's C call (pre-pass, dQ, dK/dV) as one op that the
+    dispatcher, and so the FLOP counter, sees."""
+    return _launch_bwd(q, k, v, o, lse, do, causal, scale, window)
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, o, lse, do, causal, scale, window):
+    return q.new_empty(q.shape), q.new_empty(q.shape), q.new_empty(q.shape)
+
+
+def _pairs(s, causal, window):
+    """Key-query pairs a head keeps: s², s(s+1)/2 causal, and under a
+    window W the last W keys of each query."""
+    if not causal:
+        return s * s
+    w = s if window is None else min(int(window), s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+@register_flop_formula(torch.ops.paddle_tpu_torch.flash_fwd)
+def _flash_fwd_flops(q, k, v, causal, scale, window, *args, **kwargs):
+    B, S, H, D = q
+    return 4 * D * _pairs(S, causal, window) * B * H
+
+
+@register_flop_formula(torch.ops.paddle_tpu_torch.flash_bwd)
+def _flash_bwd_flops(q, k, v, o, lse, do, causal, scale, window, *args,
+                     **kwargs):
+    B, S, H, D = q
+    return (6 + 8) * D * _pairs(S, causal, window) * B * H
+
+
+def _counting():
+    """Is a dispatch mode (the FLOP counter of trace/costs.py) active?"""
+    return _get_current_dispatch_mode() is not None
+
+
 class _FlashAttention(torch.autograd.Function):
     """The reference's ``_flash`` custom_vjp: forward saves (q, k, v, o,
     lse), backward runs the dQ and dK/dV kernels (or their plain version
     on the CPU). On the card the forward launches through the custom op
-    ``paddle_tpu_torch::flash_fwd``."""
+    ``paddle_tpu_torch::flash_fwd``, the backward through
+    ``paddle_tpu_torch::flash_bwd``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
@@ -460,8 +512,8 @@ class _FlashAttention(torch.autograd.Function):
         b, _, h, _ = q.shape
         with _autocast_off():
             if q.is_cuda:
-                return (*_launch_bwd(q, k, v, o, lse, do, ctx.causal,
-                                     ctx.scale, ctx.window), None, None)
+                return (*_flash_bwd_op(q, k, v, o, lse, do, ctx.causal,
+                                       ctx.scale, ctx.window), None, None)
             grads = flash_attention_bwd_ref(
                 _heads(q), _heads(k), _heads(v), _heads(o), lse, _heads(do),
                 ctx.causal, ctx.scale, window=ctx.window)
@@ -495,7 +547,9 @@ def flash_attention(q, k, v, causal=False, window=None):
     if q.is_cuda and not (torch.is_grad_enabled() and (
             q.requires_grad or k.requires_grad or v.requires_grad)):
         # inference: the kernel without the autograd Function around it,
-        # which costs the host time per call
-        return _launch(q, k, v, causal, 1.0 / math.sqrt(q.shape[-1]),
-                       window)[0]
+        # which costs the host time per call (through the op while the
+        # FLOP counter watches)
+        launch = _flash_fwd_op if _counting() else _launch
+        return launch(q, k, v, causal, 1.0 / math.sqrt(q.shape[-1]),
+                      window)[0]
     return _FlashAttention.apply(q, k, v, causal, window)

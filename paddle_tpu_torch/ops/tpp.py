@@ -31,7 +31,9 @@ Both run with autocast off, so an enclosing bf16 autocast never turns
 that fp32 math into bf16 products. ``matmul`` alone has no backward, as
 in the reference. The Functions' forwards launch on the card through the
 custom op ``paddle_tpu_torch::tpp_matmul``, which a selective checkpoint
-sees as one op.
+sees as one op, and which carries a flop formula (2·M·N·K) for the cost
+registry (trace/costs.py); the inference path launches through it too
+while a dispatch mode (the FLOP counter) is active.
 
 A tensor on a CUDA device launches the kernel or raises; each public
 entry first copies what its kernel cannot read as it is (a strided
@@ -57,6 +59,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import _get_current_dispatch_mode
+from torch.utils.flop_counter import register_flop_formula
 
 from ..amp.auto_cast import disabled as _autocast_off
 from . import _build
@@ -263,8 +267,11 @@ def _run(x, w, bias, in_act, act, gamma=None, beta=None):
     if x.is_cuda:
         if w.stride(0) != 1 and w.stride(1) != 1:
             w = w.contiguous()
-        return _launch(_contiguous(x), w, _contiguous(bias), in_act, act,
-                       _contiguous(gamma), _contiguous(beta))
+        # through the op while the FLOP counter (a dispatch mode) watches
+        launch = _tpp_matmul_op if _get_current_dispatch_mode() is not None \
+            else _launch
+        return launch(_contiguous(x), w, _contiguous(bias), in_act, act,
+                      _contiguous(gamma), _contiguous(beta))
     with _autocast_off():
         return _matmul_ref(x, w, bias, in_act, act, gamma, beta)
 
@@ -283,6 +290,15 @@ def _tpp_matmul_op(x: torch.Tensor, w: torch.Tensor,
 @_tpp_matmul_op.register_fake
 def _(x, w, bias, in_act, act, gamma, beta):
     return x.new_empty((x.shape[0], w.shape[1]))
+
+
+@register_flop_formula(torch.ops.paddle_tpu_torch.tpp_matmul)
+def _tpp_matmul_flops(x, w, *args, **kwargs):
+    """2·M·N·K for the cost registry (trace/costs.py); the LN prologue,
+    the activations and the bias count 0, as aten's addmm formula counts
+    them."""
+    (m, k), (_, n) = x, w
+    return 2 * m * k * n
 
 
 def _run_fwd(x, w, bias, in_act, act, gamma=None, beta=None):

@@ -30,9 +30,10 @@ The protocol:
     Tensor-parallel serving; not ported (they raise).
 ``cache_spec(cfg)``
     A description of the cache pair (layout, axes, quantized or not).
-``lora_init(cfg, n_slots, rank, dtype=None, device="cpu")``, ``lora_pack``
+``lora_init(cfg, n_slots, rank, dtype=None, device=None)``, ``lora_pack``
     Multi-LoRA batched decode: the zeroed stacked factors of n_slots
-    adapters, and one exported adapter laid out as one slot of them (the
+    adapters (on ``device``: ``cuda`` unless the caller passes another),
+    and one exported adapter laid out as one slot of them (the
     base class raises: the engine then serves base requests only).
 ``matches(model)``
     True when this adapter serves ``model`` (used by :func:`resolve`).
@@ -88,7 +89,7 @@ class DecodeModel:
         return {"kind": "kv_pair", "layout": "adapter-defined",
                 "quantized": None}
 
-    def lora_init(self, cfg, n_slots, rank, dtype=None):
+    def lora_init(self, cfg, n_slots, rank, dtype=None, device=None):
         raise NotImplementedError(
             f"decode model {self.name!r} does not support multi-LoRA "
             "serving")

@@ -19,10 +19,12 @@ paddle_tpu/analysis/handoff_schema.py that checks a payload at runtime
 Workers and engines share adapter, config, dtype and cache_dtype: the pool
 builds both sides from one model. Prefill runs at the prompt's own length
 (the reference pads to ``prompt_buckets`` and validates them; so does the
-port, without the padding), on the model's device. Not ported: the
-reference's monitor counters, trace spans and AOT cache, and its MPMD
-stage edge (``FLAGS_mpmd``, ``compress=``), which raise
-``NotImplementedError``.
+port, without the padding), on the model's device. As in the reference,
+each hand-off counts ``kv_handoff_total{event}`` (ok, error) and
+``kv_handoff_bytes_total`` (monitor) and, with FLAGS_trace, leaves a
+``kv_handoff`` span whose trace the engine's request joins. Not ported:
+the reference's AOT cache and its MPMD stage edge (``FLAGS_mpmd``,
+``compress=``), which raise ``NotImplementedError``.
 """
 import time
 
@@ -30,6 +32,8 @@ import numpy as np
 import torch
 
 from .. import flags as _flags
+from .. import monitor as _monitor
+from .. import trace as _trace
 from . import decode_model as _dm_registry
 
 __all__ = ["PrefillWorker", "DisaggregatedPool", "HANDOFF_SCHEMA",
@@ -63,6 +67,16 @@ HANDOFF_SCHEMA = {
 class HandoffMismatch(ValueError):
     """A payload that does not match its edge's schema; the message names
     the edge, the leaf and the field that differs."""
+
+
+_KV_BYTES = _monitor.counter(
+    "kv_handoff_bytes_total",
+    "bytes of prefilled KV rows handed from prefill workers to decode "
+    "engines (disaggregated serving)")
+_KV_HANDOFFS = _monitor.counter(
+    "kv_handoff_total",
+    "prefill->decode handoffs, by outcome",
+    labelnames=("event",))
 
 
 def _dtype_name(dt):
@@ -299,17 +313,30 @@ class DisaggregatedPool:
             worker = self.workers[self._next_worker % len(self.workers)]
             self._next_worker += 1
             eng = self.engines[name]
+            tid = _trace.new_trace_id() if _trace.is_enabled() else None
+            sp = None if tid is None else _trace.start_span(
+                "kv_handoff", subsystem="serving", trace_id=tid,
+                rid=rid, engine=name, prompt_tokens=int(len(ids)))
             try:
                 kv_row, logits = worker.prefill(ids)
                 nbytes = _dm_registry.cache_row_bytes(kv_row)
-                erid = eng.admit_prefilled(ids, kv_row, logits, **eng_kwargs)
+                erid = eng.admit_prefilled(ids, kv_row, logits,
+                                           trace_id=tid, parent_span=sp,
+                                           **eng_kwargs)
             except BaseException as exc:
                 # the popped request must not vanish with a failed
                 # hand-off: back at the head
                 self._pending.insert(0, (rid, ids, kwargs, t0))
+                if sp is not None:
+                    sp.end(error=True)
                 if isinstance(exc, QueueFullError):
                     return   # a bounded engine at capacity: retry later
+                _KV_HANDOFFS.labels(event="error").inc()
                 raise
+            if sp is not None:
+                sp.end(bytes=nbytes)
+            _KV_BYTES.inc(nbytes)
+            _KV_HANDOFFS.labels(event="ok").inc()
             self._m["handoffs"] += 1
             self._m["handoff_bytes"] += nbytes
             self._m["per_engine"][name] = \

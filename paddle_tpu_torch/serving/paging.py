@@ -28,18 +28,43 @@ Frames are PyTorch tensors on the engine's device, updated in place (the
 reference threads new arrays through its programs). The free list pops
 frame 1 first, as the reference's does, so the same operations give the
 same tables. ``AdapterRegistry`` keeps the named multi-LoRA adapter slots
-of the paged engine (LRU eviction, pinning). Not ported: the reference's
-handoff-schema validation of ``admit_row`` (it reads the analysis
-package) and its monitor counters.
+of the paged engine (LRU eviction, pinning). The reference's monitor
+counters count into the default registry: ``kv_page_blocks_total{state}``
+(hot: a frame allocated; cold: a frame compressed away),
+``kv_page_cow_total`` and ``serving_adapter_total{event}`` (load, evict,
+hit). Not ported: the reference's handoff-schema validation of
+``admit_row`` (it reads the analysis package).
 """
 import numpy as np
 import torch
 
+from .. import monitor as _monitor
 from ..core.device import resolve_device
 from ..distributed import compress as _compress
 
 __all__ = ["AdapterRegistry", "PagePool", "PagePoolFullError",
            "gather_dense", "scatter_cols"]
+
+
+# pool metrics in the default registry (process-wide, like the serving
+# counters; per-pool gauges live on PagePool.stats())
+_BLOCKS = _monitor.counter(
+    "kv_page_blocks_total",
+    "KV pool block transitions: hot = a frame allocated (admission, "
+    "prefix registration, cold-page decompression), cold = a frame "
+    "compressed to an int8 host page and freed",
+    labelnames=("state",))
+_COW = _monitor.counter(
+    "kv_page_cow_total",
+    "copy-on-write boundary blocks: a session admitted on a shared "
+    "prefix whose length is not block-aligned copies the partial block "
+    "to a private frame before writing its own tokens")
+_ADAPTER = _monitor.counter(
+    "serving_adapter_total",
+    "multi-LoRA adapter registry events (load = factors written into a "
+    "device slot, evict = LRU or explicit eviction freed a slot, hit = "
+    "a submitted request resolved an already-loaded adapter)",
+    labelnames=("event",))
 
 
 class PagePoolFullError(RuntimeError):
@@ -174,6 +199,8 @@ class PagePool:
         frames = [self._free.pop() for _ in range(n)]
         for f in frames:
             self.refs[f] = 1
+        if n:
+            _BLOCKS.labels(state="hot").inc(n)
         return frames
 
     def _deref(self, frame):
@@ -196,14 +223,14 @@ class PagePool:
                 2, 0, 1, 3, 4)
             pool[idx] = b[first:first + len(frames)].to(self.dtype)
 
-    def reserve(self, slot, n_cols, shared_frames=()):
+    def reserve(self, slot, n_cols, shared_frames=(), cow=False):
         """Reserve the slot's WHOLE block budget for a session spanning
         ``n_cols`` cache columns: leading table entries map to
         ``shared_frames`` (refcounted prefix blocks), the rest get private
         frames (a prefix's partial boundary block among them: the copy on
-        write). Raises :class:`PagePoolFullError` before any change when
-        the pool cannot cover the private part. The reference's ``cow``
-        argument only fed a monitor counter and is not ported."""
+        write, which ``cow=True`` counts in ``kv_page_cow_total``). Raises
+        :class:`PagePoolFullError` before any change when the pool cannot
+        cover the private part."""
         need = self.blocks_for(n_cols)
         n_shared = len(shared_frames)
         if n_shared > need:
@@ -220,6 +247,8 @@ class PagePool:
             self.tables[slot, n_shared + j] = f
         self._nres[slot] = need
         self._nshared[slot] = n_shared
+        if cow:
+            _COW.inc()
         return need
 
     def free_slot(self, slot):
@@ -326,6 +355,8 @@ class PagePool:
                 self._cold_pages += 1
                 self._cold_bytes += _cold_bytes(kq, ks, vq, vs)
                 compressed += 1
+        if compressed:
+            _BLOCKS.labels(state="cold").inc(compressed)
         return compressed
 
     # -- accounting -------------------------------------------------------
@@ -377,6 +408,7 @@ class AdapterRegistry:
         slot = self._slots.get(name)
         if slot is not None:
             self._touch(name)
+            _ADAPTER.labels(event="hit").inc()
         return slot
 
     def peek(self, name):
@@ -408,11 +440,13 @@ class AdapterRegistry:
                     "evict_adapter() one or raise max_adapters=")
             slot = self._slots.pop(victim)
             self._lru.remove(victim)
+            _ADAPTER.labels(event="evict").inc()
             evicted = victim
         self._slots[name] = slot
         if pin:
             self._pinned.add(name)
         self._touch(name)
+        _ADAPTER.labels(event="load").inc()
         return slot, evicted
 
     def evict(self, name):
@@ -424,6 +458,7 @@ class AdapterRegistry:
         if name in self._lru:
             self._lru.remove(name)
         self._free.append(slot)
+        _ADAPTER.labels(event="evict").inc()
         return slot
 
     def loaded(self):

@@ -1,4 +1,4 @@
-"""Tensor ops (ports paddle_tpu/tensor/): ``matmul``."""
-from .math import matmul
+"""Tensor ops (ports paddle_tpu/tensor/): ``matmul`` and ``trace``."""
+from .math import matmul, trace
 
-__all__ = ["matmul"]
+__all__ = ["matmul", "trace"]

@@ -1,4 +1,4 @@
-"""The matmul family's ``matmul``.
+"""The matmul family's ``matmul``, and ``trace``.
 
 Ports ``matmul`` of paddle_tpu/tensor/math.py (:320): ``x @ y`` with
 ``transpose_x`` / ``transpose_y`` swapping the last two dims of an
@@ -17,3 +17,7 @@ def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
     if transpose_y and y.ndim >= 2:
         y = y.transpose(-1, -2)
     return torch.matmul(*cast_inputs(x, y))
+
+
+def trace(x, offset=0, axis1=0, axis2=1, name=None):
+    return torch.diagonal(x, offset=offset, dim1=axis1, dim2=axis2).sum(-1)

@@ -1,2 +1,5 @@
-"""Shared inputs of the port's cross-checks (no counterpart in
-paddle_tpu/): the narrow GPT whose JAX outputs are committed as a fixture."""
+"""Test-support machinery that ships with the port (ports
+paddle_tpu/testing/): ``failpoints``, the registered fault-injection
+framework, and the shared inputs of the port's cross-checks (``golden``:
+the narrow GPT whose JAX outputs are committed as a fixture). The
+reference's ``parity`` harness is not ported."""

@@ -290,8 +290,10 @@ REFUSED = {
     "fit": (lambda: _prepared().fit(None), "DataLoader"),
     "evaluate": (lambda: _prepared().evaluate(None), "DataLoader"),
     "predict": (lambda: _prepared().predict(None), "DataLoader"),
-    "save": (lambda: _prepared().save("x"), "framework/io"),
-    "load": (lambda: _prepared().load("x"), "framework/io"),
+    "save": (lambda: _prepared().save("x", training=False), "jit/"),
+    "load": (lambda: pt.framework.io.load("x", device="cpu",
+                                          encryption_key="k"),
+             "framework/crypto.py"),
     "summary": (lambda: _prepared().summary(), "model_summary"),
     "flops": (lambda: hapi_model.flops(None), "model_summary"),
     "max_pool2d(return_mask=True)": (lambda: F.max_pool2d(

@@ -183,7 +183,7 @@ class TestLayers:
             for side in ("A", "B"):
                 jpack[kind][side] = jpack[kind][side].at[1].set(
                     jnp.asarray(slot[kind][side]))
-        tpack = tdm.lora_init(tm.cfg, 2, 4)
+        tpack = tdm.lora_init(tm.cfg, 2, 4, device="cpu")
         tpack["scale"][1] = slot["scale"]
         for kind in ("qkv", "proj", "fc1", "fc2"):
             for side in ("A", "B"):

@@ -682,7 +682,7 @@ class TestUnported:
                      lambda: dm.tp_setup(None, tm.cfg, {})):
             with pytest.raises(NotImplementedError, match="not ported"):
                 call()
-        pack = dm.lora_init(tm.cfg, 2, 4)
+        pack = dm.lora_init(tm.cfg, 2, 4, device="cpu")
         assert pack["qkv"]["A"].shape == (2, 2, 64, 4) and \
             not pack["fc2"]["B"].any()
         with pytest.raises(ValueError, match="lora_rank"):
