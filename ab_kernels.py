@@ -1,13 +1,13 @@
-"""Time the port's paged-attention kernel and its fp32 flash kernels
-for two or more checkouts of the repository in alternation, on one CUDA
-device.
+"""Time the port's kernels for two or more checkouts of the repository in
+alternation, on one CUDA device.
 
-    python3 ab_kernels.py [--rounds 2] DIR [DIR ...]
+    python3 ab_kernels.py [--rounds 2] [--cases main|wide_heads] DIR [DIR ...]
 
 Each DIR is the root of a checkout (it holds ``paddle_tpu_torch/``). In
 round r the checkouts run in order, reversed on every other round (A B B A
 for two checkouts and two rounds), each in a process of its own that
-imports the port from its DIR, builds its kernels and times:
+imports the port from its DIR, builds its kernels and times one table of
+cases (``CASES``). ``main`` (the default):
 
 - paged attention (``ops.tpp._paged_kernel_call``) at GPT-2 small's
   engine widths (8 rows, 12 heads, head dim 64, 16-column frames, 64
@@ -31,18 +31,40 @@ imports the port from its DIR, builds its kernels and times:
   the host clock around a synchronised call, median of 10 forwards after
   2 warm-ups and of 5 steps after 1.
 
+``wide_heads``: the flash kernels on their wide-head routes, causal, seq
+1024, in fp32 and bf16:
+
+- the streaming route (head_dim 576) at b1 h2 and b4 h16: the forward
+  (``ops.flash_attention._launch``), the backward as autograd runs it
+  (``_launch_bwd``: delta pre-pass, dQ, dK/dV in one C call) and the dQ
+  and dK/dV kernels alone (``_launch_dq``, ``_launch_dkv``), with a
+  sha256 of the backward's dq, dk and dv (two calls must agree);
+- the scalar route at b1 h2, head_dim 256 and 512: the forward where the
+  C entry picks the scalar kernel for it (bf16 at 256 takes the
+  tensor-core one, and is timed as what it is) and the backward;
+- beside each: the plain version (``flash_attention_ref``,
+  ``flash_attention_bwd_ref`` on [B*H, S, D] copies), and
+  ``torch.nn.functional.scaled_dot_product_attention`` on the same values
+  in [B, H, S, D], forward, and its backward through autograd (the three
+  grads), and the bound: the larger of the FLOPs (4 d a visible (q, k)
+  pair forward, 10 d backward) over 989 (bf16) or 67 (fp32) TFLOP/s and
+  each input and output once over 3.35 TB/s; every launch's route
+  (``flash_attention.routes``).
+
 Every input comes from seeded generators, the same in every process.
 Times as chip_smoke.py takes them: CUDA events around one call, median of
 20 after 3 warm-ups, 64 MB written between calls to flush L2; ``ms`` with
 the host's enqueue inside the window, ``device_ms`` after a ~0.5 ms
 device sleep that hides it. Prints one JSON line per process, then a
 summary line (median, min and max of every checkout's times, pooled over
-rounds, and the set of each checkout's digests), and the card's name and
-power limit. It imports neither jax nor the JAX package.
+rounds, the set of each checkout's digests, and the bounds and routes of
+its first round), and the card's name and power limit. It imports neither
+jax nor the JAX package.
 """
 import argparse
 import hashlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -51,15 +73,24 @@ import time
 
 SLEEP_CYCLES = 1_000_000
 LIVE_LENGTHS = (140, 143, 160, 163, 163, 105, 179, 117)
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+HBM_BYTES_PER_S = 3.35e12
+WIDE_SEQ = 1024
+STREAM_SHAPES = ((1, 2, 576), (4, 16, 576))     # (b, h, d)
+SIMT_SHAPES = ((1, 2, 256), (1, 2, 512))
 
 
-def worker(root):
+def bound(flops, nbytes, dname):
+    """(ms, what binds): the larger of flops over the dtype's peak and
+    bytes over the memory rate."""
+    t_ops, t_mem = flops / PEAK_FLOPS[dname], nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_mem) * 1e3, "operations" if t_ops >= t_mem \
+        else "bytes"
+
+
+def worker(root, cases):
     sys.path.insert(0, os.path.abspath(root))
     import torch
-
-    from paddle_tpu_torch.distributed import compress
-    from paddle_tpu_torch.ops import flash_attention as fa
-    from paddle_tpu_torch.ops import tpp
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -84,11 +115,22 @@ def worker(root):
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
+    out = {"root": root}
+    CASES[cases](torch, dev, time_ms, out)
+    print(json.dumps(out), flush=True)
+
+
+def main_cases(torch, dev, time_ms, out):
+    """The ``main`` table: paged attention, the d 64 flash kernels,
+    softmax_rows and GPT-2 small's forward and steps."""
+    from paddle_tpu_torch.distributed import compress
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import tpp
+
     def both(fn):
         return {"ms": time_ms(fn), "device_ms": time_ms(fn, True)}
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    out = {"root": root}
     B, H, hd, bs, maxb, NB = 8, 12, 64, 16, 64, 513
     kp = torch.randn(NB, H, bs, hd, generator=gen, device=dev)
     vp = torch.randn(NB, H, bs, hd, generator=gen, device=dev)
@@ -142,7 +184,90 @@ def worker(root):
         out[f"softmax_rows[{dname}]"] = both(lambda: tpp.softmax_rows(x))
         del x
     out.update(gpt2_steps(dev))
-    print(json.dumps(out), flush=True)
+
+
+def wide_head_cases(torch, dev, time_ms, out):
+    """The ``wide_heads`` table: the streaming route at head_dim 576 and
+    the scalar route at 256 and 512, each beside its plain version, SDPA
+    and its bound."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    def timed(fn):
+        """ms, device_ms and the routes of one call of fn."""
+        fa.routes.clear()
+        fn()
+        torch.cuda.synchronize()
+        routes = sorted(k for k, n in fa.routes.items() if n)
+        return {"ms": time_ms(fn), "device_ms": time_ms(fn, True),
+                "routes": routes}
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    S = WIDE_SEQ
+    pairs = S * (S + 1) // 2
+    for kind, shapes in (("stream", STREAM_SHAPES), ("simt", SIMT_SHAPES)):
+        for b, h, d in shapes:
+            for dname, dt in (("float32", torch.float32),
+                              ("bfloat16", torch.bfloat16)):
+                item = torch.finfo(dt).bits // 8
+                q, k, v, do = (torch.randn(b, S, h, d, generator=gen,
+                                           device=dev).to(dt)
+                               for _ in range(4))
+                scale = 1.0 / math.sqrt(d)
+                with torch.no_grad():
+                    o, lse = fa._launch(q, k, v, True, scale, None)
+                    delta = fa._launch_delta(o, do)
+                tag = f"{kind}.b{b}h{h}d{d}.{dname}"
+
+                def fwd():
+                    return fa._launch(q, k, v, True, scale, None)
+
+                def bwd():
+                    return fa._launch_bwd(q, k, v, o, lse, do, True, scale,
+                                          None)
+
+                with torch.no_grad():
+                    out[f"{tag}.fwd"] = timed(fwd)
+                    out[f"{tag}.bwd"] = timed(bwd)
+                    if kind == "stream":
+                        out[f"{tag}.dq"] = timed(lambda: fa._launch_dq(
+                            q, k, v, do, lse, delta, True, scale, None))
+                        out[f"{tag}.dkv"] = timed(lambda: fa._launch_dkv(
+                            q, k, v, do, lse, delta, True, scale, None))
+                        grads = [bwd() for _ in range(2)]
+                        digests = {hashlib.sha256(b"".join(
+                            t.contiguous().view(torch.uint8).cpu().numpy()
+                            .tobytes() for t in g)).hexdigest()
+                            for g in grads}
+                        out[f"{tag}.bwd.sha256"] = "|".join(sorted(digests))
+                heads = [fa._heads(t).contiguous()
+                         for t in (q, k, v, o, do)]
+                with torch.no_grad():
+                    out[f"{tag}.plain_fwd"] = timed(
+                        lambda: fa.flash_attention_ref(*heads[:3], True,
+                                                       scale))
+                    out[f"{tag}.plain_bwd"] = timed(
+                        lambda: fa.flash_attention_bwd_ref(
+                            *heads[:4], lse, heads[4], True, scale))
+                bhsd = [t.transpose(1, 2).contiguous().requires_grad_()
+                        for t in (q, k, v)]
+                with torch.no_grad():
+                    out[f"{tag}.sdpa_fwd"] = timed(
+                        lambda: torch.nn.functional
+                        .scaled_dot_product_attention(*bhsd, is_causal=True))
+                sdpa_o = torch.nn.functional.scaled_dot_product_attention(
+                    *bhsd, is_causal=True)
+                bdo = do.transpose(1, 2).contiguous()
+                out[f"{tag}.sdpa_bwd"] = timed(lambda: torch.autograd.grad(
+                    sdpa_o, bhsd, bdo, retain_graph=True))
+                for part, flops_a_pair, n_tensors in (("fwd", 4, 4),
+                                                      ("bwd", 10, 8)):
+                    ms, by = bound(flops_a_pair * d * b * h * pairs,
+                                   n_tensors * b * h * S * d * item
+                                   + (1 if part == "fwd" else 2)
+                                   * b * h * S * 4, dname)
+                    out[f"{tag}.{part}"].update(bound_ms=ms, bound_by=by)
+                del q, k, v, do, o, lse, delta, heads, bhsd, sdpa_o, bdo
+                torch.cuda.empty_cache()
 
 
 def gpt2_steps(dev):
@@ -198,20 +323,19 @@ def gpt2_steps(dev):
     return out
 
 
-def row_metrics(entry):
-    """The timed metrics of one entry: ms and device_ms of a kernel, or
-    wall_ms of a main-path call."""
-    return [t for t in ("ms", "device_ms", "wall_ms") if t in entry]
+CASES = {"main": main_cases, "wide_heads": wide_head_cases}
+TIMED = ("ms", "device_ms", "wall_ms")
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--cases", choices=sorted(CASES), default="main")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("dirs", nargs="*")
     args = ap.parse_args()
     if args.worker:
-        worker(args.worker)
+        worker(args.worker, args.cases)
         return 0
     if not args.dirs:
         ap.error("give one or more checkout directories")
@@ -219,21 +343,27 @@ def main():
     for r in range(args.rounds):
         for d in (args.dirs if r % 2 == 0 else args.dirs[::-1]):
             res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                  "--worker", d], capture_output=True,
-                                 text=True, check=True)
+                                  "--cases", args.cases, "--worker", d],
+                                 capture_output=True, text=True)
+            if res.returncode != 0:
+                print(res.stdout[-4000:], res.stderr[-4000:], flush=True)
+                return res.returncode
             line = res.stdout.strip().splitlines()[-1]
             print(line, flush=True)
             runs[d].append(json.loads(line))
     summary = {}
     for d, rows in runs.items():
         summary[d] = {}
-        for key in rows[0]:
+        for key, first in rows[0].items():
             if key == "root":
                 continue
             if key.endswith(".sha256"):
                 summary[d][key] = sorted({row[key] for row in rows})
                 continue
-            for t in row_metrics(rows[0][key]):
+            for t, val in first.items():
+                if t not in TIMED:     # a bound or the routes: round 1's
+                    summary[d][f"{key}.{t}"] = val
+                    continue
                 vals = [row[key][t] for row in rows]
                 summary[d][f"{key}.{t}"] = {
                     "median": statistics.median(vals), "min": min(vals),

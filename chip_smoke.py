@@ -20,7 +20,9 @@ pre-pass, the greedy-NMS kernel, the TPP bias_act, softmax_rows and
 masked_reduce kernels, the paged-attention kernel) against its plain
 PyTorch version (the backward also for bit-equal grads over two calls
 and, on the GPT paths, every bf16 launch on the tensor cores; SDPA at
-head dims 576 and 1024, forward and backward, on the streaming route;
+head dims 576, 640 and 1024, forward and backward, on the streaming route,
+and its forward at b4 h16 d1024 with the query tiles streamed, causal and
+full;
 the paged kernel also for bit-equal output over two calls, and through
 its public entry on the stream route at head dims and frames of 512, on
 fp16 q and mixed q / page dtypes, and on a transposed-page view), checks a
@@ -215,8 +217,15 @@ SLEEP_CYCLES = 1_000_000
 # after a flag or dtype change pays one-time host costs)
 FORWARD_SAMPLES = 5
 # head dims above 512 (no whole-head tiling): SDPA's forward and backward
-# take the streaming route at b1 s1024 h2, causal
-STREAM_HEAD_DIMS = (576, 1024)
+# take the streaming route at b1 s1024 h2, causal; 640 leaves a narrower
+# last column group (192 x 3 + 64 in fp32, 256 x 2 + 128 in bf16)
+STREAM_HEAD_DIMS = (576, 640, 1024)
+# (b, h, head_dim) of a forward checked where every kernel streams its own
+# side's tiles too (a grid over two blocks an SM at head_dim 1024)
+STREAM_CHECKED_STREAMED = (4, 16, 1024)
+# the streaming route's timed shapes at head_dim 576 (b, h): a grid below
+# the card's 132 SMs, and one that fills it many times over
+STREAM_TIMED = ((1, 2), (4, 16))
 # the reference's paged_attention audit shape (ops/tpp.py:248): B, H, hd,
 # bs, maxb, and its test's pool of B + 3 frames
 AUDIT_SHAPES = ((16, 8, 128, 32, 16, 19),)
@@ -3512,6 +3521,28 @@ def main():
         r["spill_bytes"] for r in tf32_kernels.values()),
           f"flash_fwd and flash_bwd: the TF32 forward, dQ and dK/dV kernels "
           f"at head_dim 64 and 128 built without spills ({tf32_kernels})")
+    # the streaming route (head_dim above 512): the forward, dQ and dK/dV
+    # kernels in both types, their own tiles resident or streamed (the fp32
+    # dQ and dK/dV only streamed: their own tiles never fit), each on the
+    # tensor cores (HMMA in bf16, TF32 HMMA in fp32) without spills
+    stream_kernels = {}
+    for name in ("flash_fwd", "flash_bwd"):
+        by_kernel = _build.kernel_sass_counts(name)
+        for k, r in ptxas[name].items():
+            m = re.search(r"(flash_(?:fwd|dq|dkv)_stream_kernel)I(f|13__nv_"
+                          r"bfloat16)Lb([01])E", k)
+            if m is None:
+                continue
+            op = "HMMA.TF32" if m[2] == "f" else "HMMA"
+            stream_kernels[f"{m[1]}[{'float32' if m[2] == 'f' else 'bfloat16'}"
+                           f"{', resident' if m[3] == '1' else ''}]"] = {
+                **r, op: by_kernel.get(k, {}).get(op, 0)}
+    check(len(stream_kernels) == 10 and all(
+        not r["spill_bytes"] and r.get("HMMA", r.get("HMMA.TF32")) > 0
+        for r in stream_kernels.values()),
+          f"the 10 streaming kernels on the tensor cores without spills "
+          f"({stream_kernels})")
+    emit({"phase": "build_stream_kernels", "kernels": stream_kernels})
 
     # ---- 2. every kernel against its plain version ------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -3616,17 +3647,22 @@ def main():
               f"SDPA head_dim {d} vs plain: err {err.item()}")
     # above 512 no whole-head tiling fits: SDPA's forward and backward take
     # the streaming route, held against the plain forward and autograd
-    # through it
+    # through it; two backward calls give the same bits (no atomics)
     fa.routes.clear()
     fa.launches.clear()
     stream_err = {}
+    t_stream = time.perf_counter()
     for d in STREAM_HEAD_DIMS:
         for dname, dt in dtypes.items():
             q, k, v, do = (randn(1, 1024, 2, d, dtype=dt) for _ in range(4))
             leaves = [t.clone().requires_grad_() for t in (q, k, v)]
             o = scaled_dot_product_attention(*leaves, is_causal=True)
-            got = torch.autograd.grad(o, leaves, do)
+            got = torch.autograd.grad(o, leaves, do, retain_graph=True)
+            again = torch.autograd.grad(o, leaves, do)
             torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  f"SDPA head_dim {d} {dname}: two streaming backward "
+                  f"calls, the same bits")
             ref = [t.clone().float().requires_grad_() for t in (q, k, v)]
             ro = fa._unheads(fa.flash_attention_ref(
                 *(fa._heads(t) for t in ref), True, 1.0 / math.sqrt(d))[0],
@@ -3640,15 +3676,41 @@ def main():
             check(eo <= FLASH_TOL[dname] and eg <= FLASH_TOL[dname],
                   f"SDPA head_dim {d} {dname} vs plain: o err {eo}, grads "
                   f"err / max(1, max|plain|) {eg}")
-            del q, k, v, do, leaves, o, got, ref, ro, want
-    stream_routes = flash_routes_checked("SDPA head_dim 576 and 1024",
-                                         stream=True)
+            del q, k, v, do, leaves, o, got, again, ref, ro, want
+    # the forward with its query tiles streamed too: at b4 h16 d1024 the
+    # grid (4,096 bf16 blocks) is over two blocks an SM and two resident
+    # blocks do not fit one, so flash_stream.cuh's `resident` streams them
+    # (fp32 at d1024 always does); causal and full attention
+    sb, sh, sd = STREAM_CHECKED_STREAMED
+    streamed_err = {}
+    for dname, dt in dtypes.items():
+        q, k, v = (randn(sb, 1024, sh, sd, dtype=dt) for _ in range(3))
+        for causal in (True, False):
+            with torch.no_grad():
+                o = scaled_dot_product_attention(q, k, v, is_causal=causal)
+                ro = fa._unheads(fa.flash_attention_ref(
+                    *(fa._heads(t).float() for t in (q, k, v)), causal,
+                    1.0 / math.sqrt(sd))[0], sb, sh)
+            eo = (o.float() - ro).abs().max().item()
+            streamed_err[f"{'causal' if causal else 'full'}[{dname}]"] = eo
+            check(eo <= FLASH_TOL[dname],
+                  f"SDPA b{sb} h{sh} head_dim {sd} {dname} causal={causal} "
+                  f"(query tiles streamed) vs plain: o err {eo}")
+            del o, ro
+        del q, k, v
+    stream_routes = flash_routes_checked(
+        f"SDPA head_dim {', '.join(map(str, STREAM_HEAD_DIMS))}",
+        stream=True)
+    stream_s = time.perf_counter() - t_stream
     emit({"phase": "kernels_vs_plain", "kernel": "flash_fwd",
           "configs": n_flash + 4, "shapes_s_d": shapes,
           "main_shape_s_h_d": [1024, 12, 64],
           "main_shape_max_abs_err_by_batch": flash_err,
           "sdpa_head_dim_192_256_320_launched": True,
           "sdpa_stream_route_b1_s1024_h2_causal": stream_err,
+          f"sdpa_stream_route_b{sb}_s1024_h{sh}_d{sd}_fwd_o_err": streamed_err,
+          "stream_grads_two_calls_bit_equal": True,
+          "stream_checks_wall_s": stream_s,
           "routes_of_the_configs": fwd_routes,
           "main_shape_two_calls_bit_equal": True,
           "stream_routes": stream_routes,
@@ -4375,58 +4437,69 @@ def main():
                 row["device_share_of_tc_bound"] = \
                     row["bound_tc_ms"] / row["device_ms"]
             del qkv, q, k, v, heads, bhsd
-        # the streaming route once, at head_dim 576 (b1 s1024 h2, causal):
-        # the forward and the backward (pre-pass, dQ, dK/dV: one C call)
-        # against SDPA's; the bound counts the function's work, not the
-        # route's recomputation of S
+        # the streaming route at head_dim 576 (s1024, causal) at b1 h2 and
+        # b4 h16 (STREAM_TIMED): the forward and the backward (pre-pass,
+        # dQ, dK/dV: one C call) against SDPA's; the bound counts the
+        # function's work, not the column groups' recomputation of S
         ds = STREAM_HEAD_DIMS[0]
-        q, k, v, do = (randn(1, s, 2, ds, dtype=dt) for _ in range(4))
         sscale = 1.0 / math.sqrt(ds)
-        bhsd = [t.transpose(1, 2).contiguous().requires_grad_()
-                for t in (q, k, v)]
-        with torch.no_grad():
-            o, lse = fa._launch(q, k, v, True, sscale, None)
+        stream_timed = {}
+        for sb, sh in STREAM_TIMED:
+            t_rows = time.perf_counter()
+            q, k, v, do = (randn(sb, s, sh, ds, dtype=dt) for _ in range(4))
+            bhsd = [t.transpose(1, 2).contiguous().requires_grad_()
+                    for t in (q, k, v)]
+            n_pairs = sb * sh * pairs
+            with torch.no_grad():
+                o, lse = fa._launch(q, k, v, True, sscale, None)
 
-            def stream_fwd():
-                return fa._launch(q, k, v, True, sscale, None)
+                def stream_fwd():
+                    return fa._launch(q, k, v, True, sscale, None)
 
-            def sdpa_fwd():
-                return torch.nn.functional.scaled_dot_product_attention(
-                    *bhsd, is_causal=True)
+                def sdpa_fwd():
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        *bhsd, is_causal=True)
 
-            bms, by = bound(4.0 * 2 * pairs * ds,
-                            4 * 2 * s * ds * item + 2 * s * 4, dname)
-            heads_s = [fa._heads(t).contiguous() for t in (q, k, v, o, do)]
-            stream_rows = {"forward": rates({
-                "ms": time_ms(stream_fwd, reps=5),
-                "plain_ms": time_ms(lambda: fa.flash_attention_ref(
-                    *heads_s[:3], True, sscale), reps=5),
+                bms, by = bound(4.0 * n_pairs * ds,
+                                4 * sb * sh * s * ds * item
+                                + sb * sh * s * 4, dname)
+                heads_s = [fa._heads(t).contiguous()
+                           for t in (q, k, v, o, do)]
+                rows = {"forward": rates({
+                    "ms": time_ms(stream_fwd, reps=5),
+                    "plain_ms": time_ms(lambda: fa.flash_attention_ref(
+                        *heads_s[:3], True, sscale), reps=5),
+                    "bound_ms": bms,
+                    "bound_by": by, "library_ms": time_ms(sdpa_fwd, reps=5),
+                    "shape": [sb, s, sh, ds]}, 4.0 * n_pairs * ds,
+                    stream_fwd, sdpa_fwd)}
+                bwd_plain_ms = time_ms(lambda: fa.flash_attention_bwd_ref(
+                    *heads_s[:4], lse, heads_s[4], True, sscale), reps=5)
+            out = torch.nn.functional.scaled_dot_product_attention(
+                *bhsd, is_causal=True)
+            bdo = do.transpose(1, 2).contiguous()
+
+            def sdpa_bwd_stream():
+                return torch.autograd.grad(out, bhsd, bdo, retain_graph=True)
+
+            def stream_bwd():
+                return fa._launch_bwd(q, k, v, o, lse, do, True, sscale, None)
+
+            bms, by = bound(10.0 * n_pairs * ds,
+                            8 * sb * sh * s * ds * item
+                            + 2 * sb * sh * s * 4, dname)
+            rows["backward"] = rates({
+                "ms": time_ms(stream_bwd, reps=5), "plain_ms": bwd_plain_ms,
                 "bound_ms": bms,
-                "bound_by": by, "library_ms": time_ms(sdpa_fwd, reps=5),
-                "shape": [1, s, 2, ds]}, 4.0 * 2 * pairs * ds, stream_fwd,
-                sdpa_fwd)}
-            bwd_plain_ms = time_ms(lambda: fa.flash_attention_bwd_ref(
-                *heads_s[:4], lse, heads_s[4], True, sscale), reps=5)
-        out = torch.nn.functional.scaled_dot_product_attention(
-            *bhsd, is_causal=True)
-        bdo = do.transpose(1, 2).contiguous()
-
-        def sdpa_bwd_stream():
-            return torch.autograd.grad(out, bhsd, bdo, retain_graph=True)
-
-        def stream_bwd():
-            return fa._launch_bwd(q, k, v, o, lse, do, True, sscale, None)
-
-        bms, by = bound(10.0 * 2 * pairs * ds,
-                        8 * 2 * s * ds * item + 2 * 2 * s * 4, dname)
-        stream_rows["backward"] = rates({
-            "ms": time_ms(stream_bwd, reps=5), "plain_ms": bwd_plain_ms,
-            "bound_ms": bms,
-            "bound_by": by, "library_ms": time_ms(sdpa_bwd_stream, reps=5),
-            "covers": "delta pre-pass + dQ + dK/dV (one C call) against "
-                      "SDPA's backward", "shape": [1, s, 2, ds]},
-            10.0 * 2 * pairs * ds, stream_bwd, sdpa_bwd_stream)
-        del q, k, v, do, o, lse, bhsd, out, bdo, heads_s
+                "bound_by": by,
+                "library_ms": time_ms(sdpa_bwd_stream, reps=5),
+                "covers": "delta pre-pass + dQ + dK/dV (one C call) against "
+                          "SDPA's backward", "shape": [sb, s, sh, ds]},
+                10.0 * n_pairs * ds, stream_bwd, sdpa_bwd_stream)
+            rows["wall_s"] = time.perf_counter() - t_rows
+            stream_timed[f"b{sb}_h{sh}"] = rows
+            del q, k, v, do, o, lse, bhsd, out, bdo, heads_s
+            torch.cuda.empty_cache()
         # bf16: flash_fwd_mma_kernel; fp32: flash_fwd_tf32_kernel (three
         # TF32 passes a product), counted by that route
         route, tag = ("mma", "") if dname == "bfloat16" \
@@ -4440,7 +4513,8 @@ def main():
             "max_abs_err": flash_err[dname][4], **fwd_rows[4], "causal": True,
             "train_shape": {**fwd_rows[TRAIN_BATCH],
                             "max_abs_err": flash_err[dname][TRAIN_BATCH]},
-            "stream_route_d576": stream_rows})
+            "stream_route_d576": stream_timed["b1_h2"],
+            "stream_route_d576_b4_h16": stream_timed["b4_h16"]})
 
         # the backward pair at the serving and the training batch, from
         # the forward kernel's o and lse and the pre-pass's delta; `pair`

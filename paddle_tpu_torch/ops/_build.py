@@ -15,7 +15,8 @@ them. A missing nvcc or a failed compile
 raises: nothing falls back to a kernel's plain version. ptxas's register
 and shared-memory report for each build is kept beside the library
 (``build_log``), and ``sass_counts`` reads the built library's machine
-code (``cuobjdump --dump-sass``) for its tensor-core instructions.
+code (``cuobjdump --dump-sass``) for its tensor-core instructions,
+``kernel_sass_counts`` kernel by kernel.
 """
 import ctypes
 import hashlib
@@ -160,11 +161,10 @@ TENSOR_CORE_OPS = ("HGMMA", "HMMA")
 _TF32_HMMA = re.compile(r"\bHMMA\.[0-9A-Z.]*TF32\b")
 
 
-def sass_counts(name):
-    """{opcode: count} of the tensor-core instructions (TENSOR_CORE_OPS) in
-    the machine code of kernel source `name`'s built library, read with
-    the cuobjdump beside nvcc, and under "HMMA.TF32" those HMMA that take
-    TF32 operands. Raises RuntimeError if it cannot run."""
+def _dump_sass(name):
+    """The machine code of kernel source `name`'s built library, as the
+    cuobjdump beside nvcc prints it. Raises RuntimeError if it cannot
+    run."""
     so = _target(name)[1]
     if not so.is_file():
         raise RuntimeError(f"{name} is not built")
@@ -173,10 +173,31 @@ def sass_counts(name):
                          capture_output=True, text=True, timeout=300)
     if out.returncode != 0:
         raise RuntimeError(f"cuobjdump on {so.name} failed: {out.stderr}")
-    counts = {op: len(re.findall(rf"\b{op}\.", out.stdout))
+    return out.stdout
+
+
+def _tensor_core_counts(sass):
+    counts = {op: len(re.findall(rf"\b{op}\.", sass))
               for op in TENSOR_CORE_OPS}
-    counts["HMMA.TF32"] = len(_TF32_HMMA.findall(out.stdout))
+    counts["HMMA.TF32"] = len(_TF32_HMMA.findall(sass))
     return counts
+
+
+def sass_counts(name):
+    """{opcode: count} of the tensor-core instructions (TENSOR_CORE_OPS) in
+    the machine code of kernel source `name`'s built library, read with
+    the cuobjdump beside nvcc, and under "HMMA.TF32" those HMMA that take
+    TF32 operands. Raises RuntimeError if it cannot run."""
+    return _tensor_core_counts(_dump_sass(name))
+
+
+def kernel_sass_counts(name):
+    """sass_counts for each kernel of source `name`'s built library:
+    {kernel by its mangled name, as ptxas_report names it: {opcode:
+    count}}."""
+    blocks = re.split(r"\n\s*Function : ", _dump_sass(name))[1:]
+    return {block.split("\n", 1)[0].strip(): _tensor_core_counts(block)
+            for block in blocks}
 
 
 def load(name):

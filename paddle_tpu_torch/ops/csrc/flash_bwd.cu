@@ -100,11 +100,22 @@
 // at 512).
 //
 // Above head_dim 512, fp32 and bf16 (`flash_dq_stream_kernel`,
-// `flash_dkv_stream_kernel`, the streaming route): no tile of a whole head
-// fits, so each output is formed in 64-wide chunks of its columns, S and dP
-// formed again over the head dim in 64-wide chunks for each (flash.cuh);
-// the fp32 staging and the masks are the scalar kernels'. Any head dim that
-// is a multiple of 64 runs.
+// `flash_dkv_stream_kernel`, the streaming route; flash_stream.cuh): the
+// streaming forward's plan (flash_fwd.cu). Each output's columns split
+// into groups, a grid step each: dQ's of at most 256 (bf16) or 192 (fp32)
+// columns, dK and dV's of 128 (both accumulators live in registers). A dQ
+// block owns (b*h, group, 64-row query tile) and walks 32-row kv tiles; a
+// dK/dV block owns (b*h, group, 64-row kv tile) and walks 32-row (bf16) or
+// 16-row (fp32, whose TF32 split operands spill at 32) query tiles. Each
+// forms S and dP over the whole head once per tile it visits, from chunk
+// tiles that the cp.async ring streams (in bf16 its own side's resident
+// where `resident` finds room; fp32's never fit), then P and dS on the
+// accumulators and its group's products, all on the tensor cores; every
+// block writes only its own tile, no atomics. What bounds it: both kernels form S and dP once per
+// group, (4 G_dq + 2) d + (4 G_dkv + 4) d FLOPs a visible pair against the
+// function's 10 d (38 d at 576), and fp32 triples them (three TF32
+// passes). Views must be 16-byte aligned; lse and delta are read an
+// element at a time.
 //
 // delta pre-pass (`flash_delta_kernel`): rowsum(dO o O) in fp32, 8 lanes a
 // row, 16-byte loads where the views allow them; the sum's order is fixed.
@@ -115,7 +126,7 @@
 // v are slices of one packed qkv, read without a copy); lse and delta are
 // contiguous [B * H, S] fp32 arrays; seq a multiple of 64.
 
-#include "flash_tf32.cuh"
+#include "flash_stream.cuh"
 
 namespace {
 
@@ -403,98 +414,185 @@ __global__ void __launch_bounds__(NT)
 }
 
 // ---- head_dim above 512: the streaming route ------------------------------
-//
-// Every output is formed in 64-wide chunks of its columns; for each chunk
-// the kernel walks the tiles it sees and forms S = (Q * scale) K^T and
-// dP = dO V^T again over the whole head dim (stream_scores, flash.cuh),
-// then P = exp(S - lse) and dS = P o (dP - delta) as the scalar kernels do.
-// S and dP are formed D / 64 times in each kernel: slow, and no
-// configuration of the reference has such heads.
 
-// dQ[:, chunk] = scale * sum over kv tiles of dS K[:, chunk]: one block a
-// (b*h, 64-row query tile)
-template <typename T>
+// the widest column group of dQ, and of dK and dV together, a block owns
+// (fp32 accumulators: dQ WMAX / 2 registers a thread, dK and dV WMAX
+// between them), and the other side's rows a step (S and dP of a step take
+// BO / 4 registers each; the fp32 dK/dV kernel, whose TF32 split operands
+// need more, spills at 32)
+template <typename T> __host__ __device__ constexpr int dq_st_wmax() {
+  return sizeof(T) == 2 ? 256 : 192;
+}
+constexpr int DKV_ST_WMAX = 128;
+constexpr int DQ_ST_BO = 32;
+template <typename T> __host__ __device__ constexpr int dkv_st_bo() {
+  return sizeof(T) == 2 ? 32 : 16;
+}
+
+// bytes of a block's shared memory, both kernels: with RES the own side's
+// two operands stay resident (nD chunk tiles each) and a ring stage holds
+// the other side's two chunks of BO rows; without, a stage holds all four
+template <typename T, bool RES, int BO>
+__host__ __device__ constexpr int bwd_st_smem(int D) {
+  constexpr int OWN = ST_ROWS * Chunk<T>::ROW, OTH = BO * Chunk<T>::ROW;
+  return RES ? D / Chunk<T>::COLS * 2 * OWN + ST_STAGES * 2 * OTH
+             : ST_STAGES * 2 * (OTH + OWN);
+}
+
+// dQ[:, group] = scale * sum over the kv tiles of dS K[:, group]: one block
+// a (b*h, column group, 64-row query tile), 4 warps of 16 rows. For each
+// 32-row kv tile the block forms S = Q K^T and dP = dO V^T over the whole
+// head dim, one chunk tile of each at a time (chunk_nt), then P = exp(S *
+// scale - lse) and dS = P o (dP - delta) on the accumulators, then dQ[:,
+// group] += dS K[:, group] one chunk of K at a time (chunk_pv).
+template <typename T, bool RES>
 __global__ void __launch_bounds__(ST_THREADS)
     flash_dq_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, const T* __restrict__ dout,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta, T* __restrict__ dq,
-                           int H, int S, int D, Strides sq, Strides sk,
-                           Strides sv, Strides sdo, Strides sdq, int causal,
-                           float scale, int window) {
-  constexpr int BR = ST_ROWS;
-  extern __shared__ float smem[];
-  float* Qc = smem;             // a chunk of Q * scale
-  float* Kc = Qc + ST_TILE;     // a chunk of K (of S's, then of dQ's columns)
-  float* dOc = Kc + ST_TILE;
-  float* Vc = dOc + ST_TILE;
-  float* dSs = Vc + ST_TILE;
-  float* lse_s = dSs + ST_TILE;
-  float* dl_s = lse_s + BR;
+                           int H, int S, int D, int G, int WG, Strides sq,
+                           Strides sk, Strides sv, Strides sdo, Strides sdq,
+                           int causal, float scale, int window) {
+  constexpr int DC = Chunk<T>::COLS, BO = DQ_ST_BO, W = dq_st_wmax<T>();
+  constexpr int OWN = ST_ROWS * Chunk<T>::ROW, OTH = BO * Chunk<T>::ROW;
+  constexpr int STAGE = 2 * OTH + (RES ? 0 : 2 * OWN);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int nD = D / DC;
+  // RES: chunk c's Q tile at c * 2 OWN, its dO tile OWN further
+  unsigned char* const own_res = smem_raw;
+  unsigned char* const ring_base = smem_raw + (RES ? nD * 2 * OWN : 0);
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  int bh, qt;
-  bh_tile(true, bh, qt);  // the heaviest causal tile first
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const Lanes L(tid & 31);
+  const int bh = blockIdx.x / G, g = blockIdx.x % G;
   const int b = bh / H, h = bh % H;
-  const int q0 = qt * BR;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * ST_ROWS;  // heaviest first
+  const int c0 = g * WG, nW = min(WG, D - c0) / DC;
   const T* qb = q + b * sq.b + h * sq.h;
   const T* kb = k + b * sk.b + h * sk.h;
   const T* vb = v + b * sv.b + h * sv.h;
   const T* dob = dout + b * sdo.b + h * sdo.h;
-  if (tid < BR) {
-    lse_s[tid] = lse[(long long)bh * S + q0 + tid];
-    dl_s[tid] = delta[(long long)bh * S + q0 + tid];
-  }
 
-  int kt_begin = 0, kt_end = S / BR;
+  // kv tiles with any visible key for some row of this query tile
+  int kt_begin = 0, kt_end = S / BO;
   if (causal) {
-    kt_end = (q0 + BR - 1) / BR + 1;
+    kt_end = (q0 + ST_ROWS - 1) / BO + 1;
     if (window > 0) {
       const int first_key = q0 - (window - 1);
-      kt_begin = first_key > 0 ? first_key / BR : 0;
+      kt_begin = first_key > 0 ? first_key / BO : 0;
     }
   }
-
-  T* dqb = dq + b * sdq.b + h * sdq.h;
-  for (int d0 = 0; d0 < D; d0 += BR) {
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int kt = kt_begin; kt < kt_end; ++kt) {
-      const int k0 = kt * BR;
-      float s[4][4], dp[4][4];
-      stream_scores<T, true>(s, dp, Qc, Kc, dOc, Vc, qb, sq.s, kb, sk.s, dob,
-                             sdo.s, vb, sv.s, q0, k0, D, scale, ty, tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = ty + 16 * i, c = tx + 16 * j;
-          const float p = visible(q0 + r, k0 + c, causal, window)
-                              ? expf(s[i][j] - lse_s[r])
-                              : 0.f;
-          dSs[r * ST_LD + c] = p * (dp[i][j] - dl_s[r]);
+  // a kv tile's items: nD chunks of K and V (and Q and dO) for S and dP,
+  // then nW chunks of K for dS K
+  const int per = nD + nW, total = (kt_end - kt_begin) * per;
+  auto issue = [&](int i, unsigned char* dst) {
+    if (i < total) {
+      const int kt = kt_begin + i / per, j = i % per;
+      const uint32_t du = smem_u32(dst);
+      if (j < nD) {
+        cp_chunk<T, BO>(du, kb, sk.s, kt * BO, j * DC, tid);
+        cp_chunk<T, BO>(du + OTH, vb, sv.s, kt * BO, j * DC, tid);
+        if constexpr (!RES) {
+          cp_chunk<T, ST_ROWS>(du + 2 * OTH, qb, sq.s, q0, j * DC, tid);
+          cp_chunk<T, ST_ROWS>(du + 2 * OTH + OWN, dob, sdo.s, q0, j * DC,
+                               tid);
         }
-      __syncthreads();  // dS complete; every reader of the K chunk done
-      stage_chunk(Kc, kb, sk.s, k0, d0, 1.f);
-      __syncthreads();
-      chunk_pv<false>(dSs, Kc, acc, ty, tx);
+      } else {
+        cp_chunk<T, BO>(du, kb, sk.s, kt * BO, c0 + (j - nD) * DC, tid);
+      }
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      T* row = dqb + (long long)(q0 + ty + 16 * i) * sdq.s + d0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) row[tx + 16 * j] = from_f<T>(acc[i][j] * scale);
+    cp_async_commit();
+  };
+  if constexpr (RES)  // lands with the ring's first item
+    for (int c = 0; c < nD; ++c) {
+      const uint32_t du = smem_u32(own_res + c * 2 * OWN);
+      cp_chunk<T, ST_ROWS>(du, qb, sq.s, q0, c * DC, tid);
+      cp_chunk<T, ST_ROWS>(du + OWN, dob, sdo.s, q0, c * DC, tid);
     }
+  Ring ring(ring_base, STAGE, issue);
+  ring.start();
+
+  const int wr0 = 16 * warp, wq0 = q0 + wr0;
+  const float sl2 = scale * LOG2E;
+  // -lse * log2(e) and delta of the thread's rows g and g + 8
+  float nl[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long row = (long long)bh * S + wq0 + L.g + 8 * r;
+    nl[r] = -lse[row] * LOG2E;
+    dl[r] = delta[row];
   }
+  ChunkAcc<T> acc[W / DC];
+#pragma unroll
+  for (int cw = 0; cw < W / DC; ++cw)
+#pragma unroll
+    for (int j = 0; j < DC / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[cw][j][e] = 0.f;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * BO;
+    // a tile this warp's rows see nothing of: the ring still turns
+    const bool skip = (causal && k0 > wq0 + 15) ||
+                      (window > 0 && k0 + BO - 1 < wq0 - window + 1);
+    float sc[BO / 8][4], dp[BO / 8][4];
+#pragma unroll
+    for (int j = 0; j < BO / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+    for (int c = 0; c < nD; ++c) {
+      const unsigned char* st = ring.next();
+      if (!skip) {
+        const unsigned char* own = RES ? own_res + c * 2 * OWN : st + 2 * OTH;
+        chunk_nt<BO>(sc, own, st, wr0, L, T{});
+        chunk_nt<BO>(dp, own + OWN, st + OTH, wr0, L, T{});
+      }
+    }
+    // dS = P o (dP - delta), P masked where the diagonal or the window's
+    // edge crosses the warp's rows
+    POperand<T, BO> ds;
+    if (!skip) {
+      const bool edge = causal && (k0 + BO - 1 > wq0 ||
+                                   (window > 0 && k0 < wq0 + 15 - window + 1));
+#pragma unroll
+      for (int j = 0; j < BO / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float p = exp2_approx(fmaf(sc[j][e], sl2, nl[r]));
+          if (edge && !visible(wq0 + L.g + 8 * r,
+                               k0 + 8 * j + 2 * L.t + (e & 1), causal,
+                               window))
+            p = 0.f;
+          sc[j][e] = p * (dp[j][e] - dl[r]);
+        }
+      ds.set(sc);
+    }
+    // dQ[:, group] += dS K[:, group], a chunk of K's columns at a time
+#pragma unroll
+    for (int cw = 0; cw < W / DC; ++cw)
+      if (cw < nW) {
+        const unsigned char* st = ring.next();
+        if (!skip) chunk_pv<BO>(acc[cw], ds, st, L);
+      }
+  }
+  cp_async_wait<0>();  // no copy in flight when the block ends
+
+  const float mul[2] = {scale, scale};
+  T* dqb = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+  for (int cw = 0; cw < W / DC; ++cw)
+    if (cw < nW) store_chunk(acc[cw], mul, dqb, sdq.s, wq0, c0 + cw * DC, L);
 }
 
-// dK[:, chunk] = sum over query tiles of dS^T (Q * scale)[:, chunk], dV[:,
-// chunk] = sum of P^T dO[:, chunk]: one block a (b*h, 64-row kv tile)
-template <typename T>
+// dK[:, group] = scale * sum over the query tiles of dS^T Q[:, group] and
+// dV[:, group] = sum of P^T dO[:, group]: one block a (b*h, column group,
+// 64-row kv tile), 4 warps of 16 keys. For each BO-row query tile the block
+// forms S^T = K Q^T and dP^T = V dO^T over the whole head dim, one chunk
+// tile of each at a time, then P^T and dS^T, then dV and dK over the
+// group's columns, a chunk of dO and of Q at a time.
+template <typename T, bool RES>
 __global__ void __launch_bounds__(ST_THREADS)
     flash_dkv_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v,
@@ -502,90 +600,145 @@ __global__ void __launch_bounds__(ST_THREADS)
                             const float* __restrict__ lse,
                             const float* __restrict__ delta,
                             T* __restrict__ dk, T* __restrict__ dv, int H,
-                            int S, int D, Strides sq, Strides sk, Strides sv,
-                            Strides sdo, Strides sdk, Strides sdv, int causal,
-                            float scale, int window) {
-  constexpr int BR = ST_ROWS;
-  extern __shared__ float smem[];
-  float* Qc = smem;          // a chunk of Q * scale (of S's, then of dK's)
-  float* Kc = Qc + ST_TILE;
-  float* dOc = Kc + ST_TILE; // a chunk of dO (of dP's, then of dV's)
-  float* Vc = dOc + ST_TILE;
-  float* Ps = Vc + ST_TILE;  // P [query][key] of the current query tile
-  float* dSs = Ps + ST_TILE;
-  float* lse_s = dSs + ST_TILE;
-  float* dl_s = lse_s + BR;
+                            int S, int D, int G, int WG, Strides sq,
+                            Strides sk, Strides sv, Strides sdo, Strides sdk,
+                            Strides sdv, int causal, float scale,
+                            int window) {
+  constexpr int DC = Chunk<T>::COLS, BO = dkv_st_bo<T>(), W = DKV_ST_WMAX;
+  constexpr int OWN = ST_ROWS * Chunk<T>::ROW, OTH = BO * Chunk<T>::ROW;
+  constexpr int STAGE = 2 * OTH + (RES ? 0 : 2 * OWN);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int nD = D / DC;
+  // RES: chunk c's K tile at c * 2 OWN, its V tile OWN further
+  unsigned char* const own_res = smem_raw;
+  unsigned char* const ring_base = smem_raw + (RES ? nD * 2 * OWN : 0);
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  int bh, kt;
-  bh_tile(false, bh, kt);  // kv tile 0, the heaviest, first
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const Lanes L(tid & 31);
+  const int bh = blockIdx.x / G, g = blockIdx.x % G;
   const int b = bh / H, h = bh % H;
-  const int k0 = kt * BR;
+  const int k0 = blockIdx.y * ST_ROWS;  // kv tile 0 (the heaviest) first
+  const int c0 = g * WG, nW = min(WG, D - c0) / DC;
   const T* qb = q + b * sq.b + h * sq.h;
   const T* kb = k + b * sk.b + h * sk.h;
   const T* vb = v + b * sv.b + h * sv.h;
   const T* dob = dout + b * sdo.b + h * sdo.h;
+  const float* lse_b = lse + (long long)bh * S;
+  const float* dl_b = delta + (long long)bh * S;
 
-  int qt_begin = 0, qt_end = S / BR;
+  // query tiles with any row that sees some key of this kv tile
+  int qt_begin = 0, qt_end = S / BO;
   if (causal) {
-    qt_begin = k0 / BR;
+    qt_begin = k0 / BO;
     if (window > 0) {
-      const long long last_q = (long long)k0 + BR - 1 + window - 1;
-      const long long e = last_q / BR + 1;
+      const long long e = ((long long)k0 + ST_ROWS - 1 + window - 1) / BO + 1;
       if (e < qt_end) qt_end = (int)e;
     }
   }
+  // a query tile's items: nD chunks of Q and dO (and K and V) for S^T and
+  // dP^T, then nW chunks of Q and dO for dK and dV
+  const int per = nD + nW, total = (qt_end - qt_begin) * per;
+  auto issue = [&](int i, unsigned char* dst) {
+    if (i < total) {
+      const int qt = qt_begin + i / per, j = i % per;
+      const int col = j < nD ? j * DC : c0 + (j - nD) * DC;
+      const uint32_t du = smem_u32(dst);
+      cp_chunk<T, BO>(du, qb, sq.s, qt * BO, col, tid);
+      cp_chunk<T, BO>(du + OTH, dob, sdo.s, qt * BO, col, tid);
+      if constexpr (!RES)
+        if (j < nD) {
+          cp_chunk<T, ST_ROWS>(du + 2 * OTH, kb, sk.s, k0, col, tid);
+          cp_chunk<T, ST_ROWS>(du + 2 * OTH + OWN, vb, sv.s, k0, col, tid);
+        }
+    }
+    cp_async_commit();
+  };
+  if constexpr (RES)  // lands with the ring's first item
+    for (int c = 0; c < nD; ++c) {
+      const uint32_t du = smem_u32(own_res + c * 2 * OWN);
+      cp_chunk<T, ST_ROWS>(du, kb, sk.s, k0, c * DC, tid);
+      cp_chunk<T, ST_ROWS>(du + OWN, vb, sv.s, k0, c * DC, tid);
+    }
+  Ring ring(ring_base, STAGE, issue);
+  ring.start();
 
+  const int wr0 = 16 * warp, wk0 = k0 + wr0;
+  const float sl2 = scale * LOG2E;
+  // the warp's keys' rows of dK (unscaled) and dV over the group
+  ChunkAcc<T> dka[W / DC], dva[W / DC];
+#pragma unroll
+  for (int cw = 0; cw < W / DC; ++cw)
+#pragma unroll
+    for (int j = 0; j < DC / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[cw][j][e] = dva[cw][j][e] = 0.f;
+
+  for (int qt = qt_begin; qt < qt_end; ++qt) {
+    const int q0 = qt * BO;
+    // a tile no row of this warp's keys is seen by: the ring still turns
+    const bool skip = (causal && q0 + BO - 1 < wk0) ||
+                      (window > 0 && q0 > wk0 + 15 + window - 1);
+    // S^T and dP^T: rows the warp's keys, columns the tile's queries
+    float st_[BO / 8][4], dpt[BO / 8][4];
+#pragma unroll
+    for (int j = 0; j < BO / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st_[j][e] = dpt[j][e] = 0.f;
+    for (int c = 0; c < nD; ++c) {
+      const unsigned char* st = ring.next();
+      if (!skip) {
+        const unsigned char* own = RES ? own_res + c * 2 * OWN : st + 2 * OTH;
+        chunk_nt<BO>(st_, own, st, wr0, L, T{});
+        chunk_nt<BO>(dpt, own + OWN, st + OTH, wr0, L, T{});
+      }
+    }
+    // P^T and dS^T = P^T o (dP^T - delta), masked where the diagonal or the
+    // window's edge crosses the warp's keys
+    POperand<T, BO> pt, dst;
+    if (!skip) {
+      const bool edge =
+          causal && (q0 < wk0 + 15 ||
+                     (window > 0 && q0 + BO - 1 - wk0 >= window));
+#pragma unroll
+      for (int j = 0; j < BO / 8; ++j) {
+        const int c = q0 + 8 * j + 2 * L.t;  // this thread's two queries
+        const float nl[2] = {-lse_b[c] * LOG2E, -lse_b[c + 1] * LOG2E};
+        const float dl[2] = {dl_b[c], dl_b[c + 1]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2_approx(fmaf(st_[j][e], sl2, nl[e & 1]));
+          if (edge && !visible(c + (e & 1), wk0 + L.g + 8 * (e >> 1), causal,
+                               window))
+            p = 0.f;
+          st_[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - dl[e & 1]);
+        }
+      }
+      pt.set(st_);
+      dst.set(dpt);
+    }
+    // dV[:, group] += P^T dO[:, group], dK[:, group] += dS^T Q[:, group]
+#pragma unroll
+    for (int cw = 0; cw < W / DC; ++cw)
+      if (cw < nW) {
+        const unsigned char* st = ring.next();
+        if (!skip) {
+          chunk_pv<BO>(dva[cw], pt, st + OTH, L);
+          chunk_pv<BO>(dka[cw], dst, st, L);
+        }
+      }
+  }
+  cp_async_wait<0>();  // no copy in flight when the block ends
+
+  const float kmul[2] = {scale, scale}, vmul[2] = {1.f, 1.f};
   T* dkb = dk + b * sdk.b + h * sdk.h;
   T* dvb = dv + b * sdv.b + h * sdv.h;
-  for (int d0 = 0; d0 < D; d0 += BR) {
-    float dka[4][4], dva[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dka[i][j] = dva[i][j] = 0.f;
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
-      const int q0 = qt * BR;
-      // the previous tile's readers of lse_s and dl_s passed a barrier
-      if (tid < BR) {
-        lse_s[tid] = lse[(long long)bh * S + q0 + tid];
-        dl_s[tid] = delta[(long long)bh * S + q0 + tid];
-      }
-      float s[4][4], dp[4][4];
-      stream_scores<T, true>(s, dp, Qc, Kc, dOc, Vc, qb, sq.s, kb, sk.s, dob,
-                             sdo.s, vb, sv.s, q0, k0, D, scale, ty, tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = ty + 16 * i, c = tx + 16 * j;
-          const float p = visible(q0 + r, k0 + c, causal, window)
-                              ? expf(s[i][j] - lse_s[r])
-                              : 0.f;
-          Ps[r * ST_LD + c] = p;
-          dSs[r * ST_LD + c] = p * (dp[i][j] - dl_s[r]);
-        }
-      __syncthreads();  // P, dS complete; every reader of Qc, dOc done
-      stage_chunk(Qc, qb, sq.s, q0, d0, scale);
-      stage_chunk(dOc, dob, sdo.s, q0, d0, 1.f);
-      __syncthreads();
-      // this thread's keys ty + 16 i, columns d0 + tx + 16 j
-      chunk_pv<true>(Ps, dOc, dva, ty, tx);
-      chunk_pv<true>(dSs, Qc, dka, ty, tx);
+  for (int cw = 0; cw < W / DC; ++cw)
+    if (cw < nW) {
+      store_chunk(dka[cw], kmul, dkb, sdk.s, wk0, c0 + cw * DC, L);
+      store_chunk(dva[cw], vmul, dvb, sdv.s, wk0, c0 + cw * DC, L);
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const long long r = k0 + ty + 16 * i;
-      T* krow = dkb + r * sdk.s + d0;
-      T* vrow = dvb + r * sdv.s + d0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        krow[tx + 16 * j] = from_f<T>(dka[i][j]);
-        vrow[tx + 16 * j] = from_f<T>(dva[i][j]);
-      }
-    }
-  }
 }
 
 // ---- bf16 at head_dim 64 and 128: the tensor cores ------------------------
@@ -1514,17 +1667,18 @@ cudaError_t launch_simt(const Args& a) {
 }
 
 // the tensor-core kernels' 16-byte copies and stores: every pointer and
-// (b, s, h) step of the views, for elements of `bytes` bytes, and the rows
-// of lse and delta
-bool views_aligned16(const Args& a, int bytes) {
+// (b, s, h) step of the views, for elements of `bytes` bytes, and with
+// `rows` the rows of lse and delta (which the streaming kernels read an
+// element at a time)
+bool views_aligned16(const Args& a, int bytes, bool rows = true) {
   const void* ptrs[] = {a.q, a.k, a.v, a.dout, a.dq, a.dk, a.dv};
   const Strides strides[] = {a.sq, a.sk, a.sv, a.sdo, a.sdq, a.sdk, a.sdv};
   for (int i = 0; i < 7; ++i)
     if (ptrs[i] != nullptr &&
         !aligned16(ptrs[i], strides[i], a.B, a.H, bytes))
       return false;
-  return ((reinterpret_cast<uintptr_t>(a.lse) |
-           reinterpret_cast<uintptr_t>(a.delta)) & 15) == 0;
+  return !rows || ((reinterpret_cast<uintptr_t>(a.lse) |
+                    reinterpret_cast<uintptr_t>(a.delta)) & 15) == 0;
 }
 
 template <int D>
@@ -1535,32 +1689,70 @@ cudaError_t launch_mma(const Args& a) {
   return a.dk != nullptr ? launch_dkv_mma<D>(a) : cudaSuccess;
 }
 
+template <typename T, bool RES>
+cudaError_t launch_dq_stream(const Args& a, int D, const Groups& gr) {
+  static bool attr_set = false;
+  if (cudaError_t e =
+          smem_attr(flash_dq_stream_kernel<T, RES>, ST_SMEM_MAX, attr_set))
+    return e;
+  const dim3 grid(a.B * a.H * gr.G, a.S / ST_ROWS);
+  flash_dq_stream_kernel<T, RES>
+      <<<grid, ST_THREADS, bwd_st_smem<T, RES, DQ_ST_BO>(D), a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+          static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+          a.delta, static_cast<T*>(a.dq), a.H, a.S, D, gr.G, gr.WG, a.sq,
+          a.sk, a.sv, a.sdo, a.sdq, a.causal, a.scale, a.window);
+  return cudaGetLastError();
+}
+
+template <typename T, bool RES>
+cudaError_t launch_dkv_stream(const Args& a, int D, const Groups& gr) {
+  static bool attr_set = false;
+  if (cudaError_t e =
+          smem_attr(flash_dkv_stream_kernel<T, RES>, ST_SMEM_MAX, attr_set))
+    return e;
+  const dim3 grid(a.B * a.H * gr.G, a.S / ST_ROWS);
+  flash_dkv_stream_kernel<T, RES>
+      <<<grid, ST_THREADS, bwd_st_smem<T, RES, dkv_st_bo<T>()>(D),
+         a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+          static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+          a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.H, a.S, D,
+          gr.G, gr.WG, a.sq, a.sk, a.sv, a.sdo, a.sdk, a.sdv, a.causal,
+          a.scale, a.window);
+  return cudaGetLastError();
+}
+
+// bf16 keeps each kernel's own side's chunk tiles resident where
+// `resident` says. fp32's never fit beside the ring (bwd_st_smem<float,
+// true, BO>(576), the smallest head dim on the route, is 345,600 bytes for
+// dK/dV and 359,424 for dQ, over ST_SMEM_MAX), so fp32 builds only the
+// streamed kernels.
 template <typename T>
 cudaError_t launch_stream(const Args& a, int D) {
-  constexpr int dq_bytes = (5 * ST_TILE + 2 * ST_ROWS) * sizeof(float);
-  constexpr int dkv_bytes = (6 * ST_TILE + 2 * ST_ROWS) * sizeof(float);
-  static bool dq_set = false, dkv_set = false;
-  const dim3 grid(a.B * a.H, a.S / ST_ROWS);
+  constexpr bool kMayReside = sizeof(T) == 2;
+  const Groups gq = groups_of(D, dq_st_wmax<T>());
+  const Groups gkv = groups_of(D, DKV_ST_WMAX);
+  const long long bh = (long long)a.B * a.H, tiles = a.S / ST_ROWS;
+  if (bh * gkv.G > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (a.dq != nullptr) {
-    if (cudaError_t e = smem_attr(flash_dq_stream_kernel<T>, dq_bytes, dq_set))
-      return e;
-    flash_dq_stream_kernel<T><<<grid, ST_THREADS, dq_bytes, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-        static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-        a.delta, static_cast<T*>(a.dq), a.H, a.S, D, a.sq, a.sk, a.sv, a.sdo,
-        a.sdq, a.causal, a.scale, a.window);
-    if (cudaError_t e = cudaGetLastError()) return e;
+    cudaError_t e;
+    if constexpr (kMayReside)
+      e = resident(bh * gq.G * tiles, bwd_st_smem<T, true, DQ_ST_BO>(D))
+              ? launch_dq_stream<T, true>(a, D, gq)
+              : launch_dq_stream<T, false>(a, D, gq);
+    else
+      e = launch_dq_stream<T, false>(a, D, gq);
+    if (e != cudaSuccess) return e;
   }
   if (a.dk == nullptr) return cudaSuccess;
-  if (cudaError_t e =
-          smem_attr(flash_dkv_stream_kernel<T>, dkv_bytes, dkv_set))
-    return e;
-  flash_dkv_stream_kernel<T><<<grid, ST_THREADS, dkv_bytes, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.H, a.S, D,
-      a.sq, a.sk, a.sv, a.sdo, a.sdk, a.sdv, a.causal, a.scale, a.window);
-  return cudaGetLastError();
+  if constexpr (kMayReside)
+    return resident(bh * gkv.G * tiles,
+                    bwd_st_smem<T, true, dkv_st_bo<T>()>(D))
+               ? launch_dkv_stream<T, true>(a, D, gkv)
+               : launch_dkv_stream<T, false>(a, D, gkv);
+  else
+    return launch_dkv_stream<T, false>(a, D, gkv);
 }
 
 template <int D>
@@ -1653,7 +1845,9 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* o,
     case 448: return dispatch<448>(a, dtype, route);
     case 512: return dispatch<512>(a, dtype, route);
   }
-  *route = 3;  // above 512: stream the head dim
+  *route = 3;  // above 512: stream the head dim (refused off 16 bytes)
+  if (!views_aligned16(a, dtype == 0 ? 4 : 2, false))
+    return cudaErrorInvalidValue;
   return dtype == 0 ? launch_stream<float>(a, D)
                     : launch_stream<__nv_bfloat16>(a, D);
 }

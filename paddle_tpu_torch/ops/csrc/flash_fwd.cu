@@ -78,11 +78,23 @@
 // 512 (201.5 KB at 512).
 //
 // Above head_dim 512, fp32 and bf16, `flash_fwd_stream_kernel` (the
-// streaming route; flash.cuh): no tile of a whole head fits, so lse comes
-// first from S streamed over the head dim in 64-wide chunks, then each
-// 64-wide chunk of o from S formed again and P = exp(S - lse). Any head dim
-// that is a multiple of 64 runs; the fp32 staging and the masks are the
-// scalar kernel's.
+// streaming route; its tiles and products in flash_stream.cuh). No tile of
+// a whole head fits in shared memory beside the others, and a 64 x D fp32
+// accumulator does not fit in registers (D / 2 a thread), so o's columns
+// split into G = ceil(D / WMAX) groups of at most WMAX = 256 (bf16) or 192
+// (fp32) columns, the last one narrower where D is no multiple (640: 192 x
+// 3 + 64 in fp32); the group is a grid step. A block of 4 warps owns (b*h,
+// group, 64-row query tile) and runs FlashAttention-2's one pass over the
+// kv tiles it sees: S = Q K^T over the whole head from chunk tiles of 64
+// (bf16) or 32 (fp32) columns that a cp.async ring keeps three deep (the
+// query's tiles resident where `resident` finds room), the online softmax
+// on S's accumulator, O[:, group] += P V[:, group]; bf16 on
+// mma.sync.m16n8k16, fp32 on TF32 mma.sync in three passes. What bounds
+// it: every group's block forms the same S, so the route does (2 G + 2) d
+// FLOPs a visible pair against the function's 4 d (8 d at 576, G = 3), and
+// fp32 triples them on the tensor cores and splits every operand at each
+// use on the issue slots; at b1 h2 s1024 the grid is 96 blocks on 132 SMs.
+// Views must be 16-byte aligned (the wrapper copies one that is not).
 //
 // The entry reports the kernel it launched (*route: 1 mma.sync, 2 the
 // scalar kernel, 3 the streaming one, 4 the TF32 one), which depends on
@@ -90,7 +102,7 @@
 // multiple of 64; lse is a contiguous [B * H, S] fp32 array. b * h rides
 // on gridDim.x, with no limit of its own.
 
-#include "flash_tf32.cuh"
+#include "flash_stream.cuh"
 
 namespace {
 
@@ -274,134 +286,201 @@ __global__ void __launch_bounds__(NT)
   if (tid < BR) lse[(long long)bh * S + q0 + tid] = m_s[tid] + logf(l_s[tid]);
 }
 
-// ---- head_dim above 512: the streaming route --------------------------------
+// ---- head_dim above 512: the streaming route -------------------------------
 
-// One block a (b*h, 64-row query tile). Pass 1 takes the rows' max and sum
-// over the visible kv tiles (the scalar kernel's online rule, S streamed
-// over the head dim) and writes lse. Pass 2, for each 64-wide chunk of the
-// output's columns, forms S again over the whole head dim, P = exp(S - lse)
-// exactly (no running rescale) and o[:, chunk] = P V[:, chunk]. S is formed
-// D / 64 + 1 times: slow, and no configuration of the reference has such
-// heads.
-template <typename T>
+// the widest column group of o a block owns: its fp32 accumulator takes
+// WMAX / 2 registers a thread (128 in bf16, 96 in fp32, where the TF32
+// split operands need more of the 255)
+template <typename T> __host__ __device__ constexpr int fwd_st_wmax() {
+  return sizeof(T) == 2 ? 256 : 192;
+}
+constexpr int FWD_ST_BKV = 64;  // kv rows a step
+
+// bytes of the block's shared memory: with RES the query chunk tiles stay
+// resident (nD of them) and a ring stage holds a K or V chunk; without, a
+// stage holds a K chunk and the query chunk beside it
+template <typename T, bool RES>
+__host__ __device__ constexpr int fwd_st_smem(int D) {
+  constexpr int OWN = ST_ROWS * Chunk<T>::ROW;
+  constexpr int OTH = FWD_ST_BKV * Chunk<T>::ROW;
+  return RES ? D / Chunk<T>::COLS * OWN + ST_STAGES * OTH
+             : ST_STAGES * (OTH + OWN);
+}
+
+// One block a (b*h, column group, 64-row query tile), 4 warps of 16 rows;
+// FlashAttention-2's one pass. For each kv tile the block forms S = Q K^T
+// over the whole head dim, one chunk tile at a time (chunk_nt), then the
+// online softmax on S's accumulator (running m and l, the group's
+// accumulator rescaled), then O[:, group] += P V[:, group] one chunk of V
+// at a time (chunk_pv). Every group's block forms the same S in the same
+// order, so m, l and lse agree bit for bit across groups; group 0 writes
+// lse.
+template <typename T, bool RES>
 __global__ void __launch_bounds__(ST_THREADS)
     flash_fwd_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, T* __restrict__ o,
                             float* __restrict__ lse, int H, int S, int D,
-                            Strides sq, Strides sk, Strides sv, Strides so,
-                            int causal, float scale, int window) {
-  constexpr int BR = ST_ROWS, LPR = ST_THREADS / BR;
-  extern __shared__ float smem[];
-  float* Qc = smem;          // a chunk of Q * scale
-  float* Kc = Qc + ST_TILE;  // a chunk of K, then of V
-  float* Ps = Kc + ST_TILE;  // scores, then probabilities
-  float* m_s = Ps + ST_TILE;
-  float* l_s = m_s + BR;     // the row sum, then lse
+                            int G, int WG, Strides sq, Strides sk, Strides sv,
+                            Strides so, int causal, float scale, int window) {
+  constexpr int DC = Chunk<T>::COLS, BKV = FWD_ST_BKV, W = fwd_st_wmax<T>();
+  constexpr int OWN = ST_ROWS * Chunk<T>::ROW, OTH = BKV * Chunk<T>::ROW;
+  constexpr int STAGE = OTH + (RES ? 0 : OWN);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int nD = D / DC;
+  unsigned char* const q_res = smem_raw;  // RES: the query chunk tiles
+  unsigned char* const ring_base = smem_raw + (RES ? nD * OWN : 0);
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  int bh, qt;
-  bh_tile(true, bh, qt);  // the heaviest causal tile first
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const Lanes L(tid & 31);
+  const int bh = blockIdx.x / G, g = blockIdx.x % G;
   const int b = bh / H, h = bh % H;
-  const int q0 = qt * BR;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * ST_ROWS;  // heaviest first
+  const int c0 = g * WG, nW = min(WG, D - c0) / DC;
   const T* qb = q + b * sq.b + h * sq.h;
   const T* kb = k + b * sk.b + h * sk.h;
   const T* vb = v + b * sv.b + h * sv.h;
-  T* ob = o + b * so.b + h * so.h;
-  if (tid < BR) {
-    m_s[tid] = NEG;
-    l_s[tid] = 0.f;
-  }
 
   // kv tiles with any visible key for some row of this query tile
-  int kt_begin = 0, kt_end = S / BR;
+  int kt_begin = 0, kt_end = S / BKV;
   if (causal) {
-    kt_end = (q0 + BR - 1) / BR + 1;
+    kt_end = (q0 + ST_ROWS - 1) / BKV + 1;
     if (window > 0) {
       const int first_key = q0 - (window - 1);
-      kt_begin = first_key > 0 ? first_key / BR : 0;
+      kt_begin = first_key > 0 ? first_key / BKV : 0;
     }
   }
+  // a kv tile's items: nD chunks of K (and Q) for S, then nW chunks of V
+  const int per = nD + nW, total = (kt_end - kt_begin) * per;
+  auto issue = [&](int i, unsigned char* dst) {
+    if (i < total) {
+      const int kt = kt_begin + i / per, j = i % per;
+      const uint32_t du = smem_u32(dst);
+      if (j < nD) {
+        cp_chunk<T, BKV>(du, kb, sk.s, kt * BKV, j * DC, tid);
+        if constexpr (!RES)
+          cp_chunk<T, ST_ROWS>(du + OTH, qb, sq.s, q0, j * DC, tid);
+      } else {
+        cp_chunk<T, BKV>(du, vb, sv.s, kt * BKV, c0 + (j - nD) * DC, tid);
+      }
+    }
+    cp_async_commit();
+  };
+  if constexpr (RES)  // lands with the ring's first item
+    for (int c = 0; c < nD; ++c)
+      cp_chunk<T, ST_ROWS>(smem_u32(q_res + c * OWN), qb, sq.s, q0, c * DC,
+                           tid);
+  Ring ring(ring_base, STAGE, issue);
+  ring.start();
 
-  float s[4][4], unused[4][4];
-  // pass 1: max and sum
+  const int wr0 = 16 * warp, wq0 = q0 + wr0;
+  // running max and sum of the thread's rows g and g + 8 (the sum this
+  // thread's part: the quad's four parts add up at the end), the group's
+  // accumulator a chunk of columns at a time
+  float m_r[2] = {NEG, NEG}, l_r[2] = {0.f, 0.f};
+  ChunkAcc<T> acc[W / DC];
+#pragma unroll
+  for (int cw = 0; cw < W / DC; ++cw)
+#pragma unroll
+    for (int j = 0; j < DC / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[cw][j][e] = 0.f;
+
   for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BR;
-    stream_scores<T, false>(s, unused, Qc, Kc, nullptr, nullptr, qb, sq.s,
-                            kb, sk.s, nullptr, 0, nullptr, 0, q0, k0, D,
-                            scale, ty, tx);
+    const int k0 = kt * BKV;
+    // a tile this warp's rows see nothing of: the ring still turns
+    const bool skip = (causal && k0 > wq0 + 15) ||
+                      (window > 0 && k0 + BKV - 1 < wq0 - window + 1);
+    float sc[BKV / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < BKV / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        Ps[r * ST_LD + c] =
-            visible(q0 + r, k0 + c, causal, window) ? s[i][j] : NEG;
-      }
-    __syncthreads();
-    {
-      const int r = tid / LPR, part = tid % LPR;
-      const float* pr = Ps + r * ST_LD;
-      float mx = NEG;
-      for (int c = part; c < BR; c += LPR) mx = fmaxf(mx, pr[c]);
-#pragma unroll
-      for (int off = 1; off < LPR; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = m_s[r];
-      const float m_next = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int c = part; c < BR; c += LPR) sum += expf(pr[c] - m_next);
-#pragma unroll
-      for (int off = 1; off < LPR; off <<= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (part == 0) {
-        // a row whose every key so far was masked has m = NEG: its
-        // garbage (1 per masked key) is wiped by exp(NEG - m_real) = 0
-        // once a visible key arrives, as in the scalar kernel
-        l_s[r] = expf(m_prev - m_next) * l_s[r] + sum;
-        m_s[r] = m_next;
-      }
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    for (int c = 0; c < nD; ++c) {
+      const unsigned char* st = ring.next();
+      if (!skip)
+        chunk_nt<BKV>(sc, RES ? q_res + c * OWN : st + OTH, st, wr0, L, T{});
     }
-  }
-  __syncthreads();
-  if (tid < BR) {
-    l_s[tid] = m_s[tid] + logf(l_s[tid]);
-    lse[(long long)bh * S + q0 + tid] = l_s[tid];
-  }
-
-  // pass 2: o, 64 columns at a time
-  for (int d0 = 0; d0 < D; d0 += BR) {
-    float acc[4][4];
+    POperand<T, BKV> p;
+    if (!skip) {
+      // S * scale in fp32, the reference's _NEG where the diagonal or the
+      // window's edge crosses the warp's rows; then the online softmax on
+      // the accumulator fragment, as flash_fwd_tf32_kernel runs it
+      const bool edge = causal && (k0 + BKV - 1 > wq0 ||
+                                   (window > 0 && k0 < wq0 + 15 - window + 1));
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < BKV / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int kt = kt_begin; kt < kt_end; ++kt) {
-      const int k0 = kt * BR;
-      stream_scores<T, false>(s, unused, Qc, Kc, nullptr, nullptr, qb, sq.s,
-                              kb, sk.s, nullptr, 0, nullptr, 0, q0, k0, D,
-                              scale, ty, tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = ty + 16 * i, c = tx + 16 * j;
-          Ps[r * ST_LD + c] = visible(q0 + r, k0 + c, causal, window)
-                                  ? expf(s[i][j] - l_s[r])
-                                  : 0.f;
+        for (int e = 0; e < 4; ++e) {
+          sc[j][e] *= scale;
+          if (edge && !visible(wq0 + L.g + 8 * (e >> 1),
+                               k0 + 8 * j + 2 * L.t + (e & 1), causal, window))
+            sc[j][e] = NEG;
         }
-      __syncthreads();  // P complete; every reader of the K chunk done
-      stage_chunk(Kc, vb, sv.s, k0, d0, 1.f);
-      __syncthreads();
-      chunk_pv<false>(Ps, Kc, acc, ty, tx);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m_r[r];
+#pragma unroll
+        for (int j = 0; j < BKV / 8; ++j)
+          mx = fmaxf(mx, fmaxf(sc[j][2 * r], sc[j][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float alpha = exp2_approx((m_r[r] - mx) * LOG2E);
+        m_r[r] = mx;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float pe = exp2_approx((sc[j][2 * r + c] - mx) * LOG2E);
+            sc[j][2 * r + c] = pe;
+            sum += pe;
+          }
+        l_r[r] = l_r[r] * alpha + sum;
+#pragma unroll
+        for (int cw = 0; cw < W / DC; ++cw)
+#pragma unroll
+          for (int j = 0; j < DC / 8; ++j) {
+            acc[cw][j][2 * r] *= alpha;
+            acc[cw][j][2 * r + 1] *= alpha;
+          }
+      }
+      p.set(sc);
     }
+    // O[:, group] += P V[:, group], a chunk of V's columns at a time
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      T* orow = ob + (long long)(q0 + ty + 16 * i) * so.s + d0;
+    for (int cw = 0; cw < W / DC; ++cw)
+      if (cw < nW) {
+        const unsigned char* st = ring.next();
+        if (!skip) chunk_pv<BKV>(acc[cw], p, st, L);
+      }
+  }
+  cp_async_wait<0>();  // no copy in flight when the block ends
+
+  // o = O / l, lse = m + log l (group 0)
+  float inv[2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) orow[tx + 16 * j] = from_f<T>(acc[i][j]);
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[r] = 1.f / l;
+    if (g == 0 && L.t == 0)
+      lse[(long long)bh * S + wq0 + L.g + 8 * r] = m_r[r] + logf(l);
+    if constexpr (sizeof(T) == 4) {  // fp32 divides, as the reference does
+#pragma unroll
+      for (int cw = 0; cw < W / DC; ++cw)
+#pragma unroll
+        for (int j = 0; j < DC / 8; ++j) {
+          acc[cw][j][2 * r] /= l;
+          acc[cw][j][2 * r + 1] /= l;
+        }
+      inv[r] = 1.f;
     }
   }
+  T* ob = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int cw = 0; cw < W / DC; ++cw)
+    if (cw < nW) store_chunk(acc[cw], inv, ob, so.s, wq0, c0 + cw * DC, L);
 }
 
 // ---- bf16: FlashAttention-2 on the tensor cores ---------------------------
@@ -898,23 +977,36 @@ cudaError_t launch_simt(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_stream(const Args& a, int D) {
-  constexpr int bytes = (3 * ST_TILE + 2 * ST_ROWS) * sizeof(float);
+template <typename T, bool RES>
+cudaError_t launch_stream_res(const Args& a, int D) {
   static bool attr_set = false;  // dynamic shared memory above 48 KB
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_stream_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        flash_fwd_stream_kernel<T, RES>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, ST_SMEM_MAX);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  const dim3 grid(a.B * a.H, a.S / ST_ROWS);
-  flash_fwd_stream_kernel<T><<<grid, ST_THREADS, bytes, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.H, a.S, D,
-      a.sq, a.sk, a.sv, a.so, a.causal, a.scale, a.window);
+  const Groups gr = groups_of(D, fwd_st_wmax<T>());
+  const dim3 grid(a.B * a.H * gr.G, a.S / ST_ROWS);
+  flash_fwd_stream_kernel<T, RES>
+      <<<grid, ST_THREADS, fwd_st_smem<T, RES>(D), a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+          static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.H, a.S,
+          D, gr.G, gr.WG, a.sq, a.sk, a.sv, a.so, a.causal, a.scale,
+          a.window);
   return cudaGetLastError();
+}
+
+// the query chunk tiles resident where `resident` says
+template <typename T>
+cudaError_t launch_stream(const Args& a, int D) {
+  const long long bhg =
+      (long long)a.B * a.H * groups_of(D, fwd_st_wmax<T>()).G;
+  if (bhg > 0x7fffffffLL) return cudaErrorInvalidValue;
+  return resident(bhg * (a.S / ST_ROWS), fwd_st_smem<T, true>(D))
+             ? launch_stream_res<T, true>(a, D)
+             : launch_stream_res<T, false>(a, D);
 }
 
 // every view's pointer and (b, s, h) steps 16-byte aligned
@@ -986,7 +1078,8 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
   }
   if (D < 64 || D % 64 != 0)
     return cudaErrorInvalidValue;  // a head_dim the kernel has no tiling for
-  *route = 3;  // above 512: stream the head dim
+  *route = 3;  // above 512: stream the head dim (refused off 16 bytes)
+  if (!views_aligned16(a, dtype == 0 ? 4 : 2)) return cudaErrorInvalidValue;
   return dtype == 0 ? launch_stream<float>(a, D)
                     : launch_stream<__nv_bfloat16>(a, D);
 }

@@ -63,15 +63,15 @@ __device__ __forceinline__ void split4(const float* p, uint32_t (&big)[4],
 // UNROLL the loop over h is unrolled too: faster, but two chunks' split
 // operands in flight at once need registers that the dQ kernel at head_dim
 // 64 (168 a thread) and the dK/dV kernel at 128 (255) do not have.
+// product_nt_add adds the products to X as it stands (the streaming
+// kernels sum S over the head dim one chunk tile at a time); product_nt
+// zeroes X first.
 template <int D, int N, bool UNROLL>
-__device__ __forceinline__ void product_nt(float (&x)[N / 8][4],
-                                           const float* a, const float* b,
-                                           int ar0, const Lanes& L) {
+__device__ __forceinline__ void product_nt_add(float (&x)[N / 8][4],
+                                               const float* a,
+                                               const float* b, int ar0,
+                                               const Lanes& L) {
   constexpr int LD = tf_ld<D>();
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) x[j][r] = 0.f;
   auto chunk = [&](int h) {
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
@@ -108,6 +108,17 @@ __device__ __forceinline__ void product_nt(float (&x)[N / 8][4],
 #pragma unroll 1
     for (int h = 0; h < D / 32; ++h) chunk(h);
   }
+}
+
+template <int D, int N, bool UNROLL>
+__device__ __forceinline__ void product_nt(float (&x)[N / 8][4],
+                                           const float* a, const float* b,
+                                           int ar0, const Lanes& L) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) x[j][r] = 0.f;
+  product_nt_add<D, N, UNROLL>(x, a, b, ar0, L);
 }
 
 // X += A B over K = 8 KS in three TF32 passes: A the fp32 accumulators of

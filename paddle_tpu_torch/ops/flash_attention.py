@@ -13,9 +13,13 @@ backward pair at 64 and 128 runs on the TF32 tensor cores, each product
 in three passes (big and small TF32 parts of each operand) that keep fp32
 accuracy, where every view is 16-byte aligned; the fp32 forward, fp32
 views off 16 bytes and both types at the other head dims up to 512 take
-scalar kernels of fp32 FMAs out of shared memory; above 512 the streaming
-kernels form S over the head dim in 64-wide chunks and each output 64
-columns at a time. The backward's C
+scalar kernels of fp32 FMAs out of shared memory. Above 512 no tile of a
+whole head fits in shared memory: the streaming kernels (16-byte-aligned
+views, fp32 and bf16 on the tensor cores, TF32 in three passes for fp32)
+split each output's columns into groups, one grid step each, and form S
+(and dP) over the whole head from chunk tiles of a few columns that
+cp.async streams through a ring, once per tile a block visits; the
+forward in one pass (online softmax). The backward's C
 entry computes delta = rowsum(dO o) by a pre-pass kernel unless the
 caller passes it. ``flash_attention`` is a
 ``torch.autograd.Function`` (the reference's ``jax.custom_vjp``): it saves
@@ -61,9 +65,9 @@ launches = collections.Counter()
 
 #: forward, dQ and dK/dV launches by "<kernel>:<dtype>:<route>", route
 #: "mma" (the bf16 tensor-core kernel), "simt" (the scalar one), "stream"
-#: (head_dim above 512, streamed in 64-wide chunks) or "tf32x3" (the fp32
-#: backward pair on the TF32 tensor cores, three passes a product), as the
-#: C entry reports the kernel it launched: bf16 takes "mma" at head_dim 64
+#: (head_dim above 512: column groups over chunk tiles) or "tf32x3" (the
+#: fp32 backward pair on the TF32 tensor cores, three passes a product), as
+#: the C entry reports the kernel it launched: bf16 takes "mma" at head_dim 64
 #: and 128, and in the forward also at 192 and 256; the fp32 dQ and dK/dV
 #: take "tf32x3" at 64 and 128 where every view is 16-byte aligned
 routes = collections.Counter()
@@ -210,13 +214,14 @@ def _aligned_copy(t):
 
 
 def _check_aligned(operands):
-    """The bf16 tensor-core kernels copy 16-byte chunks: every operand
-    must be `_aligned`."""
+    """The bf16 tensor-core kernels and the streaming ones copy 16-byte
+    chunks: every operand must be `_aligned`."""
     for name, t in operands:
         if not _aligned(t):
             raise ValueError(
-                f"flash kernel: bf16 {name} must be 16-byte aligned, its "
-                f"pointer and its (b, s, h) strides {t.stride()[:3]}")
+                f"flash kernel: {_dtype_name(t.dtype)} {name} must be "
+                f"16-byte aligned, its pointer and its (b, s, h) strides "
+                f"{t.stride()[:3]}")
 
 
 def _check_shape(q):
@@ -270,8 +275,8 @@ def _tail(q, causal, scale, window, dtype, route):
 
 def _launch(q, k, v, causal, scale, window):
     """Run the forward kernel on [B, S, H, D] views (any strides over b, s,
-    h, 16-byte aligned in bf16; d contiguous). Returns (o [B, S, H, D]
-    contiguous, lse [B*H, S] fp32)."""
+    h, 16-byte aligned in bf16 and above head_dim 512; d contiguous).
+    Returns (o [B, S, H, D] contiguous, lse [B*H, S] fp32)."""
     dtype = _check_shape(q)
     B, S, H, D = q.shape
     operands = (("q", q), ("k", k), ("v", v))
@@ -283,9 +288,9 @@ def _launch(q, k, v, causal, scale, window):
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              lse.data_ptr(), B, H, S, D, *_strides(q, k, v, o),
              *_tail(q, causal, scale, window, dtype, route))
-    if err and route.value == 1:
-        # the tensor-core route refuses a view it cannot copy in 16-byte
-        # chunks; say which operand
+    if err and route.value in (1, 3):
+        # the bf16 tensor-core route and the streaming one refuse a view
+        # they cannot copy in 16-byte chunks; say which operand
         _check_aligned(operands)
     _build.check(lib, "flash_fwd", err)
     launches[f"flash_fwd:{dtype}"] += 1
@@ -306,9 +311,10 @@ def _check_rows(q, name, t):
 def _run_bwd(q, k, v, do, lse, causal, scale, window, *, o=None,
              delta=None, dq=False, dkv=False):
     """One call of the backward's C entry on [B, S, H, D] views of q, k, v
-    (d contiguous; 16-byte aligned for the bf16 tensor-core kernels, and
-    for the fp32 ones, which the C entry leaves for the scalar kernels
-    where any view is not) and dO, and the [B*H, S] fp32 rows lse (None
+    (d contiguous; 16-byte aligned for the bf16 tensor-core kernels and
+    the streaming ones, and for the fp32 ones at 64 and 128, which the C
+    entry leaves for the scalar kernels where any view is not) and dO, and
+    the [B*H, S] fp32 rows lse (None
     if only the pre-pass runs): the delta pre-pass from o when `delta` is
     None, then the dQ kernel if `dq` and the dK/dV kernel if `dkv`. dO and
     o are copied where they are not `_aligned` (the pre-pass and the
@@ -347,9 +353,9 @@ def _run_bwd(q, k, v, do, lse, causal, scale, window, *, o=None,
              delta.data_ptr() if made else None, *ptr[1:], B, H, S, D,
              (ctypes.c_longlong * 24)(*strides),
              *_tail(q, causal, scale, window, dtype, route))
-    if err and route.value == 1:
-        # the tensor-core route refuses a view it cannot copy in 16-byte
-        # chunks; say which operand
+    if err and route.value in (1, 3):
+        # the bf16 tensor-core route and the streaming one refuse a view
+        # they cannot copy in 16-byte chunks; say which operand
         _check_aligned(operands + [(n, t) for n, t in outs.items()
                                    if t is not None])
     _build.check(lib, "flash_bwd", err)
@@ -540,8 +546,10 @@ def flash_attention(q, k, v, causal=False, window=None):
     _block_for(q.shape[1])
     if q.is_cuda:
         # copy what the kernels cannot read (the `_aligned_copy` rule): a
-        # strided head_dim, and in bf16 a view off 16 bytes
-        q, k, v = (_aligned_copy(t) if t.dtype == torch.bfloat16
+        # strided head_dim, and in bf16 or above head_dim 512 (the
+        # streaming route) a view off 16 bytes
+        q, k, v = (_aligned_copy(t)
+                   if t.dtype == torch.bfloat16 or t.shape[-1] > 512
                    else t if t.stride(-1) == 1 else t.contiguous()
                    for t in (q, k, v))
     if q.is_cuda and not (torch.is_grad_enabled() and (

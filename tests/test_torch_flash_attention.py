@@ -24,6 +24,7 @@ from paddle_tpu.ops import flash_attention as jfa
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
 from paddle_tpu_torch.ops import flash_attention as tfa
+from paddle_tpu_torch.testing import flash_stream as st
 from paddle_tpu_torch.testing.tf32 import tf32x1, tf32x3
 
 ATOL = 2e-5
@@ -147,46 +148,87 @@ def test_check_shape_takes_b_h_above_the_grid_y_limit():
         tfa._launch(q, q, q, True, 0.125, None)
 
 
-def _stream_fwd(q3, k3, v3, causal, scale, window=None, chunk=64):
-    """The streaming route's algorithm (csrc/flash_fwd.cu,
-    flash_fwd_stream_kernel) in plain torch: S = (q * scale) k^T summed
-    over 64-wide chunks of the head dim, lse first from the masked S, then
-    each 64-wide chunk of o from S formed again and P = exp(S - lse) with
-    no running rescale."""
-    d = q3.shape[-1]
+def _stream_fwd(q3, k3, v3, causal, scale, window=None, dtype="float32"):
+    """The streaming route's forward (csrc/flash_fwd.cu,
+    flash_fwd_stream_kernel) in plain torch, with the kernel's tiling for
+    `dtype` (the arithmetic in q3's type): o's columns in `st.groups`
+    groups, the last one narrower where the head dim is no multiple of
+    the group; for each group and 64-row query tile one pass over the kv
+    tiles the tile sees: S = q k^T summed over the head dim one chunk tile
+    at a time, times scale, the reference's _NEG where masked, the online
+    softmax (running max m and sum l, the group's accumulator rescaled by
+    exp(m_prev - m)) and O[:, group] += P v[:, group]; o = O / l and lse =
+    m + log l, which every group forms alike."""
+    bh, s, d = q3.shape
+    rows, chunk = st.ROWS, st.CHUNK[dtype]
+    wmax, step = st.TILING["fwd"][dtype]
+    n_groups, width = st.groups(d, wmax)
+    keep = tfa._keep_mask(s, s, window, q3.device) if causal else None
+    o = torch.empty_like(q3)
+    lses = []
+    for g in range(n_groups):
+        cols = slice(g * width, min(d, (g + 1) * width))
+        lse = torch.empty(bh, s)
+        for q0 in range(0, s, rows):
+            qt = q3[:, q0:q0 + rows]
+            m = torch.full((bh, rows), tfa._NEG)
+            l = torch.zeros(bh, rows)
+            acc = torch.zeros(bh, rows, cols.stop - cols.start)
+            for k0 in st.kv_tiles(q0, step, s, causal, window):
+                kt, vt = k3[:, k0:k0 + step], v3[:, k0:k0 + step]
+                sc = sum(qt[..., c:c + chunk]
+                         @ kt[..., c:c + chunk].transpose(-1, -2)
+                         for c in range(0, d, chunk)) * scale
+                if causal:
+                    sc = sc.masked_fill(
+                        ~keep[q0:q0 + rows, k0:k0 + step], tfa._NEG)
+                mx = torch.maximum(m, sc.amax(-1))
+                p = torch.exp(sc - mx[..., None])
+                alpha = torch.exp(m - mx)
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] + p @ vt[..., cols]
+                m = mx
+            o[:, q0:q0 + rows, cols] = acc / l[..., None]
+            lse[:, q0:q0 + rows] = m + torch.log(l)
+        lses.append(lse)
+    assert all(torch.equal(lses[0], x) for x in lses[1:])
+    return o, lses[0]
 
-    def scores():
-        s = sum((q3[..., c:c + chunk] * scale)
-                @ k3[..., c:c + chunk].transpose(-1, -2)
-                for c in range(0, d, chunk))
-        if causal:
-            s = s.masked_fill(~tfa._keep_mask(*s.shape[-2:], window,
-                                              q3.device), -torch.inf)
-        return s
 
-    lse = torch.logsumexp(scores(), dim=-1)
-    o = torch.cat([torch.exp(scores() - lse[..., None]) @ v3[..., c:c + chunk]
-                   for c in range(0, d, chunk)], dim=-1)
-    return o, lse
-
-
-@pytest.mark.parametrize("causal,window", MODES, ids=MODE_IDS)
-def test_streaming_route_algorithm_matches_jax_at_head_dim_576(causal,
-                                                               window):
-    """At head_dim 576 (above every whole-head tiling), one head, seq 256:
-    the streaming algorithm and the port's plain forward against the
-    reference's Pallas forward (interpreted)."""
-    q, k, v = _arrays(1, 256, 576, seed=11)
-    scale = 1.0 / math.sqrt(576)
+def _check_stream_fwd(d, causal, window):
+    """The streaming forward's algorithm, with the bf16 and the fp32
+    kernel's tiling, and the port's plain forward against the reference's
+    Pallas forward (interpreted), one head, seq 256."""
+    q, k, v = _arrays(1, 256, d, seed=11)
+    scale = 1.0 / math.sqrt(d)
     jo, jlse = jfa._flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                               causal, scale, True, window=window)
     args = [torch.from_numpy(a) for a in (q, k, v)]
-    for to, tlse in (_stream_fwd(*args, causal, scale, window),
+    for to, tlse in (_stream_fwd(*args, causal, scale, window, "float32"),
+                     _stream_fwd(*args, causal, scale, window, "bfloat16"),
                      tfa._flash_fwd(*args, causal, scale, window)):
         np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=ATOL,
                                    rtol=0)
         np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse),
                                    atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("causal,window", MODES, ids=MODE_IDS)
+def test_streaming_route_algorithm_matches_jax_at_head_dim_576(causal,
+                                                               window):
+    """At head_dim 576 (above every whole-head tiling; three groups of 192
+    columns in both tilings)."""
+    _check_stream_fwd(576, causal, window)
+
+
+@pytest.mark.parametrize("causal,window", MODES, ids=MODE_IDS)
+def test_streaming_route_ragged_group_matches_jax_at_head_dim_640(causal,
+                                                                  window):
+    """At head_dim 640 the last column group is narrower than the rest:
+    192 x 3 + 64 in the fp32 tiling, 256 x 2 + 128 in the bf16 one."""
+    assert [st.groups(640, st.TILING["fwd"][t][0])
+            for t in ("float32", "bfloat16")] == [(4, 192), (3, 256)]
+    _check_stream_fwd(640, causal, window)
 
 
 @pytest.mark.parametrize("d", [64, 192, 256])

@@ -20,7 +20,10 @@ import jax.numpy as jnp
 
 from paddle_tpu.ops import flash_attention as jfa
 
+import tf32_variants
+from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import flash_attention as tfa
+from paddle_tpu_torch.testing import flash_stream as st
 from paddle_tpu_torch.testing.tf32 import tf32 as _tf32, \
     tf32x1 as _tf32x1, tf32x3 as _tf32x3
 
@@ -144,36 +147,72 @@ def test_backward_kernels_raise_for_head_dims_they_cannot_tile(d):
 
 
 def _stream_bwd(q3, k3, v3, o3, lse, do3, causal, scale, window=None,
-                chunk=64):
+                dtype="float32"):
     """The streaming route's backward (csrc/flash_bwd.cu,
-    flash_dq_stream_kernel and flash_dkv_stream_kernel) in plain torch:
-    for each 64-wide chunk of an output's columns, S = (q * scale) k^T and
-    dP = dO v^T formed again over 64-wide chunks of the head dim, P =
-    exp(S - lse), dS = P (dP - delta); dq = scale dS k, dk = dS^T (q *
-    scale), dv = P^T dO, chunk by chunk."""
-    d = q3.shape[-1]
+    flash_dq_stream_kernel and flash_dkv_stream_kernel) in plain torch,
+    with the kernels' tiling for `dtype` (the arithmetic in q3's type):
+    each output's columns in `st.groups` groups. dQ: for each group
+    and 64-row query tile, one pass over the kv tiles it sees, S = q k^T
+    and dP = dO v^T summed over the head dim one chunk tile at a time, P =
+    exp(S scale - lse) (0 where masked), dS = P (dP - delta), dq[:, group]
+    += dS k[:, group], times scale at the end. dK/dV: for each group and
+    64-row kv tile, one pass over the query tiles that see it, S^T = k q^T
+    and dP^T = v dO^T likewise, dv[:, group] += P^T dO[:, group] and
+    dk[:, group] += dS^T q[:, group], dk times scale at the end."""
+    bh, s, d = q3.shape
+    rows, chunk = st.ROWS, st.CHUNK[dtype]
     delta = (do3 * o3).sum(-1)
-    keep = tfa._keep_mask(q3.shape[-2], k3.shape[-2], window, q3.device) \
-        if causal else None
+    keep = tfa._keep_mask(s, s, window, q3.device) if causal else None
 
     def chunked(a, b):
         return sum(a[..., c:c + chunk] @ b[..., c:c + chunk].transpose(-1, -2)
                    for c in range(0, d, chunk))
 
-    def p_ds():
-        p = torch.exp(chunked(q3 * scale, k3) - lse[..., None])
+    def p_ds(qs, ks, transposed):
+        """P and dS of query rows qs and key rows ks (transposed: [keys,
+        queries] from k q^T and v dO^T)."""
+        if transposed:
+            sc = chunked(k3[:, ks], q3[:, qs])
+            dp = chunked(v3[:, ks], do3[:, qs])
+            lse_, dl_ = lse[:, None, qs], delta[:, None, qs]
+        else:
+            sc = chunked(q3[:, qs], k3[:, ks])
+            dp = chunked(do3[:, qs], v3[:, ks])
+            lse_, dl_ = lse[:, qs, None], delta[:, qs, None]
+        p = torch.exp(sc * scale - lse_)
         if keep is not None:
-            p = p.masked_fill(~keep, 0.0)
-        return p, p * (chunked(do3, v3) - delta[..., None])
+            mask = keep[qs, ks]
+            p = p.masked_fill(~(mask.T if transposed else mask), 0.0)
+        return p, p * (dp - dl_)
 
-    dq, dk, dv = [], [], []
-    for c in range(0, d, chunk):
-        cols = slice(c, c + chunk)
-        p, ds = p_ds()
-        dq.append((ds @ k3[..., cols]) * scale)
-        dk.append(ds.transpose(-1, -2) @ (q3[..., cols] * scale))
-        dv.append(p.transpose(-1, -2) @ do3[..., cols])
-    return tuple(torch.cat(g, dim=-1) for g in (dq, dk, dv))
+    dq, dk, dv = (torch.empty_like(q3) for _ in range(3))
+    wmax, step = st.TILING["dq"][dtype]
+    n_groups, width = st.groups(d, wmax)
+    for g in range(n_groups):
+        cols = slice(g * width, min(d, (g + 1) * width))
+        for q0 in range(0, s, rows):
+            qs = slice(q0, q0 + rows)
+            acc = 0.0
+            for k0 in st.kv_tiles(q0, step, s, causal, window):
+                ks = slice(k0, k0 + step)
+                _, ds = p_ds(qs, ks, False)
+                acc = acc + ds @ k3[:, ks, cols]
+            dq[:, qs, cols] = acc * scale
+    wmax, step = st.TILING["dkv"][dtype]
+    n_groups, width = st.groups(d, wmax)
+    for g in range(n_groups):
+        cols = slice(g * width, min(d, (g + 1) * width))
+        for k0 in range(0, s, rows):
+            ks = slice(k0, k0 + rows)
+            dka = dva = 0.0
+            for q0 in st.q_tiles(k0, step, s, causal, window):
+                qs = slice(q0, q0 + step)
+                pt, dst = p_ds(qs, ks, True)
+                dva = dva + pt @ do3[:, qs, cols]
+                dka = dka + dst @ q3[:, qs, cols]
+            dk[:, ks, cols] = dka * scale
+            dv[:, ks, cols] = dva
+    return dq, dk, dv
 
 
 @pytest.mark.parametrize("causal,window", MODES, ids=MODE_IDS)
@@ -198,6 +237,25 @@ def test_streaming_route_backward_matches_jax_grad_at_head_dim_576(causal,
     args = [torch.from_numpy(a) for a in (q, k, v, o, lse, g)]
     _close(_stream_bwd(*args, causal, scale, window), want)
     _close(tfa._flash_bwd(*args, causal, scale, window=window), want)
+
+
+@pytest.mark.parametrize("d", [576, 640])
+@pytest.mark.parametrize("causal,window", MODES, ids=MODE_IDS)
+def test_streaming_backward_plan_matches_jax_flash_bwd(d, causal, window):
+    """One head, seq 256: the streaming kernels' dQ and dK/dV plan with
+    the bf16 and the fp32 tiling (column groups of the outputs, S and dP
+    over the whole head once a tile a block visits, 16- and 32-row steps)
+    against the reference's Pallas backward (interpreted) on the
+    reference's o and lse; at 640 the dQ groups are ragged (192 x 3 + 64,
+    256 x 2 + 128)."""
+    q, k, v, g = _arrays(1, 256, d, seed=13)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = _fwd_residuals(q, k, v, causal, scale, window)
+    want = jfa._flash_bwd(*(jnp.asarray(a) for a in (q, k, v, o, lse, g)),
+                          causal, scale, True, window=window)
+    args = [torch.from_numpy(np.asarray(a)) for a in (q, k, v, o, lse, g)]
+    for dtype in ("float32", "bfloat16"):
+        _close(_stream_bwd(*args, causal, scale, window, dtype), want)
 
 
 # ---- on the card -----------------------------------------------------------
@@ -512,12 +570,13 @@ def test_fp32_three_pass_tf32_within_band_of_plain(d, window):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [576, 1024])
+@pytest.mark.parametrize("d", [576, 640, 1024])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
                                        (torch.bfloat16, 3e-2)],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("causal,window", [(True, None), (True, 100)],
-                         ids=["causal", "window100"])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 100),
+                                           (False, None)],
+                         ids=["causal", "window100", "full"])
 def test_streaming_route_under_autograd_matches_plain_on_card(
         cuda, d, dtype, tol, causal, window):
     """Above head_dim 512 the forward, dQ and dK/dV all take the streaming
@@ -542,3 +601,58 @@ def test_streaming_route_under_autograd_matches_plain_on_card(
     for gt, w in zip(got, want):
         err = (gt.float() - w).abs().max().item()
         assert err <= tol * max(1.0, w.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_streaming_route_grads_bit_equal_and_views_off_16_bytes_on_card(
+        cuda, dtype):
+    """The streaming kernels write each output tile from one block, with
+    no atomics: two backward calls give the same bits. They copy 16-byte
+    chunks, so a view off 16 bytes raises on the kernel's entry, while
+    flash_attention copies it first and matches the aligned call."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    b, s, h, d = 2, 1024, 2, 576
+    wide = torch.randn(b, s, 3 * h * d + 8, generator=g, device=cuda) \
+        .to(dtype)
+    q, k, v = (t.reshape(b, s, h, d)
+               for t in wide[..., 1:3 * h * d + 1].split(h * d, dim=-1))
+    assert not any(tfa._aligned(t) for t in (q, k, v))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._launch(q, k, v, True, 1.0 / math.sqrt(d), None)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    do = torch.randn(b, s, h, d, generator=g, device=cuda).to(dtype)
+    o, lse = tfa._launch(qc, kc, vc, True, 1.0 / math.sqrt(d), None)
+    first = tfa._launch_bwd(qc, kc, vc, o, lse, do, True,
+                            1.0 / math.sqrt(d), None)
+    again = tfa._launch_bwd(qc, kc, vc, o, lse, do, True,
+                            1.0 / math.sqrt(d), None)
+    with torch.no_grad():
+        copied = tfa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    assert torch.equal(copied, o)
+
+
+@pytest.mark.parametrize("name", sorted(tf32_variants.STREAM_VARIANTS))
+def test_stream_variant_edits_apply_to_the_sources(name, tmp_path):
+    """Each streaming tiling variant of tf32_variants.py finds every line
+    it replaces once in the sources as they stand, and its copies include
+    its own header."""
+    for src in ("flash_fwd.cu", "flash_bwd.cu", "flash_stream.cuh"):
+        (tmp_path / src).write_text((_build.CSRC / src).read_text())
+    written = []
+    libs = tf32_variants.write_stream_variant(tmp_path, name, written)
+    assert sorted(libs) == ["flash_bwd", "flash_fwd"]
+    edits = tf32_variants.STREAM_VARIANTS[name]
+    header = (f"flash_stream_{name}.cuh" if "flash_stream" in edits
+              else "flash_stream.cuh")
+    for src, lib in libs.items():
+        text = (tmp_path / f"{lib}.cu").read_text()
+        assert f'#include "{header}"' in text
+        assert all(new in text for _, new in edits.get(src, []))
+    if "flash_stream" in edits:
+        text = (tmp_path / header).read_text()
+        assert all(old not in text for old, _ in edits["flash_stream"])
+    assert len(written) == len(libs) + ("flash_stream" in edits)

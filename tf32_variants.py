@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
-"""Build variants of the fp32 flash kernels on the TF32 tensor cores
+"""Build variants of the flash kernels side by side on one CUDA device, and
+compare them: the fp32 kernels on the TF32 tensor cores
 (paddle_tpu_torch/ops/csrc/flash_fwd.cu: flash_fwd_tf32_kernel;
-flash_bwd.cu: flash_dq_tf32_kernel and flash_dkv_tf32_kernel) side by side
-on one CUDA device, and compare them.
+flash_bwd.cu: flash_dq_tf32_kernel and flash_dkv_tf32_kernel; VARIANTS)
+and the streaming route's kernels (head_dim above 512:
+flash_fwd_stream_kernel, flash_dq_stream_kernel and
+flash_dkv_stream_kernel, their tiles and ring in flash_stream.cuh;
+STREAM_VARIANTS).
 
-    python3 tf32_variants.py [VARIANT ...]
+    python3 tf32_variants.py [VARIANT ...]     # default: every TF32 one
 
 Each variant is a copy of flash_fwd.cu or flash_bwd.cu (or both) with some
 of its tiling functions returning other values (fwd_tf_rows, fwd_tf_bkv,
@@ -24,8 +28,27 @@ for a backward the same of dQ, dK and dV and the device ms of the pair
 (delta pre-pass + dQ + dK/dV, one call of the C entry), dQ and dK/dV.
 Device ms: CUDA events after a ~0.5 ms device sleep, median of 20, 64 MB
 written between calls. Then SDPA's forward and backward on the same
-inputs, and the card's name and power limit. It imports neither jax nor
-the JAX package.
+inputs.
+
+A streaming variant (named stream_*) is a copy of flash_fwd.cu and
+flash_bwd.cu, and of flash_stream.cuh where it changes the header, with a
+few lines replaced; "stream_chosen" builds the sources as they are.
+"stream_resident" keeps every kernel's own chunk tiles resident wherever
+they fit beside the ring, "stream_streamed" never, where the sources
+decide by the grid (`resident` in flash_stream.cuh); "stream_stages4"
+deepens the ring from three chunk items to four; "stream_dkv_rows32"
+gives the fp32 dK/dV kernel 32-row query steps (the bf16 one's) instead
+of 16. For each it prints ptxas's registers and spills of the streaming
+kernels; the largest error of o (over max(1, max|plain|)), of lse and of
+dq, dk and dv (over max(1, max|plain|)) against the plain forward and
+backward (b1 h2 s1024, head_dim 576, 640 and 1024, causal, randn inputs)
+and whether two backward calls give the same bits; and the device ms of
+the forward, dQ and dK/dV at head_dim 576 (causal, s1024) at b1 h2 and b4
+h16, every variant timed in order and again in reverse order (A B B A for
+two); device ms as above, median of 10.
+
+Last, the card's name and power limit. It imports neither jax nor the JAX
+package.
 """
 import json
 import math
@@ -61,6 +84,21 @@ __device__ __forceinline__ void mma_tf32x1(
 """
 ONE_PASS_HEADER = "flash_tf32_one_pass.cuh"
 SLEEP_CYCLES = 1_000_000
+
+_RESIDENT_TEST = ("(2 * (res_bytes + BLOCK_RESERVED) <= SM_SMEM || blocks "
+                  "<= 2LL * sms)")
+#: {variant: {source ("flash_fwd", "flash_bwd" or "flash_stream" for the
+#: header): [(text, replacement), ...]}}
+STREAM_VARIANTS = {
+    "stream_chosen": {},
+    "stream_resident": {"flash_stream": [(_RESIDENT_TEST, "true")]},
+    "stream_streamed": {"flash_stream": [(_RESIDENT_TEST, "false")]},
+    "stream_stages4": {"flash_stream": [("ST_STAGES = 3;",
+                                         "ST_STAGES = 4;")]},
+    "stream_dkv_rows32": {"flash_bwd": [(
+        "return sizeof(T) == 2 ? 32 : 16;", "return 32;")]},
+}
+SOURCES = ("flash_fwd", "flash_bwd")
 
 
 def variant_sources(name):
@@ -106,6 +144,38 @@ def variant_source(src, source, name):
     return src
 
 
+def replaced(text, edits, what):
+    """`text` with each (old, new) of `edits` replaced; every old must be
+    there once."""
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise SystemExit(f"{what}: {old!r} not once")
+        text = text.replace(old, new)
+    return text
+
+
+def write_stream_variant(csrc, name, written):
+    """Write streaming variant `name`'s sources into csrc/ under their own
+    names (appended to `written`); returns {source: library}."""
+    edits = STREAM_VARIANTS[name]
+    header = "flash_stream.cuh"
+    if "flash_stream" in edits:
+        text = replaced((csrc / header).read_text(), edits["flash_stream"],
+                        f"{name}: {header}")
+        header = f"flash_stream_{name}.cuh"
+        (csrc / header).write_text(text)
+        written.append(csrc / header)
+    libs = {}
+    for src in SOURCES:
+        text = replaced((csrc / f"{src}.cu").read_text(),
+                        edits.get(src, []), f"{name}: {src}.cu")
+        libs[src] = f"{src}_{name}"
+        path = csrc / f"{libs[src]}.cu"
+        path.write_text(text.replace('"flash_stream.cuh"', f'"{header}"'))
+        written.append(path)
+    return libs
+
+
 def main(names):
     import torch
 
@@ -113,15 +183,18 @@ def main(names):
 
     if not torch.cuda.is_available():
         raise SystemExit("tf32_variants.py needs a CUDA device")
+    tf32 = [n for n in names if n in VARIANTS]
+    stream = [n for n in names if n in STREAM_VARIANTS]
     written = []
-    libs = {n: {} for n in names}
+    libs = {n: {} for n in tf32}
+    stream_libs = {}
     try:
-        if "one_pass" in names:
+        if "one_pass" in tf32:
             path = _build.CSRC / ONE_PASS_HEADER
             path.write_text(one_pass_header(
                 (_build.CSRC / "flash_tf32.cuh").read_text()))
             written.append(path)
-        for n in names:
+        for n in tf32:
             for source in variant_sources(n):
                 lib = f"{source}_{n}"
                 path = _build.CSRC / f"{lib}.cu"
@@ -129,13 +202,23 @@ def main(names):
                     (_build.CSRC / f"{source}.cu").read_text(), source, n))
                 written.append(path)
                 libs[n][source] = lib
+        for n in stream:
+            stream_libs[n] = write_stream_variant(_build.CSRC, n, written)
         print(json.dumps({"build_s": _build.build(
-            [lib for by in libs.values() for lib in by.values()])}),
-            flush=True)
-        compare(libs)
+            [lib for by in (*libs.values(), *stream_libs.values())
+             for lib in by.values()])}), flush=True)
+        if tf32:
+            compare(libs)
+        if stream:
+            compare_stream(stream_libs)
     finally:
         for path in written:       # the build finds a library by its source
-            path.unlink()
+            path.unlink(missing_ok=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0] if smi.stdout else
+          "nvidia-smi: no output", flush=True)
     return 0
 
 
@@ -311,17 +394,122 @@ def compare(libs):
             lambda: torch.autograd.grad(out, (bq, bk, bv), bdo,
                                         retain_graph=True))}
     print(json.dumps({"sdpa_device_ms": sdpa}), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout else
-          "nvidia-smi: no output", flush=True)
+
+
+def compare_stream(libs):
+    """Hold every built streaming variant ({variant: {source: library}})
+    against the plain forward and backward, and time them in A B .. B A
+    order."""
+    import torch
+
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    names = list(libs)
+    fa._kernel("flash_fwd")
+    fa._kernel("flash_bwd")
+    sigs = {src: fa._FN[src][1] for src in SOURCES}
+    fns = {}
+    for name, by_source in libs.items():
+        fns[name] = {}
+        report = {}
+        for src, lib_name in by_source.items():
+            lib = _build.load(lib_name)
+            fn = getattr(lib, src)
+            fn.argtypes, fn.restype = sigs[src].argtypes, sigs[src].restype
+            fns[name][src] = (lib, fn)
+            for k, r in _build.ptxas_report(lib_name).items():
+                m = re.search(r"(flash_\w+_stream_kernel)I(f|13__nv_"
+                              r"bfloat16)Lb([01])E", k)
+                if m:
+                    report[f"{m[1]}[{'fp32' if m[2] == 'f' else 'bf16'}"
+                           f"{', resident' if m[3] == '1' else ''}]"] = r
+        print(json.dumps({"variant": name, "ptxas": report}), flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def device_ms(fn, reps=10):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            flush.zero_()
+            torch.cuda._sleep(SLEEP_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    dtypes = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
+    for name in names:
+        fa._FN.update(fns[name])
+        errs, same = {}, True
+        for d in (576, 640, 1024):
+            for dname, dt in dtypes:
+                q, k, v, do = (torch.randn(1, 1024, 2, d, generator=gen,
+                                           device=dev).to(dt)
+                               for _ in range(4))
+                scale = 1.0 / math.sqrt(d)
+                o, lse = fa._launch(q, k, v, True, scale, None)
+                grads = fa._launch_bwd(q, k, v, o, lse, do, True, scale,
+                                       None)
+                again = fa._launch_bwd(q, k, v, o, lse, do, True, scale,
+                                       None)
+                same &= all(torch.equal(x, y) for x, y in zip(grads, again))
+                heads = [fa._heads(t) for t in (q, k, v, o, do)]
+                ro, rlse = fa.flash_attention_ref(*heads[:3], True, scale)
+                rgrads = fa.flash_attention_bwd_ref(
+                    *(t.float() for t in heads[:4]), lse, heads[4].float(),
+                    True, scale)
+
+                def rel(got, want):
+                    want = fa._unheads(want, 1, 2).float()
+                    return (got.float() - want).abs().max().item() \
+                        / max(1.0, want.abs().max().item())
+
+                errs[f"d{d}.{dname}"] = {
+                    "o": rel(o, ro), "lse": (lse - rlse).abs().max().item(),
+                    "grads": max(rel(g, r) for g, r in zip(grads, rgrads))}
+        print(json.dumps({"variant": name, "errors": errs,
+                          "backward_two_calls_bit_equal": same}), flush=True)
+    order = names + names[::-1]
+    for b, h in ((1, 2), (4, 16)):
+        for dname, dt in dtypes:
+            d = 576
+            q, k, v, do = (torch.randn(b, 1024, h, d, generator=gen,
+                                       device=dev).to(dt) for _ in range(4))
+            scale = 1.0 / math.sqrt(d)
+            times = {}
+            for name in order:
+                fa._FN.update(fns[name])
+                o, lse = fa._launch(q, k, v, True, scale, None)
+                delta = fa._launch_delta(o, do)
+                row = times.setdefault(name, {"fwd": [], "dq": [],
+                                              "dkv": []})
+                row["fwd"].append(device_ms(
+                    lambda: fa._launch(q, k, v, True, scale, None)))
+                row["dq"].append(device_ms(lambda: fa._launch_dq(
+                    q, k, v, do, lse, delta, True, scale, None)))
+                row["dkv"].append(device_ms(lambda: fa._launch_dkv(
+                    q, k, v, do, lse, delta, True, scale, None)))
+            print(json.dumps({"shape": [b, 1024, h, d], "dtype": dname,
+                              "device_ms": times}), flush=True)
+            del q, k, v, do
+            torch.cuda.empty_cache()
+    for src in SOURCES:            # the sources' own libraries again
+        fa._FN.pop(src, None)
 
 
 if __name__ == "__main__":
     chosen = sys.argv[1:] or list(VARIANTS)
-    unknown = [n for n in chosen if n not in VARIANTS]
+    known = [*VARIANTS, *STREAM_VARIANTS]
+    unknown = [n for n in chosen if n not in known]
     if unknown:
-        raise SystemExit(f"unknown variants {unknown}; known: "
-                         f"{list(VARIANTS)}")
+        raise SystemExit(f"unknown variants {unknown}; known: {known}")
     sys.exit(main(chosen))
