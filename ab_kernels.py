@@ -31,17 +31,19 @@ cases (``CASES``). ``main`` (the default):
   the host clock around a synchronised call, median of 10 forwards after
   2 warm-ups and of 5 steps after 1.
 
-``wide_heads``: the flash kernels on their wide-head routes, causal, seq
-1024, in fp32 and bf16:
+``wide_heads``: the flash kernels at the wide head dims, causal, seq
+1024, in fp32 and bf16, at b1 h2 (a grid under the card's 132 SMs) and
+b4 h16 (one that fills it many times over): head_dim 576 (``STREAM_
+SHAPES``, above every whole-head tiling) and 256 and 512 (``WIDE_SHAPES``,
+the head dims whose scalar kernels the streaming route replaced; the bf16
+forward at 256 takes the mma kernel and is timed as what it is):
 
-- the streaming route (head_dim 576) at b1 h2 and b4 h16: the forward
-  (``ops.flash_attention._launch``), the backward as autograd runs it
-  (``_launch_bwd``: delta pre-pass, dQ, dK/dV in one C call) and the dQ
-  and dK/dV kernels alone (``_launch_dq``, ``_launch_dkv``), with a
-  sha256 of the backward's dq, dk and dv (two calls must agree);
-- the scalar route at b1 h2, head_dim 256 and 512: the forward where the
-  C entry picks the scalar kernel for it (bf16 at 256 takes the
-  tensor-core one, and is timed as what it is) and the backward;
+- the forward (``ops.flash_attention._launch``), the backward as
+  autograd runs it (``_launch_bwd``: delta pre-pass, dQ, dK/dV in one C
+  call) and the dQ and dK/dV kernels alone (``_launch_dq``,
+  ``_launch_dkv``), each with the routes its launches took, and a sha256
+  of the backward's dq, dk and dv over two calls (one digest where the
+  two calls give the same bits);
 - beside each: the plain version (``flash_attention_ref``,
   ``flash_attention_bwd_ref`` on [B*H, S, D] copies), and
   ``torch.nn.functional.scaled_dot_product_attention`` on the same values
@@ -77,7 +79,7 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 HBM_BYTES_PER_S = 3.35e12
 WIDE_SEQ = 1024
 STREAM_SHAPES = ((1, 2, 576), (4, 16, 576))     # (b, h, d)
-SIMT_SHAPES = ((1, 2, 256), (1, 2, 512))
+WIDE_SHAPES = ((1, 2, 256), (1, 2, 512), (4, 16, 256), (4, 16, 512))
 
 
 def bound(flops, nbytes, dname):
@@ -187,9 +189,8 @@ def main_cases(torch, dev, time_ms, out):
 
 
 def wide_head_cases(torch, dev, time_ms, out):
-    """The ``wide_heads`` table: the streaming route at head_dim 576 and
-    the scalar route at 256 and 512, each beside its plain version, SDPA
-    and its bound."""
+    """The ``wide_heads`` table: head_dim 576, 256 and 512, each beside its
+    plain version, SDPA and its bound."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     def timed(fn):
@@ -204,7 +205,7 @@ def wide_head_cases(torch, dev, time_ms, out):
     gen = torch.Generator(device=dev).manual_seed(0)
     S = WIDE_SEQ
     pairs = S * (S + 1) // 2
-    for kind, shapes in (("stream", STREAM_SHAPES), ("simt", SIMT_SHAPES)):
+    for kind, shapes in (("stream", STREAM_SHAPES), ("wide", WIDE_SHAPES)):
         for b, h, d in shapes:
             for dname, dt in (("float32", torch.float32),
                               ("bfloat16", torch.bfloat16)):
@@ -228,17 +229,16 @@ def wide_head_cases(torch, dev, time_ms, out):
                 with torch.no_grad():
                     out[f"{tag}.fwd"] = timed(fwd)
                     out[f"{tag}.bwd"] = timed(bwd)
-                    if kind == "stream":
-                        out[f"{tag}.dq"] = timed(lambda: fa._launch_dq(
-                            q, k, v, do, lse, delta, True, scale, None))
-                        out[f"{tag}.dkv"] = timed(lambda: fa._launch_dkv(
-                            q, k, v, do, lse, delta, True, scale, None))
-                        grads = [bwd() for _ in range(2)]
-                        digests = {hashlib.sha256(b"".join(
-                            t.contiguous().view(torch.uint8).cpu().numpy()
-                            .tobytes() for t in g)).hexdigest()
-                            for g in grads}
-                        out[f"{tag}.bwd.sha256"] = "|".join(sorted(digests))
+                    out[f"{tag}.dq"] = timed(lambda: fa._launch_dq(
+                        q, k, v, do, lse, delta, True, scale, None))
+                    out[f"{tag}.dkv"] = timed(lambda: fa._launch_dkv(
+                        q, k, v, do, lse, delta, True, scale, None))
+                    grads = [bwd() for _ in range(2)]
+                    digests = {hashlib.sha256(b"".join(
+                        t.contiguous().view(torch.uint8).cpu().numpy()
+                        .tobytes() for t in g)).hexdigest()
+                        for g in grads}
+                    out[f"{tag}.bwd.sha256"] = "|".join(sorted(digests))
                 heads = [fa._heads(t).contiguous()
                          for t in (q, k, v, o, do)]
                 with torch.no_grad():
@@ -259,12 +259,12 @@ def wide_head_cases(torch, dev, time_ms, out):
                 bdo = do.transpose(1, 2).contiguous()
                 out[f"{tag}.sdpa_bwd"] = timed(lambda: torch.autograd.grad(
                     sdpa_o, bhsd, bdo, retain_graph=True))
-                for part, flops_a_pair, n_tensors in (("fwd", 4, 4),
-                                                      ("bwd", 10, 8)):
+                for part, flops_a_pair, n_tensors, n_rows in (
+                        ("fwd", 4, 4, 1), ("bwd", 10, 8, 2), ("dq", 6, 5, 2),
+                        ("dkv", 8, 6, 2)):
                     ms, by = bound(flops_a_pair * d * b * h * pairs,
                                    n_tensors * b * h * S * d * item
-                                   + (1 if part == "fwd" else 2)
-                                   * b * h * S * 4, dname)
+                                   + n_rows * b * h * S * 4, dname)
                     out[f"{tag}.{part}"].update(bound_ms=ms, bound_by=by)
                 del q, k, v, do, o, lse, delta, heads, bhsd, sdpa_o, bdo
                 torch.cuda.empty_cache()

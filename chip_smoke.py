@@ -136,17 +136,6 @@ FLASH_BWD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # The backward's delta pre-pass (rowsum(dO o) in fp32) against the torch
 # expression on the same inputs: fp32 sums of 64 terms in another order.
 DELTA_TOL = 1e-5
-# The scalar backward instantiations (kernel, dtype, head_dim) that ptxas
-# builds with spills: the dK/dV kernel's per-thread dK and dV accumulators
-# at d 192 / 256 in both types (56-128 bytes) and in fp32 at 448 / 512
-# (8 bytes), the fp32 dQ kernel at 256 (32 bytes). Every other kernel of
-# flash_bwd, the tensor-core pair and the delta pre-pass among them, is
-# held to no spill.
-BWD_SCALAR_SPILLS = {
-    ("flash_dkv_kernel", "bfloat16", 192), ("flash_dkv_kernel", "float32", 192),
-    ("flash_dkv_kernel", "bfloat16", 256), ("flash_dkv_kernel", "float32", 256),
-    ("flash_dkv_kernel", "float32", 448), ("flash_dkv_kernel", "float32", 512),
-    ("flash_dq_kernel", "float32", 256)}
 # The narrow model's 3 training steps against the JAX package's. fp32:
 # summation order only. bf16: both packages round the loss to bf16, whose
 # step is 2^-5 at the losses' magnitude (4-8), so a loss may land one step
@@ -220,6 +209,12 @@ FORWARD_SAMPLES = 5
 # take the streaming route at b1 s1024 h2, causal; 640 leaves a narrower
 # last column group (192 x 3 + 64 in fp32, 256 x 2 + 128 in bf16)
 STREAM_HEAD_DIMS = (576, 640, 1024)
+# the wide heads up to 512 that the streaming route took over from scalar
+# kernels (the bf16 forward from 320, the bf16 backward and fp32 from 192),
+# checked in phase 2 at b8 s1024 (the bf16 forward at 192 and 256 on mma)
+WIDE_HEAD_DIMS = (192, 256, 320, 384, 448, 512)
+# the wide heads timed in phase 5 at STREAM_TIMED's shapes (b1 h2, b4 h16)
+WIDE_TIMED_DIMS = (256, 512)
 # (b, h, head_dim) of a forward checked where every kernel streams its own
 # side's tiles too (a grid over two blocks an SM at head_dim 1024)
 STREAM_CHECKED_STREAMED = (4, 16, 1024)
@@ -356,7 +351,7 @@ def flash_routes_checked(path, stream=False):
     kernel the C entry chose; checks that every bf16 launch (forward, dQ,
     dK/dV; head_dim 64 on the GPT paths) ran on the tensor cores (mma) and
     every fp32 one (forward, dQ, dK/dV) on the TF32 tensor cores
-    (tf32x3), or with `stream` (head dims above 512) that every launch
+    (tf32x3), or with `stream` (the wide heads it checks) that every launch
     took the streaming route."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
@@ -378,14 +373,15 @@ def flash_routes_checked(path, stream=False):
     return routed
 
 
-def scalar_bwd_instance(mangled):
-    """(kernel, dtype, head_dim) of a scalar flash_dq_kernel /
-    flash_dkv_kernel instantiation from its mangled name, else None."""
-    m = re.search(r"\d(flash_d(?:q|kv)_kernel)I(f|13__nv_bfloat16)Li(\d+)E",
-                  mangled)
-    if m is None:
-        return None
-    return m[1], "float32" if m[2] == "f" else "bfloat16", int(m[3])
+def flash_route(kernel, dname, d):
+    """The route the C entries pick for `kernel` ("fwd", "dq" or "dkv"):
+    mma for bf16 up to head_dim 256 forward and at 64 and 128 backward,
+    tf32x3 for fp32 at 64 and 128, stream elsewhere."""
+    if dname == "bfloat16" and d <= (256 if kernel == "fwd" else 128):
+        return "mma"
+    if dname == "float32" and d in (64, 128):
+        return "tf32x3"
+    return "stream"
 
 
 def kernel_group(name):
@@ -3499,16 +3495,19 @@ def main():
     # the redesigned kernels run on the tensor cores (wgmma in the bf16
     # TPP, mma.sync in the bf16 flash forward and backward pair, mma.sync
     # on TF32 operands in the fp32 forward and backward pair) and no kernel
-    # spills, but for the scalar backward instantiations listed in
-    # BWD_SCALAR_SPILLS
+    # spills; every flash kernel is one of the tensor-core ones (the scalar
+    # kernels are gone)
     for name, op in (("tpp_matmul", "HGMMA"), ("flash_fwd", "HMMA"),
                      ("flash_fwd", "HMMA.TF32"), ("flash_bwd", "HMMA"),
                      ("flash_bwd", "HMMA.TF32")):
         check(sass[name][op] > 0, f"{name}: {op} instructions in its SASS")
-        spills = {k: r for k, r in ptxas[name].items() if r["spill_bytes"]
-                  and not (name == "flash_bwd"
-                           and scalar_bwd_instance(k) in BWD_SCALAR_SPILLS)}
+        spills = {k: r for k, r in ptxas[name].items() if r["spill_bytes"]}
         check(not spills, f"{name}: no register spills ({spills})")
+    scalar = [k for name in ("flash_fwd", "flash_bwd") for k in ptxas[name]
+              if not re.search(r"_(mma|tf32|stream)_kernel|flash_delta_kernel",
+                               k)]
+    check(not scalar, f"flash_fwd and flash_bwd: only tensor-core kernels and "
+          f"the delta pre-pass ({scalar})")
     nms_kernels = {k: r for k, r in ptxas["nms"].items()}
     check(len(nms_kernels) == 3 and all(
         re.search(r"nms_(smem|mask|sweep)_kernel", k) for k in nms_kernels)
@@ -3521,26 +3520,30 @@ def main():
         r["spill_bytes"] for r in tf32_kernels.values()),
           f"flash_fwd and flash_bwd: the TF32 forward, dQ and dK/dV kernels "
           f"at head_dim 64 and 128 built without spills ({tf32_kernels})")
-    # the streaming route (head_dim above 512): the forward, dQ and dK/dV
-    # kernels in both types, their own tiles resident or streamed (the fp32
-    # dQ and dK/dV only streamed: their own tiles never fit), each on the
-    # tensor cores (HMMA in bf16, TF32 HMMA in fp32) without spills
+    # the streaming route (the bf16 forward from head_dim 320, the bf16
+    # backward and fp32 from 192, everything above 512): the forward, dQ and
+    # dK/dV kernels in both types, a column group a block (12: their own
+    # tiles resident or streamed) or two (7: the tiles resident where they
+    # fit at head dims up to 512, streamed in the fp32 forward and dQ),
+    # each on the tensor cores (HMMA in bf16, TF32 HMMA in fp32) without
+    # spills
     stream_kernels = {}
     for name in ("flash_fwd", "flash_bwd"):
         by_kernel = _build.kernel_sass_counts(name)
         for k, r in ptxas[name].items():
             m = re.search(r"(flash_(?:fwd|dq|dkv)_stream_kernel)I(f|13__nv_"
-                          r"bfloat16)Lb([01])E", k)
+                          r"bfloat16)Lb([01])ELi(\d)E", k)
             if m is None:
                 continue
             op = "HMMA.TF32" if m[2] == "f" else "HMMA"
             stream_kernels[f"{m[1]}[{'float32' if m[2] == 'f' else 'bfloat16'}"
-                           f"{', resident' if m[3] == '1' else ''}]"] = {
+                           f"{', resident' if m[3] == '1' else ''}, "
+                           f"{m[4]} warpgroups]"] = {
                 **r, op: by_kernel.get(k, {}).get(op, 0)}
-    check(len(stream_kernels) == 10 and all(
+    check(len(stream_kernels) == 19 and all(
         not r["spill_bytes"] and r.get("HMMA", r.get("HMMA.TF32")) > 0
         for r in stream_kernels.values()),
-          f"the 10 streaming kernels on the tensor cores without spills "
+          f"the 19 streaming kernels on the tensor cores without spills "
           f"({stream_kernels})")
     emit({"phase": "build_stream_kernels", "kernels": stream_kernels})
 
@@ -3553,8 +3556,12 @@ def main():
     flash_err = {}
     n_flash = 0
     tf32_err = 0.0
+    # the streaming kernels' largest error at the wide heads (o; dq; dk
+    # and dv), by dtype
+    wide_errs = {dname: {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+                 for dname in dtypes}
     shapes = [(s, d) for s in (1024, 2048) for d in (64, 128)] \
-        + [(1024, 192), (1024, 256), (1024, 320)]
+        + [(1024, d) for d in WIDE_HEAD_DIMS]
     fa.routes.clear()
     for s, d in shapes:
         for dname, dt in dtypes.items():
@@ -3568,14 +3575,17 @@ def main():
                                                   window)
                 eo = (o.float() - ro.float()).abs().max().item()
                 el = (lse - rlse).abs().max().item()
+                if flash_route("fwd", dname, d) == "stream":
+                    wide_errs[dname]["fwd"] = max(wide_errs[dname]["fwd"], eo)
                 check(eo <= FLASH_TOL[dname] and el <= LSE_TOL,
                       f"flash s={s} d={d} {dname} causal={causal} "
                       f"window={window}: o err {eo}, lse err {el}")
-                if dname == "float32" and d in (64, 128):
+                if dname == "float32":  # three TF32 passes on every route
                     eo /= max(1.0, ro.abs().max().item())
                     tf32_err = max(tf32_err, eo, el)
                     check(eo <= TF32X3_FWD_TOL and el <= TF32X3_FWD_TOL,
-                          f"flash s={s} d={d} fp32 on tf32x3 causal={causal} "
+                          f"flash s={s} d={d} fp32 on "
+                          f"{flash_route('fwd', dname, d)} causal={causal} "
                           f"window={window}: o err / max(1, max|plain|) "
                           f"{eo}, lse err {el} > {TF32X3_FWD_TOL}")
                 n_flash += 1
@@ -3611,28 +3621,22 @@ def main():
                       f"on tf32x3: err / max(1, max|plain|) {err}")
             del qkv, q, k, v, o, ro
     # the configs' forward launches by route: bf16 on mma up to head_dim
-    # 256, fp32 on the TF32 kernel at 64 and 128 (every view aligned), the
-    # scalar kernel elsewhere; the main shape's three calls a dtype on the
-    # tensor cores
+    # 256, fp32 on the TF32 kernel at 64 and 128, the streaming kernels
+    # elsewhere; the main shape's three calls a dtype on the tensor cores
     fwd_routes = {k: n for k, n in fa.routes.items() if n}
     want_routes = {}
     for _, d in shapes:
         for dname in dtypes:
-            route = "simt"
-            if dname == "bfloat16" and d <= 256:
-                route = "mma"
-            elif dname == "float32" and d in (64, 128):
-                route = "tf32x3"
-            key = f"flash_fwd:{dname}:{route}"
+            key = f"flash_fwd:{dname}:{flash_route('fwd', dname, d)}"
             want_routes[key] = want_routes.get(key, 0) + 3
     for dname, route in (("bfloat16", "mma"), ("float32", "tf32x3")):
         want_routes[f"flash_fwd:{dname}:{route}"] += 3
     check(fwd_routes == want_routes, f"flash forward launches by route "
           f"{fwd_routes}, expected {want_routes}")
     # SDPA sends every shape its gate passes to the kernel: the wide heads
-    # launch it, and a head it has no tiling for (above 512) raises
+    # launch it
     from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
-    for d in (192, 256, 320):
+    for d in (192, 256, 320, 512):
         q, k, v = (randn(1, 1024, 2, d) for _ in range(3))
         n = sum(fa.launches.values())
         with torch.no_grad():
@@ -3645,14 +3649,17 @@ def main():
         err = (o - ro.reshape(1, 2, 1024, d).transpose(1, 2)).abs().max()
         check(err.item() <= FLASH_TOL["float32"],
               f"SDPA head_dim {d} vs plain: err {err.item()}")
-    # above 512 no whole-head tiling fits: SDPA's forward and backward take
-    # the streaming route, held against the plain forward and autograd
-    # through it; two backward calls give the same bits (no atomics)
+    # above 512 no whole-head tiling fits, and at 320 and 512 the head is
+    # wider than the other routes take: SDPA's forward and backward take
+    # the streaming route (at b1 h2 and 320 a column group a block, its
+    # grid under one wave of the SMs; at 512 two groups a block), held
+    # against the plain forward and autograd through it; two backward
+    # calls give the same bits (no atomics)
     fa.routes.clear()
     fa.launches.clear()
     stream_err = {}
     t_stream = time.perf_counter()
-    for d in STREAM_HEAD_DIMS:
+    for d in (320, 512, *STREAM_HEAD_DIMS):
         for dname, dt in dtypes.items():
             q, k, v, do = (randn(1, 1024, 2, d, dtype=dt) for _ in range(4))
             leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -3699,14 +3706,14 @@ def main():
             del o, ro
         del q, k, v
     stream_routes = flash_routes_checked(
-        f"SDPA head_dim {', '.join(map(str, STREAM_HEAD_DIMS))}",
+        f"SDPA head_dim 320, 512, {', '.join(map(str, STREAM_HEAD_DIMS))}",
         stream=True)
     stream_s = time.perf_counter() - t_stream
     emit({"phase": "kernels_vs_plain", "kernel": "flash_fwd",
           "configs": n_flash + 4, "shapes_s_d": shapes,
           "main_shape_s_h_d": [1024, 12, 64],
           "main_shape_max_abs_err_by_batch": flash_err,
-          "sdpa_head_dim_192_256_320_launched": True,
+          "sdpa_head_dim_192_256_320_512_launched": True,
           "sdpa_stream_route_b1_s1024_h2_causal": stream_err,
           f"sdpa_stream_route_b{sb}_s1024_h{sh}_d{sd}_fwd_o_err": streamed_err,
           "stream_grads_two_calls_bit_equal": True,
@@ -3809,14 +3816,17 @@ def main():
         return err, err <= FLASH_BWD_TOL[dname] * scale
 
     n_bwd = 0
-    n_tc = {"bfloat16": 0, "float32": 0}   # calls at head_dim 64 and 128
+    want_bwd = {}   # dQ and dK/dV launches by route
+    wide_bits = {}  # two backward calls at the wide heads: the same bits
     fa.routes.clear()
     for s, d in shapes:
         for dname, dt in dtypes.items():
             for causal, window in ((False, None), (True, None),
                                    (True, 100)):
-                n_tc[dname] += (2 if causal and window is None else 1) \
-                    if d <= 128 else 0
+                for kind in ("dq", "dkv"):
+                    key = f"flash_{kind}:{dname}:{flash_route(kind, dname, d)}"
+                    want_bwd[key] = want_bwd.get(key, 0) + (
+                        2 if causal and window is None else 1)
                 q, k, v, do = (randn(8, s, d, dtype=dt) for _ in range(4))
                 scale = 1.0 / math.sqrt(d)
                 leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -3834,6 +3844,22 @@ def main():
                     err, ok = bwd_err(got, want, dname)
                     check(ok, f"flash bwd s={s} d={d} {dname} causal="
                           f"{causal} window={window} vs {what}: err {err}")
+                if flash_route("dq", dname, d) == "stream":
+                    for kind, part in (("dq", slice(0, 1)),
+                                       ("dkv", slice(1, 3))):
+                        wide_errs[dname][kind] = max(
+                            wide_errs[dname][kind],
+                            bwd_err(got[part], plain[part], dname)[0])
+                if d in WIDE_TIMED_DIMS and window is not None:
+                    # every block writes only its own tile: no atomics
+                    again = fa._flash_bwd(q, k, v, o, lse, do, causal, scale,
+                                          window=window)
+                    want_bwd[f"flash_dq:{dname}:stream"] += 1
+                    want_bwd[f"flash_dkv:{dname}:stream"] += 1
+                    wide_bits[f"d{d}[{dname}]"] = all(
+                        torch.equal(x, y) for x, y in zip(got, again))
+                    check(wide_bits[f"d{d}[{dname}]"], f"flash bwd d={d} "
+                          f"{dname}: two calls, the same bits")
                 if causal and window is None:
                     # an external delta (ring attention's) is used as given
                     delta = torch.randn(8, s, generator=gen, device=dev)
@@ -3845,15 +3871,11 @@ def main():
                     check(ok, f"flash bwd external delta s={s} d={d} "
                           f"{dname}: err {err}")
                 n_bwd += 1
-    # every call at head_dim 64 and 128 on the tensor cores: bf16 on mma,
-    # fp32 on the TF32 kernels
+    # every call on the tensor cores: at head_dim 64 and 128 bf16 on mma,
+    # fp32 on the TF32 kernels, from 192 both on the streaming kernels
     bwd_routes = {k: n for k, n in fa.routes.items() if n}
-    for dname, route in (("bfloat16", "mma"), ("float32", "tf32x3")):
-        for kind in ("dq", "dkv"):
-            check(bwd_routes.get(f"flash_{kind}:{dname}:{route}", 0)
-                  == n_tc[dname], f"flash bwd {dname} at head_dim 64 and "
-                  f"128: {n_tc[dname]} {kind} launches on {route} "
-                  f"({bwd_routes})")
+    check(bwd_routes == want_bwd, f"flash bwd launches by route "
+          f"{bwd_routes}, expected {want_bwd}")
     # the training path's call, at its shape: grads of strided q/k/v views
     # of one packed qkv through the autograd Function, against autograd
     # through the plain forward
@@ -3906,6 +3928,8 @@ def main():
           "main_shape_max_abs_err": bwd_errs,
           "main_shape_two_calls_bit_equal": True,
           "routes_of_the_configs": bwd_routes,
+          "wide_heads_two_calls_bit_equal": wide_bits,
+          "wide_heads_stream_max_abs_err": wide_errs,
           "delta_prepass_max_abs_err": delta_errs,
           "tol_x_max(1,max|plain|)": FLASH_BWD_TOL,
           "delta_tol_x_max(1,max|torch|)": DELTA_TOL})
@@ -4437,14 +4461,17 @@ def main():
                 row["device_share_of_tc_bound"] = \
                     row["bound_tc_ms"] / row["device_ms"]
             del qkv, q, k, v, heads, bhsd
-        # the streaming route at head_dim 576 (s1024, causal) at b1 h2 and
-        # b4 h16 (STREAM_TIMED): the forward and the backward (pre-pass,
-        # dQ, dK/dV: one C call) against SDPA's; the bound counts the
-        # function's work, not the column groups' recomputation of S
-        ds = STREAM_HEAD_DIMS[0]
-        sscale = 1.0 / math.sqrt(ds)
+        # the streaming route at head_dim 576 and the wide heads 256 and 512
+        # (s1024, causal) at b1 h2 and b4 h16 (STREAM_TIMED): the forward
+        # (at 256 in bf16 the mma kernel), the backward (pre-pass, dQ,
+        # dK/dV: one C call) and dQ and dK/dV alone, against SDPA's; the
+        # bound counts the function's work, not the column groups'
+        # recomputation of S
         stream_timed = {}
-        for sb, sh in STREAM_TIMED:
+        for ds, (sb, sh) in ((ds, shape) for ds in (STREAM_HEAD_DIMS[0],
+                                                    *WIDE_TIMED_DIMS)
+                             for shape in STREAM_TIMED):
+            sscale = 1.0 / math.sqrt(ds)
             t_rows = time.perf_counter()
             q, k, v, do = (randn(sb, s, sh, ds, dtype=dt) for _ in range(4))
             bhsd = [t.transpose(1, 2).contiguous().requires_grad_()
@@ -4471,10 +4498,27 @@ def main():
                         *heads_s[:3], True, sscale), reps=5),
                     "bound_ms": bms,
                     "bound_by": by, "library_ms": time_ms(sdpa_fwd, reps=5),
+                    "route": flash_route("fwd", dname, ds),
                     "shape": [sb, s, sh, ds]}, 4.0 * n_pairs * ds,
                     stream_fwd, sdpa_fwd)}
                 bwd_plain_ms = time_ms(lambda: fa.flash_attention_bwd_ref(
                     *heads_s[:4], lse, heads_s[4], True, sscale), reps=5)
+                delta = fa._launch_delta(o, do)
+                for kind, flops_a_pair, n_out, fn in (
+                        ("dq", 6, 1, lambda: fa._launch_dq(
+                            q, k, v, do, lse, delta, True, sscale, None)),
+                        ("dkv", 8, 2, lambda: fa._launch_dkv(
+                            q, k, v, do, lse, delta, True, sscale, None))):
+                    bms, by = bound(flops_a_pair * n_pairs * ds,
+                                    (4 + n_out) * sb * sh * s * ds * item
+                                    + 2 * sb * sh * s * 4, dname)
+                    rows[kind] = rates({
+                        "ms": time_ms(fn, reps=5), "plain_ms": bwd_plain_ms,
+                        "plain_covers": "dq, dk and dv: one plain backward",
+                        "bound_ms": bms, "bound_by": by,
+                        "route": flash_route(kind, dname, ds),
+                        "shape": [sb, s, sh, ds]}, flops_a_pair * n_pairs * ds,
+                        fn)
             out = torch.nn.functional.scaled_dot_product_attention(
                 *bhsd, is_causal=True)
             bdo = do.transpose(1, 2).contiguous()
@@ -4496,9 +4540,13 @@ def main():
                 "covers": "delta pre-pass + dQ + dK/dV (one C call) against "
                           "SDPA's backward", "shape": [sb, s, sh, ds]},
                 10.0 * n_pairs * ds, stream_bwd, sdpa_bwd_stream)
+            for kind in ("dq", "dkv"):
+                rows[kind]["library_ms"] = rows["backward"]["library_ms"]
+                rows[kind]["library_covers"] = "dq, dk and dv: one backward " \
+                    "of scaled_dot_product_attention"
             rows["wall_s"] = time.perf_counter() - t_rows
-            stream_timed[f"b{sb}_h{sh}"] = rows
-            del q, k, v, do, o, lse, bhsd, out, bdo, heads_s
+            stream_timed[f"d{ds}_b{sb}_h{sh}"] = rows
+            del q, k, v, do, o, lse, delta, bhsd, out, bdo, heads_s
             torch.cuda.empty_cache()
         # bf16: flash_fwd_mma_kernel; fp32: flash_fwd_tf32_kernel (three
         # TF32 passes a product), counted by that route
@@ -4513,9 +4561,12 @@ def main():
             "max_abs_err": flash_err[dname][4], **fwd_rows[4], "causal": True,
             "train_shape": {**fwd_rows[TRAIN_BATCH],
                             "max_abs_err": flash_err[dname][TRAIN_BATCH]},
-            "stream_route_d576": stream_timed["b1_h2"],
-            "stream_route_d576_b4_h16": stream_timed["b4_h16"]})
-
+            "stream_route_d576": stream_timed["d576_b1_h2"],
+            "stream_route_d576_b4_h16": stream_timed["d576_b4_h16"],
+            # the streaming kernels at the head dims the scalar ones served
+            # (0 launches on every main path, as above 512)
+            "wide_heads": {key: rows for key, rows in stream_timed.items()
+                           if not key.startswith("d576")}})
         # the backward pair at the serving and the training batch, from
         # the forward kernel's o and lse and the pre-pass's delta; `pair`
         # is one backward as the autograd Function runs it (pre-pass, dQ,

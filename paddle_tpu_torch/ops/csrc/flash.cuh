@@ -3,7 +3,7 @@
 // and the swizzled bf16 tiles that the mma.sync kernels fill by cp.async
 // and read by ldmatrix (with its lanes' roles). The TF32 kernels' tiles
 // and products build on it in flash_tf32.cuh, the streaming route's
-// (head_dim above 512) on both in flash_stream.cuh. ops/_build.py hashes
+// (the wide heads) on both in flash_stream.cuh. ops/_build.py hashes
 // this header (and hopper.cuh, which it includes) with both sources.
 
 #pragma once

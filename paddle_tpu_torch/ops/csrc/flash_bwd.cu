@@ -88,42 +88,38 @@
 // in P^T dO) come 16 bytes a lane too. Operands are split at every use, in
 // registers (four instructions an element, tf32_rna and split_tf32):
 // splitting them once, into big and small tiles, would double every
-// fragment's shared-memory loads instead. A view whose pointer or (b, s, h)
-// step is not 16-byte aligned takes the scalar kernels, chosen before any
-// launch (route 2).
+// fragment's shared-memory loads instead.
 //
-// bf16 from head_dim 192, and fp32 where the TF32 route does not take the
-// views or the head dim (`flash_dq_kernel`, `flash_dkv_kernel`): scalar
-// fp32 FMAs out of shared memory, the tiles staged in fp32, a 256-thread
-// 16 x 16 grid. Tiles of 64 rows at head_dim 64 and 128, 32 at 192 and 256,
-// 16 from 320 to 512 (the dK/dV kernel's K, V, Q and dO tiles take 133.6 KB
-// at 512).
-//
-// Above head_dim 512, fp32 and bf16 (`flash_dq_stream_kernel`,
+// head_dim 192 and above, fp32 and bf16 (`flash_dq_stream_kernel`,
 // `flash_dkv_stream_kernel`, the streaming route; flash_stream.cuh): the
 // streaming forward's plan (flash_fwd.cu). Each output's columns split
-// into groups, a grid step each: dQ's of at most 256 (bf16) or 192 (fp32)
-// columns, dK and dV's of 128 (both accumulators live in registers). A dQ
-// block owns (b*h, group, 64-row query tile) and walks 32-row kv tiles; a
-// dK/dV block owns (b*h, group, 64-row kv tile) and walks 32-row (bf16) or
-// 16-row (fp32, whose TF32 split operands spill at 32) query tiles. Each
-// forms S and dP over the whole head once per tile it visits, from chunk
-// tiles that the cp.async ring streams (in bf16 its own side's resident
-// where `resident` finds room; fp32's never fit), then P and dS on the
-// accumulators and its group's products, all on the tensor cores; every
-// block writes only its own tile, no atomics. What bounds it: both kernels form S and dP once per
-// group, (4 G_dq + 2) d + (4 G_dkv + 4) d FLOPs a visible pair against the
-// function's 10 d (38 d at 576), and fp32 triples them (three TF32
-// passes). Views must be 16-byte aligned; lse and delta are read an
-// element at a time.
+// into groups: dQ's of at most 256 (bf16) or 192 (fp32; 128 with two
+// warpgroups a block) columns, dK and dV's of 128 (both accumulators live
+// in registers). A warpgroup owns (b*h, group, 64-row query tile) for dQ and
+// walks 32-row kv tiles, or (b*h, group, 64-row kv tile) for dK/dV and
+// walks 32-row (bf16) or 16-row (fp32, whose TF32 split operands spill at
+// 32) query tiles; the groups are placed as in the forward, design (a) a
+// group a block on the grid, design (b) two groups a block whose
+// warpgroups share S and dP (each forms its share of the head dim's
+// chunks, summed through shared memory in warpgroup order). A block forms
+// S and dP over the whole head once per tile it visits, from chunk tiles
+// that the cp.async ring streams (its own side's resident where (a)'s
+// `resident` or (b)'s room allows), then P and dS on the accumulators and
+// its groups' products, all on the tensor cores; every block writes only
+// its own tile, no atomics. What bounds it: both kernels form S and dP
+// once per block, (4 B_dq + 2) d + (4 B_dkv + 4) d FLOPs a visible pair
+// against the function's 10 d, B the blocks a tile (G in (a), ceil(G / 2)
+// in (b); (a) at 576: 38 d), and fp32 triples them (three TF32 passes).
+// Views must be 16-byte aligned; lse and delta are read an element at a
+// time.
 //
 // delta pre-pass (`flash_delta_kernel`): rowsum(dO o O) in fp32, 8 lanes a
 // row, 16-byte loads where the views allow them; the sum's order is fixed.
 //
 // Layout: q, k, v, o, dO and the outputs are [B, S, H, D] views with any
-// element strides over (b, s, h) and a contiguous d (16-byte-aligned
-// pointers and strides for the tensor-core kernels: the GPT path's q, k and
-// v are slices of one packed qkv, read without a copy); lse and delta are
+// 16-byte-aligned element strides over (b, s, h) and a contiguous d (the
+// GPT path's q, k and v are slices of one packed qkv, read without a copy;
+// the wrapper copies a view off 16 bytes); lse and delta are
 // contiguous [B * H, S] fp32 arrays; seq a multiple of 64.
 
 #include "flash_stream.cuh"
@@ -134,294 +130,17 @@ using namespace flash;
 
 constexpr int NT = 256;  // threads per block
 
-// ---- fp32, and bf16 from head_dim 192: scalar FMAs ------------------------
+// ---- the streaming route: head_dim 192 and above -------------------------
 
-// Rows of a query tile and of a kv tile for head_dim D.
-template <int D>
-__host__ __device__ constexpr int tile_rows() {
-  return D <= 128 ? 64 : D <= 256 ? 32 : 16;
-}
-
-// dQ: Q, dO, K, V tiles [BR, D + 1], dS [BR, BR + 1], lse and delta [BR].
-template <int D>
-constexpr int dq_smem_floats() {
-  return 4 * tile_rows<D>() * (D + 1)
-         + tile_rows<D>() * (tile_rows<D>() + 1) + 2 * tile_rows<D>();
-}
-
-// dK/dV: K, V, Q, dO tiles [BR, D + 1], P and dS [BR, BR + 1], lse, delta.
-template <int D>
-constexpr int dkv_smem_floats() {
-  return 4 * tile_rows<D>() * (D + 1)
-         + 2 * tile_rows<D>() * (tile_rows<D>() + 1) + 2 * tile_rows<D>();
-}
-
-// dst[r][c] = src row (r0 + r), column c, times mul: a [BR, D] tile of a
-// strided view into shared memory with row stride D + 1.
-template <typename T, int D, int BR>
-__device__ __forceinline__ void stage_tile(float* dst, const T* src,
-                                           long long row_stride, int r0,
-                                           float mul) {
-  for (int idx = threadIdx.x; idx < BR * D; idx += NT) {
-    const int r = idx / D, c = idx % D;
-    dst[r * (D + 1) + c] = to_f(src[(long long)(r0 + r) * row_stride + c]) * mul;
-  }
-}
-
-// acc[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over two [BR, D + 1]
-// tiles: one thread's R x R slice of A B^T.
-template <int D, int BR>
-__device__ __forceinline__ void tile_dot(const float* A, const float* B,
-                                         float (&acc)[BR / 16][BR / 16],
-                                         int ty, int tx) {
-  constexpr int R = BR / 16;
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < R; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float a[R], b[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) a[i] = A[(ty + 16 * i) * (D + 1) + d];
-#pragma unroll
-    for (int j = 0; j < R; ++j) b[j] = B[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-    flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int H, int S, Strides sq, Strides sk, Strides sv,
-                    Strides sdo, Strides sdq, int causal, float scale,
-                    int window) {
-  constexpr int BR = tile_rows<D>();
-  constexpr int R = BR / 16, DJ = D / 16, LD = D + 1, LS = BR + 1;
-  extern __shared__ float smem[];
-  float* Qs = smem;            // Q tile * scale
-  float* dOs = Qs + BR * LD;
-  float* Ks = dOs + BR * LD;
-  float* Vs = Ks + BR * LD;
-  float* dSs = Vs + BR * LD;   // dS for the current kv tile
-  float* lse_s = dSs + BR * LS;
-  float* dl_s = lse_s + BR;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  int bh, qt;
-  bh_tile(true, bh, qt);  // the heaviest causal tile first
-  const int b = bh / H, h = bh % H;
-  const int q0 = qt * BR;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
-
-  stage_tile<T, D, BR>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, scale);
-  stage_tile<T, D, BR>(dOs, dout + b * sdo.b + h * sdo.h, sdo.s, q0, 1.f);
-  if (tid < BR) {
-    lse_s[tid] = lse[(long long)bh * S + q0 + tid];
-    dl_s[tid] = delta[(long long)bh * S + q0 + tid];
-  }
-
-  // kv tiles with any visible key for some row of this query tile
-  int kt_begin = 0, kt_end = S / BR;
-  if (causal) {
-    kt_end = (q0 + BR - 1) / BR + 1;
-    if (window > 0) {
-      const int first_key = q0 - (window - 1);
-      kt_begin = first_key > 0 ? first_key / BR : 0;
-    }
-  }
-
-  float acc[R][DJ];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BR;
-    __syncthreads();  // the previous tile's readers are done with Ks/Vs/dSs
-    stage_tile<T, D, BR>(Ks, kb, sk.s, k0, 1.f);
-    stage_tile<T, D, BR>(Vs, vb, sv.s, k0, 1.f);
-    __syncthreads();
-
-    float s[R][R], dp[R][R];
-    tile_dot<D, BR>(Qs, Ks, s, ty, tx);
-    tile_dot<D, BR>(dOs, Vs, dp, ty, tx);
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        const float p = visible(q0 + r, k0 + c, causal, window)
-                            ? expf(s[i][j] - lse_s[r])
-                            : 0.f;
-        dSs[r * LS + c] = p * (dp[i][j] - dl_s[r]);
-      }
-    __syncthreads();
-
-    // dQ += dS K
-#pragma unroll 4
-    for (int c = 0; c < BR; ++c) {
-      float ds[R], kk[DJ];
-#pragma unroll
-      for (int i = 0; i < R; ++i) ds[i] = dSs[(ty + 16 * i) * LS + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) kk[j] = Ks[c * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(ds[i], kk[j], acc[i][j]);
-    }
-  }
-
-  T* dqb = dq + b * sdq.b + h * sdq.h;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    T* row = dqb + (long long)(q0 + ty + 16 * i) * sdq.s;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) row[tx + 16 * j] = from_f<T>(acc[i][j] * scale);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-    flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int H, int S, Strides sq, Strides sk,
-                     Strides sv, Strides sdo, Strides sdk, Strides sdv,
-                     int causal, float scale, int window) {
-  constexpr int BR = tile_rows<D>();
-  constexpr int R = BR / 16, DJ = D / 16, LD = D + 1, LS = BR + 1;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BR * LD;
-  float* Qs = Vs + BR * LD;    // Q tile * scale
-  float* dOs = Qs + BR * LD;
-  float* Ps = dOs + BR * LD;   // P for the current query tile
-  float* dSs = Ps + BR * LS;   // dS for the current query tile
-  float* lse_s = dSs + BR * LS;
-  float* dl_s = lse_s + BR;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  int bh, kt;
-  bh_tile(false, bh, kt);  // kv tile 0, the heaviest, first
-  const int b = bh / H, h = bh % H;
-  const int k0 = kt * BR;
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* dob = dout + b * sdo.b + h * sdo.h;
-
-  stage_tile<T, D, BR>(Ks, k + b * sk.b + h * sk.h, sk.s, k0, 1.f);
-  stage_tile<T, D, BR>(Vs, v + b * sv.b + h * sv.h, sv.s, k0, 1.f);
-
-  // query tiles with any row that sees some key of this kv tile
-  int qt_begin = 0, qt_end = S / BR;
-  if (causal) {
-    qt_begin = k0 / BR;
-    if (window > 0) {
-      // the last query that sees the tile's last key
-      const long long last_q = (long long)k0 + BR - 1 + window - 1;
-      const long long e = last_q / BR + 1;
-      if (e < qt_end) qt_end = (int)e;
-    }
-  }
-
-  float dka[R][DJ], dva[R][DJ];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      dka[i][j] = 0.f;
-      dva[i][j] = 0.f;
-    }
-
-  for (int qt = qt_begin; qt < qt_end; ++qt) {
-    const int q0 = qt * BR;
-    __syncthreads();  // the previous tile's readers are done with Qs..dl_s
-    stage_tile<T, D, BR>(Qs, qb, sq.s, q0, scale);
-    stage_tile<T, D, BR>(dOs, dob, sdo.s, q0, 1.f);
-    if (tid < BR) {
-      lse_s[tid] = lse[(long long)bh * S + q0 + tid];
-      dl_s[tid] = delta[(long long)bh * S + q0 + tid];
-    }
-    __syncthreads();
-
-    // rows: queries ty + 16 i; columns: keys tx + 16 j
-    float s[R][R], dp[R][R];
-    tile_dot<D, BR>(Qs, Ks, s, ty, tx);
-    tile_dot<D, BR>(dOs, Vs, dp, ty, tx);
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        const float p = visible(q0 + r, k0 + c, causal, window)
-                            ? expf(s[i][j] - lse_s[r])
-                            : 0.f;
-        Ps[r * LS + c] = p;
-        dSs[r * LS + c] = p * (dp[i][j] - dl_s[r]);
-      }
-    __syncthreads();
-
-    // this thread's keys ty + 16 i, head-dim columns tx + 16 j:
-    // dV += P^T dO, dK += dS^T (Q * scale)
-#pragma unroll 4
-    for (int r = 0; r < BR; ++r) {
-      float pp[R], dd[R], oo[DJ], qq[DJ];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        pp[i] = Ps[r * LS + ty + 16 * i];
-        dd[i] = dSs[r * LS + ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        oo[j] = dOs[r * LD + tx + 16 * j];
-        qq[j] = Qs[r * LD + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          dva[i][j] = fmaf(pp[i], oo[j], dva[i][j]);
-          dka[i][j] = fmaf(dd[i], qq[j], dka[i][j]);
-        }
-    }
-  }
-
-  T* dkb = dk + b * sdk.b + h * sdk.h;
-  T* dvb = dv + b * sdv.b + h * sdv.h;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int r = k0 + ty + 16 * i;
-    T* krow = dkb + (long long)r * sdk.s;
-    T* vrow = dvb + (long long)r * sdv.s;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      krow[tx + 16 * j] = from_f<T>(dka[i][j]);
-      vrow[tx + 16 * j] = from_f<T>(dva[i][j]);
-    }
-  }
-}
-
-// ---- head_dim above 512: the streaming route ------------------------------
-
-// the widest column group of dQ, and of dK and dV together, a block owns
-// (fp32 accumulators: dQ WMAX / 2 registers a thread, dK and dV WMAX
-// between them), and the other side's rows a step (S and dP of a step take
-// BO / 4 registers each; the fp32 dK/dV kernel, whose TF32 split operands
-// need more, spills at 32)
-template <typename T> __host__ __device__ constexpr int dq_st_wmax() {
-  return sizeof(T) == 2 ? 256 : 192;
+// the widest column group of dQ, and of dK and dV together, a warpgroup
+// owns (fp32 accumulators: dQ WMAX / 2 registers a thread, 64 in fp32 with
+// two warpgroups a block as in the forward; dK and dV WMAX between them),
+// and the other side's rows a step (S and dP of a step take BO / 4
+// registers each; the fp32 dK/dV kernel, whose TF32 split operands need
+// more, spills at 32)
+template <typename T, int WGS>
+__host__ __device__ constexpr int dq_st_wmax() {
+  return sizeof(T) == 2 ? 256 : WGS == 1 ? 192 : 128;
 }
 constexpr int DKV_ST_WMAX = 128;
 constexpr int DQ_ST_BO = 32;
@@ -429,24 +148,30 @@ template <typename T> __host__ __device__ constexpr int dkv_st_bo() {
   return sizeof(T) == 2 ? 32 : 16;
 }
 
-// bytes of a block's shared memory, both kernels: with RES the own side's
-// two operands stay resident (nD chunk tiles each) and a ring stage holds
-// the other side's two chunks of BO rows; without, a stage holds all four
-template <typename T, bool RES, int BO>
+// bytes of a block's shared memory, both kernels: exchange_sum's S and dP
+// (WGS > 1), then each warpgroup's own: with RES its share of the own
+// side's two operands stays resident (that many chunk tiles each) and a
+// ring stage holds the other side's two chunks of BO rows; without, a
+// stage holds all four
+template <typename T, bool RES, int BO, int WGS>
 __host__ __device__ constexpr int bwd_st_smem(int D) {
   constexpr int OWN = ST_ROWS * Chunk<T>::ROW, OTH = BO * Chunk<T>::ROW;
-  return RES ? D / Chunk<T>::COLS * 2 * OWN + ST_STAGES * 2 * OTH
-             : ST_STAGES * 2 * (OTH + OWN);
+  const int per = (D / Chunk<T>::COLS + WGS - 1) / WGS;
+  return exchange_bytes<WGS>(BO) +
+         WGS * (RES ? per * 2 * OWN + ST_STAGES * 2 * OTH
+                    : ST_STAGES * 2 * (OTH + OWN));
 }
 
 // dQ[:, group] = scale * sum over the kv tiles of dS K[:, group]: one block
-// a (b*h, column group, 64-row query tile), 4 warps of 16 rows. For each
-// 32-row kv tile the block forms S = Q K^T and dP = dO V^T over the whole
-// head dim, one chunk tile of each at a time (chunk_nt), then P = exp(S *
-// scale - lse) and dS = P o (dP - delta) on the accumulators, then dQ[:,
-// group] += dS K[:, group] one chunk of K at a time (chunk_pv).
-template <typename T, bool RES>
-__global__ void __launch_bounds__(ST_THREADS)
+// a (b*h, WGS column groups, 64-row query tile), each warpgroup 4 warps of
+// 16 rows. For each 32-row kv tile the block forms S = Q K^T and dP = dO
+// V^T over the whole head dim, one chunk tile of each at a time (chunk_nt;
+// with WGS > 1 each warpgroup its share of the chunks, then exchange_sum),
+// then P = exp(S * scale - lse) and dS = P o (dP - delta) on the
+// accumulators, then dQ[:, group] += dS K[:, group] one chunk of K at a
+// time (chunk_pv).
+template <typename T, bool RES, int WGS>
+__global__ void __launch_bounds__(ST_THREADS * WGS)
     flash_dq_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, const T* __restrict__ dout,
                            const float* __restrict__ lse,
@@ -454,25 +179,40 @@ __global__ void __launch_bounds__(ST_THREADS)
                            int H, int S, int D, int G, int WG, Strides sq,
                            Strides sk, Strides sv, Strides sdo, Strides sdq,
                            int causal, float scale, int window) {
-  constexpr int DC = Chunk<T>::COLS, BO = DQ_ST_BO, W = dq_st_wmax<T>();
+  constexpr int DC = Chunk<T>::COLS, BO = DQ_ST_BO;
+  constexpr int W = dq_st_wmax<T, WGS>();
   constexpr int OWN = ST_ROWS * Chunk<T>::ROW, OTH = BO * Chunk<T>::ROW;
   constexpr int STAGE = 2 * OTH + (RES ? 0 : 2 * OWN);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int nD = D / DC;
-  // RES: chunk c's Q tile at c * 2 OWN, its dO tile OWN further
-  unsigned char* const own_res = smem_raw;
-  unsigned char* const ring_base = smem_raw + (RES ? nD * 2 * OWN : 0);
-
-  const int tid = threadIdx.x, warp = tid >> 5;
+  const int tid = threadIdx.x;
+  // the thread's warpgroup, and its index there
+  const int wg = WGS > 1 ? tid / ST_THREADS : 0;
+  const int lt = WGS > 1 ? tid % ST_THREADS : tid;
+  const int warp = lt >> 5;
   const Lanes L(tid & 31);
-  const int bh = blockIdx.x / G, g = blockIdx.x % G;
+  const Split<WGS> part(nD, wg);
+  // the warpgroup's own region: RES chunk c's Q tile at c * 2 OWN, its dO
+  // tile OWN further; then its ring
+  const int per = (nD + WGS - 1) / WGS;
+  float* const xch = reinterpret_cast<float*>(smem_raw);
+  unsigned char* const own_res =
+      smem_raw + exchange_bytes<WGS>(BO) +
+      wg * ((RES ? per * 2 * OWN : 0) + ST_STAGES * STAGE);
+  unsigned char* const ring_base = own_res + (RES ? per * 2 * OWN : 0);
+
+  const int GP = (G + WGS - 1) / WGS;  // blocks a (b*h, query tile)
+  const int bh = blockIdx.x / GP, g = blockIdx.x % GP * WGS + wg;
   const int b = bh / H, h = bh % H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * ST_ROWS;  // heaviest first
-  const int c0 = g * WG, nW = min(WG, D - c0) / DC;
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
-  const T* dob = dout + b * sdo.b + h * sdo.h;
+  const int c0 = g * WG, nW = WGS == 1 || g < G ? min(WG, D - c0) / DC : 0;
+  // Q, dO, K and V from the warpgroup's share of S's chunks (K also from
+  // its group, gcol columns further)
+  const T* qb = q + b * sq.b + h * sq.h + part.c0 * DC;
+  const T* kb = k + b * sk.b + h * sk.h + part.c0 * DC;
+  const T* vb = v + b * sv.b + h * sv.h + part.c0 * DC;
+  const T* dob = dout + b * sdo.b + h * sdo.h + part.c0 * DC;
+  const int gcol = c0 - part.c0 * DC;
 
   // kv tiles with any visible key for some row of this query tile
   int kt_begin = 0, kt_end = S / BO;
@@ -483,34 +223,34 @@ __global__ void __launch_bounds__(ST_THREADS)
       kt_begin = first_key > 0 ? first_key / BO : 0;
     }
   }
-  // a kv tile's items: nD chunks of K and V (and Q and dO) for S and dP,
-  // then nW chunks of K for dS K
-  const int per = nD + nW, total = (kt_end - kt_begin) * per;
+  // a kv tile's items: the warpgroup's part.n chunks of K and V (and Q
+  // and dO) for S and dP, then nW chunks of K for dS K
+  const int items = part.n + nW, total = (kt_end - kt_begin) * items;
   auto issue = [&](int i, unsigned char* dst) {
     if (i < total) {
-      const int kt = kt_begin + i / per, j = i % per;
+      const int kt = kt_begin + i / items, j = i % items;
       const uint32_t du = smem_u32(dst);
-      if (j < nD) {
-        cp_chunk<T, BO>(du, kb, sk.s, kt * BO, j * DC, tid);
-        cp_chunk<T, BO>(du + OTH, vb, sv.s, kt * BO, j * DC, tid);
+      if (j < part.n) {
+        const int col = j * DC;
+        cp_chunk<T, BO>(du, kb, sk.s, kt * BO, col, lt);
+        cp_chunk<T, BO>(du + OTH, vb, sv.s, kt * BO, col, lt);
         if constexpr (!RES) {
-          cp_chunk<T, ST_ROWS>(du + 2 * OTH, qb, sq.s, q0, j * DC, tid);
-          cp_chunk<T, ST_ROWS>(du + 2 * OTH + OWN, dob, sdo.s, q0, j * DC,
-                               tid);
+          cp_chunk<T, ST_ROWS>(du + 2 * OTH, qb, sq.s, q0, col, lt);
+          cp_chunk<T, ST_ROWS>(du + 2 * OTH + OWN, dob, sdo.s, q0, col, lt);
         }
       } else {
-        cp_chunk<T, BO>(du, kb, sk.s, kt * BO, c0 + (j - nD) * DC, tid);
+        cp_chunk<T, BO>(du, kb, sk.s, kt * BO, gcol + (j - part.n) * DC, lt);
       }
     }
     cp_async_commit();
   };
   if constexpr (RES)  // lands with the ring's first item
-    for (int c = 0; c < nD; ++c) {
+    for (int c = 0; c < part.n; ++c) {
       const uint32_t du = smem_u32(own_res + c * 2 * OWN);
-      cp_chunk<T, ST_ROWS>(du, qb, sq.s, q0, c * DC, tid);
-      cp_chunk<T, ST_ROWS>(du + OWN, dob, sdo.s, q0, c * DC, tid);
+      cp_chunk<T, ST_ROWS>(du, qb, sq.s, q0, c * DC, lt);
+      cp_chunk<T, ST_ROWS>(du + OWN, dob, sdo.s, q0, c * DC, lt);
     }
-  Ring ring(ring_base, STAGE, issue);
+  Ring<WGS, decltype(issue)> ring(ring_base, STAGE, issue);
   ring.start();
 
   const int wr0 = 16 * warp, wq0 = q0 + wr0;
@@ -536,19 +276,23 @@ __global__ void __launch_bounds__(ST_THREADS)
     // a tile this warp's rows see nothing of: the ring still turns
     const bool skip = (causal && k0 > wq0 + 15) ||
                       (window > 0 && k0 + BO - 1 < wq0 - window + 1);
-    float sc[BO / 8][4], dp[BO / 8][4];
+    float sd[2][BO / 8][4];  // S and dP
 #pragma unroll
-    for (int j = 0; j < BO / 8; ++j)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
-    for (int c = 0; c < nD; ++c) {
+      for (int j = 0; j < BO / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sd[i][j][e] = 0.f;
+    for (int c = 0; c < part.n; ++c) {
       const unsigned char* st = ring.next();
       if (!skip) {
         const unsigned char* own = RES ? own_res + c * 2 * OWN : st + 2 * OTH;
-        chunk_nt<BO>(sc, own, st, wr0, L, T{});
-        chunk_nt<BO>(dp, own + OWN, st + OTH, wr0, L, T{});
+        chunk_nt<BO>(sd[0], own, st, wr0, L, T{});
+        chunk_nt<BO>(sd[1], own + OWN, st + OTH, wr0, L, T{});
       }
     }
+    if constexpr (WGS > 1)
+      exchange_sum<WGS, BO>(xch, &sd[0][0][0], wg, lt);
     // dS = P o (dP - delta), P masked where the diagonal or the window's
     // edge crosses the warp's rows
     POperand<T, BO> ds;
@@ -560,14 +304,14 @@ __global__ void __launch_bounds__(ST_THREADS)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = e >> 1;
-          float p = exp2_approx(fmaf(sc[j][e], sl2, nl[r]));
+          float p = exp2_approx(fmaf(sd[0][j][e], sl2, nl[r]));
           if (edge && !visible(wq0 + L.g + 8 * r,
                                k0 + 8 * j + 2 * L.t + (e & 1), causal,
                                window))
             p = 0.f;
-          sc[j][e] = p * (dp[j][e] - dl[r]);
+          sd[0][j][e] = p * (sd[1][j][e] - dl[r]);
         }
-      ds.set(sc);
+      ds.set(sd[0]);
     }
     // dQ[:, group] += dS K[:, group], a chunk of K's columns at a time
 #pragma unroll
@@ -587,13 +331,14 @@ __global__ void __launch_bounds__(ST_THREADS)
 }
 
 // dK[:, group] = scale * sum over the query tiles of dS^T Q[:, group] and
-// dV[:, group] = sum of P^T dO[:, group]: one block a (b*h, column group,
-// 64-row kv tile), 4 warps of 16 keys. For each BO-row query tile the block
-// forms S^T = K Q^T and dP^T = V dO^T over the whole head dim, one chunk
-// tile of each at a time, then P^T and dS^T, then dV and dK over the
-// group's columns, a chunk of dO and of Q at a time.
-template <typename T, bool RES>
-__global__ void __launch_bounds__(ST_THREADS)
+// dV[:, group] = sum of P^T dO[:, group]: one block a (b*h, WGS column
+// groups, 64-row kv tile), each warpgroup 4 warps of 16 keys. For each
+// BO-row query tile the block forms S^T = K Q^T and dP^T = V dO^T over the
+// whole head dim, one chunk tile of each at a time (with WGS > 1 each
+// warpgroup its share, then exchange_sum), then P^T and dS^T, then dV and
+// dK over the group's columns, a chunk of dO and of Q at a time.
+template <typename T, bool RES, int WGS>
+__global__ void __launch_bounds__(ST_THREADS * WGS)
     flash_dkv_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v,
                             const T* __restrict__ dout,
@@ -609,20 +354,32 @@ __global__ void __launch_bounds__(ST_THREADS)
   constexpr int STAGE = 2 * OTH + (RES ? 0 : 2 * OWN);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int nD = D / DC;
-  // RES: chunk c's K tile at c * 2 OWN, its V tile OWN further
-  unsigned char* const own_res = smem_raw;
-  unsigned char* const ring_base = smem_raw + (RES ? nD * 2 * OWN : 0);
-
-  const int tid = threadIdx.x, warp = tid >> 5;
+  const int tid = threadIdx.x;
+  // the thread's warpgroup, and its index there
+  const int wg = WGS > 1 ? tid / ST_THREADS : 0;
+  const int lt = WGS > 1 ? tid % ST_THREADS : tid;
+  const int warp = lt >> 5;
   const Lanes L(tid & 31);
-  const int bh = blockIdx.x / G, g = blockIdx.x % G;
+  const Split<WGS> part(nD, wg);
+  // the warpgroup's own region: RES chunk c's K tile at c * 2 OWN, its V
+  // tile OWN further; then its ring
+  const int per = (nD + WGS - 1) / WGS;
+  float* const xch = reinterpret_cast<float*>(smem_raw);
+  unsigned char* const own_res =
+      smem_raw + exchange_bytes<WGS>(BO) +
+      wg * ((RES ? per * 2 * OWN : 0) + ST_STAGES * STAGE);
+  unsigned char* const ring_base = own_res + (RES ? per * 2 * OWN : 0);
+
+  const int GP = (G + WGS - 1) / WGS;  // blocks a (b*h, kv tile)
+  const int bh = blockIdx.x / GP, g = blockIdx.x % GP * WGS + wg;
   const int b = bh / H, h = bh % H;
   const int k0 = blockIdx.y * ST_ROWS;  // kv tile 0 (the heaviest) first
-  const int c0 = g * WG, nW = min(WG, D - c0) / DC;
+  const int c0 = g * WG, nW = WGS == 1 || g < G ? min(WG, D - c0) / DC : 0;
   const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
   const T* dob = dout + b * sdo.b + h * sdo.h;
+  // K and V from the warpgroup's share of S's chunks
+  const T* kb = k + b * sk.b + h * sk.h + part.c0 * DC;
+  const T* vb = v + b * sv.b + h * sv.h + part.c0 * DC;
   const float* lse_b = lse + (long long)bh * S;
   const float* dl_b = delta + (long long)bh * S;
 
@@ -635,31 +392,32 @@ __global__ void __launch_bounds__(ST_THREADS)
       if (e < qt_end) qt_end = (int)e;
     }
   }
-  // a query tile's items: nD chunks of Q and dO (and K and V) for S^T and
-  // dP^T, then nW chunks of Q and dO for dK and dV
-  const int per = nD + nW, total = (qt_end - qt_begin) * per;
+  // a query tile's items: the warpgroup's part.n chunks of Q and dO (and K
+  // and V) for S^T and dP^T, then nW chunks of Q and dO for dK and dV
+  const int items = part.n + nW, total = (qt_end - qt_begin) * items;
   auto issue = [&](int i, unsigned char* dst) {
     if (i < total) {
-      const int qt = qt_begin + i / per, j = i % per;
-      const int col = j < nD ? j * DC : c0 + (j - nD) * DC;
+      const int qt = qt_begin + i / items, j = i % items;
+      const int col = j < part.n ? (part.c0 + j) * DC
+                                 : c0 + (j - part.n) * DC;
       const uint32_t du = smem_u32(dst);
-      cp_chunk<T, BO>(du, qb, sq.s, qt * BO, col, tid);
-      cp_chunk<T, BO>(du + OTH, dob, sdo.s, qt * BO, col, tid);
+      cp_chunk<T, BO>(du, qb, sq.s, qt * BO, col, lt);
+      cp_chunk<T, BO>(du + OTH, dob, sdo.s, qt * BO, col, lt);
       if constexpr (!RES)
-        if (j < nD) {
-          cp_chunk<T, ST_ROWS>(du + 2 * OTH, kb, sk.s, k0, col, tid);
-          cp_chunk<T, ST_ROWS>(du + 2 * OTH + OWN, vb, sv.s, k0, col, tid);
+        if (j < part.n) {
+          cp_chunk<T, ST_ROWS>(du + 2 * OTH, kb, sk.s, k0, j * DC, lt);
+          cp_chunk<T, ST_ROWS>(du + 2 * OTH + OWN, vb, sv.s, k0, j * DC, lt);
         }
     }
     cp_async_commit();
   };
   if constexpr (RES)  // lands with the ring's first item
-    for (int c = 0; c < nD; ++c) {
+    for (int c = 0; c < part.n; ++c) {
       const uint32_t du = smem_u32(own_res + c * 2 * OWN);
-      cp_chunk<T, ST_ROWS>(du, kb, sk.s, k0, c * DC, tid);
-      cp_chunk<T, ST_ROWS>(du + OWN, vb, sv.s, k0, c * DC, tid);
+      cp_chunk<T, ST_ROWS>(du, kb, sk.s, k0, c * DC, lt);
+      cp_chunk<T, ST_ROWS>(du + OWN, vb, sv.s, k0, c * DC, lt);
     }
-  Ring ring(ring_base, STAGE, issue);
+  Ring<WGS, decltype(issue)> ring(ring_base, STAGE, issue);
   ring.start();
 
   const int wr0 = 16 * warp, wk0 = k0 + wr0;
@@ -679,19 +437,23 @@ __global__ void __launch_bounds__(ST_THREADS)
     const bool skip = (causal && q0 + BO - 1 < wk0) ||
                       (window > 0 && q0 > wk0 + 15 + window - 1);
     // S^T and dP^T: rows the warp's keys, columns the tile's queries
-    float st_[BO / 8][4], dpt[BO / 8][4];
+    float sd[2][BO / 8][4];
 #pragma unroll
-    for (int j = 0; j < BO / 8; ++j)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) st_[j][e] = dpt[j][e] = 0.f;
-    for (int c = 0; c < nD; ++c) {
+      for (int j = 0; j < BO / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sd[i][j][e] = 0.f;
+    for (int c = 0; c < part.n; ++c) {
       const unsigned char* st = ring.next();
       if (!skip) {
         const unsigned char* own = RES ? own_res + c * 2 * OWN : st + 2 * OTH;
-        chunk_nt<BO>(st_, own, st, wr0, L, T{});
-        chunk_nt<BO>(dpt, own + OWN, st + OTH, wr0, L, T{});
+        chunk_nt<BO>(sd[0], own, st, wr0, L, T{});
+        chunk_nt<BO>(sd[1], own + OWN, st + OTH, wr0, L, T{});
       }
     }
+    if constexpr (WGS > 1)
+      exchange_sum<WGS, BO>(xch, &sd[0][0][0], wg, lt);
     // P^T and dS^T = P^T o (dP^T - delta), masked where the diagonal or the
     // window's edge crosses the warp's keys
     POperand<T, BO> pt, dst;
@@ -706,16 +468,16 @@ __global__ void __launch_bounds__(ST_THREADS)
         const float dl[2] = {dl_b[c], dl_b[c + 1]};
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          float p = exp2_approx(fmaf(st_[j][e], sl2, nl[e & 1]));
+          float p = exp2_approx(fmaf(sd[0][j][e], sl2, nl[e & 1]));
           if (edge && !visible(c + (e & 1), wk0 + L.g + 8 * (e >> 1), causal,
                                window))
             p = 0.f;
-          st_[j][e] = p;
-          dpt[j][e] = p * (dpt[j][e] - dl[e & 1]);
+          sd[0][j][e] = p;
+          sd[1][j][e] = p * (sd[1][j][e] - dl[e & 1]);
         }
       }
-      pt.set(st_);
-      dst.set(dpt);
+      pt.set(sd[0]);
+      dst.set(sd[1]);
     }
     // dV[:, group] += P^T dO[:, group], dK[:, group] += dS^T Q[:, group]
 #pragma unroll
@@ -1547,36 +1309,6 @@ cudaError_t smem_attr(K kernel, int bytes, bool& done) {
   return e;
 }
 
-template <typename T, int D>
-cudaError_t launch_dq(const Args& a) {
-  constexpr int bytes = dq_smem_floats<D>() * sizeof(float);
-  static bool attr_set = false;
-  if (cudaError_t e = smem_attr(flash_dq_kernel<T, D>, bytes, attr_set))
-    return e;
-  const dim3 grid(a.B * a.H, a.S / tile_rows<D>());
-  flash_dq_kernel<T, D><<<grid, NT, bytes, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(a.dq), a.H, a.S, a.sq, a.sk, a.sv, a.sdo,
-      a.sdq, a.causal, a.scale, a.window);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t launch_dkv(const Args& a) {
-  constexpr int bytes = dkv_smem_floats<D>() * sizeof(float);
-  static bool attr_set = false;
-  if (cudaError_t e = smem_attr(flash_dkv_kernel<T, D>, bytes, attr_set))
-    return e;
-  const dim3 grid(a.B * a.H, a.S / tile_rows<D>());
-  flash_dkv_kernel<T, D><<<grid, NT, bytes, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.H, a.S, a.sq,
-      a.sk, a.sv, a.sdo, a.sdk, a.sdv, a.causal, a.scale, a.window);
-  return cudaGetLastError();
-}
-
 template <int D>
 cudaError_t launch_dq_mma(const Args& a) {
   constexpr int bytes = dq_mma_smem_bytes<D>();
@@ -1659,13 +1391,6 @@ cudaError_t launch_delta(const Args& a, float* delta, int D) {
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_simt(const Args& a) {
-  if (a.dq != nullptr)
-    if (cudaError_t e = launch_dq<T, D>(a)) return e;
-  return a.dk != nullptr ? launch_dkv<T, D>(a) : cudaSuccess;
-}
-
 // the tensor-core kernels' 16-byte copies and stores: every pointer and
 // (b, s, h) step of the views, for elements of `bytes` bytes, and with
 // `rows` the rows of lse and delta (which the streaming kernels read an
@@ -1681,23 +1406,16 @@ bool views_aligned16(const Args& a, int bytes, bool rows = true) {
                     reinterpret_cast<uintptr_t>(a.delta)) & 15) == 0;
 }
 
-template <int D>
-cudaError_t launch_mma(const Args& a) {
-  if (!views_aligned16(a, 2)) return cudaErrorInvalidValue;
-  if (a.dq != nullptr)
-    if (cudaError_t e = launch_dq_mma<D>(a)) return e;
-  return a.dk != nullptr ? launch_dkv_mma<D>(a) : cudaSuccess;
-}
-
-template <typename T, bool RES>
+template <typename T, bool RES, int WGS>
 cudaError_t launch_dq_stream(const Args& a, int D, const Groups& gr) {
   static bool attr_set = false;
-  if (cudaError_t e =
-          smem_attr(flash_dq_stream_kernel<T, RES>, ST_SMEM_MAX, attr_set))
+  if (cudaError_t e = smem_attr(flash_dq_stream_kernel<T, RES, WGS>,
+                                ST_SMEM_MAX, attr_set))
     return e;
-  const dim3 grid(a.B * a.H * gr.G, a.S / ST_ROWS);
-  flash_dq_stream_kernel<T, RES>
-      <<<grid, ST_THREADS, bwd_st_smem<T, RES, DQ_ST_BO>(D), a.stream>>>(
+  const dim3 grid(a.B * a.H * ((gr.G + WGS - 1) / WGS), a.S / ST_ROWS);
+  flash_dq_stream_kernel<T, RES, WGS>
+      <<<grid, ST_THREADS * WGS, bwd_st_smem<T, RES, DQ_ST_BO, WGS>(D),
+         a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const T*>(a.k),
           static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
           a.delta, static_cast<T*>(a.dq), a.H, a.S, D, gr.G, gr.WG, a.sq,
@@ -1705,16 +1423,16 @@ cudaError_t launch_dq_stream(const Args& a, int D, const Groups& gr) {
   return cudaGetLastError();
 }
 
-template <typename T, bool RES>
+template <typename T, bool RES, int WGS>
 cudaError_t launch_dkv_stream(const Args& a, int D, const Groups& gr) {
   static bool attr_set = false;
-  if (cudaError_t e =
-          smem_attr(flash_dkv_stream_kernel<T, RES>, ST_SMEM_MAX, attr_set))
+  if (cudaError_t e = smem_attr(flash_dkv_stream_kernel<T, RES, WGS>,
+                                ST_SMEM_MAX, attr_set))
     return e;
-  const dim3 grid(a.B * a.H * gr.G, a.S / ST_ROWS);
-  flash_dkv_stream_kernel<T, RES>
-      <<<grid, ST_THREADS, bwd_st_smem<T, RES, dkv_st_bo<T>()>(D),
-         a.stream>>>(
+  const dim3 grid(a.B * a.H * ((gr.G + WGS - 1) / WGS), a.S / ST_ROWS);
+  flash_dkv_stream_kernel<T, RES, WGS>
+      <<<grid, ST_THREADS * WGS,
+         bwd_st_smem<T, RES, dkv_st_bo<T>(), WGS>(D), a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const T*>(a.k),
           static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
           a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.H, a.S, D,
@@ -1723,36 +1441,40 @@ cudaError_t launch_dkv_stream(const Args& a, int D, const Groups& gr) {
   return cudaGetLastError();
 }
 
-// bf16 keeps each kernel's own side's chunk tiles resident where
-// `resident` says. fp32's never fit beside the ring (bwd_st_smem<float,
-// true, BO>(576), the smallest head dim on the route, is 345,600 bytes for
-// dK/dV and 359,424 for dQ, over ST_SMEM_MAX), so fp32 builds only the
-// streamed kernels.
+// Design (a) keeps each kernel's own side's chunk tiles resident where
+// `resident` says (fp32's fit beside the ring only up to head_dim 320, and
+// never two blocks an SM). Design (b) runs one block an SM whatever it
+// does, so it keeps them resident wherever they fit: in bf16 always up to
+// head_dim 512; in fp32 never for dQ at its two-group head dims (256 and
+// up), for dK/dV up to 320 (and above, (a) takes fp32 dK/dV).
 template <typename T>
 cudaError_t launch_stream(const Args& a, int D) {
-  constexpr bool kMayReside = sizeof(T) == 2;
-  const Groups gq = groups_of(D, dq_st_wmax<T>());
+  constexpr bool BF16 = sizeof(T) == 2;
+  constexpr int BKV = dkv_st_bo<T>();
+  const Groups gq = groups_of(D, dq_st_wmax<T, 1>());
   const Groups gkv = groups_of(D, DKV_ST_WMAX);
   const long long bh = (long long)a.B * a.H, tiles = a.S / ST_ROWS;
   if (bh * gkv.G > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (a.dq != nullptr) {
     cudaError_t e;
-    if constexpr (kMayReside)
-      e = resident(bh * gq.G * tiles, bwd_st_smem<T, true, DQ_ST_BO>(D))
-              ? launch_dq_stream<T, true>(a, D, gq)
-              : launch_dq_stream<T, false>(a, D, gq);
+    if (warpgroups(gq.G, D, bh * gq.G * tiles) == 2)
+      e = launch_dq_stream<T, BF16, 2>(a, D,
+                                       groups_of(D, dq_st_wmax<T, 2>()));
     else
-      e = launch_dq_stream<T, false>(a, D, gq);
+      e = resident(bh * gq.G * tiles, bwd_st_smem<T, true, DQ_ST_BO, 1>(D))
+              ? launch_dq_stream<T, true, 1>(a, D, gq)
+              : launch_dq_stream<T, false, 1>(a, D, gq);
     if (e != cudaSuccess) return e;
   }
   if (a.dk == nullptr) return cudaSuccess;
-  if constexpr (kMayReside)
-    return resident(bh * gkv.G * tiles,
-                    bwd_st_smem<T, true, dkv_st_bo<T>()>(D))
-               ? launch_dkv_stream<T, true>(a, D, gkv)
-               : launch_dkv_stream<T, false>(a, D, gkv);
-  else
-    return launch_dkv_stream<T, false>(a, D, gkv);
+  // fp32 dK/dV with two warpgroups and its own tiles streamed spills at
+  // 255 registers: above 320 it keeps one group a block
+  if (warpgroups(gkv.G, D, bh * gkv.G * tiles) == 2 &&
+      (BF16 || bwd_st_smem<T, true, BKV, 2>(D) <= ST_SMEM_MAX))
+    return launch_dkv_stream<T, true, 2>(a, D, gkv);
+  return resident(bh * gkv.G * tiles, bwd_st_smem<T, true, BKV, 1>(D))
+             ? launch_dkv_stream<T, true, 1>(a, D, gkv)
+             : launch_dkv_stream<T, false, 1>(a, D, gkv);
 }
 
 template <int D>
@@ -1762,28 +1484,19 @@ cudaError_t launch_tf32(const Args& a) {
   return a.dk != nullptr ? launch_dkv_tf32<D>(a) : cudaSuccess;
 }
 
-// the route by type, head dim and alignment: bf16 at 64 and 128 on the
-// tensor cores (a view off 16 bytes is refused); fp32 at 64 and 128 on the
-// TF32 tensor cores where every view is 16-byte aligned, else, as at the
-// other head dims, on the scalar kernels
+// the route by type and head dim: 1 (mma.sync) for bf16 at 64 and 128, 4
+// (TF32, three passes) for fp32 at 64 and 128, else 3 (streaming)
+int route_of(int dtype, int D) {
+  if (D == 64 || D == 128) return dtype == 1 ? 1 : 4;
+  return 3;
+}
+
 template <int D>
-cudaError_t dispatch(const Args& a, int dtype, int* route) {
-  if constexpr (D <= 128) {
-    if (dtype == 1) {
-      *route = 1;
-      return launch_mma<D>(a);
-    }
-    if (views_aligned16(a, 4)) {
-      *route = 4;
-      return launch_tf32<D>(a);
-    }
-    *route = 2;
-    return launch_simt<float, D>(a);
-  } else {
-    *route = 2;
-    return dtype == 0 ? launch_simt<float, D>(a)
-                      : launch_simt<__nv_bfloat16, D>(a);
-  }
+cudaError_t launch_fixed(const Args& a, int route) {
+  if (route == 4) return launch_tf32<D>(a);
+  if (a.dq != nullptr)
+    if (cudaError_t e = launch_dq_mma<D>(a)) return e;
+  return a.dk != nullptr ? launch_dkv_mma<D>(a) : cudaSuccess;
 }
 
 }  // namespace
@@ -1797,9 +1510,11 @@ extern "C" {
 // with neither, only the pre-pass (q, k and v unread). `strides` holds the
 // (b, s, h) element strides of q, k, v, o, dout, dq, dk and dv in that
 // order (24 values; those of an absent tensor unread). dtype: 0 = float32,
-// 1 = bfloat16; window <= 0 means no window. *route is set to the kernels
-// launched: 1 mma.sync (bf16), 2 scalar, 3 streaming, 4 mma.sync TF32 in
-// three passes (fp32). b * h rides on gridDim.x,
+// 1 = bfloat16; window <= 0 means no window. Every pointer and (b, s, h)
+// stride must be 16-byte aligned, and lse and delta too outside the
+// streaming route. *route is set to the kernels launched, or refused: 1
+// mma.sync (bf16), 3 streaming, 4 mma.sync TF32 in three passes (fp32);
+// 0 for the pre-pass alone. b * h rides on gridDim.x,
 // with no limit of its own (the pre-pass's grid too). Returns a cudaError_t:
 // cudaErrorInvalidValue for arguments the kernels do not take, else the
 // first launch error.
@@ -1810,7 +1525,7 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* o,
               float scale, int window, int dtype, void* stream, int* route) {
   // b * h rides on gridDim.x, the tiles on gridDim.y
   if (B < 1 || H < 1 || S < 64 || S % 64 != 0 ||
-      (long long)B * H > 0x7fffffffLL || S / 16 > 65535 ||
+      (long long)B * H > 0x7fffffffLL || S / 64 > 65535 ||
       (dtype != 0 && dtype != 1) || (window > 0 && !causal) ||
       strides == nullptr || route == nullptr ||
       (dk == nullptr) != (dv == nullptr) ||
@@ -1827,29 +1542,24 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* o,
   *route = 0;
   if (D < 64 || D % 64 != 0)
     return cudaErrorInvalidValue;  // a head_dim the kernels have no tiling for
+  float* buf = static_cast<float*>(delta_buf);
+  if (delta == nullptr) a.delta = buf;  // the pre-pass writes it first
+  const bool kernels = dq != nullptr || dk != nullptr;
+  if (kernels) {  // refuse a view off 16 bytes before any launch
+    *route = route_of(dtype, D);
+    if (!views_aligned16(a, dtype == 0 ? 4 : 2, *route != 3))
+      return cudaErrorInvalidValue;
+  }
   if (delta == nullptr) {
-    float* buf = static_cast<float*>(delta_buf);
     cudaError_t e = dtype == 0 ? launch_delta<float>(a, buf, D)
                                : launch_delta<__nv_bfloat16>(a, buf, D);
     if (e != cudaSuccess) return e;
-    a.delta = buf;
   }
-  if (dq == nullptr && dk == nullptr) return cudaSuccess;
-  switch (D) {
-    case 64: return dispatch<64>(a, dtype, route);
-    case 128: return dispatch<128>(a, dtype, route);
-    case 192: return dispatch<192>(a, dtype, route);
-    case 256: return dispatch<256>(a, dtype, route);
-    case 320: return dispatch<320>(a, dtype, route);
-    case 384: return dispatch<384>(a, dtype, route);
-    case 448: return dispatch<448>(a, dtype, route);
-    case 512: return dispatch<512>(a, dtype, route);
-  }
-  *route = 3;  // above 512: stream the head dim (refused off 16 bytes)
-  if (!views_aligned16(a, dtype == 0 ? 4 : 2, false))
-    return cudaErrorInvalidValue;
-  return dtype == 0 ? launch_stream<float>(a, D)
-                    : launch_stream<__nv_bfloat16>(a, D);
+  if (!kernels) return cudaSuccess;
+  if (*route == 3)
+    return dtype == 0 ? launch_stream<float>(a, D)
+                      : launch_stream<__nv_bfloat16>(a, D);
+  return D == 64 ? launch_fixed<64>(a, *route) : launch_fixed<128>(a, *route);
 }
 
 const char* flash_bwd_error_string(int err) {

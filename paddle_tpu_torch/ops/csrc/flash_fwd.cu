@@ -66,41 +66,39 @@
 // tiles. o = O / l leaves 16 bytes a lane (store_acc_f32), lse = m + log l.
 // What holds it is issue slots, not the tensor pipe: each operand element
 // is split (four integer and float instructions) at every use, beside the
-// MMAs' own. A view whose pointer or (b, s, h) step is not 16-byte aligned
-// takes the scalar kernel, chosen before any launch (route 2).
+// MMAs' own.
 //
-// bf16 at head_dim 320 to 512, and fp32 at the other head dims up to 512
-// or where a view is off 16 bytes, `flash_fwd_kernel`: scalar fp32 FMAs
-// out of shared memory (the tiles staged in fp32 whatever the input type),
-// one block a (b*h, query tile), an R x D/16 slice of the accumulator a
-// thread. Tiles of 64 rows up to head dim 256 (at 256 they take 209.5 KB
-// of the 227 KB of shared memory a block may have), 32 rows from 320 to
-// 512 (201.5 KB at 512).
-//
-// Above head_dim 512, fp32 and bf16, `flash_fwd_stream_kernel` (the
-// streaming route; its tiles and products in flash_stream.cuh). No tile of
-// a whole head fits in shared memory beside the others, and a 64 x D fp32
-// accumulator does not fit in registers (D / 2 a thread), so o's columns
-// split into G = ceil(D / WMAX) groups of at most WMAX = 256 (bf16) or 192
-// (fp32) columns, the last one narrower where D is no multiple (640: 192 x
-// 3 + 64 in fp32); the group is a grid step. A block of 4 warps owns (b*h,
+// The other head dims up to 512 (bf16 from 320, fp32 from 192) and every
+// one above, fp32 and bf16, `flash_fwd_stream_kernel` (the streaming route;
+// its tiles and products in flash_stream.cuh). A 64 x D fp32 accumulator
+// does not fit in registers at these widths (D / 2 a thread), and above
+// 512 no tile of a whole head fits in shared memory beside the others, so
+// o's columns split into G = ceil(D / WMAX) groups of at most WMAX = 256
+// (bf16) or 192 (fp32) columns, the last one narrower where D is no
+// multiple (640: 192 x 3 + 64 in fp32). A warpgroup of 4 warps owns (b*h,
 // group, 64-row query tile) and runs FlashAttention-2's one pass over the
 // kv tiles it sees: S = Q K^T over the whole head from chunk tiles of 64
-// (bf16) or 32 (fp32) columns that a cp.async ring keeps three deep (the
-// query's tiles resident where `resident` finds room), the online softmax
-// on S's accumulator, O[:, group] += P V[:, group]; bf16 on
-// mma.sync.m16n8k16, fp32 on TF32 mma.sync in three passes. What bounds
-// it: every group's block forms the same S, so the route does (2 G + 2) d
-// FLOPs a visible pair against the function's 4 d (8 d at 576, G = 3), and
-// fp32 triples them on the tensor cores and splits every operand at each
-// use on the issue slots; at b1 h2 s1024 the grid is 96 blocks on 132 SMs.
-// Views must be 16-byte aligned (the wrapper copies one that is not).
+// (bf16) or 32 (fp32) columns that a cp.async ring keeps three deep, the
+// online softmax on S's accumulator, O[:, group] += P V[:, group]; bf16 on
+// mma.sync.m16n8k16, fp32 on TF32 mma.sync in three passes. Two designs
+// place the groups (flash_stream.cuh `warpgroups` picks one): (a) a block
+// a group, the group a grid step, so that every group's block forms the
+// same S ((2 G + 2) d FLOPs a visible pair against the function's 4 d);
+// (b), at head dims up to 512 where G > 1 and either D is above 320 or
+// (a)'s grid would fill more than one wave of the SMs, a block of two
+// warpgroups that own two groups (of at most 128 columns in fp32) and form
+// S once between them: each its share of the head dim's chunks, the
+// partial sums added through shared memory in warpgroup order, so that
+// both hold the same S bit for bit ((2 ceil(G / 2) + 2) d). (a) keeps the
+// query's chunk tiles resident where `resident` finds room, (b) wherever
+// they fit. fp32 triples the FLOPs on the tensor cores and splits every
+// operand at each use on the issue slots.
 //
-// The entry reports the kernel it launched (*route: 1 mma.sync, 2 the
-// scalar kernel, 3 the streaming one, 4 the TF32 one), which depends on
-// the type, the head dim and, in fp32, the views' alignment. Seq a
-// multiple of 64; lse is a contiguous [B * H, S] fp32 array. b * h rides
-// on gridDim.x, with no limit of its own.
+// The entry reports the kernel it launched (*route: 1 mma.sync, 3 the
+// streaming one, 4 the TF32 one), which depends on the type and the head
+// dim. Every view must be 16-byte aligned (the wrapper copies one that is
+// not); seq a multiple of 64; lse is a contiguous [B * H, S] fp32 array.
+// b * h rides on gridDim.x, with no limit of its own.
 
 #include "flash_stream.cuh"
 
@@ -108,236 +106,80 @@ namespace {
 
 using namespace flash;
 
-constexpr int NT = 256;       // threads per block: a 16 x 16 grid
 constexpr float NEG = -1e30f; // the reference's masked score (_NEG)
 
-// rows of a query tile and of a kv tile in the scalar kernel
-template <int D> __host__ __device__ constexpr int simt_rows() {
-  return D <= 256 ? 64 : 32;
-}
+// ---- the streaming route: bf16 from 320, fp32 from 192, any width above -----
 
-template <int D>
-constexpr int smem_floats() {
-  constexpr int BR = simt_rows<D>();
-  return BR * (D + 1)      // Qs: scaled Q tile
-         + BR * (D + 1)    // Ks
-         + BR * D          // Vs
-         + BR * (BR + 1)   // Ps: scores, then probabilities
-         + 3 * BR;         // m, l, alpha per row
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int H, int S, Strides sq,
-                     Strides sk, Strides sv, Strides so, int causal,
-                     float scale, int window) {
-  constexpr int BR = simt_rows<D>();
-  constexpr int R = BR / 16;       // rows (and score columns) a thread
-  constexpr int LPR = NT / BR;     // lanes sharing a row in the softmax
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BR * (D + 1);
-  float* Vs = Ks + BR * (D + 1);
-  float* Ps = Vs + BR * D;
-  float* m_s = Ps + BR * (BR + 1);
-  float* l_s = m_s + BR;
-  float* a_s = l_s + BR;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  int bh, qt;
-  bh_tile(true, bh, qt);  // the heaviest causal tile first
-  const int b = bh / H, h = bh % H;
-  const int q0 = qt * BR;
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
-  T* ob = o + b * so.b + h * so.h;
-
-  for (int idx = tid; idx < BR * D; idx += NT) {
-    const int r = idx / D, c = idx % D;
-    Qs[r * (D + 1) + c] = to_f(qb[(long long)(q0 + r) * sq.s + c]) * scale;
-  }
-  if (tid < BR) {
-    m_s[tid] = NEG;
-    l_s[tid] = 0.f;
-  }
-
-  // kv tiles with any visible key for some row of this query tile
-  int kt_begin = 0, kt_end = S / BR;
-  if (causal) {
-    kt_end = (q0 + BR - 1) / BR + 1;
-    if (window > 0) {
-      const int first_key = q0 - (window - 1);
-      kt_begin = first_key > 0 ? first_key / BR : 0;
-    }
-  }
-
-  constexpr int DJ = D / 16;
-  float acc[R][DJ];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BR;
-    __syncthreads();  // the previous tile's readers are done with Ks/Vs/Ps
-    for (int idx = tid; idx < BR * D; idx += NT) {
-      const int r = idx / D, c = idx % D;
-      Ks[r * (D + 1) + c] = to_f(kb[(long long)(k0 + r) * sk.s + c]);
-      Vs[r * D + c] = to_f(vb[(long long)(k0 + r) * sv.s + c]);
-    }
-    __syncthreads();
-
-    // S = (Q * scale) K^T for rows ty + 16 i, columns tx + 16 j
-    float sacc[R][R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) sacc[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qa[R], ka[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) qa[i] = Qs[(ty + 16 * i) * (D + 1) + d];
-#pragma unroll
-      for (int j = 0; j < R; ++j) ka[j] = Ks[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) sacc[i][j] = fmaf(qa[i], ka[j], sacc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        float s = sacc[i][j];
-        if (!visible(q0 + r, k0 + c, causal, window)) s = NEG;
-        Ps[r * (BR + 1) + c] = s;
-      }
-    __syncthreads();
-
-    // online softmax over the tile: LPR neighbouring lanes per row
-    {
-      const int r = tid / LPR, part = tid % LPR;
-      float* pr = Ps + r * (BR + 1);
-      float mx = NEG;
-      for (int c = part; c < BR; c += LPR) mx = fmaxf(mx, pr[c]);
-#pragma unroll
-      for (int off = 1; off < LPR; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = m_s[r];
-      const float m_next = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int c = part; c < BR; c += LPR) {
-        const float p = expf(pr[c] - m_next);
-        pr[c] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 1; off < LPR; off <<= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (part == 0) {
-        // a row whose every key so far was masked has m = NEG: its garbage
-        // (p = 1 per masked key) is wiped by alpha = exp(NEG - m_real) = 0
-        // once a visible key arrives, as in the reference kernel
-        const float alpha = expf(m_prev - m_next);
-        a_s[r] = alpha;
-        l_s[r] = alpha * l_s[r] + sum;
-        m_s[r] = m_next;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + P V
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const float al = a_s[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= al;
-    }
-#pragma unroll 4
-    for (int c = 0; c < BR; ++c) {
-      float pa[R], va[DJ];
-#pragma unroll
-      for (int i = 0; i < R; ++i) pa[i] = Ps[(ty + 16 * i) * (BR + 1) + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) va[j] = Vs[c * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(pa[i], va[j], acc[i][j]);
-    }
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int r = ty + 16 * i;
-    const float l = l_s[r];
-    T* orow = ob + (long long)(q0 + r) * so.s;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) orow[tx + 16 * j] = from_f<T>(acc[i][j] / l);
-  }
-  if (tid < BR) lse[(long long)bh * S + q0 + tid] = m_s[tid] + logf(l_s[tid]);
-}
-
-// ---- head_dim above 512: the streaming route -------------------------------
-
-// the widest column group of o a block owns: its fp32 accumulator takes
-// WMAX / 2 registers a thread (128 in bf16, 96 in fp32, where the TF32
-// split operands need more of the 255)
-template <typename T> __host__ __device__ constexpr int fwd_st_wmax() {
-  return sizeof(T) == 2 ? 256 : 192;
+// the widest column group of o a warpgroup owns: its fp32 accumulator
+// takes WMAX / 2 registers a thread (128 in bf16; in fp32, where the TF32
+// split operands need more of the 255, 96 with a warpgroup a block and 64
+// with two, whose exchange and own addresses need more again)
+template <typename T, int WGS>
+__host__ __device__ constexpr int fwd_st_wmax() {
+  return sizeof(T) == 2 ? 256 : WGS == 1 ? 192 : 128;
 }
 constexpr int FWD_ST_BKV = 64;  // kv rows a step
 
-// bytes of the block's shared memory: with RES the query chunk tiles stay
-// resident (nD of them) and a ring stage holds a K or V chunk; without, a
-// stage holds a K chunk and the query chunk beside it
-template <typename T, bool RES>
+// bytes of the block's shared memory: exchange_sum's S (WGS > 1), then
+// each warpgroup's own: with RES its share of the query chunk tiles stays
+// resident and a ring stage holds a K or V chunk; without, a stage holds a
+// K chunk and the query chunk beside it
+template <typename T, bool RES, int WGS>
 __host__ __device__ constexpr int fwd_st_smem(int D) {
   constexpr int OWN = ST_ROWS * Chunk<T>::ROW;
   constexpr int OTH = FWD_ST_BKV * Chunk<T>::ROW;
-  return RES ? D / Chunk<T>::COLS * OWN + ST_STAGES * OTH
-             : ST_STAGES * (OTH + OWN);
+  const int per = (D / Chunk<T>::COLS + WGS - 1) / WGS;
+  return exchange_bytes<WGS>(FWD_ST_BKV / 2) +
+         WGS * (RES ? per * OWN + ST_STAGES * OTH
+                    : ST_STAGES * (OTH + OWN));
 }
 
-// One block a (b*h, column group, 64-row query tile), 4 warps of 16 rows;
-// FlashAttention-2's one pass. For each kv tile the block forms S = Q K^T
-// over the whole head dim, one chunk tile at a time (chunk_nt), then the
-// online softmax on S's accumulator (running m and l, the group's
-// accumulator rescaled), then O[:, group] += P V[:, group] one chunk of V
-// at a time (chunk_pv). Every group's block forms the same S in the same
-// order, so m, l and lse agree bit for bit across groups; group 0 writes
-// lse.
-template <typename T, bool RES>
-__global__ void __launch_bounds__(ST_THREADS)
+// One block a (b*h, WGS column groups, 64-row query tile), each warpgroup
+// 4 warps of 16 rows; FlashAttention-2's one pass. For each kv tile the
+// block forms S = Q K^T over the whole head dim, one chunk tile at a time
+// (chunk_nt; with WGS > 1 each warpgroup its share of the chunks, then
+// exchange_sum), then the online softmax on S's accumulator (running m and
+// l, the group's accumulator rescaled), then O[:, group] += P V[:, group]
+// one chunk of V at a time (chunk_pv). Every warpgroup and every group's
+// block forms the same S in the same order, so m, l and lse agree bit for
+// bit across groups; group 0 writes lse. A warpgroup past the last group
+// (G odd) forms its share of S and stores nothing.
+template <typename T, bool RES, int WGS>
+__global__ void __launch_bounds__(ST_THREADS * WGS)
     flash_fwd_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, T* __restrict__ o,
                             float* __restrict__ lse, int H, int S, int D,
                             int G, int WG, Strides sq, Strides sk, Strides sv,
                             Strides so, int causal, float scale, int window) {
-  constexpr int DC = Chunk<T>::COLS, BKV = FWD_ST_BKV, W = fwd_st_wmax<T>();
+  constexpr int DC = Chunk<T>::COLS, BKV = FWD_ST_BKV;
+  constexpr int W = fwd_st_wmax<T, WGS>();
   constexpr int OWN = ST_ROWS * Chunk<T>::ROW, OTH = BKV * Chunk<T>::ROW;
   constexpr int STAGE = OTH + (RES ? 0 : OWN);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int nD = D / DC;
-  unsigned char* const q_res = smem_raw;  // RES: the query chunk tiles
-  unsigned char* const ring_base = smem_raw + (RES ? nD * OWN : 0);
-
-  const int tid = threadIdx.x, warp = tid >> 5;
+  const int tid = threadIdx.x;
+  // the thread's warpgroup, and its index there
+  const int wg = WGS > 1 ? tid / ST_THREADS : 0;
+  const int lt = WGS > 1 ? tid % ST_THREADS : tid;
+  const int warp = lt >> 5;
   const Lanes L(tid & 31);
-  const int bh = blockIdx.x / G, g = blockIdx.x % G;
+  const Split<WGS> part(nD, wg);
+  // the warpgroup's own region: RES its query chunk tiles, then its ring
+  const int per = (nD + WGS - 1) / WGS;
+  float* const xch = reinterpret_cast<float*>(smem_raw);
+  unsigned char* const q_res =
+      smem_raw + exchange_bytes<WGS>(BKV / 2) +
+      wg * ((RES ? per * OWN : 0) + ST_STAGES * STAGE);
+  unsigned char* const ring_base = q_res + (RES ? per * OWN : 0);
+
+  const int GP = (G + WGS - 1) / WGS;  // blocks a (b*h, query tile)
+  const int bh = blockIdx.x / GP, g = blockIdx.x % GP * WGS + wg;
   const int b = bh / H, h = bh % H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * ST_ROWS;  // heaviest first
-  const int c0 = g * WG, nW = min(WG, D - c0) / DC;
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + h * sk.h;
+  const int c0 = g * WG, nW = WGS == 1 || g < G ? min(WG, D - c0) / DC : 0;
+  // Q and K from the warpgroup's share of S's chunks
+  const T* qb = q + b * sq.b + h * sq.h + part.c0 * DC;
+  const T* kb = k + b * sk.b + h * sk.h + part.c0 * DC;
   const T* vb = v + b * sv.b + h * sv.h;
 
   // kv tiles with any visible key for some row of this query tile
@@ -349,27 +191,28 @@ __global__ void __launch_bounds__(ST_THREADS)
       kt_begin = first_key > 0 ? first_key / BKV : 0;
     }
   }
-  // a kv tile's items: nD chunks of K (and Q) for S, then nW chunks of V
-  const int per = nD + nW, total = (kt_end - kt_begin) * per;
+  // a kv tile's items: the warpgroup's part.n chunks of K (and Q) for S,
+  // then nW chunks of V
+  const int items = part.n + nW, total = (kt_end - kt_begin) * items;
   auto issue = [&](int i, unsigned char* dst) {
     if (i < total) {
-      const int kt = kt_begin + i / per, j = i % per;
+      const int kt = kt_begin + i / items, j = i % items;
       const uint32_t du = smem_u32(dst);
-      if (j < nD) {
-        cp_chunk<T, BKV>(du, kb, sk.s, kt * BKV, j * DC, tid);
+      if (j < part.n) {
+        cp_chunk<T, BKV>(du, kb, sk.s, kt * BKV, j * DC, lt);
         if constexpr (!RES)
-          cp_chunk<T, ST_ROWS>(du + OTH, qb, sq.s, q0, j * DC, tid);
+          cp_chunk<T, ST_ROWS>(du + OTH, qb, sq.s, q0, j * DC, lt);
       } else {
-        cp_chunk<T, BKV>(du, vb, sv.s, kt * BKV, c0 + (j - nD) * DC, tid);
+        cp_chunk<T, BKV>(du, vb, sv.s, kt * BKV, c0 + (j - part.n) * DC, lt);
       }
     }
     cp_async_commit();
   };
   if constexpr (RES)  // lands with the ring's first item
-    for (int c = 0; c < nD; ++c)
+    for (int c = 0; c < part.n; ++c)
       cp_chunk<T, ST_ROWS>(smem_u32(q_res + c * OWN), qb, sq.s, q0, c * DC,
-                           tid);
-  Ring ring(ring_base, STAGE, issue);
+                           lt);
+  Ring<WGS, decltype(issue)> ring(ring_base, STAGE, issue);
   ring.start();
 
   const int wr0 = 16 * warp, wq0 = q0 + wr0;
@@ -395,11 +238,13 @@ __global__ void __launch_bounds__(ST_THREADS)
     for (int j = 0; j < BKV / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-    for (int c = 0; c < nD; ++c) {
+    for (int c = 0; c < part.n; ++c) {
       const unsigned char* st = ring.next();
       if (!skip)
         chunk_nt<BKV>(sc, RES ? q_res + c * OWN : st + OTH, st, wr0, L, T{});
     }
+    if constexpr (WGS > 1)
+      exchange_sum<WGS, BKV / 2>(xch, &sc[0][0], wg, lt);
     POperand<T, BKV> p;
     if (!skip) {
       // S * scale in fp32, the reference's _NEG where the diagonal or the
@@ -956,41 +801,19 @@ cudaError_t launch_tf32(const Args& a) {
   return cudaGetLastError();
 }
 
-// ---- fp32, and bf16 above head_dim 256 -------------------------------------
-
-template <typename T, int D>
-cudaError_t launch_simt(const Args& a) {
-  constexpr int bytes = smem_floats<D>() * sizeof(float);
+template <typename T, bool RES, int WGS>
+cudaError_t launch_stream_res(const Args& a, int D, const Groups& gr) {
   static bool attr_set = false;  // dynamic shared memory above 48 KB
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
-  const dim3 grid(a.B * a.H, a.S / simt_rows<D>());
-  flash_fwd_kernel<T, D><<<grid, NT, bytes, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.H, a.S,
-      a.sq, a.sk, a.sv, a.so, a.causal, a.scale, a.window);
-  return cudaGetLastError();
-}
-
-template <typename T, bool RES>
-cudaError_t launch_stream_res(const Args& a, int D) {
-  static bool attr_set = false;  // dynamic shared memory above 48 KB
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_stream_kernel<T, RES>,
+        flash_fwd_stream_kernel<T, RES, WGS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, ST_SMEM_MAX);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  const Groups gr = groups_of(D, fwd_st_wmax<T>());
-  const dim3 grid(a.B * a.H * gr.G, a.S / ST_ROWS);
-  flash_fwd_stream_kernel<T, RES>
-      <<<grid, ST_THREADS, fwd_st_smem<T, RES>(D), a.stream>>>(
+  const dim3 grid(a.B * a.H * ((gr.G + WGS - 1) / WGS), a.S / ST_ROWS);
+  flash_fwd_stream_kernel<T, RES, WGS>
+      <<<grid, ST_THREADS * WGS, fwd_st_smem<T, RES, WGS>(D), a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const T*>(a.k),
           static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.H, a.S,
           D, gr.G, gr.WG, a.sq, a.sk, a.sv, a.so, a.causal, a.scale,
@@ -998,15 +821,27 @@ cudaError_t launch_stream_res(const Args& a, int D) {
   return cudaGetLastError();
 }
 
-// the query chunk tiles resident where `resident` says
+// Design (a) keeps the query chunk tiles resident where `resident` says;
+// (b), one block an SM whatever it does, wherever they fit: in bf16 always
+// up to head_dim 512, in fp32 up to 448.
 template <typename T>
 cudaError_t launch_stream(const Args& a, int D) {
-  const long long bhg =
-      (long long)a.B * a.H * groups_of(D, fwd_st_wmax<T>()).G;
+  const Groups gr = groups_of(D, fwd_st_wmax<T, 1>());
+  const long long bhg = (long long)a.B * a.H * gr.G;
   if (bhg > 0x7fffffffLL) return cudaErrorInvalidValue;
-  return resident(bhg * (a.S / ST_ROWS), fwd_st_smem<T, true>(D))
-             ? launch_stream_res<T, true>(a, D)
-             : launch_stream_res<T, false>(a, D);
+  const long long blocks = bhg * (a.S / ST_ROWS);  // design (a)'s grid
+  if (warpgroups(gr.G, D, blocks) == 2) {
+    const Groups g2 = groups_of(D, fwd_st_wmax<T, 2>());
+    if constexpr (sizeof(T) == 2)
+      return launch_stream_res<T, true, 2>(a, D, g2);
+    else
+      return fwd_st_smem<T, true, 2>(D) <= ST_SMEM_MAX
+                 ? launch_stream_res<T, true, 2>(a, D, g2)
+                 : launch_stream_res<T, false, 2>(a, D, g2);
+  }
+  return resident(blocks, fwd_st_smem<T, true, 1>(D))
+             ? launch_stream_res<T, true, 1>(a, D, gr)
+             : launch_stream_res<T, false, 1>(a, D, gr);
 }
 
 // every view's pointer and (b, s, h) steps 16-byte aligned
@@ -1017,37 +852,29 @@ bool views_aligned16(const Args& a, int bytes) {
          aligned16(a.o, a.so, a.B, a.H, bytes);
 }
 
-// the route by type, head dim and views: bf16 up to 256 on the tensor
-// cores (refused off 16 bytes); fp32 at 64 and 128 on the TF32 tensor
-// cores where every view is 16-byte aligned, else the scalar kernel
+// the route by type and head dim: 1 (mma.sync) for bf16 up to 256, 4
+// (TF32, three passes) for fp32 at 64 and 128, else 3 (streaming)
+int route_of(int dtype, int D) {
+  if (dtype == 1 && D <= 256) return 1;
+  if (dtype == 0 && (D == 64 || D == 128)) return 4;
+  return 3;
+}
+
 template <int D>
-cudaError_t launch_dtype(int dtype, const Args& a, int* route) {
-  if constexpr (D <= 256) {
-    if (dtype == 1) {
-      *route = 1;
-      if (!views_aligned16(a, 2)) return cudaErrorInvalidValue;
-      return launch_mma<D>(a);
-    }
-  }
-  if constexpr (D == 64 || D == 128) {
-    if (views_aligned16(a, 4)) {
-      *route = 4;
-      return launch_tf32<D>(a);
-    }
-  }
-  *route = 2;
-  if (dtype == 0) return launch_simt<float, D>(a);
-  return launch_simt<__nv_bfloat16, D>(a);
+cudaError_t launch_fixed(const Args& a, int route) {
+  if constexpr (D == 64 || D == 128)
+    if (route == 4) return launch_tf32<D>(a);
+  return launch_mma<D>(a);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. window <= 0 means no window. bf16
-// pointers and (b, s, h) strides must be 16-byte aligned up to head_dim
-// 256. *route is set to the kernel launched (1 mma.sync, 2 scalar, 3
-// streaming, 4 the TF32 three-pass kernel).
+// dtype: 0 = float32, 1 = bfloat16. window <= 0 means no window. Every
+// pointer and (b, s, h) stride must be 16-byte aligned. *route is set to
+// the kernel it launches, or refuses to (1 mma.sync, 3 streaming, 4 the
+// TF32 three-pass kernel).
 // Returns a cudaError_t: cudaErrorInvalidValue for arguments the kernel
 // does not take, else the launch's own error.
 int flash_fwd(const void* q, const void* k, const void* v, void* o,
@@ -1058,7 +885,7 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
               float scale, int window, int dtype, void* stream, int* route) {
   // b * h rides on gridDim.x, the query tiles on gridDim.y
   if (B < 1 || H < 1 || S < 64 || S % 64 != 0 ||
-      (long long)B * H > 0x7fffffffLL || S / 32 > 65535 ||
+      (long long)B * H > 0x7fffffffLL || S / 64 > 65535 ||
       (dtype != 0 && dtype != 1) || (window > 0 && !causal) ||
       route == nullptr)
     return cudaErrorInvalidValue;
@@ -1066,20 +893,20 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
                {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh},
                {o_sb, o_ss, o_sh}, causal, scale, window,
                static_cast<cudaStream_t>(stream)};
-  switch (D) {
-    case 64: return launch_dtype<64>(dtype, a, route);
-    case 128: return launch_dtype<128>(dtype, a, route);
-    case 192: return launch_dtype<192>(dtype, a, route);
-    case 256: return launch_dtype<256>(dtype, a, route);
-    case 320: return launch_dtype<320>(dtype, a, route);
-    case 384: return launch_dtype<384>(dtype, a, route);
-    case 448: return launch_dtype<448>(dtype, a, route);
-    case 512: return launch_dtype<512>(dtype, a, route);
-  }
   if (D < 64 || D % 64 != 0)
-    return cudaErrorInvalidValue;  // a head_dim the kernel has no tiling for
-  *route = 3;  // above 512: stream the head dim (refused off 16 bytes)
+    return cudaErrorInvalidValue;  // a head_dim the kernels have no tiling for
+  *route = route_of(dtype, D);
   if (!views_aligned16(a, dtype == 0 ? 4 : 2)) return cudaErrorInvalidValue;
+  switch (*route) {
+    case 1:
+    case 4:
+      switch (D) {
+        case 64: return launch_fixed<64>(a, *route);
+        case 128: return launch_fixed<128>(a, *route);
+        case 192: return launch_fixed<192>(a, *route);
+        default: return launch_fixed<256>(a, *route);
+      }
+  }
   return dtype == 0 ? launch_stream<float>(a, D)
                     : launch_stream<__nv_bfloat16>(a, D);
 }

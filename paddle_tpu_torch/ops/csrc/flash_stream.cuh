@@ -1,8 +1,11 @@
-// The streaming route's tiles and products (head_dim above 512), shared by
-// flash_fwd.cu (flash_fwd_stream_kernel) and flash_bwd.cu
-// (flash_dq_stream_kernel, flash_dkv_stream_kernel). No tile of a whole
-// head fits the 227 KB of shared memory a block may take above 512 (the
-// dK/dV kernel's four operands), so every operand is cut into chunk tiles
+// The streaming route's tiles and products, shared by flash_fwd.cu
+// (flash_fwd_stream_kernel) and flash_bwd.cu (flash_dq_stream_kernel,
+// flash_dkv_stream_kernel): the head dims the other routes leave (the
+// forward in bf16 from 320, the backward in bf16 and both in fp32 from
+// 192, any width above 512). There a 64 x D fp32 accumulator does not fit
+// in registers (D / 2 a thread), and above 512 no tile of a whole head fits
+// the 227 KB of shared memory a block may take (the dK/dV kernel's four
+// operands), so every operand is cut into chunk tiles
 // of a few columns: 64 in bf16 (128 bytes a row, XOR-swizzled in 16-byte
 // chunks for ldmatrix), 32 in fp32 (rows of 36 floats, product_nt's
 // conflict-free stride). A chunk tile is filled by cp.async 16-byte
@@ -196,15 +199,33 @@ __device__ __forceinline__ void store_chunk(const float (&x)[4][4],
 // rest, so that two blocks share an SM and hide each other's latency
 // (tf32_variants.py stream_resident stream_streamed times both against
 // this rule).
-inline bool resident(long long blocks, int res_bytes) {
-  constexpr int SM_SMEM = 233472, BLOCK_RESERVED = 1024;  // bytes
+inline int sm_count() {  // the current card's SMs, 0 if unknown
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess)
     sms = 0;
+  return sms;
+}
+
+inline bool resident(long long blocks, int res_bytes) {
+  constexpr int SM_SMEM = 233472, BLOCK_RESERVED = 1024;  // bytes
   return res_bytes <= ST_SMEM_MAX &&
-         (2 * (res_bytes + BLOCK_RESERVED) <= SM_SMEM || blocks <= 2LL * sms);
+         (2 * (res_bytes + BLOCK_RESERVED) <= SM_SMEM ||
+          blocks <= 2LL * sm_count());
+}
+
+// Warpgroups a block for an output of G column groups at head dim D whose
+// grid has `blocks` blocks with one group a block: 2 (design (b), two
+// groups a block sharing S and dP) where G > 1 at head dims up to 512 and
+// either that grid is more than one wave of the card's SMs or D is above
+// 320, else 1 (design (a)). Where (a)'s grid fits one wave each of its
+// blocks has an SM to itself, and at head dims up to 320 that beat
+// forming S once in (b)'s half as many blocks; above 320 S is the larger
+// share of a block's work. tf32_variants.py's wide_* variants time both
+// designs and this rule.
+inline int warpgroups(int G, int D, long long blocks) {
+  return G > 1 && D <= 512 && (D > 320 || blocks > sm_count()) ? 2 : 1;
 }
 
 // The output's columns in G groups of WG (the last may be narrower), one
@@ -217,14 +238,28 @@ __host__ __device__ constexpr Groups groups_of(int D, int WMAX) {
   return {G, ((D + G - 1) / G + 63) / 64 * 64};
 }
 
+// The barrier of the threads that share a ring: with one warpgroup a
+// block the block's, else the warpgroup's own named one (1 + its index,
+// ST_THREADS threads)
+template <int WGS>
+__device__ __forceinline__ void group_sync() {
+  if constexpr (WGS == 1)
+    __syncthreads();
+  else
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + threadIdx.x / ST_THREADS),
+                 "n"(ST_THREADS)
+                 : "memory");
+}
+
 // A ring of ST_STAGES chunk items of `stage` bytes each, filled by
-// cp.async in the order the block consumes them. issue(i) copies item i
-// into its slot (nothing past the last item) and commits one group;
-// next() waits until the oldest outstanding item has landed and every
-// thread is done with the slot before it, refills that slot with the item
-// ST_STAGES - 1 ahead and returns the landed item's slot. Every thread of
-// the block calls next() the same number of times.
-template <typename Issue>
+// cp.async in the order its threads (the block, or with WGS warpgroups a
+// block one of them, behind group_sync) consume them. issue(i) copies item i into its slot
+// (nothing past the last item) and commits one group; next() waits until
+// the oldest outstanding item has landed and every thread is done with the
+// slot before it, refills that slot with the item ST_STAGES - 1 ahead and
+// returns the landed item's slot. Every thread behind the barrier calls
+// next() the same number of times.
+template <int WGS, typename Issue>
 struct Ring {
   unsigned char* base;
   int stage;
@@ -239,7 +274,7 @@ struct Ring {
   }
   __device__ const unsigned char* next() {
     cp_async_wait<ST_STAGES - 2>();
-    __syncthreads();
+    group_sync<WGS>();
     const int refill = slot == 0 ? ST_STAGES - 1 : slot - 1;
     issue(cur + ST_STAGES - 1, base + refill * stage);
     const unsigned char* here = base + slot * stage;
@@ -248,5 +283,52 @@ struct Ring {
     return here;
   }
 };
+
+// Design (b), column groups in one block: WGS warpgroups of ST_THREADS
+// threads own WGS consecutive column groups of the output, and warpgroup w
+// forms the partial products of S (and dP) over its share of the head
+// dim's chunk tiles, `Split`. Summed through shared memory in warpgroup
+// order they give every warpgroup the same S, bit for bit, so the block
+// forms S once where WGS grid steps would form it WGS times.
+template <int WGS>
+struct Split {
+  int c0, n;  // the warpgroup's first chunk of the head dim and its count
+  __device__ Split(int nD, int wg) {
+    if constexpr (WGS == 1) {
+      c0 = 0;
+      n = nD;
+    } else {
+      const int per = (nD + WGS - 1) / WGS;
+      c0 = min(nD, wg * per);
+      n = min(nD, c0 + per) - c0;
+    }
+  }
+};
+
+// v = the sum over the block's WGS warpgroups of their v, in warpgroup
+// order, through x ([WGS][N][ST_THREADS] floats: a thread's N values
+// ST_THREADS apart, so a warp's stores and loads hit 32 banks); `lt` the
+// thread's index in its warpgroup. Every thread of the block calls it.
+template <int WGS, int N>
+__device__ __forceinline__ void exchange_sum(float* x, float* v, int wg,
+                                             int lt) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[(wg * N + i) * ST_THREADS + lt] = v[i];
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float sum = x[i * ST_THREADS + lt];
+#pragma unroll
+    for (int w = 1; w < WGS; ++w) sum += x[(w * N + i) * ST_THREADS + lt];
+    v[i] = sum;
+  }
+  __syncthreads();  // every warpgroup has read x before the next write
+}
+
+// bytes of exchange_sum's x for N floats a thread (none for one warpgroup)
+template <int WGS>
+__host__ __device__ constexpr int exchange_bytes(int n) {
+  return WGS > 1 ? WGS * n * ST_THREADS * 4 : 0;
+}
 
 }  // namespace flash

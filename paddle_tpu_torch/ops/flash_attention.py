@@ -6,20 +6,21 @@ Ports paddle_tpu/ops/flash_attention.py. The Pallas `_fwd_kernel` becomes
 becomes ``csrc/flash_bwd.cu`` (the design notes are in each source): one
 thread block per (b*h, query or key tile) looping over the other side's
 tiles, causal and window tiles skipped whole and masked per element on
-their edges. In bf16 the forward (head_dim up to 256) and the backward
-pair (64 and 128) run on the tensor cores (mma.sync, cp.async
-double-buffering, fp32 softmax state and accumulators); the fp32
-backward pair at 64 and 128 runs on the TF32 tensor cores, each product
-in three passes (big and small TF32 parts of each operand) that keep fp32
-accuracy, where every view is 16-byte aligned; the fp32 forward, fp32
-views off 16 bytes and both types at the other head dims up to 512 take
-scalar kernels of fp32 FMAs out of shared memory. Above 512 no tile of a
-whole head fits in shared memory: the streaming kernels (16-byte-aligned
-views, fp32 and bf16 on the tensor cores, TF32 in three passes for fp32)
-split each output's columns into groups, one grid step each, and form S
-(and dP) over the whole head from chunk tiles of a few columns that
-cp.async streams through a ring, once per tile a block visits; the
-forward in one pass (online softmax). The backward's C
+their edges. Every kernel runs on the tensor cores and reads 16-byte-aligned
+views. In bf16 the forward (head_dim up to 256) and the backward pair (64
+and 128) run on mma.sync (cp.async double-buffering, fp32 softmax state
+and accumulators); in fp32 the forward and the backward pair at 64 and
+128 run on the TF32 tensor cores, each product in three passes (big and
+small TF32 parts of each operand) that keep fp32 accuracy. At the other
+head dims (the bf16 forward from 320, the bf16 backward and fp32 from
+192, any width above 512) a 64-row fp32 accumulator of the whole head
+does not fit in registers, nor above 512 a tile of it in shared memory:
+the streaming kernels (fp32 and bf16, TF32 in three passes for fp32)
+split each output's columns into groups, a block each or (above head
+dim 320, or past one wave of the SMs, up to 512) two a block whose
+warpgroups share S, and form S (and dP) over the whole head from chunk
+tiles of a few columns that cp.async streams through a ring, once per
+tile a block visits; the forward in one pass (online softmax). The backward's C
 entry computes delta = rowsum(dO o) by a pre-pass kernel unless the
 caller passes it. ``flash_attention`` is a
 ``torch.autograd.Function`` (the reference's ``jax.custom_vjp``): it saves
@@ -41,7 +42,7 @@ CPU takes the plain version, ``flash_attention_ref`` forward and
 by ``"flash_fwd:<dtype>"``, ``"flash_dq:<dtype>"``, ``"flash_dkv:<dtype>"``
 and ``"flash_delta:<dtype>"``, where each kernel is launched and nowhere
 else; ``routes`` splits the forward, dQ and dK/dV launches by the kernel
-the C entry chose (``mma``, ``simt``, ``stream`` or ``tf32x3``).
+the C entry chose (``mma``, ``stream`` or ``tf32x3``).
 """
 import collections
 import ctypes
@@ -64,14 +65,13 @@ _NEG = -1e30
 launches = collections.Counter()
 
 #: forward, dQ and dK/dV launches by "<kernel>:<dtype>:<route>", route
-#: "mma" (the bf16 tensor-core kernel), "simt" (the scalar one), "stream"
-#: (head_dim above 512: column groups over chunk tiles) or "tf32x3" (the
-#: fp32 backward pair on the TF32 tensor cores, three passes a product), as
-#: the C entry reports the kernel it launched: bf16 takes "mma" at head_dim 64
-#: and 128, and in the forward also at 192 and 256; the fp32 dQ and dK/dV
-#: take "tf32x3" at 64 and 128 where every view is 16-byte aligned
+#: "mma" (the bf16 tensor-core kernels), "tf32x3" (the fp32 ones on the
+#: TF32 tensor cores, three passes a product) or "stream" (column groups
+#: over chunk tiles), as the C entry reports the kernel it launched: bf16
+#: takes "mma" at head_dim 64 and 128, and in the forward also at 192 and
+#: 256; fp32 takes "tf32x3" at 64 and 128; every other head dim "stream"
 routes = collections.Counter()
-_ROUTES = {1: "mma", 2: "simt", 3: "stream", 4: "tf32x3"}
+_ROUTES = {1: "mma", 3: "stream", 4: "tf32x3"}
 
 
 def _block_for(s):
@@ -101,8 +101,8 @@ def supported(q_shape, dtype_str, device="cuda"):
     """Does SDPA route q [batch, seq, heads, head_dim] to the kernel? The
     reference's gate (head_dim % 64 == 0, seq % 128 == 0, seq >= 1024,
     fp32 or bf16) with "on TPU" replaced by "on a CUDA device"; the kernels
-    take every shape it passes (head dims above 512 by the streaming
-    route)."""
+    take every shape it passes (the head dims that the mma and TF32
+    routes leave by the streaming one)."""
     if len(q_shape) != 4:
         return False
     _, s, _, d = q_shape
@@ -214,8 +214,8 @@ def _aligned_copy(t):
 
 
 def _check_aligned(operands):
-    """The bf16 tensor-core kernels and the streaming ones copy 16-byte
-    chunks: every operand must be `_aligned`."""
+    """Every flash kernel copies 16-byte chunks: every operand must be
+    `_aligned`."""
     for name, t in operands:
         if not _aligned(t):
             raise ValueError(
@@ -274,8 +274,8 @@ def _tail(q, causal, scale, window, dtype, route):
 
 
 def _launch(q, k, v, causal, scale, window):
-    """Run the forward kernel on [B, S, H, D] views (any strides over b, s,
-    h, 16-byte aligned in bf16 and above head_dim 512; d contiguous).
+    """Run the forward kernel on [B, S, H, D] views (any 16-byte-aligned
+    strides over b, s, h; d contiguous).
     Returns (o [B, S, H, D] contiguous, lse [B*H, S] fp32)."""
     dtype = _check_shape(q)
     B, S, H, D = q.shape
@@ -288,9 +288,9 @@ def _launch(q, k, v, causal, scale, window):
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              lse.data_ptr(), B, H, S, D, *_strides(q, k, v, o),
              *_tail(q, causal, scale, window, dtype, route))
-    if err and route.value in (1, 3):
-        # the bf16 tensor-core route and the streaming one refuse a view
-        # they cannot copy in 16-byte chunks; say which operand
+    if err:
+        # every route refuses a view it cannot copy in 16-byte chunks; say
+        # which operand
         _check_aligned(operands)
     _build.check(lib, "flash_fwd", err)
     launches[f"flash_fwd:{dtype}"] += 1
@@ -311,15 +311,13 @@ def _check_rows(q, name, t):
 def _run_bwd(q, k, v, do, lse, causal, scale, window, *, o=None,
              delta=None, dq=False, dkv=False):
     """One call of the backward's C entry on [B, S, H, D] views of q, k, v
-    (d contiguous; 16-byte aligned for the bf16 tensor-core kernels and
-    the streaming ones, and for the fp32 ones at 64 and 128, which the C
-    entry leaves for the scalar kernels where any view is not) and dO, and
-    the [B*H, S] fp32 rows lse (None
-    if only the pre-pass runs): the delta pre-pass from o when `delta` is
-    None, then the dQ kernel if `dq` and the dK/dV kernel if `dkv`. dO and
-    o are copied where they are not `_aligned` (the pre-pass and the
-    tensor-core kernels read 16-byte chunks of their rows). Returns (delta,
-    dq, dk, dv), None for what was not asked."""
+    (d contiguous, 16-byte aligned: every route refuses a view that is not,
+    before any launch) and dO, and the [B*H, S] fp32 rows lse (None if only
+    the pre-pass runs): the delta pre-pass from o when `delta` is None,
+    then the dQ kernel if `dq` and the dK/dV kernel if `dkv`. dO and o are
+    copied where they are not `_aligned` (the pre-pass and the kernels read
+    16-byte chunks of their rows). Returns (delta, dq, dk, dv), None for
+    what was not asked."""
     dtype = _check_shape(q)
     B, S, H, D = q.shape
     do = _aligned_copy(do)
@@ -353,9 +351,9 @@ def _run_bwd(q, k, v, do, lse, causal, scale, window, *, o=None,
              delta.data_ptr() if made else None, *ptr[1:], B, H, S, D,
              (ctypes.c_longlong * 24)(*strides),
              *_tail(q, causal, scale, window, dtype, route))
-    if err and route.value in (1, 3):
-        # the bf16 tensor-core route and the streaming one refuse a view
-        # they cannot copy in 16-byte chunks; say which operand
+    if err:
+        # every route refuses a view it cannot copy in 16-byte chunks; say
+        # which operand
         _check_aligned(operands + [(n, t) for n, t in outs.items()
                                    if t is not None])
     _build.check(lib, "flash_bwd", err)
@@ -537,6 +535,14 @@ def _unheads(t, b, h):
     return t.reshape(b, h, *t.shape[1:]).transpose(1, 2)
 
 
+def _kernel_views(*ts):
+    """The views the kernels read: each of `ts` as it is, or copied where
+    the kernels cannot read it (the `_aligned_copy` rule: a strided
+    head_dim, or a pointer or (b, s, h) step off 16 bytes), in either
+    type."""
+    return tuple(_aligned_copy(t) for t in ts)
+
+
 def flash_attention(q, k, v, causal=False, window=None):
     """q, k, v: [b, s, h, d] -> [b, s, h, d] (the reference's layout).
     Differentiable (a torch.autograd.Function over the forward and
@@ -545,13 +551,7 @@ def flash_attention(q, k, v, causal=False, window=None):
     window = _check_window(window, causal)
     _block_for(q.shape[1])
     if q.is_cuda:
-        # copy what the kernels cannot read (the `_aligned_copy` rule): a
-        # strided head_dim, and in bf16 or above head_dim 512 (the
-        # streaming route) a view off 16 bytes
-        q, k, v = (_aligned_copy(t)
-                   if t.dtype == torch.bfloat16 or t.shape[-1] > 512
-                   else t if t.stride(-1) == 1 else t.contiguous()
-                   for t in (q, k, v))
+        q, k, v = _kernel_views(q, k, v)
     if q.is_cuda and not (torch.is_grad_enabled() and (
             q.requires_grad or k.requires_grad or v.requires_grad)):
         # inference: the kernel without the autograd Function around it,

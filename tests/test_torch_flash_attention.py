@@ -148,21 +148,24 @@ def test_check_shape_takes_b_h_above_the_grid_y_limit():
         tfa._launch(q, q, q, True, 0.125, None)
 
 
-def _stream_fwd(q3, k3, v3, causal, scale, window=None, dtype="float32"):
+def _stream_fwd(q3, k3, v3, causal, scale, window=None, dtype="float32",
+                split=False):
     """The streaming route's forward (csrc/flash_fwd.cu,
     flash_fwd_stream_kernel) in plain torch, with the kernel's tiling for
     `dtype` (the arithmetic in q3's type): o's columns in `st.groups`
     groups, the last one narrower where the head dim is no multiple of
     the group; for each group and 64-row query tile one pass over the kv
     tiles the tile sees: S = q k^T summed over the head dim one chunk tile
-    at a time, times scale, the reference's _NEG where masked, the online
+    at a time (with `split`, design (b) where `st.warpgroups` allows it: two
+    groups a block, S split between its two warpgroups), times scale, the reference's _NEG where masked, the online
     softmax (running max m and sum l, the group's accumulator rescaled by
     exp(m_prev - m)) and O[:, group] += P v[:, group]; o = O / l and lse =
     m + log l, which every group forms alike."""
     bh, s, d = q3.shape
     rows, chunk = st.ROWS, st.CHUNK[dtype]
-    wmax, step = st.TILING["fwd"][dtype]
-    n_groups, width = st.groups(d, wmax)
+    step = st.TILING["fwd"][dtype][1]
+    wgs = st.warpgroups("fwd", dtype, d) if split else 1
+    n_groups, width = st.plan("fwd", dtype, d, wgs)
     keep = tfa._keep_mask(s, s, window, q3.device) if causal else None
     o = torch.empty_like(q3)
     lses = []
@@ -176,9 +179,7 @@ def _stream_fwd(q3, k3, v3, causal, scale, window=None, dtype="float32"):
             acc = torch.zeros(bh, rows, cols.stop - cols.start)
             for k0 in st.kv_tiles(q0, step, s, causal, window):
                 kt, vt = k3[:, k0:k0 + step], v3[:, k0:k0 + step]
-                sc = sum(qt[..., c:c + chunk]
-                         @ kt[..., c:c + chunk].transpose(-1, -2)
-                         for c in range(0, d, chunk)) * scale
+                sc = st.chunked(qt, kt, chunk, wgs) * scale
                 if causal:
                     sc = sc.masked_fill(
                         ~keep[q0:q0 + rows, k0:k0 + step], tfa._NEG)
@@ -197,16 +198,17 @@ def _stream_fwd(q3, k3, v3, causal, scale, window=None, dtype="float32"):
 
 def _check_stream_fwd(d, causal, window):
     """The streaming forward's algorithm, with the bf16 and the fp32
-    kernel's tiling, and the port's plain forward against the reference's
-    Pallas forward (interpreted), one head, seq 256."""
+    kernel's tiling in both designs, and the port's plain forward against
+    the reference's Pallas forward (interpreted), one head, seq 256."""
     q, k, v = _arrays(1, 256, d, seed=11)
     scale = 1.0 / math.sqrt(d)
     jo, jlse = jfa._flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                               causal, scale, True, window=window)
     args = [torch.from_numpy(a) for a in (q, k, v)]
-    for to, tlse in (_stream_fwd(*args, causal, scale, window, "float32"),
-                     _stream_fwd(*args, causal, scale, window, "bfloat16"),
-                     tfa._flash_fwd(*args, causal, scale, window)):
+    runs = [_stream_fwd(*args, causal, scale, window, dtype, split)
+            for dtype in ("float32", "bfloat16") for split in (False, True)
+            if not split or st.warpgroups("fwd", dtype, d) == 2]
+    for to, tlse in (*runs, tfa._flash_fwd(*args, causal, scale, window)):
         np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=ATOL,
                                    rtol=0)
         np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse),
@@ -229,6 +231,90 @@ def test_streaming_route_ragged_group_matches_jax_at_head_dim_640(causal,
     assert [st.groups(640, st.TILING["fwd"][t][0])
             for t in ("float32", "bfloat16")] == [(4, 192), (3, 256)]
     _check_stream_fwd(640, causal, window)
+
+
+@pytest.mark.parametrize("d", [256, 512])
+@pytest.mark.parametrize("causal,window", MODES, ids=MODE_IDS)
+def test_wide_head_route_algorithm_matches_jax(d, causal, window):
+    """At head_dim 256 and 512, where the fp32 forward (from 192) and the
+    bf16 one (from 320) take the streaming route: one fp32 group of 192
+    columns and one of 64 at 256 (bf16: the whole head), 192 x 2 + 128 at
+    512 (bf16: 256 x 2)."""
+    _check_stream_fwd(d, causal, window)
+
+
+def test_wide_head_column_groups_and_work():
+    """The streaming kernels' column groups at the head dims 192-512 they
+    took over from the scalar kernels, in design (a) (a group a block) and
+    (b) (two groups a block, its two warpgroups sharing S and dP, each
+    over its share of the chunks; fp32 forward and dQ groups of 128
+    columns), where (b) may run, and the FLOPs a visible (q, k) pair that
+    forming S (and dP) once a block costs against the function's 4 d
+    forward and 10 d backward: (2 B + 2) d forward, (4 B_dq + 2) d + (4
+    B_dkv + 4) d backward, B = ceil(G / warpgroups) blocks a tile."""
+    assert [st.plan("fwd", "float32", d, 1) for d in (192, 256, 320, 512)] \
+        == [(1, 192), (2, 128), (2, 192), (3, 192)]
+    assert [st.plan("fwd", "float32", d, 2) for d in (256, 320, 512)] == \
+        [(2, 128), (3, 128), (4, 128)]
+    assert [st.plan("fwd", "bfloat16", d, 2) for d in (320, 384, 512)] == \
+        [(2, 192), (2, 192), (2, 256)]
+    assert [st.plan("dq", "bfloat16", d, 1) for d in (192, 256, 512)] == \
+        [(1, 192), (1, 256), (2, 256)]
+    assert [st.plan("dkv", t, d, 1) for t in ("float32", "bfloat16")
+            for d in (192, 256, 512)] == [(2, 128), (2, 128), (4, 128)] * 2
+    assert [st.warpgroups(kern, dtype, d) for kern, dtype, d in (
+        ("fwd", "float32", 192), ("fwd", "float32", 256),
+        ("dq", "bfloat16", 256), ("dq", "bfloat16", 512),
+        ("dkv", "float32", 320), ("dkv", "float32", 384),
+        ("dkv", "bfloat16", 512), ("fwd", "bfloat16", 576))] == \
+        [1, 2, 1, 2, 2, 1, 2, 1]
+    # bf16 at 320: five 64-column chunks, 3 + 2; fp32 at 512: 8 + 8
+    assert st.split(5, 2) == [(0, 3), (3, 2)]
+    assert st.split(16, 2) == [(0, 8), (8, 8)]
+    assert st.split(16, 1) == [(0, 16)]
+    work = {}
+    for dtype in ("float32", "bfloat16"):
+        for d in (256, 512):
+            for design in ("a", "b"):
+                blocks = []
+                for kern in ("fwd", "dq", "dkv"):
+                    wgs = 1 if design == "a" \
+                        else st.warpgroups(kern, dtype, d)
+                    blocks.append(-(-st.plan(kern, dtype, d, wgs)[0] // wgs))
+                work[dtype, d, design] = (
+                    (2 * blocks[0] + 2) / 4,
+                    ((4 * blocks[1] + 2) + (4 * blocks[2] + 4)) / 10)
+    assert work == {
+        ("float32", 256, "a"): (1.5, 2.2), ("float32", 256, "b"): (1.0, 1.4),
+        ("float32", 512, "a"): (2.0, 3.4), ("float32", 512, "b"): (1.5, 3.0),
+        ("bfloat16", 256, "a"): (1.0, 1.8), ("bfloat16", 256, "b"): (1.0, 1.4),
+        ("bfloat16", 512, "a"): (1.5, 3.0), ("bfloat16", 512, "b"): (1.0, 1.8)}
+    q, k = (torch.randn(2, 64, 320, dtype=torch.float64) for _ in range(2))
+    want = q @ k.transpose(-1, -2)
+    for wgs in (1, 2):
+        assert torch.allclose(st.chunked(q, k, 64, wgs), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_kernel_views_copy_views_off_16_bytes_in_both_types(dtype):
+    """flash_attention hands the kernels q, k and v through `_kernel_views`:
+    fp32 views whose (b, s, h) steps are off 16 bytes (slices of a packed
+    qkv one column wider) are copied as bf16 ones are, into aligned
+    contiguous tensors with the same values; aligned packed slices pass as
+    they are."""
+    b, s, h, d = 2, 64, 3, 64
+    wide = torch.randn(b, s, 3 * h * d + 1).to(dtype)
+    views = [t.reshape(b, s, h, d)
+             for t in wide[..., :3 * h * d].split(h * d, dim=-1)]
+    assert not any(tfa._aligned(t) for t in views)
+    for got, view in zip(tfa._kernel_views(*views), views):
+        assert got is not view and tfa._aligned(got)
+        assert got.is_contiguous() and torch.equal(got, view)
+    packed = torch.randn(b, s, 3 * h * d).to(dtype)
+    views = [t.reshape(b, s, h, d) for t in packed.split(h * d, dim=-1)]
+    assert all(got is view
+               for got, view in zip(tfa._kernel_views(*views), views))
 
 
 @pytest.mark.parametrize("d", [64, 192, 256])
@@ -352,6 +438,14 @@ def cuda():
     return torch.device("cuda")
 
 
+def fwd_route(dname, d):
+    """The forward's route by type and head dim: mma for bf16 up to 256,
+    tf32x3 for fp32 at 64 and 128, else stream."""
+    if dname == "bfloat16" and d <= 256:
+        return "mma"
+    return "tf32x3" if d in (64, 128) else "stream"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128, 192, 256, 320, 512])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
@@ -364,21 +458,17 @@ def test_kernel_matches_plain_on_card(cuda, d, dtype, tol, causal, window):
                for _ in range(3))
     scale = 1.0 / math.sqrt(d)
     dname = str(dtype).replace("torch.", "")
-    route = "simt"
-    if dname == "bfloat16" and d <= 256:
-        route = "mma"
-    elif dname == "float32" and d in (64, 128):
-        route = "tf32x3"
+    route = fwd_route(dname, d)
     n = tfa.routes[f"flash_fwd:{dname}:{route}"]
     o, lse = tfa._flash_fwd(q, k, v, causal, scale, window)
     torch.cuda.synchronize()
     assert tfa.routes[f"flash_fwd:{dname}:{route}"] == n + 1
     ro, rlse = tfa.flash_attention_ref(q, k, v, causal, scale, window)
-    if route == "tf32x3":
-        tol = TF32X3_TOL * max(1.0, ro.abs().max().item())
-    assert (o.float() - ro.float()).abs().max().item() <= tol
-    assert (lse - rlse).abs().max().item() <= \
-        (TF32X3_TOL if route == "tf32x3" else 2e-4)
+    err = (o.float() - ro.float()).abs().max().item()
+    assert err <= tol and (lse - rlse).abs().max().item() <= LSE_TOL
+    if dname == "float32":   # three TF32 passes on every fp32 route
+        assert err <= TF32X3_TOL * max(1.0, ro.abs().max().item())
+        assert (lse - rlse).abs().max().item() <= TF32X3_TOL
 
 
 @pytest.mark.cuda
@@ -435,38 +525,54 @@ def test_fp32_tf32_forward_on_packed_views_on_card(cuda, s, d, window):
     b, h = 2, 3
     qkv = torch.randn(b, s, 3 * h * d, generator=g, device=cuda)
     q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, dim=-1))
-    keys = [f"flash_fwd:float32:{route}" for route in ("tf32x3", "simt")]
-    n = [tfa.routes[key] for key in keys]
+    n = sum(tfa.routes.values())
+    key = "flash_fwd:float32:tf32x3"
+    n_tf32 = tfa.routes[key]
     _fwd_band_check(q, k, v, True, 1.0 / math.sqrt(d), window, TF32X3_TOL,
                     TF32X3_TOL)
-    assert [tfa.routes[key] for key in keys] == [n[0] + 1, n[1]]
+    assert tfa.routes[key] == n_tf32 + 1 and sum(tfa.routes.values()) == n + 1
 
 
 @pytest.mark.cuda
-def test_fp32_views_off_16_bytes_take_the_scalar_forward_on_card(cuda):
+def test_fp32_views_off_16_bytes_are_copied_or_refused_on_card(cuda):
     """fp32 q, k, v whose sequence step is not a multiple of 16 bytes (a
-    packed qkv one column wider than the three heads' blocks) are left to
-    the scalar kernel before any launch (route simt, not tf32x3), and
-    match the plain version within the fp32 band."""
+    packed qkv one column wider than the three heads' blocks): the forward
+    kernel's entry refuses them before any launch and names the operand;
+    flash_attention copies them (`_aligned_copy`) and launches the TF32
+    kernel once, within the three-pass band of the plain version."""
     g = torch.Generator(device=cuda).manual_seed(11)
     b, s, h, d = 2, 1024, 3, 64
     wide = torch.randn(b, s, 3 * h * d + 1, generator=g, device=cuda)
     q, k, v = (t.reshape(b, s, h, d)
                for t in wide[..., :3 * h * d].split(h * d, dim=-1))
     assert not any(tfa._aligned(t) for t in (q, k, v))
-    keys = [f"flash_fwd:float32:{route}" for route in ("tf32x3", "simt")]
-    n = [tfa.routes[key] for key in keys]
-    _fwd_band_check(q, k, v, True, 0.125, None)
-    assert [tfa.routes[key] for key in keys] == [n[0], n[1] + 1]
+    n = sum(tfa.routes.values())
+    with pytest.raises(ValueError, match="float32 q must be 16-byte aligned"):
+        tfa._launch(q, k, v, True, 0.125, None)
+    assert sum(tfa.routes.values()) == n
+    n_tf32 = tfa.routes["flash_fwd:float32:tf32x3"]
+    with torch.no_grad():
+        o = tfa.flash_attention(q, k, v, causal=True)
+    ro, _ = tfa.flash_attention_ref(*(tfa._heads(t) for t in (q, k, v)),
+                                    True, 0.125)
+    ro = tfa._unheads(ro, b, h)
+    torch.cuda.synchronize()
+    assert tfa.routes["flash_fwd:float32:tf32x3"] == n_tf32 + 1
+    assert sum(tfa.routes.values()) == n + 1
+    band = TF32X3_TOL * max(1.0, ro.abs().max().item())
+    assert (o - ro).abs().max().item() <= band
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
-def test_fp32_tf32_forward_two_calls_bit_equal_on_card(cuda, d):
+@pytest.mark.parametrize("d", [64, 128, 256, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_fp32_tf32_forward_two_calls_bit_equal_on_card(cuda, d, dtype):
     """Every block writes only its own rows of o and lse: two calls on
-    the same inputs give the same bits."""
+    the same inputs give the same bits, on every route (at 512 the
+    streaming one, whose column groups' blocks form S alike)."""
     g = torch.Generator(device=cuda).manual_seed(12)
-    q, k, v = (torch.randn(4, 1024, 6, d, generator=g, device=cuda)
+    q, k, v = (torch.randn(4, 1024, 6, d, generator=g, device=cuda).to(dtype)
                for _ in range(3))
     first = tfa._launch(q, k, v, True, 1.0 / math.sqrt(d), None)
     again = tfa._launch(q, k, v, True, 1.0 / math.sqrt(d), None)

@@ -147,37 +147,41 @@ def test_backward_kernels_raise_for_head_dims_they_cannot_tile(d):
 
 
 def _stream_bwd(q3, k3, v3, o3, lse, do3, causal, scale, window=None,
-                dtype="float32"):
+                dtype="float32", split=False):
     """The streaming route's backward (csrc/flash_bwd.cu,
     flash_dq_stream_kernel and flash_dkv_stream_kernel) in plain torch,
     with the kernels' tiling for `dtype` (the arithmetic in q3's type):
-    each output's columns in `st.groups` groups. dQ: for each group
-    and 64-row query tile, one pass over the kv tiles it sees, S = q k^T
-    and dP = dO v^T summed over the head dim one chunk tile at a time, P =
-    exp(S scale - lse) (0 where masked), dS = P (dP - delta), dq[:, group]
-    += dS k[:, group], times scale at the end. dK/dV: for each group and
-    64-row kv tile, one pass over the query tiles that see it, S^T = k q^T
-    and dP^T = v dO^T likewise, dv[:, group] += P^T dO[:, group] and
-    dk[:, group] += dS^T q[:, group], dk times scale at the end."""
+    each output's columns in `st.groups` groups, and with `split` two a
+    block (design (b): S and dP split between its warpgroups) where
+    `st.warpgroups` allows it. dQ: for each 64-row query tile, one pass
+    over the kv tiles it sees, S = q k^T and dP = dO v^T summed over the
+    head dim one chunk tile at a time, P = exp(S scale - lse) (0 where
+    masked), dS = P (dP - delta), then for each group dq[:, group] += dS
+    k[:, group], times scale at the end. dK/dV: for each 64-row kv tile,
+    one pass over the query tiles that see it, S^T = k q^T and dP^T = v
+    dO^T likewise, then for each group dv[:, group] += P^T dO[:, group] and
+    dk[:, group] += dS^T q[:, group], dk times scale at the end. Every
+    group's block forms the same S and dP, so they are formed here once a
+    tile pair; each group's sums run in the kernel's order."""
     bh, s, d = q3.shape
     rows, chunk = st.ROWS, st.CHUNK[dtype]
     delta = (do3 * o3).sum(-1)
     keep = tfa._keep_mask(s, s, window, q3.device) if causal else None
 
-    def chunked(a, b):
-        return sum(a[..., c:c + chunk] @ b[..., c:c + chunk].transpose(-1, -2)
-                   for c in range(0, d, chunk))
+    def chunked(a, b, wgs):
+        return st.chunked(a, b, chunk, wgs)
 
-    def p_ds(qs, ks, transposed):
+    def p_ds(qs, ks, transposed, wgs):
         """P and dS of query rows qs and key rows ks (transposed: [keys,
-        queries] from k q^T and v dO^T)."""
+        queries] from k q^T and v dO^T), S and dP split between wgs
+        warpgroups."""
         if transposed:
-            sc = chunked(k3[:, ks], q3[:, qs])
-            dp = chunked(v3[:, ks], do3[:, qs])
+            sc = chunked(k3[:, ks], q3[:, qs], wgs)
+            dp = chunked(v3[:, ks], do3[:, qs], wgs)
             lse_, dl_ = lse[:, None, qs], delta[:, None, qs]
         else:
-            sc = chunked(q3[:, qs], k3[:, ks])
-            dp = chunked(do3[:, qs], v3[:, ks])
+            sc = chunked(q3[:, qs], k3[:, ks], wgs)
+            dp = chunked(do3[:, qs], v3[:, ks], wgs)
             lse_, dl_ = lse[:, qs, None], delta[:, qs, None]
         p = torch.exp(sc * scale - lse_)
         if keep is not None:
@@ -186,32 +190,38 @@ def _stream_bwd(q3, k3, v3, o3, lse, do3, causal, scale, window=None,
         return p, p * (dp - dl_)
 
     dq, dk, dv = (torch.empty_like(q3) for _ in range(3))
-    wmax, step = st.TILING["dq"][dtype]
-    n_groups, width = st.groups(d, wmax)
-    for g in range(n_groups):
-        cols = slice(g * width, min(d, (g + 1) * width))
-        for q0 in range(0, s, rows):
-            qs = slice(q0, q0 + rows)
-            acc = 0.0
-            for k0 in st.kv_tiles(q0, step, s, causal, window):
-                ks = slice(k0, k0 + step)
-                _, ds = p_ds(qs, ks, False)
-                acc = acc + ds @ k3[:, ks, cols]
-            dq[:, qs, cols] = acc * scale
-    wmax, step = st.TILING["dkv"][dtype]
-    n_groups, width = st.groups(d, wmax)
-    for g in range(n_groups):
-        cols = slice(g * width, min(d, (g + 1) * width))
-        for k0 in range(0, s, rows):
-            ks = slice(k0, k0 + rows)
-            dka = dva = 0.0
-            for q0 in st.q_tiles(k0, step, s, causal, window):
-                qs = slice(q0, q0 + step)
-                pt, dst = p_ds(qs, ks, True)
-                dva = dva + pt @ do3[:, qs, cols]
-                dka = dka + dst @ q3[:, qs, cols]
-            dk[:, ks, cols] = dka * scale
-            dv[:, ks, cols] = dva
+    step = st.TILING["dq"][dtype][1]
+    wgs = st.warpgroups("dq", dtype, d) if split else 1
+    n_groups, width = st.plan("dq", dtype, d, wgs)
+    cols = [slice(g * width, min(d, (g + 1) * width))
+            for g in range(n_groups)]
+    for q0 in range(0, s, rows):
+        qs = slice(q0, q0 + rows)
+        acc = [0.0] * n_groups
+        for k0 in st.kv_tiles(q0, step, s, causal, window):
+            ks = slice(k0, k0 + step)
+            _, ds = p_ds(qs, ks, False, wgs)
+            for g, c in enumerate(cols):
+                acc[g] = acc[g] + ds @ k3[:, ks, c]
+        for g, c in enumerate(cols):
+            dq[:, qs, c] = acc[g] * scale
+    step = st.TILING["dkv"][dtype][1]
+    wgs = st.warpgroups("dkv", dtype, d) if split else 1
+    n_groups, width = st.plan("dkv", dtype, d, wgs)
+    cols = [slice(g * width, min(d, (g + 1) * width))
+            for g in range(n_groups)]
+    for k0 in range(0, s, rows):
+        ks = slice(k0, k0 + rows)
+        dka, dva = [0.0] * n_groups, [0.0] * n_groups
+        for q0 in st.q_tiles(k0, step, s, causal, window):
+            qs = slice(q0, q0 + step)
+            pt, dst = p_ds(qs, ks, True, wgs)
+            for g, c in enumerate(cols):
+                dva[g] = dva[g] + pt @ do3[:, qs, c]
+                dka[g] = dka[g] + dst @ q3[:, qs, c]
+        for g, c in enumerate(cols):
+            dk[:, ks, c] = dka[g] * scale
+            dv[:, ks, c] = dva[g]
     return dq, dk, dv
 
 
@@ -239,15 +249,18 @@ def test_streaming_route_backward_matches_jax_grad_at_head_dim_576(causal,
     _close(tfa._flash_bwd(*args, causal, scale, window=window), want)
 
 
-@pytest.mark.parametrize("d", [576, 640])
+@pytest.mark.parametrize("d", [256, 512, 576, 640])
 @pytest.mark.parametrize("causal,window", MODES, ids=MODE_IDS)
 def test_streaming_backward_plan_matches_jax_flash_bwd(d, causal, window):
     """One head, seq 256: the streaming kernels' dQ and dK/dV plan with
     the bf16 and the fp32 tiling (column groups of the outputs, S and dP
     over the whole head once a tile a block visits, 16- and 32-row steps)
     against the reference's Pallas backward (interpreted) on the
-    reference's o and lse; at 640 the dQ groups are ragged (192 x 3 + 64,
-    256 x 2 + 128)."""
+    reference's o and lse; at 256 and 512 (the head dims the route took
+    over from the scalar kernels) in both designs, one group a block and
+    two sharing S and dP (the fp32 dQ groups 192 + 64 and 192 x 2 + 128
+    in the first, 128 columns in the second), at 640 the dQ groups are
+    ragged (192 x 3 + 64, 256 x 2 + 128)."""
     q, k, v, g = _arrays(1, 256, d, seed=13)
     scale = 1.0 / math.sqrt(d)
     o, lse = _fwd_residuals(q, k, v, causal, scale, window)
@@ -255,7 +268,12 @@ def test_streaming_backward_plan_matches_jax_flash_bwd(d, causal, window):
                           causal, scale, True, window=window)
     args = [torch.from_numpy(np.asarray(a)) for a in (q, k, v, o, lse, g)]
     for dtype in ("float32", "bfloat16"):
-        _close(_stream_bwd(*args, causal, scale, window, dtype), want)
+        for split in (False, True):
+            if split and st.warpgroups("dq", dtype, d) == 1 \
+                    and st.warpgroups("dkv", dtype, d) == 1:
+                continue
+            _close(_stream_bwd(*args, causal, scale, window, dtype, split),
+                   want)
 
 
 # ---- on the card -----------------------------------------------------------
@@ -278,13 +296,13 @@ def test_kernels_under_autograd_match_plain_on_card(cuda, d, dtype, tol,
                                                     causal, window):
     """flash_attention's autograd runs the forward, the delta pre-pass and
     both backward kernels, at head_dim 64 and 128 on the tensor cores (bf16
-    on mma, fp32 on the TF32 kernels' three passes); its grads match
-    autograd through the plain forward."""
+    on mma, fp32 on the TF32 kernels' three passes) and from 192 on the
+    streaming ones; its grads match autograd through the plain forward."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v, do = (torch.randn(2, 1024, 2, d, generator=g, device=cuda)
                    .to(dtype) for _ in range(4))
     dname = str(dtype).replace("torch.", "")
-    route = "simt"
+    route = "stream"
     if d in (64, 128):
         route = "mma" if dname == "bfloat16" else "tf32x3"
     kinds = ("dq", "dkv", "delta")
@@ -409,11 +427,13 @@ def _bwd_band_check(q, k, v, do, causal, scale, window, band_of):
 
 
 @pytest.mark.cuda
-def test_fp32_views_off_16_bytes_take_the_scalar_route_on_card(cuda):
+def test_fp32_views_off_16_bytes_are_copied_or_refused_on_card(cuda):
     """fp32 q, k, v whose sequence step is not a multiple of 16 bytes (a
-    packed qkv one column wider than the three heads' blocks) are left to
-    the scalar kernels before any launch (route simt, not tf32x3), and
-    their grads match the plain backward within the fp32 band."""
+    packed qkv one column wider than the three heads' blocks): the
+    backward's entry refuses them before any launch, the pre-pass's
+    included, and names the operand; flash_attention copies them, and its
+    grads (the TF32 kernels, once each) match autograd through the plain
+    forward within the fp32 band."""
     g = torch.Generator(device=cuda).manual_seed(7)
     b, s, h, d = 2, 1024, 3, 64
     wide = torch.randn(b, s, 3 * h * d + 1, generator=g, device=cuda)
@@ -421,12 +441,56 @@ def test_fp32_views_off_16_bytes_take_the_scalar_route_on_card(cuda):
                for t in wide[..., :3 * h * d].split(h * d, dim=-1))
     assert not any(tfa._aligned(t) for t in (q, k, v))
     do = torch.randn(b, s, h, d, generator=g, device=cuda)
-    keys = [f"flash_{kind}:float32:{route}" for kind in ("dq", "dkv")
-            for route in ("simt", "tf32x3")]
-    n = [tfa.routes[key] for key in keys]
-    _bwd_band_check(q, k, v, do, True, 0.125, None, FP32_BWD_TOL)
-    assert [tfa.routes[key] for key in keys] == [n[0] + 1, n[1],
-                                                 n[2] + 1, n[3]]
+    o, lse = tfa._launch(*(t.contiguous() for t in (q, k, v)), True, 0.125,
+                         None)
+    n = sum(tfa.launches.values())
+    with pytest.raises(ValueError, match="float32 q must be 16-byte aligned"):
+        tfa._launch_bwd(q, k, v, o, lse, do, True, 0.125, None)
+    assert sum(tfa.launches.values()) == n
+    keys = [f"flash_{kind}:float32:tf32x3" for kind in ("dq", "dkv")]
+    counts = [tfa.routes[key] for key in keys]
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(tfa.flash_attention(*leaves, causal=True),
+                              leaves, do)
+    ref = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ro, _ = tfa.flash_attention_ref(*(tfa._heads(t) for t in ref), True,
+                                    0.125)
+    want = torch.autograd.grad(tfa._unheads(ro, b, h), ref, do)
+    torch.cuda.synchronize()
+    assert [tfa.routes[key] for key in keys] == [c + 1 for c in counts]
+    for a, w in zip(got, want):
+        band = FP32_BWD_TOL * max(1.0, w.abs().max().item())
+        assert (a - w).abs().max().item() <= band
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [256, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_wide_head_backward_two_calls_bit_equal_on_card(cuda, d, dtype):
+    """At head_dim 256 and 512 the backward's dQ and dK/dV take the
+    streaming route; every block writes only its own tile (no atomics), so
+    two calls on the same inputs give the same bits, and the grads lie
+    within chip_smoke.py's band of the plain backward."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v, do = (torch.randn(2, 1024, 4, d, generator=g, device=cuda)
+                   .to(dtype) for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    dname = str(dtype).replace("torch.", "")
+    o, lse = tfa._launch(q, k, v, True, scale, None)
+    keys = [f"flash_{kind}:{dname}:stream" for kind in ("dq", "dkv")]
+    counts = [tfa.routes[key] for key in keys]
+    first = tfa._launch_bwd(q, k, v, o, lse, do, True, scale, None)
+    again = tfa._launch_bwd(q, k, v, o, lse, do, True, scale, None)
+    torch.cuda.synchronize()
+    assert [tfa.routes[key] for key in keys] == [c + 2 for c in counts]
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    heads = [tfa._heads(t) for t in (q, k, v, o, do)]
+    want = tfa.flash_attention_bwd_ref(*heads[:4], lse, heads[4], True, scale)
+    band_of = FP32_BWD_TOL if dname == "float32" else BF16_BWD_TOL
+    for a, w in zip(first, want):
+        band = band_of * max(1.0, w.float().abs().max().item())
+        assert (tfa._heads(a).float() - w.float()).abs().max().item() <= band
 
 
 @pytest.mark.cuda

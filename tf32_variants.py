@@ -3,7 +3,7 @@
 compare them: the fp32 kernels on the TF32 tensor cores
 (paddle_tpu_torch/ops/csrc/flash_fwd.cu: flash_fwd_tf32_kernel;
 flash_bwd.cu: flash_dq_tf32_kernel and flash_dkv_tf32_kernel; VARIANTS)
-and the streaming route's kernels (head_dim above 512:
+and the streaming route's kernels (the wide heads, from head_dim 192:
 flash_fwd_stream_kernel, flash_dq_stream_kernel and
 flash_dkv_stream_kernel, their tiles and ring in flash_stream.cuh;
 STREAM_VARIANTS).
@@ -47,6 +47,15 @@ the forward, dQ and dK/dV at head_dim 576 (causal, s1024) at b1 h2 and b4
 h16, every variant timed in order and again in reverse order (A B B A for
 two); device ms as above, median of 10.
 
+The wide_* variants do the same at the head dims the streaming route took
+over from scalar kernels (errors at 192 to 512, times at 256 and 512, b1
+h2 and b4 h16): "wide_chosen" builds the sources as they are;
+"wide_split" runs two column groups a block (two warpgroups sharing S and
+dP, design (b)) wherever an output has more than one group at head dims
+up to 512, "wide_groups" one group a grid step everywhere (design (a)),
+"wide_mma_off" the bf16 forward at head dims 192 and 256 on the streaming
+route instead of the mma one.
+
 Last, the card's name and power limit. It imports neither jax nor the JAX
 package.
 """
@@ -85,8 +94,11 @@ __device__ __forceinline__ void mma_tf32x1(
 ONE_PASS_HEADER = "flash_tf32_one_pass.cuh"
 SLEEP_CYCLES = 1_000_000
 
-_RESIDENT_TEST = ("(2 * (res_bytes + BLOCK_RESERVED) <= SM_SMEM || blocks "
-                  "<= 2LL * sms)")
+_RESIDENT_TEST = ("(2 * (res_bytes + BLOCK_RESERVED) <= SM_SMEM ||\n"
+                  "          blocks <= 2LL * sm_count())")
+# the choice of warpgroups a block (`warpgroups` in flash_stream.cuh)
+_WGS_RULE = ("return G > 1 && D <= 512 && (D > 320 || blocks > sm_count()) "
+             "? 2 : 1;")
 #: {variant: {source ("flash_fwd", "flash_bwd" or "flash_stream" for the
 #: header): [(text, replacement), ...]}}
 STREAM_VARIANTS = {
@@ -97,7 +109,19 @@ STREAM_VARIANTS = {
                                          "ST_STAGES = 4;")]},
     "stream_dkv_rows32": {"flash_bwd": [(
         "return sizeof(T) == 2 ? 32 : 16;", "return 32;")]},
+    "wide_chosen": {},
+    "wide_split": {"flash_stream": [(_WGS_RULE,
+                                     "return G > 1 && D <= 512 ? 2 : 1;")]},
+    "wide_groups": {"flash_stream": [(_WGS_RULE, "return 1;")]},
+    "wide_mma_off": {"flash_fwd": [("if (dtype == 1 && D <= 256) return 1;",
+                                    "if (dtype == 1 && D <= 128) return 1;")]},
 }
+#: head dims whose errors the streaming variants print, and (b, h, d) shapes
+#: they time: above 512 for stream_*, the wide heads up to 512 for wide_*
+STREAM_CHECKED = {"stream": ((576, 640, 1024), ((1, 2, 576), (4, 16, 576))),
+                  "wide": ((192, 256, 320, 384, 448, 512),
+                           ((1, 2, 256), (1, 2, 512), (4, 16, 256),
+                            (4, 16, 512)))}
 SOURCES = ("flash_fwd", "flash_bwd")
 
 
@@ -209,8 +233,11 @@ def main(names):
              for lib in by.values()])}), flush=True)
         if tf32:
             compare(libs)
-        if stream:
-            compare_stream(stream_libs)
+        for kind, (dims, shapes) in STREAM_CHECKED.items():
+            chosen = {n: by for n, by in stream_libs.items()
+                      if n.startswith(kind + "_")}
+            if chosen:
+                compare_stream(chosen, dims, shapes)
     finally:
         for path in written:       # the build finds a library by its source
             path.unlink(missing_ok=True)
@@ -396,10 +423,10 @@ def compare(libs):
     print(json.dumps({"sdpa_device_ms": sdpa}), flush=True)
 
 
-def compare_stream(libs):
+def compare_stream(libs, head_dims, shapes):
     """Hold every built streaming variant ({variant: {source: library}})
-    against the plain forward and backward, and time them in A B .. B A
-    order."""
+    against the plain forward and backward at `head_dims` (b1 h2 s1024),
+    and time them at `shapes` ((b, h, d), s1024) in A B .. B A order."""
     import torch
 
     from paddle_tpu_torch.ops import _build
@@ -420,10 +447,11 @@ def compare_stream(libs):
             fns[name][src] = (lib, fn)
             for k, r in _build.ptxas_report(lib_name).items():
                 m = re.search(r"(flash_\w+_stream_kernel)I(f|13__nv_"
-                              r"bfloat16)Lb([01])E", k)
+                              r"bfloat16)Lb([01])ELi(\d)E", k)
                 if m:
                     report[f"{m[1]}[{'fp32' if m[2] == 'f' else 'bf16'}"
-                           f"{', resident' if m[3] == '1' else ''}]"] = r
+                           f"{', resident' if m[3] == '1' else ''}, "
+                           f"{m[4]} warpgroups]"] = r
         print(json.dumps({"variant": name, "ptxas": report}), flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -450,7 +478,7 @@ def compare_stream(libs):
     for name in names:
         fa._FN.update(fns[name])
         errs, same = {}, True
-        for d in (576, 640, 1024):
+        for d in head_dims:
             for dname, dt in dtypes:
                 q, k, v, do = (torch.randn(1, 1024, 2, d, generator=gen,
                                            device=dev).to(dt)
@@ -479,9 +507,8 @@ def compare_stream(libs):
         print(json.dumps({"variant": name, "errors": errs,
                           "backward_two_calls_bit_equal": same}), flush=True)
     order = names + names[::-1]
-    for b, h in ((1, 2), (4, 16)):
+    for b, h, d in shapes:
         for dname, dt in dtypes:
-            d = 576
             q, k, v, do = (torch.randn(b, 1024, h, d, generator=gen,
                                        device=dev).to(dt) for _ in range(4))
             scale = 1.0 / math.sqrt(d)
