@@ -1,7 +1,8 @@
 """Time the port's kernels for two or more checkouts of the repository in
 alternation, on one CUDA device.
 
-    python3 ab_kernels.py [--rounds 2] [--cases main|wide_heads] DIR [DIR ...]
+    python3 ab_kernels.py [--rounds 2] [--cases main|wide_heads|paged_stream]
+                          DIR [DIR ...]
 
 Each DIR is the root of a checkout (it holds ``paddle_tpu_torch/``). In
 round r the checkouts run in order, reversed on every other round (A B B A
@@ -52,6 +53,22 @@ forward at 256 takes the mma kernel and is timed as what it is):
   pair forward, 10 d backward) over 989 (bf16) or 67 (fp32) TFLOP/s and
   each input and output once over 3.35 TB/s; every launch's route
   (``flash_attention.routes``).
+
+``paged_stream``: paged attention past the split kernel's caps (the
+stream route, ``ops.tpp._paged_kernel_call(..., route="stream")``) at
+chip_smoke.py's three ``PAGED_STREAM_SHAPES`` (B 8, H 4: hd 512 on
+16-column frames, hd 64 on 512-column frames, hd 512 on 512-column
+frames; random lengths, row 0 empty), bf16 q and pages, fp32 q and
+pages, fp32 q on int8 pages with their row scales: the kernel's ms and
+device_ms beside SDPA's on the pre-gathered dense layout with the length
+mask (gather excluded), the bytes bound (each valid column's K and V row
+and scales once, q, out, the table entries and lengths, at 3.35 TB/s),
+the launch's plan where the checkout's ``_paged_kernel_call`` returns one
+(the route the C entry took, columns a split, splits a row, columns a
+tile, ring depth), and a sha256 of the outputs of two calls (one digest
+where they give the same bits); and the device µs of each paged kernel of
+one call (``torch.profiler``, the median of 10 calls, L2 flushed between
+them: the stream kernel and its combine pass).
 
 Every input comes from seeded generators, the same in every process.
 Times as chip_smoke.py takes them: CUDA events around one call, median of
@@ -270,6 +287,96 @@ def wide_head_cases(torch, dev, time_ms, out):
                 torch.cuda.empty_cache()
 
 
+PAGED_STREAM_SHAPES = ((8, 4, 512, 16, 64, 520), (8, 4, 64, 512, 4, 40),
+                       (8, 4, 512, 512, 4, 40))   # B, H, hd, bs, maxb, NB
+
+
+def kernel_us(torch, fn, flush, calls=10):
+    """{kernel name: device µs a call, the median over `calls` calls with
+    L2 flushed before each} of the paged kernels fn launches, from
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    per = {}
+    for _ in range(calls):
+        flush.zero_()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if "paged" in e.key and e.device_time_total > 0:
+                per.setdefault(e.key[:90], []).append(e.device_time_total
+                                                      / e.count)
+    return {k: statistics.median(v) for k, v in per.items()}
+
+
+def paged_stream_cases(torch, dev, time_ms, out):
+    """The ``paged_stream`` table: the stream route beside SDPA and its
+    bound."""
+    from paddle_tpu_torch.distributed import compress
+    from paddle_tpu_torch.ops import tpp
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(64 * 2 ** 20 // 4, device=dev)
+    for B, H, hd, bs, maxb, NB in PAGED_STREAM_SHAPES:
+        kp = torch.randn(NB, H, bs, hd, generator=gen, device=dev)
+        vp = torch.randn(NB, H, bs, hd, generator=gen, device=dev)
+        (kq, ks), (vq, vs) = (compress.quantize_rows(kp),
+                              compress.quantize_rows(vp))
+        lengths = torch.randint(1, maxb * bs + 1, (B,), generator=gen,
+                                device=dev).int()
+        lengths[0] = 0
+        tables = torch.zeros(B, maxb, dtype=torch.int32, device=dev)
+        for b in range(B):
+            n = -(-int(lengths[b]) // bs)
+            tables[b, :n] = torch.randperm(NB - 1, generator=gen,
+                                           device=dev)[:n].int() + 1
+        q32 = torch.randn(B, H, hd, generator=gen, device=dev)
+        cols = int(lengths.long().sum())
+        nblk = int(((lengths.long() + bs - 1) // bs).sum())
+        for name, (q, k, v, sk, sv) in {
+                "dense[bfloat16]": (q32.bfloat16(), kp.bfloat16(),
+                                    vp.bfloat16(), None, None),
+                "dense[float32]": (q32, kp, vp, None, None),
+                "int8[float32]": (q32, kq, vq, ks, vs)}.items():
+            def launch():   # (out, plan), or out in a checkout without a plan
+                return tpp._paged_kernel_call(q, k, v, tables, lengths, sk,
+                                              sv, route="stream")
+
+            def kern():
+                r = launch()
+                return r[0] if isinstance(r, tuple) else r
+
+            kg = tpp.gather_pages(k, tables, sk).to(q.dtype)
+            vg = tpp.gather_pages(v, tables, sv).to(q.dtype)
+            mask = (torch.arange(kg.shape[2], device=dev)[None, :]
+                    < lengths[:, None])[:, None, None, :]
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q[:, :, None], kg, vg, attn_mask=mask)
+
+            nbytes = (2 * H * hd * k.element_size() * cols
+                      + (2 * H * 4 * cols if sk is not None else 0)
+                      + 2 * B * H * hd * q.element_size() + 4 * nblk + 4 * B)
+            ms, by = bound(4.0 * H * hd * cols, nbytes, "float32")
+            tag = f"paged_stream.hd{hd}_bs{bs}.{name}"
+            outs = {hashlib.sha256(kern().view(torch.uint8).cpu().numpy()
+                                   .tobytes()).hexdigest() for _ in range(2)}
+            out[tag] = {"ms": time_ms(kern), "device_ms": time_ms(kern, True),
+                        "bound_ms": ms, "bound_by": by}
+            r = launch()
+            if isinstance(r, tuple):
+                out[tag]["plan"] = r[1]
+            out[f"{tag}.sdpa"] = {"ms": time_ms(sdpa),
+                                  "device_ms": time_ms(sdpa, True)}
+            out[f"{tag}.sha256"] = "|".join(sorted(outs))
+            out[f"{tag}.profile_us"] = kernel_us(torch, kern, flush)
+            del kg, vg
+        torch.cuda.empty_cache()
+
+
 def gpt2_steps(dev):
     """{cell: {"wall_ms": median}} of GPT-2 small's fp32 eval forward at
     4 x 1024 and its training step at 16 x 1024, fp32 and bf16 auto_cast
@@ -323,7 +430,8 @@ def gpt2_steps(dev):
     return out
 
 
-CASES = {"main": main_cases, "wide_heads": wide_head_cases}
+CASES = {"main": main_cases, "wide_heads": wide_head_cases,
+         "paged_stream": paged_stream_cases}
 TIMED = ("ms", "device_ms", "wall_ms")
 
 
@@ -359,6 +467,11 @@ def main():
                 continue
             if key.endswith(".sha256"):
                 summary[d][key] = sorted({row[key] for row in rows})
+                continue
+            if key.endswith(".profile_us"):    # {kernel: µs}: the median
+                summary[d][key] = {k: statistics.median(
+                    row[key][k] for row in rows if k in row[key])
+                    for k in first}
                 continue
             for t, val in first.items():
                 if t not in TIMED:     # a bound or the routes: round 1's

@@ -25,7 +25,9 @@ and its forward at b4 h16 d1024 with the query tiles streamed, causal and
 full;
 the paged kernel also for bit-equal output over two calls, and through
 its public entry on the stream route at head dims and frames of 512, on
-fp16 q and mixed q / page dtypes, and on a transposed-page view), checks a
+one layer of a pool with split boundaries inside frames (the contiguous
+pages' bits) and on pages off 16 bytes (its one-element-a-load route),
+on fp16 q and mixed q / page dtypes, and on a transposed-page view), checks a
 narrow GPT's eval forward, greedy ``generate`` and three AdamW training steps and
 a narrow PP-YOLOE's head outputs and detections against the JAX package's
 committed outputs, drives GPT-2 small (vocab 50304, hidden 768, 12
@@ -88,6 +90,7 @@ exits nonzero and prints no result; it also exits nonzero at once when
 torch.cuda.is_available() is false. It imports neither jax nor the JAX
 package.
 """
+import collections
 import copy
 import json
 import math
@@ -228,6 +231,12 @@ AUDIT_SHAPES = ((16, 8, 128, 32, 16, 19),)
 # 256: the stream route): B, H, hd, bs, maxb, NB; no model has such heads
 PAGED_STREAM_SHAPES = ((8, 4, 512, 16, 64, 520), (8, 4, 64, 512, 4, 40),
                        (8, 4, 512, 512, 4, 40))
+# the stream route on one layer of a [NB, L, H, bs, hd] pool whose split
+# boundaries (128 columns) fall inside its 320-column frames: B, H, hd, bs,
+# maxb, NB, L; and pages one element off 16 bytes (the one-element-a-load
+# path): B, H, hd, bs, maxb, NB
+PAGED_POOL_SHAPE = (8, 4, 384, 320, 5, 44, 3)
+PAGED_OFF16_SHAPE = (4, 4, 512, 512, 2, 12)
 # gpt2s_decode as bench.py runs it on the TPU (run_decode :583-631; the
 # int8 and fp8 legs :1097-1110): batch, prompt, new tokens, cache dtypes;
 # each leg's full and 1-token runs DECODE_REPS times after a warm-up
@@ -1364,10 +1373,14 @@ def check_paged_sources(gen):
     q, dense and int8 pages; two calls must give the same bits. Then
     through the public entry what the split kernel cannot read as it is:
     PAGED_STREAM_SHAPES (head dim or frame above 256) on the stream route,
-    the same cases; fp16 q (on fp16 and fp32 pages) and bf16 q on fp32
-    pages; a transposed-page view, which must give the contiguous pages'
-    bits. Returns {case: max-abs error}, the full-length inputs and the
-    stream route's timed case, hd 512 and bs 512 (for timing)."""
+    the same cases with fp16 q too, then PAGED_POOL_SHAPE as one layer of
+    a pool (split boundaries inside frames; the contiguous pages' bits)
+    and PAGED_OFF16_SHAPE's pages one element off 16 bytes (the
+    `stream_direct` route), each launch counted by route; fp16 q (on fp16
+    and fp32 pages) and bf16 q on fp32 pages; a transposed-page view,
+    which must give the contiguous pages' bits. Returns {case: max-abs
+    error}, the full-length inputs and the stream route's timed case, hd
+    512 and bs 512 (for timing)."""
     import torch
 
     from paddle_tpu_torch.ops import tpp
@@ -1401,37 +1414,91 @@ def check_paged_sources(gen):
                     check(bool((got[0] == 0).all()),
                           "paged attention: a zero-length row gives zeros")
     stream = None
-    n_stream = 0
-    for shape in PAGED_STREAM_SHAPES:
-        c = paged_cases(*shape, gen)
-        B, H, hd, bs = shape[:4]
-        for dname, dt in torch_dtypes().items():
+    n_stream = collections.Counter()
+    all_types = {**torch_dtypes(), "float16": torch.float16}
+
+    def stream_checks(tag, c, B, H, hd, pages=lambda t: t, route="stream"):
+        """Every q type on dense and int8 pages through `pages` (a view
+        maker): two calls on `route`, the same bits, zeros for the
+        zero-length row, within the bands of the plain version. Returns
+        {(variant, dtype): output}."""
+        outs = {}
+        for dname, dt in all_types.items():
             q = torch.randn(B, H, hd, generator=gen,
                             device=gen.device).to(dt)
             for variant in ("dense", "int8"):
                 if variant == "dense":
-                    args = (c["kp"].to(dt), c["vp"].to(dt), c["tables"],
-                            c["lengths"])
+                    args = (pages(c["kp"].to(dt)), pages(c["vp"].to(dt)),
+                            c["tables"], c["lengths"])
                 else:
                     kq, vq, ks, vs = c["int8"]
-                    args = (kq, vq, c["tables"], c["lengths"], ks, vs)
-                key = f"tpp_paged_attention.{variant}:{dname}:stream"
+                    args = (pages(kq), pages(vq), c["tables"], c["lengths"],
+                            pages(ks), pages(vs))
+                key = f"tpp_paged_attention.{variant}:{dname}:{route}"
                 n0 = tpp.routes[key]
                 got = tpp.paged_attention(q, *args)
                 again = tpp.paged_attention(q, *args)
                 torch.cuda.synchronize()
-                check(tpp.routes[key] - n0 == 2, f"paged attention hd {hd} "
-                      f"bs {bs}: both calls on the stream route")
-                n_stream += 2
+                check(tpp.routes[key] - n0 == 2, f"paged attention {tag} "
+                      f"{variant} {dname}: both calls on the {route} route")
+                n_stream[route] += 2
                 check(torch.equal(got, again),
-                      f"paged attention stream hd {hd} bs {bs} {variant} "
-                      f"{dname}: two calls, the same bits")
+                      f"paged attention {tag} {variant} {dname}: two calls, "
+                      f"the same bits")
                 check(bool((got[0] == 0).all()),
-                      "paged attention stream: a zero-length row gives zeros")
-                errs[f"stream_hd{hd}_bs{bs}.{variant}[{dname}]"] = paged_err(
+                      f"paged attention {tag}: a zero-length row gives zeros")
+                errs[f"{tag}.{variant}[{dname}]"] = paged_err(
                     got, tpp.paged_attention_ref(q, *args), dname)
+                outs[variant, dname] = (q, got)
+        return outs
+
+    t_stream = time.perf_counter()
+    for shape in PAGED_STREAM_SHAPES:
+        c = paged_cases(*shape, gen)
+        B, H, hd, bs = shape[:4]
+        stream_checks(f"stream_hd{hd}_bs{bs}", c, B, H, hd)
         if hd == 512 and bs == 512:
             stream = c
+    # one layer of a [NB, L, H, bs, hd] pool: split boundaries inside
+    # frames, the same bits as the contiguous pages
+    *shape, L = PAGED_POOL_SHAPE
+    c = paged_cases(*shape, gen)
+    B, H, hd = shape[:3]
+
+    def layer(t):
+        pool = torch.zeros((t.shape[0], L) + tuple(t.shape[1:]),
+                           dtype=t.dtype, device=t.device)
+        pool[:, L // 2] = t
+        return pool[:, L // 2]
+
+    span, nsplit = tpp._paged_stream_splits(B, H, shape[3], shape[4])
+    check(span % shape[3] != 0, "the pool case's splits end inside frames")
+    pooled = stream_checks(f"stream_pool_layer_hd{hd}_bs{shape[3]}", c, B, H,
+                           hd, pages=layer)
+    for (variant, dname), (q, got) in pooled.items():
+        if variant == "dense":
+            dt = all_types[dname]
+            args = (c["kp"].to(dt), c["vp"].to(dt), c["tables"], c["lengths"])
+        else:
+            kq, vq, ks, vs = c["int8"]
+            args = (kq, vq, c["tables"], c["lengths"], ks, vs)
+        check(torch.equal(got, tpp.paged_attention(q, *args)),
+              f"paged attention stream: a pool layer's view gives the "
+              f"contiguous pages' bits ({variant} {dname})")
+
+    def off16(t):       # the same values one element past 16 bytes
+        if t.dtype == torch.float32 and t.shape[-1] == 1:
+            return t    # the int8 pages' scales stay as they are
+        flat = torch.zeros(t.numel() + 16, dtype=t.dtype, device=t.device)
+        v = flat[1:1 + t.numel()].view(t.shape)
+        v.copy_(t)
+        return v
+
+    c = paged_cases(*PAGED_OFF16_SHAPE, gen)
+    B, H, hd, bs = PAGED_OFF16_SHAPE[:4]
+    stream_checks(f"stream_off16_hd{hd}_bs{bs}", c, B, H, hd, pages=off16,
+                  route="stream_direct")
+    stream_wall = time.perf_counter() - t_stream
     # dtype pairs and a transposed-page view, on the split route
     c = full
     B, H, hd = c["tables"].shape[0], c["kp"].shape[1], c["kp"].shape[3]
@@ -1459,7 +1526,12 @@ def check_paged_sources(gen):
           "full_length": [SERVE_SLOTS, 12, 64, PAGE_BLOCK, 1024 // PAGE_BLOCK,
                           513], "audit_shape_B_H_hd_bs_maxb": AUDIT_SHAPES[0],
           "stream_shapes_B_H_hd_bs_maxb_NB": PAGED_STREAM_SHAPES,
-          "stream_route_launches": n_stream,
+          "stream_pool_layer_B_H_hd_bs_maxb_NB_L": PAGED_POOL_SHAPE,
+          "stream_pool_layer_splits": [span, nsplit],
+          "stream_off16_B_H_hd_bs_maxb_NB": PAGED_OFF16_SHAPE,
+          "stream_route_launches": dict(n_stream),
+          "stream_checks_wall_s": stream_wall,
+          "pool_layer_view_bit_equal": True,
           "zero_length_row_zeros": True, "two_calls_bit_equal": True,
           "transposed_page_view_bit_equal": True,
           "max_abs_err": errs,
@@ -1478,6 +1550,9 @@ def time_paged_attention(serve, full, full_errs, stream, time_ms, bound,
     stream route at head dim 512 and frames of 512 (`stream`; no path
     launches it: no model has such heads). ms
     times the launch alone, wrapper_ms the entry point with its checks;
+    `splits` is the launch's grid (the plan tpp._paged_kernel_call
+    returns: the route the C entry took, columns a split, splits a row
+    and, on the stream kernel's ring, columns a tile and ring depth);
     the bound counts what the function needs: the K and V rows (and their
     scales) of the columns below each length, the table entries of the
     frames those columns lie in, q, out and lengths. library_ms: SDPA on
@@ -1502,7 +1577,8 @@ def time_paged_attention(serve, full, full_errs, stream, time_ms, bound,
         mask = (torch.arange(k.shape[2], device=q.device)[None, :]
                 < lengths[:, None])[:, None, None, :]
         tables, lengths = tables.int().contiguous(), lengths.int()
-        fps, nsplit = tpp._paged_splits(B, H, bs, maxb)
+        plan = tpp._paged_kernel_call(q, kp, vp, tables, lengths, *scales,
+                                      route=route)[1]
 
         def kern():
             return tpp._paged_kernel_call(q, kp, vp, tables, lengths,
@@ -1527,9 +1603,8 @@ def time_paged_attention(serve, full, full_errs, stream, time_ms, bound,
             "library_covers": "scaled_dot_product_attention on the "
                               "pre-gathered dense layout with the length "
                               "mask (gather excluded)",
-            "route": route,
-            "splits": {"frames_a_split": fps, "splits_a_row": nsplit,
-                       "blocks": B * H * nsplit},
+            "route": plan["route"],
+            "splits": plan,
             "bytes": nbytes, "shape_B_H_hd_bs_maxb": [B, H, hd, bs, maxb],
             "lengths": lengths.tolist()}
         row["share_of_bound"] = bms / row["ms"]

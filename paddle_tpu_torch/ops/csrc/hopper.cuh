@@ -1,7 +1,8 @@
 // Device helpers shared by the port's sm_90a kernels (tpp_matmul.cu,
-// flash_fwd.cu, flash_bwd.cu and tpp_rowwise.cu): type conversion, bf16
-// packing, the SFU's exp2, the TF32 split, ldmatrix, cp.async, mma.sync
-// (bf16, and TF32 in one or three passes), mbarrier and TMA, each a thin
+// flash_fwd.cu, flash_bwd.cu, tpp_rowwise.cu and paged_attention.cu): type
+// conversion, bf16 packing, the SFU's exp2, the TF32 split, ldmatrix,
+// cp.async, mma.sync (bf16, and TF32 in one or three passes), mbarrier,
+// TMA and 1-D bulk copies, each a thin
 // wrapper over one PTX instruction or a few. ops/_build.py hashes this
 // header with every source that includes it, so an edit here rebuilds
 // them.
@@ -199,6 +200,44 @@ __device__ __forceinline__ void tma_load_1d(uint32_t dst, const void* map,
       "::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
       : "memory");
+}
+
+// ---- 1-D bulk copies and cp.async on an mbarrier ----------------------------
+
+// the transaction bytes of the barrier's current phase, without an arrival
+__device__ __forceinline__ void mbar_expect_tx_only(uint32_t bar,
+                                                    uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both on 16
+// bytes, with no tensor map; completes its bytes on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// generic-proxy accesses of shared memory ordered before later async-proxy
+// (bulk copy) ones
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// 4-byte global -> shared copy
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+// one arrival on `bar` once this thread's earlier cp.async copies have
+// landed (counted against the barrier's expected arrivals)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
 }
 
 }  // namespace hopper

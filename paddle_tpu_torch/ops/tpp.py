@@ -50,8 +50,8 @@ CPU takes the plain version (``_matmul_ref``, ``_row_stats_ref``,
 ``"tpp_paged_attention.<dense|int8>:<q dtype>"``, where each kernel is
 launched and nowhere else; ``routes`` splits the TPP matmul's launches
 by the kernel the C entry chose (``wgmma`` or ``simt``), softmax_rows's
-(``register`` or ``block``) and paged attention's (``split`` or
-``stream``).
+(``register`` or ``block``) and paged attention's (``split``, ``stream``
+or ``stream_direct``).
 """
 import collections
 import ctypes
@@ -77,7 +77,9 @@ launches = collections.Counter()
 #: "register" (the row held in registers by one to four warps: 16-byte
 #: aligned rows of a whole number of 16-byte vectors, at most 2,048 long)
 #: or "block" (a block a row), as the C entry reports the kernel it
-#: launched
+#: launched; paged attention's by "tpp_paged_attention.<dense|int8>:<q
+#: dtype>:<route>", route "split", "stream" (the stream kernel's ring of
+#: bulk copies) or "stream_direct" (its one-element loads)
 routes = collections.Counter()
 _ROUTES = {1: "wgmma", 2: "simt"}
 _SOFTMAX_ROUTES = {1: "register", 2: "block"}
@@ -664,20 +666,33 @@ _PAGED_MAX_HD = _PAGED_MAX_BS = 256   # the kernel's shared-memory arrays
 _PAGED_SPLIT_COLS, _PAGED_MIN_BLOCKS = 128, 2 * 132
 _PAGED_MAX_FPS, _PAGED_MAX_SPLITS = 128, 1024
 
+#: the stream route's column splits: this many columns a split, halved
+#: (down to _PAGED_STREAM_MIN_COLS) while the grid holds fewer than
+#: _PAGED_MIN_BLOCKS blocks
+_PAGED_STREAM_COLS, _PAGED_STREAM_MIN_COLS = 256, 32
+
+#: the stream kernel's ring (its RING path): tiles of up to _PAGED_MAX_TC
+#: columns, sized so that a slot's K and V hold about _PAGED_SLOT_BYTES
+_PAGED_MAX_TC, _PAGED_SLOT_BYTES = 64, 32768
+
 _PAGED_FN = []
 
 #: the C entry's dtype codes: q (and out), and the pages
 _PAGED_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _PAGED_PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
                       torch.int8: 3}
-_PAGED_ROUTES = ("split", "stream")
+#: the kernels the C entry reports it launched: the split kernel, and the
+#: stream kernel's RING path (bulk copies through a ring in shared memory)
+#: and its DIRECT path (one element a load: a view off 16 bytes, or rows
+#: above 8 KB), which the C entry picks from the view
+_PAGED_ROUTES = ("split", "stream", "stream_direct")
 
 
 def _paged_splits(B, H, bs, maxb):
-    """(frames a split, splits a row) of the paged-attention kernel's grid
-    (b, h, split), from the shapes alone (never from the lengths, which
-    lie on the device): ~_PAGED_SPLIT_COLS columns a split, halved while
-    the grid has fewer than _PAGED_MIN_BLOCKS blocks."""
+    """(frames a split, splits a row) of the split route's grid (b, h,
+    split), from the shapes alone (never from the lengths, which lie on
+    the device): ~_PAGED_SPLIT_COLS columns a split, halved while the grid
+    has fewer than _PAGED_MIN_BLOCKS blocks."""
     fps = max(1, min(maxb, _PAGED_SPLIT_COLS // bs),
               -(-maxb // _PAGED_MAX_SPLITS))
     while fps > 1 and B * H * -(-maxb // fps) < _PAGED_MIN_BLOCKS:
@@ -685,13 +700,38 @@ def _paged_splits(B, H, bs, maxb):
     return fps, -(-maxb // fps)
 
 
+def _paged_stream_splits(B, H, bs, maxb):
+    """(columns a split, splits a row) of the stream route's grid (b, h,
+    split), from the shapes alone: a split is a range of columns whose ends
+    may fall inside a frame; _PAGED_STREAM_COLS columns, halved while the
+    grid has fewer than _PAGED_MIN_BLOCKS blocks, and at most
+    _PAGED_MAX_SPLITS splits a row."""
+    cols = maxb * bs
+    span = min(cols, _PAGED_STREAM_COLS)
+    while span > _PAGED_STREAM_MIN_COLS \
+            and B * H * -(-cols // span) < _PAGED_MIN_BLOCKS:
+        span = -(-span // 2)
+    span = max(span, -(-cols // _PAGED_MAX_SPLITS))
+    return span, -(-cols // span)
+
+
+def _paged_ring(hd, item):
+    """Columns a tile of the stream kernel's RING path for page rows of hd
+    elements of `item` bytes: the largest power of two of columns whose K
+    and V fit _PAGED_SLOT_BYTES (at least 1, at most _PAGED_MAX_TC)."""
+    tc = 1
+    while tc < _PAGED_MAX_TC and 2 * (2 * tc) * hd * item <= _PAGED_SLOT_BYTES:
+        tc *= 2
+    return tc
+
+
 def _paged_kernel():
     if not _PAGED_FN:
         lib = _build.load("paged_attention")
         fn = lib.paged_attention
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp] * 9 + [i] * 7 + [ll, ll, ctypes.c_float, i, i, i,
-                                            vp]
+        fn.argtypes = [vp] * 9 + [i] * 8 + [ll, ll, ctypes.c_float, i, i, i,
+                                            vp, ctypes.POINTER(i)]
         fn.restype = ctypes.c_int
         _PAGED_FN.append((lib, fn))
     return _PAGED_FN[0]
@@ -780,40 +820,53 @@ def _launch_paged_attention(q, kp, vp, tables, lengths, k_scales, v_scales,
     tables, lengths = _check_paged(q, kp, vp, tables, lengths, k_scales,
                                    v_scales, stream=route == "stream")
     return _paged_kernel_call(q, kp, vp, tables, lengths, k_scales, v_scales,
-                              route=route)
+                              route=route)[0]
 
 
 def _paged_kernel_call(q, kp, vp, tables, lengths, k_scales, v_scales,
                        route="split"):
     """The launch itself, on operands _check_paged has checked (int32
-    contiguous tables and lengths on q's device)."""
+    contiguous tables and lengths on q's device): (out, the launch's
+    plan). The plan: {"route", "columns_a_split", "splits_a_row"}, and on
+    the stream kernel's RING path "columns_a_tile" and "ring_stages".
+    Route "stream" runs the RING path where the C entry can copy the pages
+    as they are, else its DIRECT path ("stream_direct"); the route counted
+    is the one the C entry reports."""
     B, H, hd = q.shape
     bs, maxb = kp.shape[2], tables.shape[1]
     quantized = k_scales is not None
     dtype = _dtype_name(q.dtype)
+    if route == "split":
+        fps, nsplit = _paged_splits(B, H, bs, maxb)
+        cols, tc = fps * bs, 0
+    else:
+        cols, nsplit = _paged_stream_splits(B, H, bs, maxb)
+        tc = _paged_ring(hd, kp.element_size())
     out = torch.empty_like(q)
-    fps, nsplit = _paged_splits(B, H, bs, maxb)
     # each split's partial (m, l, acc[hd]) in fp32, merged by the combine
-    # pass; on the split route one split writes out itself, the stream
-    # route accumulates in its slot whatever the split count
+    # pass; with one split the kernel writes out itself
     part = torch.empty(B * H * nsplit * (hd + 2), dtype=torch.float32,
-                       device=q.device) \
-        if nsplit > 1 or route == "stream" else None
+                       device=q.device) if nsplit > 1 else None
+    taken = (ctypes.c_int * 2)()
     lib, fn = _paged_kernel()
     err = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
              k_scales.data_ptr() if quantized else None,
              v_scales.data_ptr() if quantized else None,
              tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
              None if part is None else part.data_ptr(),
-             B, H, hd, bs, maxb, fps, nsplit, kp.stride(0),
+             B, H, hd, bs, maxb, cols, nsplit, tc, kp.stride(0),
              k_scales.stride(0) if quantized else 0, 1.0 / (hd ** 0.5),
              _PAGED_Q_DTYPES[q.dtype], _PAGED_PAGE_DTYPES[kp.dtype],
-             _PAGED_ROUTES.index(route), _build.stream(q))
+             0 if route == "split" else 1, _build.stream(q), taken)
     _build.check(lib, "paged_attention", err)
+    route = _PAGED_ROUTES[taken[0]]
     kind = f"{'int8' if quantized else 'dense'}:{dtype}"
     launches[f"tpp_paged_attention.{kind}"] += 1
     routes[f"tpp_paged_attention.{kind}:{route}"] += 1
-    return out
+    plan = {"route": route, "columns_a_split": cols, "splits_a_row": nsplit}
+    if route == "stream":
+        plan.update(columns_a_tile=tc, ring_stages=taken[1])
+    return out, plan
 
 
 def _paged_readable(q, kp, vp, k_scales, v_scales):
@@ -857,7 +910,9 @@ def paged_attention(q, kp, vp, tables, lengths, k_scales=None,
     (distributed/compress.py) and dequantize on load. Dense pages may have
     another floating dtype than q. f32 accumulation; the output takes q's
     dtype; a row of length 0 gives zeros. On the card, head dims or frames
-    above 256 and more than 131,072 frames a row take the stream route."""
+    above 256 and more than 131,072 frames a row take the stream route
+    (column splits, tiles through a ring of bulk copies; one element a
+    load for pages off 16 bytes or rows above 8 KB)."""
     B, H, hd = q.shape
     NB, Hk, bs, hd_k = kp.shape
     if Hk != H or hd_k != hd:

@@ -5,8 +5,8 @@ shared memory) is copied, cast or sent to the paged stream route, never
 refused, while the private launchers keep their refusals.
 
 On the CPU: which operands the entries copy, and a plain-torch emulation
-of the paged stream route's tiled online softmax against
-``paged_attention_ref``. On the card (``cuda`` marker): each case through
+of the paged stream route's tiles and lane groups (each with its own
+online softmax, merged in group order) against ``paged_attention_ref``. On the card (``cuda`` marker): each case through
 its public entry, against the same call on a contiguous copy (bit-equal:
 the same kernel on the same values) or against the plain version within
 its band: fp32 2e-5 (PAGED_TOL_F32 / the row kernels' 1e-5), bf16 and
@@ -54,30 +54,51 @@ def _pool(B, H, hd, bs, maxb, NB, dtype=torch.float32, seed=0,
 
 
 def _stream_emulation(q, kp, vp, tables, lengths, k_scales=None,
-                      v_scales=None, tile=32):
-    """csrc/paged_attention.cu's stream route in plain torch, one split a
-    row: the columns in tiles of `tile`, each tile's scores, the running
-    max and sum rescaled by exp(m_old - m_new), the weights times V added
-    into an fp32 accumulator; out = acc / l (l == 0 gives zeros)."""
+                      v_scales=None):
+    """csrc/paged_attention.cu's stream route (its RING path) in plain
+    torch, one split a row: the columns in tiles of at most tc columns
+    (``tpp._paged_ring``) that never cross a frame; lane group g of G
+    takes a tile's columns g, g + G, ..., 4 at a time, with its own
+    running max and sum rescaled by exp(m_old - m_new) and its own fp32
+    accumulator; the groups merged in group order; out = acc / l (l == 0
+    gives zeros)."""
     B, H, hd = q.shape
+    bs = kp.shape[2]
+    tc = tpp._paged_ring(hd, kp.element_size())
+    nch = hd * kp.element_size() // 16
+    G = 4 * (32 // min(32, 1 << (nch - 1).bit_length()))
     k = tpp.gather_pages(kp, tables, k_scales)
     v = tpp.gather_pages(vp, tables, v_scales)
     out = torch.zeros(B, H, hd)
     for b in range(B):
         n = int(lengths[b])
-        m = torch.full((H, 1), -math.inf)
-        l, acc = torch.zeros(H, 1), torch.zeros(H, hd)
-        for t0 in range(0, n, tile):
-            s = torch.einsum("hd,hTd->hT", q[b].float(),
-                             k[b, :, t0:min(n, t0 + tile)]) / hd ** 0.5
-            mx = torch.maximum(m, s.amax(-1, keepdim=True))
-            alpha = torch.exp(m - mx)
-            p = torch.exp(s - mx)
-            l = l * alpha + p.sum(-1, keepdim=True)
-            acc = acc * alpha + torch.einsum(
-                "hT,hTd->hd", p, v[b, :, t0:min(n, t0 + tile)])
-            m = mx
-        out[b] = acc / torch.where(l == 0, 1.0, l)
+        m = torch.full((G, H, 1), -math.inf)
+        l, acc = torch.zeros(G, H, 1), torch.zeros(G, H, hd)
+        t = 0
+        while t < n:
+            nt = min(tc, n - t, bs - t % bs)
+            for base in range(0, nt, G * 4):
+                for g in range(G):
+                    cols = [t + base + g + u * G for u in range(4)
+                            if base + g + u * G < nt]
+                    if not cols:
+                        continue
+                    s = torch.einsum("hd,hTd->hT", q[b].float(),
+                                     k[b, :, cols]) / hd ** 0.5
+                    mx = torch.maximum(m[g], s.amax(-1, keepdim=True))
+                    alpha = torch.exp(m[g] - mx)
+                    p = torch.exp(s - mx)
+                    l[g] = l[g] * alpha + p.sum(-1, keepdim=True)
+                    acc[g] = acc[g] * alpha + torch.einsum(
+                        "hT,hTd->hd", p, v[b, :, cols])
+                    m[g] = mx
+            t += nt
+        M = m.amax(0)
+        w = torch.where(torch.isfinite(m),
+                        torch.exp(m - torch.where(torch.isfinite(M), M, 0.0)),
+                        0.0)
+        L, A = (l * w).sum(0), (acc * w).sum(0)
+        out[b] = A / torch.where(L == 0, 1.0, L)
     return out.to(q.dtype)
 
 
@@ -98,9 +119,11 @@ def test_stream_route_is_taken_past_the_split_kernels_caps():
     assert tpp._paged_stream_route(257, 16, 64)
     assert tpp._paged_stream_route(64, 257, 64)
     assert tpp._paged_stream_route(64, 16, 128 * 1024 + 1)
-    # the split count keeps the combine pass within its 1,024 splits
-    fps, nsplit = tpp._paged_splits(1, 2, 1, 128 * 1024 + 1)
-    assert nsplit <= tpp._PAGED_MAX_SPLITS and fps * nsplit >= 128 * 1024
+    # the stream route's split count keeps the combine pass within its
+    # 1,024 splits
+    maxb = 128 * 1024 + 1
+    span, nsplit = tpp._paged_stream_splits(1, 2, 1, maxb)
+    assert nsplit <= tpp._PAGED_MAX_SPLITS and span * nsplit >= maxb
 
 
 def test_paged_readable_copies_only_what_the_kernel_cannot_read():

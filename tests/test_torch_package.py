@@ -59,7 +59,7 @@ def test_importing_every_module_loads_no_jax_and_no_paddle_tpu():
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
     + ["chip_smoke.py", "ab_forward.py", "ab_kernels.py", "nms_routes.py",
-       "tf32_variants.py"]))
+       "paged_variants.py", "tf32_variants.py"]))
 def test_source_imports_no_jax_and_no_paddle_tpu(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):

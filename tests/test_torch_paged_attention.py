@@ -17,8 +17,9 @@ import jax.numpy as jnp
 from paddle_tpu.distributed import compress as jcompress
 from paddle_tpu.ops import tpp as jtpp
 
+import paged_variants
 from paddle_tpu_torch.distributed import compress
-from paddle_tpu_torch.ops import tpp
+from paddle_tpu_torch.ops import _build, tpp
 
 TOL = 2e-5
 
@@ -149,20 +150,22 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
 
 def _split_combine(q, kp, vp, tables, lengths, k_scales, v_scales, nsplit):
     """What csrc/paged_attention.cu computes, in plain torch: each row's
-    frames cut into `nsplit` splits of ceil(maxb / nsplit) frames; each
-    split's partial softmax state over its columns below the length (m, l
-    and acc in fp32; a split past the length m = -inf, l = 0), then the
-    splits merged in order (a max of -inf subtracts 0; l == 0 divides by
-    1)."""
+    columns cut into `nsplit` splits of ceil(maxb * bs / nsplit) columns,
+    whose ends may fall inside a frame (the stream route's column splits;
+    the split route's frame splits are those whose size is a multiple of
+    bs); each split's partial softmax state over its columns below the
+    length (m, l and acc in fp32; a split past the length m = -inf, l = 0),
+    then the splits merged in order (a max of -inf subtracts 0; l == 0
+    divides by 1)."""
     B, H, hd = q.shape
     bs, maxb = kp.shape[2], tables.shape[1]
-    fps = -(-maxb // nsplit)
+    span = -(-maxb * bs // nsplit)
     k = tpp.gather_pages(kp, tables, k_scales)       # [B, H, maxb*bs, hd]
     v = tpp.gather_pages(vp, tables, v_scales)
     s = torch.einsum("bhd,bhTd->bhT", q.float(), k) / hd ** 0.5
     parts = []
     for i in range(nsplit):
-        c0, c1 = i * fps * bs, min((i + 1) * fps, maxb) * bs
+        c0, c1 = i * span, min((i + 1) * span, maxb * bs)
         m = torch.full((B, H, 1), -torch.inf)
         l, acc = torch.zeros(B, H, 1), torch.zeros(B, H, hd)
         for b in range(B):
@@ -187,12 +190,19 @@ def _split_combine(q, kp, vp, tables, lengths, k_scales, v_scales, nsplit):
 
 def _boundary_case(quantized, nsplit):
     """The audit shape with the lengths at the edges: 0, 1, bs - 1, bs,
-    a split boundary - 1, + 0 and + 1, and maxb * bs; the rest random."""
+    the first split boundary - 1, + 0 and + 1, maxb * bs, and the last
+    split boundary that falls inside a frame - 1, + 0 and + 1 (where the
+    splits have one); the rest random."""
     args = _case(quantized, seed=6)
     _, _, _, bs, maxb = jtpp._PAGED_AUDIT_SHAPES[0]
-    edge = min(-(-maxb // nsplit), maxb) * bs
+    span = -(-maxb * bs // nsplit)
+    edge = min(span, maxb * bs)
     lens = [0, 1, bs - 1, bs, edge - 1, edge, min(edge + 1, maxb * bs),
             maxb * bs]
+    inner = [i * span for i in range(1, nsplit) if (i * span) % bs
+             and i * span < maxb * bs]
+    if inner:
+        lens += [inner[-1] - 1, inner[-1], inner[-1] + 1]
     rng = np.random.RandomState(7)
     tables, lengths = args[3], args[4]
     lengths[:len(lens)] = lens
@@ -217,9 +227,11 @@ def jax_boundary_outputs():
     return out
 
 
-#: split counts of the plain model: one, two, seven, and more splits than
-#: the audit shape's 16 frames
-SPLITS = (1, 2, 7, 20)
+#: split counts of the plain model: one; two and four (boundaries on
+#: frame edges, as the split route cuts); seven and twenty (boundaries
+#: inside the audit shape's 32-column frames, as the stream route may cut;
+#: twenty splits of 26 columns, fewer than a frame's)
+SPLITS = (1, 2, 4, 7, 20)
 
 
 @pytest.mark.parametrize("nsplit", SPLITS)
@@ -233,19 +245,66 @@ def test_split_and_combine_matches_the_jax_kernel(jax_boundary_outputs,
     assert (got[0] == 0).all()                      # the length-0 row
 
 
-@pytest.mark.parametrize("B,H,bs,maxb,want", [
-    (8, 12, 16, 64, (8, 8)),        # GPT-2 small's engine at full length
-    (16, 8, 32, 16, (4, 4)),        # the reference's audit shape
-    (1, 1, 16, 64, (1, 64)),        # one row: a frame a split
-    (2, 2, 256, 2, (1, 2)),         # frames wider than a split's columns
-    (64, 16, 16, 64, (8, 8)),       # a wide batch keeps ~128 columns
+@pytest.mark.parametrize("route,B,H,bs,maxb,want", [
+    # the split route: frames a split (shown as columns), ~128 columns
+    ("split", 8, 12, 16, 64, (128, 8)),     # GPT-2 small's engine, full
+    ("split", 16, 8, 32, 16, (128, 4)),     # the reference's audit shape
+    ("split", 1, 1, 16, 64, (16, 64)),      # one row: a frame a split
+    ("split", 2, 2, 256, 2, (256, 2)),      # frames wider than a split
+    ("split", 64, 16, 16, 64, (128, 8)),    # a wide batch keeps ~128
+    # the stream route: columns a split, ends inside frames
+    ("stream", 8, 4, 512, 4, (128, 16)),    # chip_smoke's timed shape
+    ("stream", 8, 4, 16, 64, (64, 16)),     # hd 512 on 16-column frames
+    ("stream", 8, 4, 320, 5, (128, 13)),    # boundaries inside frames
+    ("stream", 64, 16, 512, 1, (256, 2)),   # a wide batch keeps 256
+    ("stream", 1, 1, 512, 1, (32, 16)),     # one row: down to 32 columns
+    ("stream", 1, 1, 1, 131073, (256, 513)),   # past 131,072 frames
+    ("stream", 1, 1, 16, 65536, (1024, 1024)),  # at most 1,024 splits
 ])
-def test_split_count_fills_two_waves_from_the_shapes_alone(B, H, bs, maxb,
-                                                           want):
-    fps, nsplit = tpp._paged_splits(B, H, bs, maxb)
-    assert (fps, nsplit) == want
-    assert fps * nsplit >= maxb and 1 <= fps <= 128 and nsplit <= 1024
-    assert B * H * nsplit >= tpp._PAGED_MIN_BLOCKS or fps == 1
+def test_split_count_fills_two_waves_from_the_shapes_alone(route, B, H, bs,
+                                                           maxb, want):
+    if route == "split":
+        fps, nsplit = tpp._paged_splits(B, H, bs, maxb)
+        assert 1 <= fps <= 128
+        got, least = (fps * bs, nsplit), bs
+    else:
+        got = tpp._paged_stream_splits(B, H, bs, maxb)
+        least = tpp._PAGED_STREAM_MIN_COLS
+    assert got == want
+    span, nsplit = got
+    assert span * nsplit >= maxb * bs and nsplit <= 1024
+    assert B * H * nsplit >= tpp._PAGED_MIN_BLOCKS or span <= least
+
+
+@pytest.mark.parametrize("hd,item,want", [
+    (512, 2, 16), (512, 4, 8), (512, 1, 32),  # the timed hd
+    (64, 2, 64), (64, 1, 64),              # short rows: at most 64 a tile
+    (384, 2, 16),                          # a power of two under 32 KB
+    (4096, 2, 2), (2048, 4, 2),            # 8 KB rows: two columns a slot
+])
+def test_ring_tiles_fill_a_slot_from_the_row_alone(hd, item, want):
+    """The RING path's columns a tile: a slot's K and V within 32 KB; the
+    kernel's ring of two slots (STAGES in csrc/paged_attention.cu) then
+    fits the C entry's shared-memory layout."""
+    tc = tpp._paged_ring(hd, item)
+    assert tc == want
+    assert 2 * tc * hd * item <= tpp._PAGED_SLOT_BYTES or tc == 1
+    stages = 2
+    assert stages * 2 * tc * hd * item + 4 * hd + 8 * stages * tc + 8 \
+        * stages <= 232448
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for n, (stages, _, _) in paged_variants.VARIANTS.items() if stages))
+def test_ring_depth_variant_edits_the_source_once(name):
+    """paged_variants.py's deeper rings replace the source's STAGES (2)
+    and nothing else."""
+    stages = paged_variants.VARIANTS[name][0]
+    text = (_build.CSRC / "paged_attention.cu").read_text()
+    assert "constexpr int STAGES = 2;" in text
+    new = paged_variants.variant_source(text, stages)
+    assert new == text.replace("constexpr int STAGES = 2;",
+                               f"constexpr int STAGES = {stages};")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -396,3 +455,102 @@ def test_split_kernel_matches_plain_and_repeats_its_bits_on_card(
     assert torch.equal(got, again)
     if case != "full_length":
         assert bool((got[0] == 0).all())
+
+
+#: the stream route's cases on the card: B, H, hd, bs, maxb, NB and how
+#: the pages go in: chip_smoke.py's three stream shapes; one layer of a
+#: [NB, 3, H, bs, hd] pool with split boundaries inside 320-column frames;
+#: pages one element off 16 bytes and a head dim whose bf16 rows are off
+#: 16 bytes (the one-element-a-load path, two head-dim slices at 1,100);
+#: rows of 4,096 bf16 (the accumulator in shared memory)
+STREAM_CASES = {
+    "hd512_bs512": ((8, 4, 512, 512, 4, 40), "as_is"),
+    "hd512_bs16": ((4, 4, 512, 16, 64, 260), "as_is"),
+    "hd64_bs512": ((8, 4, 64, 512, 4, 40), "as_is"),
+    "pool_layer": ((8, 4, 384, 320, 5, 44), "pool_layer"),
+    "off16": ((4, 2, 512, 512, 2, 12), "off16"),
+    "odd_hd": ((3, 2, 1100, 300, 3, 10), "as_is"),
+    "hd4096": ((2, 2, 4096, 16, 4, 10), "as_is"),
+}
+
+
+def _stream_case(shape, quantized, seed=10):
+    """Random pages, distinct random frames a row, random lengths with
+    row 0 empty and row 1 at the full maxb * bs."""
+    B, H, hd, bs, maxb, NB = shape
+    rng = np.random.RandomState(seed)
+    q = rng.randn(B, H, hd).astype(np.float32)
+    lengths = rng.randint(1, maxb * bs + 1, (B,)).astype(np.int32)
+    lengths[0], lengths[1] = 0, maxb * bs
+    tables = np.zeros((B, maxb), np.int32)
+    for b in range(B):
+        n = -(-int(lengths[b]) // bs)
+        tables[b, :n] = rng.choice(np.arange(1, NB), n, replace=False)
+    if quantized:
+        kp, vp = (rng.randint(-127, 128, (NB, H, bs, hd)).astype(np.int8)
+                  for _ in range(2))
+        ks, vs = (rng.rand(NB, H, bs, 1).astype(np.float32) * 0.02
+                  for _ in range(2))
+        return [q, kp, vp, tables, lengths, ks, vs]
+    kp, vp = (rng.randn(NB, H, bs, hd).astype(np.float32) for _ in range(2))
+    return [q, kp, vp, tables, lengths, None, None]
+
+
+def _pages_as(t, how):
+    """The same page values as a pool layer's view or one element off 16
+    bytes (scales stay as they are off 16 bytes)."""
+    if how == "pool_layer":
+        pool = torch.zeros((t.shape[0], 3) + tuple(t.shape[1:]),
+                           dtype=t.dtype, device=t.device)
+        pool[:, 1] = t
+        return pool[:, 1]
+    if how == "off16" and t.shape[-1] != 1:
+        flat = torch.zeros(t.numel() + 16, dtype=t.dtype, device=t.device)
+        view = flat[1:1 + t.numel()].view(t.shape)
+        view.copy_(t)
+        return view
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(STREAM_CASES))
+@pytest.mark.parametrize("quantized,dtype", [(False, "float32"),
+                                             (False, "bfloat16"),
+                                             (False, "float16"),
+                                             (True, "float32"),
+                                             (True, "bfloat16")])
+def test_stream_kernel_matches_plain_and_repeats_its_bits_on_card(
+        cuda, case, quantized, dtype):
+    """The stream route (head dim or frame above 256): within the file's
+    bands of the plain version (fp16 one fp16 step), two calls give the
+    same bits, the length-0 row gives zeros, and each launch is counted on
+    the route its view takes."""
+    shape, how = STREAM_CASES[case]
+    args = _torch(_stream_case(shape, quantized), cuda)
+    dt = getattr(torch, dtype)
+    args[0] = args[0].to(dt)
+    if not quantized:
+        args[1:3] = [a.to(dt) for a in args[1:3]]
+    for i in (1, 2, 5, 6):
+        if args[i] is not None:
+            args[i] = _pages_as(args[i], how)
+    # the C entry's RING path takes rows of at most 8 KB on 16 bytes
+    row = args[1].element_size() * shape[2]
+    route = "stream_direct" if how == "off16" or row % 16 or row > 8192 \
+        else "stream"
+    key = f"tpp_paged_attention.{'int8' if quantized else 'dense'}:" \
+          f"{dtype}:{route}"
+    count = tpp.routes[key]
+    got = tpp.paged_attention(*args)
+    again = tpp.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert tpp.routes[key] == count + 2
+    want = tpp.paged_attention_ref(*args)
+    diff = (got.float() - want.float()).abs()
+    if dtype == "float32":
+        assert diff.max().item() <= TOL
+    else:
+        rel = 2.0 ** -7 if dtype == "bfloat16" else 2.0 ** -10
+        assert bool((diff <= rel * want.float().abs() + 1e-6).all())
+    assert torch.equal(got, again)
+    assert bool((got[0] == 0).all())
