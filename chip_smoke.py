@@ -273,6 +273,10 @@ NARROW_BEAM_TOL = 1e-3
 # steps of the drain
 LORA_RANK, LORA_SLOTS, LORA_B_STD = 16, 2, 0.3
 SWAP_AT_STEP = LORA_LOAD_AT_STEP = 48
+# the speculative engine's drain (a random-weight draft: no proposal is
+# accepted, so the phase is host-bound) and its dense target's: new
+# tokens a request, cut from SERVE_NEW to hold the smoke's clock
+ENGINE_SPEC_NEW = 16
 # GPT-2 small and medium (bench.py's gpt2s and gpt2m) for those phases
 GPT2_SMALL_CFG = dict(vocab_size=50304, hidden_size=768, num_layers=12,
                       num_heads=12, max_seq_len=1024, dropout=0.0)
@@ -303,6 +307,13 @@ def torch_dtypes():
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+_MARKS = []   # (section of main, perf_counter at its start)
+
+
+def _mark(name):
+    _MARKS.append((name, time.perf_counter()))
 
 
 def check(cond, what):
@@ -2136,8 +2147,8 @@ def gpt2_engine_ext(dev):
     SERVE_REQUESTS requests of SERVE_NEW new tokens (prompts of 32-127
     tokens, RandomState(5)): the plain dense drain first (the reference of
     the bit-equal checks); the speculative engine (GPT-2 medium target,
-    GPT-2 small draft, spec_k SPEC_K), each token the target's greedy pick
-    within ENGINE_TIE_BF16; the multi-LoRA paged engine (three rank-16
+    GPT-2 small draft, spec_k SPEC_K, ENGINE_SPEC_NEW new tokens a
+    request), each token the target's greedy pick within ENGINE_TIE_BF16; the multi-LoRA paged engine (three rank-16
     adapters on all four sites, LORA_SLOTS slots, so that adapters are
     evicted under load and their sessions restart), its base requests
     bit-equal the plain drain's; hot_swap to a seed-1 model after
@@ -2168,10 +2179,10 @@ def gpt2_engine_ext(dev):
         eng.run_until_complete()
         return eng
 
-    def drain(eng, kws=None, hook=None, profile_at=32):
+    def drain(eng, kws=None, hook=None, profile_at=32, new=SERVE_NEW):
         """Submit every prompt, step to the end (hook(eng, n) after step
         n), one step profiled; returns (tokens, stats, host s, trace)."""
-        rids = [eng.submit(q, max_new_tokens=SERVE_NEW,
+        rids = [eng.submit(q, max_new_tokens=new,
                            **(kws[i] if kws else {}))
                 for i, q in enumerate(prompts)]
         n, trace = 0, None
@@ -2188,12 +2199,12 @@ def gpt2_engine_ext(dev):
         dt = time.perf_counter() - t
         res = [eng.get_request(r) for r in rids]
         check(all(r.finish_reason == "length"
-                  and len(r.output_ids) == SERVE_NEW for r in res),
+                  and len(r.output_ids) == new for r in res),
               "engine drain: every request ends at max_new_tokens")
         return [list(r.output_ids) for r in res], eng.stats(), dt, trace
 
-    def row(stats, dt, trace):
-        return {"new_tok_per_s": SERVE_REQUESTS * SERVE_NEW / dt,
+    def row(stats, dt, trace, new=SERVE_NEW):
+        return {"new_tok_per_s": SERVE_REQUESTS * new / dt,
                 "timed_s": dt, "steps": stats["steps"],
                 "profiled_step_32": trace}
 
@@ -2219,12 +2230,14 @@ def gpt2_engine_ext(dev):
     # ---- speculative continuous batching -------------------------------
     target = gpt2_model(GPT2_MEDIUM_CFG, 0, dev)
     toks, stats, dt, trace = drain(engine(target, draft_model=model,
-                                          spec_k=SPEC_K), profile_at=8)
+                                          spec_k=SPEC_K), profile_at=8,
+                                   new=ENGINE_SPEC_NEW)
     gaps = teacher_forced_rows(target, prompts, toks, dtype="bfloat16")
     check(float(gaps.max()) <= ENGINE_TIE_BF16,
           f"speculative engine: every token the target's greedy pick "
           f"within {ENGINE_TIE_BF16} (max gap {float(gaps.max())})")
-    out["speculative"] = {**row(stats, dt, trace),
+    out["speculative"] = {**row(stats, dt, trace, ENGINE_SPEC_NEW),
+                          "new_tokens": ENGINE_SPEC_NEW,
                           "speculative": stats["speculative"],
                           # a slot's round emits its accepted proposals
                           # and the target's fix-up token
@@ -2233,9 +2246,10 @@ def gpt2_engine_ext(dev):
                           / max(1, stats["speculative"]["proposed"]),
                           "max_gap": float(gaps.max()),
                           "steps_off_greedy": int((gaps > 0).sum())}
-    dense_t, stats_t, dt, _ = drain(engine(target), profile_at=-1)
+    dense_t, stats_t, dt, _ = drain(engine(target), profile_at=-1,
+                                    new=ENGINE_SPEC_NEW)
     out["speculative"]["dense_target_new_tok_per_s"] = \
-        SERVE_REQUESTS * SERVE_NEW / dt
+        SERVE_REQUESTS * ENGINE_SPEC_NEW / dt
     out["speculative"]["tokens_equal_dense_target"] = sum(
         a == b for x, y in zip(toks, dense_t) for a, b in zip(x, y))
     del target
@@ -3222,6 +3236,555 @@ def runtime_services(dev):
     return counts
 
 
+# the runtime services of the nineteenth slice on GPT-2 small (bench.py's
+# training shapes, bf16 auto_cast, AdamW lr 1e-4, seed 0): (g) the
+# numerics telescope, (h) the flight recorder, (i) the perf ledger, (j)
+# the router. The armed/disarmed step ms are read from ABBA quads, as in
+# runtime_services (f); RUNTIME_EXT_QUADS quads a pair of modes
+RUNTIME_EXT_QUADS = 10
+# (g): stats fetched every NUMERICS_INTERVAL armed steps in the sync check
+# (the steps between fetches must sync no more often than the disarmed
+# ones, which sync 2-3 times a step of their own); the
+# fetched norms against a float64 recomputation from the same gradients and
+# parameters within NUMERICS_F64_REL (fp32 sums over up to 38.6M elements,
+# in another order), the max, absmax, counts and quantiles (selections of
+# fp32 values, the quantiles' interpolation in fp32) within
+# NUMERICS_F64_EXACT
+NUMERICS_INTERVAL = 4
+NUMERICS_F64_REL = 1e-4
+NUMERICS_F64_EXACT = 1e-6
+# (h): the sentinel's timeout and poll, the host stall (a serving/step
+# delay) and the device stall (a spin enqueued on the engine's stream)
+STALL_TIMEOUT_S, STALL_POLL_S = 0.5, 0.05
+STALL_HOST_MS, STALL_DEVICE_S = 2000, 2.0
+STALL_KINDS = ("host", "device")
+STALL_NEW = 16
+# (i): the engine's delay after its baseline, and the ledger's rows
+LEDGER_DELAY_MS = 500
+LEDGER_ENGINE_INTERVAL = 16
+# (j): two engines, ROUTER_REQUESTS requests over ROUTER_SESSIONS sessions
+# of ROUTER_NEW new tokens; the engine that fails raises at this step
+ROUTER_REQUESTS, ROUTER_SESSIONS, ROUTER_NEW = 24, 6, 32
+ROUTER_FAIL_AT = 3
+
+
+def runtime_services_ext(dev):
+    """The rest of the runtime services (monitor/numerics.py with
+    testing/parity.py, monitor/blackbox.py, monitor/perfledger.py,
+    serving/router.py) in SpmdTrainer and the ServingEngine on GPT-2
+    small:
+
+    (g) numerics: a disarmed and an armed trainer (fetching every
+        NUMERICS_INTERVAL steps) over the same 5 batches give bit-equal
+        losses and parameters; the steps between fetches sync no more than
+        the disarmed ones (torch.cuda.set_sync_debug_mode("warn")); the
+        fetch at step 4 against a float64 recomputation from the gradients
+        and parameters of that step; peak GiB of each run alone; step ms
+        armed (the default interval, 1) against disarmed in ABBA quads,
+        and the recorder's cost on a trainer the same way;
+    (h) the recorder: a GPT-2 small engine with the sentinel armed writes
+        exactly one ``serving/step`` bundle for a host stall (a
+        serving/step delay) and one for a device stall (a spin on the
+        engine's stream before a step: the token read waits with the GIL
+        released), each holding every in-flight request; the armed
+        engine's step ms against disarmed, steps in ABBA turns;
+    (i) the ledger: the trainer's rows (FLAGS_trace on: step ms, mfu and
+        FLOPs from the cost registry), the engine's rows, and a
+        serving/step delay after the baseline firing
+        perf_regression_total{site=serving,metric=step_ms} exactly once;
+    (j) the router: two engines, ROUTER_REQUESTS requests over
+        ROUTER_SESSIONS sessions (affinity: a miss for each session's
+        first request, hits after), then the same requests with engine
+        "a" raising at its ROUTER_FAIL_AT-th step: its requests fail over
+        to "b"; both runs' tokens against a plain engine's (equal, or
+        each the greedy pick within ENGINE_TIE_BF16 along its own tokens).
+
+    Returns the kernel launches and routes of the phase (counted from
+    zero)."""
+    import glob
+    import os
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import monitor, set_flags, trace
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.distributed import SpmdTrainer
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                         GPTPretrainLoss)
+    from paddle_tpu_torch.models.convert import linear_weights
+    from paddle_tpu_torch.monitor import blackbox, numerics, perfledger
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.serving import Router
+    from paddle_tpu_torch.testing import failpoints
+
+    t_phase = time.perf_counter()
+    cfg = GPTConfig(**GPT2_SMALL_CFG)
+    B, S, V = RUNTIME_BATCH, RUNTIME_SEQ, cfg.vocab_size
+    rng = np.random.RandomState(0)
+    batches = [[torch.as_tensor(rng.randint(0, V, (B, S)).astype(np.int32))
+                .long().to(dev) for _ in range(2)] for _ in range(5)]
+    monitor.enable()
+    trace.disable()
+    set_flags({"goodput": False, "numerics": False, "blackbox": False,
+               "perf_ledger": False})
+    tmp = tempfile.TemporaryDirectory()
+    out = {}
+
+    def trainer():
+        model = GPTForCausalLM(cfg, device=dev,
+                               generator=torch.Generator().manual_seed(0))
+        return model, SpmdTrainer(model, AdamW(
+            learning_rate=1e-4, parameters=model.parameters()),
+            loss_fn=GPTPretrainLoss())
+
+    def step(tr, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with auto_cast(True, dtype="bfloat16"):
+            loss = tr.train_step(*batch)
+        loss.item()
+        return loss, (time.perf_counter() - t) * 1e3
+
+    def synced(tr, batch):
+        """One step with every synchronizing CUDA call counted."""
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with auto_cast(True, dtype="bfloat16"):
+                    loss = tr.train_step(*batch)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return loss, sum("synchroniz" in str(w.message) for w in seen)
+
+    def abba(pair, run, quads):
+        """run(mode) -> ms, in ABBA quads; the quads' ratios of the second
+        mode's ms over the first's, trimmed mean as in (f)."""
+        ms = {m: [] for m in pair}
+        ratios = []
+        for q in range(quads):
+            order = pair if q % 2 == 0 else pair[::-1]
+            quad = {m: 0.0 for m in pair}
+            for mode in order + order[::-1]:
+                t = run(mode)
+                ms[mode].append(t)
+                quad[mode] += t
+            ratios.append(quad[pair[1]] / quad[pair[0]] - 1)
+        ranked = sorted(ratios)
+        cut = int(len(ranked) * RUNTIME_OVERHEAD_TRIM)
+        return {"ms": {m: {"median": statistics.median(v), "all": v}
+                       for m, v in ms.items()},
+                "quad_ratios": ratios,
+                "cost_trimmed_mean": statistics.fmean(
+                    ranked[cut:len(ranked) - cut])}
+
+    def bundles():
+        return sorted(glob.glob(os.path.join(tmp.name, "bb",
+                                             "blackbox-*.json")))
+
+    _zero_counters()
+
+    # (g) numerics ---------------------------------------------------------
+    runs = {}
+    for armed in (False, True):
+        set_flags({"numerics": armed, "numerics_interval": NUMERICS_INTERVAL})
+        model, tr = trainer()
+        captured, want = {}, [False]
+        if armed:
+            real = tr._numerics_grad_leg
+
+            def spy(grads, real=real):
+                if want[0]:
+                    captured.update({n: g.detach().clone()
+                                     for n, g in grads.items()})
+                return real(grads)
+
+            tr._numerics_grad_leg = spy
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses, syncs, f64 = [], [], None
+        for i, batch in enumerate(batches):
+            if i in (1, 2):                   # between fetches
+                loss, n = synced(tr, batch)
+                syncs.append(n)
+            else:
+                if i == 3:
+                    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                    want[0] = armed
+                with auto_cast(True, dtype="bfloat16"):
+                    loss = tr.train_step(*batch)
+            losses.append(loss)
+            if armed and i == 3:              # the fetch step
+                want[0] = False
+                f64 = _numerics_f64(tr, captured, tr._numerics_last_host,
+                                    linear_weights(model), numerics)
+                captured.clear()
+        runs[armed] = {"losses": losses, "syncs": syncs, "peak_gib": peak,
+                       "params": {n: p.detach().clone()
+                                  for n, p in model.named_parameters()},
+                       "fetches": tr._numerics.fetches if armed else 0,
+                       "old_copy_gib": (tr._numerics_old[0].numel() * 4
+                                        / 2 ** 30 if armed else 0.0)}
+        del model, tr, captured
+    set_flags({"numerics": False, "numerics_interval": 1})
+    off, on = runs[False], runs[True]
+    loss_equal = all(torch.equal(a, b) for a, b in zip(off["losses"],
+                                                         on["losses"]))
+    differ = [n for n in off["params"]
+              if not torch.equal(off["params"][n], on["params"][n])]
+    check(loss_equal and not differ,
+          f"runtime_services_ext (g): armed and disarmed runs bit-equal "
+          f"(losses {[x.item() for x in off['losses']]} vs "
+          f"{[x.item() for x in on['losses']]}; parameters that differ: "
+          f"{differ[:5]})")
+    check(all(a <= d for a, d in zip(on["syncs"], off["syncs"]))
+          and on["fetches"] == 1,
+          f"runtime_services_ext (g): the armed steps between fetches sync "
+          f"no more than the disarmed ones ({on['syncs']} vs "
+          f"{off['syncs']}; fetches {on['fetches']})")
+    check(f64["max_rel"]["norms"] <= NUMERICS_F64_REL
+          and f64["max_rel"]["selections"] <= NUMERICS_F64_EXACT,
+          f"runtime_services_ext (g): the fetched stats against float64 "
+          f"({f64['max_rel']}, limits {NUMERICS_F64_REL} / "
+          f"{NUMERICS_F64_EXACT})")
+    del runs
+    torch.cuda.empty_cache()
+    # armed (the default interval) against disarmed, and the recorder's
+    # trainer cost, each in ABBA quads over two resident trainers
+    set_flags({"blackbox_dir": os.path.join(tmp.name, "bb"),
+               "stall_timeout_s": 0.0})
+    _, tr_off = trainer()
+    set_flags({"numerics": True})
+    _, tr_on = trainer()
+    for tr in (tr_off, tr_on):
+        step(tr, batches[0])                  # warm-up
+    n_step = [0]
+
+    def numerics_mode(mode):
+        n_step[0] += 1
+        set_flags({"numerics": mode == "armed"})
+        tr = tr_on if mode == "armed" else tr_off
+        return step(tr, batches[n_step[0] % 5])[1]
+
+    numerics_cost = abba(("disarmed", "armed"), numerics_mode,
+                         RUNTIME_EXT_QUADS)
+    set_flags({"numerics_interval": NUMERICS_INTERVAL})
+    numerics_cost_n = abba(("disarmed", "armed"), numerics_mode,
+                           RUNTIME_EXT_QUADS)
+    set_flags({"numerics": False, "numerics_interval": 1})
+    del tr_on
+    torch.cuda.empty_cache()
+
+    def recorder_mode(mode):
+        n_step[0] += 1
+        set_flags({"blackbox": mode == "armed"})
+        blackbox.sync_from_flag()
+        return step(tr_off, batches[n_step[0] % 5])[1]
+
+    recorder_train_cost = abba(("disarmed", "armed"), recorder_mode,
+                               RUNTIME_EXT_QUADS)
+    set_flags({"blackbox": False})
+    blackbox.sync_from_flag()
+    del tr_off
+    torch.cuda.empty_cache()
+    out["numerics"] = {
+        "interval_in_sync_check": NUMERICS_INTERVAL,
+        "bit_equal_losses_and_params": True,
+        "losses": [x.item() for x in on["losses"]],
+        "syncs_between_fetches": {"armed": on["syncs"],
+                                  "disarmed": off["syncs"]},
+        "peak_gib": {"armed": on["peak_gib"], "disarmed": off["peak_gib"]},
+        "old_param_copy_gib": on["old_copy_gib"],
+        "vs_float64": f64,
+        "step_ms_abba_interval_1": numerics_cost,
+        f"step_ms_abba_interval_{NUMERICS_INTERVAL}": numerics_cost_n}
+    out["blackbox"] = {"trainer_step_ms_abba": recorder_train_cost}
+
+    # (h) the recorder -------------------------------------------------------
+    model = gpt2_model(GPT2_SMALL_CFG, 0, dev)
+    prng = np.random.RandomState(0)
+    prompts = [prng.randint(0, V, (int(prng.randint(32, 128)),))
+               .astype(np.int32) for _ in range(ROUTER_REQUESTS)]
+    set_flags({"blackbox": True})
+    blackbox.sync_from_flag()
+    eng = ServingEngine(model, max_batch=SERVE_SLOTS, dtype="bfloat16")
+    eng.submit(prompts[0], max_new_tokens=2)          # warm-up
+    eng.run_until_complete()
+    blackbox.start_sentinel(timeout_s=STALL_TIMEOUT_S, poll_s=STALL_POLL_S)
+    rids = [eng.submit(p, max_new_tokens=STALL_NEW) for p in prompts]
+    for _ in range(3):
+        eng.step()
+    # the device's spin rate, for the device stall
+    t0e, t1e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0e.record()
+    torch.cuda._sleep(100 * SLEEP_CYCLES)
+    t1e.record()
+    t1e.synchronize()
+    cycles_per_ms = 100 * SLEEP_CYCLES / t0e.elapsed_time(t1e)
+    stalls = {}
+    for kind in STALL_KINDS:
+        in_flight = sorted(
+            r for r in rids if not eng.get_request(r).finished)
+        n0 = len(bundles())
+        t = time.perf_counter()
+        if kind == "host":
+            with failpoints.scoped(f"serving/step=delay:{STALL_HOST_MS}"):
+                eng.step()
+        else:
+            torch.cuda._sleep(int(STALL_DEVICE_S * 1e3 * cycles_per_ms))
+            eng.step()
+        step_s = time.perf_counter() - t
+        new = bundles()[n0:]
+        tables = []
+        for path in new:
+            with open(path) as f:
+                b = json.load(f)
+            tables.append((b["site"], b["reason"], [
+                tb["table"]["in_flight"] for tb in b["requests"]
+                if tb["kind"] == "serving_engine"
+                and tb["table"]["slots"] == SERVE_SLOTS]))
+        check(len(new) == 1 and tables[0][0] == "serving/step"
+              and tables[0][1] == "stall" and in_flight in tables[0][2],
+              f"runtime_services_ext (h): the {kind} stall ({step_s:.2f} s "
+              f"in one step) wrote exactly one serving/step bundle holding "
+              f"every in-flight request {in_flight} ({tables})")
+        stalls[kind] = {"step_s": step_s, "bundles": len(new),
+                        "in_flight": len(in_flight),
+                        "bytes": os.path.getsize(new[0])}
+    eng.run_until_complete()
+    blackbox.stop_sentinel()
+    # the armed engine's cost: one engine, steps in ABBA turns (the
+    # sentinel runs throughout, with a 60 s timeout; disarmed, it idles)
+    blackbox.start_sentinel(timeout_s=60.0)
+    rids = [eng.submit(p, max_new_tokens=SERVE_NEW) for p in prompts]
+    eng_ms = {"disarmed": [], "armed": []}
+    order = ("disarmed", "armed", "armed", "disarmed")
+    n = 0
+    while eng.has_work():
+        mode = order[n % 4] if (n // 4) % 2 == 0 else order[::-1][n % 4]
+        set_flags({"blackbox": mode == "armed"})
+        blackbox.sync_from_flag()
+        t = time.perf_counter()
+        eng.step()
+        eng_ms[mode].append((time.perf_counter() - t) * 1e3)
+        n += 1
+    blackbox.stop_sentinel()
+    set_flags({"blackbox": False})
+    blackbox.sync_from_flag()
+    blackbox.uninstall_hooks()
+    out["blackbox"].update({
+        "stall_timeout_s": STALL_TIMEOUT_S, "stalls": stalls,
+        "device_spin_cycles_per_ms": cycles_per_ms,
+        "engine_step_ms": {m: {"median": statistics.median(v),
+                               "steps": len(v)} for m, v in eng_ms.items()},
+        "engine_cost_median": statistics.median(eng_ms["armed"])
+        / statistics.median(eng_ms["disarmed"]) - 1})
+    del eng
+
+    # (i) the ledger -------------------------------------------------------
+    path = os.path.join(tmp.name, "ledger.jsonl")
+    set_flags({"perf_ledger": True, "perf_ledger_path": path,
+               "perf_ledger_interval": 1})
+    perfledger.reset_ledger()
+    trace.enable()
+    _, tr = trainer()
+    for batch in batches[:4]:
+        step(tr, batch)
+    trace.disable()
+    st = tr.stats()
+    del tr
+    torch.cuda.empty_cache()
+    # the engine's rows every LEDGER_ENGINE_INTERVAL steps: a ledger on
+    # the same file that reads the new interval
+    set_flags({"perf_ledger_interval": LEDGER_ENGINE_INTERVAL})
+    perfledger.reset_ledger()
+    led = perfledger.get_ledger()
+    eng = ServingEngine(model, max_batch=SERVE_SLOTS, dtype="bfloat16")
+    for p in prompts[:SERVE_SLOTS]:
+        eng.submit(p, max_new_tokens=SERVE_NEW)
+    for _ in range(24):
+        eng.step()
+    while ("serving", "step_ms") in led._episode and eng.has_work():
+        eng.step()
+    fam = monitor.counter("perf_regression_total",
+                          labelnames=("site", "metric"))
+    before = fam.labels(site="serving", metric="step_ms").value
+    with failpoints.scoped(f"serving/step=delay:{LEDGER_DELAY_MS}"):
+        for _ in range(3):
+            eng.step()
+    fired = fam.labels(site="serving", metric="step_ms").value - before
+    eng.run_until_complete()
+    rows = perfledger.load_rows(path)
+    train_rows = [r for r in rows if r["site"] == "trainer"]
+    eng_rows = [r for r in rows if r["site"] == "serving"]
+    steady = [r["metrics"] for r in train_rows if "cold" not in r["metrics"]]
+    check(len(train_rows) == 4 and len(steady) == 3
+          and all(m.get("mfu", 0) > 0
+                  and m.get("flops_per_step") == st["flops_per_step"]
+                  and m["step_ms"] > 0 for m in steady),
+          f"runtime_services_ext (i): the trainer's rows carry step ms, mfu "
+          f"and the cost registry's FLOPs ({train_rows})")
+    check(eng_rows and all("decode_greedy_step_ms" in r["metrics"]
+                           for r in eng_rows),
+          f"runtime_services_ext (i): the engine's rows carry the per-kind "
+          f"step ms ({[sorted(r['metrics']) for r in eng_rows]})")
+    check(fired == 1, f"runtime_services_ext (i): a {LEDGER_DELAY_MS} ms "
+          f"serving/step delay after the baseline fired "
+          f"perf_regression_total{{site=serving,metric=step_ms}} {fired} "
+          f"times, expected once")
+    out["perf_ledger"] = {
+        "trainer_rows": [r["metrics"] for r in train_rows],
+        "engine_rows": len(eng_rows),
+        "engine_row_metrics": eng_rows[-1]["metrics"],
+        "env": rows[0]["env"],
+        "delay_ms": LEDGER_DELAY_MS, "regressions_fired": fired,
+        "regressions": list(led.regressions)}
+    set_flags({"perf_ledger": False, "perf_ledger_path": "",
+               "perf_ledger_interval": 1})
+    perfledger.reset_ledger()
+    del eng
+
+    # (j) the router -------------------------------------------------------
+    def engine():
+        e = ServingEngine(model, max_batch=SERVE_SLOTS, dtype="bfloat16")
+        e.submit(prompts[0], max_new_tokens=2)
+        e.run_until_complete()
+        return e
+
+    plain_eng = engine()
+    prids = [plain_eng.submit(p, max_new_tokens=ROUTER_NEW)
+             for p in prompts]
+    plain_eng.run_until_complete()
+    plain = [list(plain_eng.get_request(r).output_ids) for r in prids]
+    del plain_eng
+    engines = {"a": engine(), "b": engine()}
+    routed = {}
+    for kind in ("affinity", "engine_error"):
+        router = Router(engines)
+        if kind == "engine_error":
+            eng_a, calls = engines["a"], [0]
+
+            def flaky(real=eng_a.step):
+                calls[0] += 1
+                if calls[0] == ROUTER_FAIL_AT:
+                    raise RuntimeError("injected engine fault")
+                return real()
+
+            eng_a.step = flaky
+        t = time.perf_counter()
+        rrids = [router.submit(p, max_new_tokens=ROUTER_NEW,
+                               session_id=f"s{i % ROUTER_SESSIONS}")
+                 for i, p in enumerate(prompts)]
+        res = router.run_until_complete()
+        wall = time.perf_counter() - t
+        if kind == "engine_error":
+            del eng_a.step
+        toks = [list(res[r].output_ids) for r in rrids]
+        equal = sum(a == b for a, b in zip(toks, plain))
+        gaps = None
+        if equal < len(plain):
+            gaps = teacher_forced_rows(model, prompts, toks,
+                                       dtype="bfloat16")
+        st = router.stats()["router"]
+        routed[kind] = {"stats": st, "wall_s": wall,
+                        "new_tok_per_s": ROUTER_REQUESTS * ROUTER_NEW / wall,
+                        "requests_equal_plain": equal,
+                        "max_gap": None if gaps is None
+                        else float(gaps.max())}
+        check(gaps is None or float(gaps.max()) <= ENGINE_TIE_BF16,
+              f"runtime_services_ext (j) {kind}: every routed token the "
+              f"plain engine's or the greedy pick within {ENGINE_TIE_BF16} "
+              f"along its own tokens ({routed[kind]})")
+    aff = routed["affinity"]["stats"]
+    err = routed["engine_error"]["stats"]
+    check(aff["affinity"]["hit"] == ROUTER_REQUESTS - ROUTER_SESSIONS
+          and aff["affinity"]["miss"] == ROUTER_SESSIONS
+          and set(aff["requests"]) == {"a", "b"},
+          f"runtime_services_ext (j): a miss for each session's first "
+          f"request, hits after, both engines used ({aff})")
+    check(err["dead"] == ["a"] and err["failover"].get("engine_error", 0) > 0,
+          f"runtime_services_ext (j): engine a's fault failed its requests "
+          f"over to b ({err})")
+    out["router"] = routed
+    del engines, router
+    drop_gpt2_models()
+    tmp.cleanup()
+    counts = _read_kernel_counts()
+    for kind in ("fwd", "dq", "dkv", "delta"):
+        check(counts.get(f"flash_{kind}:bfloat16", 0) > 0,
+              f"runtime_services_ext: flash_{kind} launched on the phase's "
+              f"training path ({counts})")
+    out["wall_s"] = time.perf_counter() - t_phase
+    emit({"phase": "runtime_services_ext", "batch": B, "seq": S,
+          "dtype": "bfloat16 auto_cast", "optimizer": "AdamW lr 1e-4",
+          **out, "main_path_launches": counts})
+    return counts
+
+
+def _numerics_f64(tr, grads, host, linear, numerics):
+    """The fetched stats of one step against a float64 recomputation from
+    the step's gradients (captured as the stats read them), its parameters
+    after the update and the trainer's pre-update copy: the largest
+    relative error over the norms (grad, param, update, rms, ratio) and
+    over the selections (max, absmax, non-finite counts, quantiles)."""
+    import torch
+
+    names = sorted(tr.params)
+    errs = {"norms": 0.0, "selections": 0.0}
+    worst = {}
+
+    def note(kind, key, got, want):
+        got = torch.as_tensor(got, dtype=torch.float64)
+        rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+        if rel > errs[kind]:
+            errs[kind] = rel
+            worst[kind] = key
+    want = {k: [] for k in ("grad_norm", "grad_rms", "grad_absmax",
+                            "grad_max", "nonfinite", "param_norm",
+                            "update_norm", "update_ratio", "quantiles")}
+    qs32 = torch.tensor(numerics.QUANTILES, dtype=torch.float32)
+    for i, n in enumerate(names):
+        g = grads[n].double().reshape(-1)
+        p = tr.params[n].detach().double().reshape(-1)
+        old = tr._numerics_old[1][i].double().reshape(-1)
+        gn = g.norm()
+        want["grad_norm"].append(gn)
+        want["grad_rms"].append(gn / g.numel() ** 0.5)
+        want["grad_absmax"].append(g.abs().max())
+        want["grad_max"].append(g.max())
+        want["nonfinite"].append((~torch.isfinite(g)).sum().double())
+        pn = p.norm()
+        un = (p - old).norm()
+        want["param_norm"].append(pn)
+        want["update_norm"].append(un)
+        want["update_ratio"].append(un / (pn + 1e-12))
+        pos = torch.as_tensor(numerics._digest_positions(g.numel()),
+                              device=g.device)
+        if n in linear:                 # the reference's [in, out] order
+            a, b = tr.params[n].shape
+            pos = (pos % a) * b + pos // a
+        # jnp.quantile's positions in fp32 (q (n - 1), its floor, ceil and
+        # weight), the interpolation of the sorted values in float64
+        srt = g[pos].abs().sort().values.cpu()
+        at = qs32 * torch.tensor(float(len(srt) - 1), dtype=torch.float32)
+        lo, hi = at.floor(), at.ceil()
+        w = (at - lo).double()
+        want["quantiles"].append(srt[lo.long()] * (1 - w)
+                                 + srt[hi.long()] * w)
+    for key, rows in want.items():
+        w = torch.stack([r.cpu() for r in rows])
+        kind = "norms" if key in ("grad_norm", "grad_rms", "param_norm",
+                                  "update_norm", "update_ratio") \
+            else "selections"
+        note(kind, key, host[key], w)
+    return {"max_rel": errs, "worst": worst, "layers": len(names)}
+
+
 def train_recipes(dev):
     """The rest of GPT training (optimizer.lr, nn.clip, SpmdTrainer's
     recompute and gradient merge, amp.GradScaler): the narrow recipe against
@@ -3560,6 +4123,7 @@ def main():
     dtypes = torch_dtypes()
 
     # ---- 1. build ---------------------------------------------------------
+    _mark("1 build")
     t0 = time.perf_counter()
     seconds = _build.build()
     wall = time.perf_counter() - t0
@@ -3623,6 +4187,7 @@ def main():
     emit({"phase": "build_stream_kernels", "kernels": stream_kernels})
 
     # ---- 2. every kernel against its plain version ------------------------
+    _mark("2 every kernel against its plain version")
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape, dtype=torch.float32, std=1.0):
@@ -4010,6 +4575,7 @@ def main():
           "delta_tol_x_max(1,max|torch|)": DELTA_TOL})
 
     # ---- 3. narrow model at seq 1024 against the JAX fixture --------------
+    _mark("3 narrow model at seq 1024 against the JAX fixture")
     fix = np.load(golden.FIXTURE)
     narrow = GPTForCausalLM(GPTConfig(**golden.NARROW), device=dev)
     narrow.load_state_dict(params_from_jax(golden.jax_layout_params()))
@@ -4143,6 +4709,7 @@ def main():
                   "bf16_update_rel_err": golden.TRAIN_BF16_UPDATE_RTOL}})
 
     # ---- 4. GPT-2 small, full width: the main path ------------------------
+    _mark("4 GPT-2 small, full width: the main path")
     cfg = GPTConfig.small()
     model = GPTForCausalLM(cfg, device=dev,
                            generator=torch.Generator().manual_seed(0)).eval()
@@ -4262,6 +4829,7 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- 4b. GPT-2 small training, full width: the training main path -----
+    _mark("4b GPT-2 small training, full width: the training main path")
     # bench.py's headline workload (bench.py:282-354): SpmdTrainer +
     # AdamW(lr 1e-4) + GPTPretrainLoss at 16 x 1024, dropout 0, ids and
     # labels drawn as bench.py draws them, under bf16 auto_cast with
@@ -4355,15 +4923,20 @@ def main():
           "tpp_routes": tpp_routes_checked("training path")})
 
     # ---- 4b2. runtime services in the trainer and the engine --------------
+    _mark("4b2 runtime services in the trainer and the engine")
     counts_runtime = runtime_services(dev)
+    _mark("4b3 runtime_services_ext")
+    counts_runtime_ext = runtime_services_ext(dev)
 
     # ---- 4c. PP-YOLOE detection serving; 4d. the TPP row primitives -----
+    _mark("4c PP-YOLOE detection serving; 4d. the TPP row primitives")
     det_path = serve_detector(dev, gen)
     rows_path = call_row_primitives(randn)
     counts_detect, counts_rows = det_path["counts"], rows_path["counts"]
     counts_anchors = det_path["counts_anchors"]
 
     # ---- 4e. GPT-2 small through the ServingEngine, dense and paged -------
+    _mark("4e GPT-2 small through the ServingEngine, dense and paged")
     serve = gpt2_serving_engines(dev)
     counts_paged = serve["counts"]
     emit({"phase": "kernels_vs_plain", "kernel": "paged_attention",
@@ -4373,6 +4946,7 @@ def main():
     paged_errs, paged_full, paged_stream = check_paged_sources(gen)
 
     # ---- 4f. gpt2s_decode: the bf16, int8 and fp8 caches ------------------
+    _mark("4f gpt2s_decode: the bf16, int8 and fp8 caches")
     narrow_q = narrow_quantized_decode(dev)
     decode = gpt2_decode_legs(dev)
     counts_decode = decode["counts"]
@@ -4388,6 +4962,7 @@ def main():
           "narrow_tie": QUANT_TIE_F32, "main_path_launches": counts_decode})
 
     # ---- 4f2. the rest of generate and the engine --------------------------
+    _mark("4f2 the rest of generate and the engine")
     _zero_counters()
     narrow_ext = narrow_generate_ext(dev)
     emit({"phase": "narrow_generate_ext", **narrow_ext, "tie": TIE_GAP,
@@ -4415,15 +4990,19 @@ def main():
           "main_path_launches": counts_engine_ext})
 
     # ---- 4g. PP-YOLOE training -------------------------------------------
+    _mark("4g PP-YOLOE training")
     counts_det_train = train_detector(dev)
 
     # ---- 4h. ResNet-50, LeNet and BERT-base training -----------------------
+    _mark("4h ResNet-50, LeNet and BERT-base training")
     counts_models = train_models(dev)
 
     # ---- 4i. the rest of GPT training: the recipe, gpt2m, gpt2s_16k, fp16 -
+    _mark("4i the rest of GPT training: the recipe, gpt2m, gpt2s_16k, fp16")
     counts_recipes = train_recipes(dev)
 
     # ---- 5. times at the main path's shapes -------------------------------
+    _mark("5 times at the main path's shapes")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > L2
 
     def time_ms(fn, reps=20, warmup=3, hide_enqueue=False):
@@ -4477,6 +5056,7 @@ def main():
         by_path = {"gpt_serve": count(counts_serve),
                    "gpt_train": count(counts_train),
                    "runtime_services": count(counts_runtime),
+                   "runtime_services_ext": count(counts_runtime_ext),
                    "detect_serve": count(counts_detect),
                    "detect_anchors_nms": count(counts_anchors),
                    "tpp_rows": count(counts_rows),
@@ -4901,6 +5481,9 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
+    _mark(None)
+    emit({"phase": "phase_seconds", "seconds": {
+        name: t1 - t0 for (name, t0), (_, t1) in zip(_MARKS, _MARKS[1:])}})
     emit({"kernels": kernels})
     print(smi[0], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -61,14 +61,35 @@ a step (subsystem ``trainer``; trace) and a ``guard/skip`` span a skipped
 update; the ``trainer/step`` failpoint before the step and the
 ``trainer/batch`` transform on the batch (``scale:F`` multiplies the float
 inputs only); the ``step`` goodput bucket (FLAGS_goodput, read at
-construction); a ``weight_version`` (framework/lineage.py) bumped each
-step; ``state_dict`` / ``set_state_dict`` over ``gather_train_state`` /
+construction); a ``trainer/step`` flight-recorder window around each step
+(FLAGS_blackbox); the numerics telescope (FLAGS_numerics, below); a
+perf-ledger observation each step (FLAGS_perf_ledger: step ms and, with
+the step's FLOPs in the cost registry, MFU; a JSONL row every
+``FLAGS_perf_ledger_interval`` steps; the first step of each batch
+signature, which builds kernels and grows the allocator, is recorded
+``cold`` and kept out of the sentinel's baseline, as the reference keeps
+a compiling step out); a ``weight_version`` (framework/lineage.py) bumped
+each step; ``state_dict`` / ``set_state_dict`` over ``gather_train_state`` /
 ``restore_train_state`` with the reference's ``CHECKPOINT_SCHEMA`` payload
 plus ``buffers``, ``shard_specs`` recording the one-device layout, the
 learning-rate scheduler's state riding along (the trainer takes no
 GradScaler, as in the reference: its state is ``GradScaler.state_dict()``).
 The reference's ``compile_ms`` and ``benchmark_sync_total`` have no
-counterpart (nothing compiles; no FLAGS_benchmark). With dropout, the
+counterpart (nothing compiles; no FLAGS_benchmark).
+
+The numerics telescope (FLAGS_numerics, read each step): the per-layer
+stats of monitor/numerics.py, rows in ``sorted(self.params)`` order, are
+computed on the RAW gradients before the non-finite guard and the
+optimizer's clip (so a poisoned step still names its layer) and, after
+the update, on the parameters against a copy of them taken before it
+(kept only while armed: one fp32 copy of the parameters). They stay on
+the device; ``numerics_fetch()`` reads them back in one transfer every
+``FLAGS_numerics_interval`` armed steps under a ``numerics/fetch`` span
+and feeds the drift detectors; ``stats()["numerics"]`` holds the
+snapshot. Where the guard skips a step, the port applies no update, so
+that step's update norm and ratio read 0 (the reference computes its
+discarded update). Disarmed, the step runs exactly the ops it ran
+before. With dropout, the
 port's generator is stateful and not in the checkpoint (the reference
 derives each step's key from the step count), so a resumed run draws
 other masks; at dropout 0 a resume is bit-exact.
@@ -91,6 +112,7 @@ from torch.utils._python_dispatch import _disable_current_modes as _no_modes
 from .. import flags as _flags
 from .. import monitor as _monitor
 from .. import trace as _trace
+from ..monitor import blackbox_lazy as _blackbox  # import-free facade
 from ..amp.auto_cast import auto_cast, disabled as _autocast_off
 from ..core import generator as _generator
 from ..framework import lineage as _lineage
@@ -377,6 +399,25 @@ class SpmdTrainer:
 
             _goodput.ensure_run(self.weight_version.run_id)
             self._goodput = _goodput
+        # numerics telescope (FLAGS_numerics, read each step): the monitor
+        # is created on the first armed fetch, so the plain path never
+        # imports monitor/numerics.py
+        self._numerics = None
+        self._numerics_seen = 0            # armed steps so far
+        self._numerics_last_device = None  # device-resident stats
+        self._numerics_last_host = None    # cached fetch of the above
+        self._numerics_old = None          # pre-update params (armed only):
+        #                                    (flat fp32 buffer, param views)
+        self._numerics_linear = None       # [out, in] Linear weight names
+        # perf ledger (FLAGS_perf_ledger), consumed at construction; host
+        # timings only, disarmed the hook is one `is not None`
+        self._perf_ledger = None
+        self._perf_cold = False            # this step saw a new batch sig
+        self._seen_sigs = set()
+        if _flags.get_flag("perf_ledger", False):
+            from ..monitor import perfledger as _perfledger
+
+            self._perf_ledger = _perfledger.get_ledger()
 
     def _forward_loss(self, batch):
         """(loss, outputs): outputs is the layer's output with a
@@ -461,10 +502,14 @@ class SpmdTrainer:
         """One step: forward and backward of each micro-batch, then the
         (guarded) update. Returns the loss, the micro-batches' mean, as a
         detached fp32 tensor."""
+        # trainer/step window for the stall sentinel; a finished run
+        # deactivates it instead of reading as stalled forever
         if self._goodput is not None:
-            with self._goodput.bucket("step"):
+            with self._goodput.bucket("step"), \
+                    _blackbox.progress("trainer/step"):
                 return self._train_step_impl(batch)
-        return self._train_step_impl(batch)
+        with _blackbox.progress("trainer/step"):
+            return self._train_step_impl(batch)
 
     def _train_step_impl(self, batch):
         _failpoints.failpoint("trainer/step")
@@ -475,6 +520,9 @@ class SpmdTrainer:
         batch = _failpoints.transform("trainer/batch", batch)
         sig = _batch_sig_label(batch)
         self._last_sig = sig
+        if self._perf_ledger is not None:
+            self._perf_cold = sig not in self._seen_sigs
+            self._seen_sigs.add(sig)
         # the first step of each batch signature runs under the FLOP
         # counter while tracing (the reference records its compiled
         # step's cost analysis under the same condition)
@@ -516,6 +564,8 @@ class SpmdTrainer:
             sp.end(step_ms=step_ms)
             self._step_span = None
             _trace.add_counter_sample("trainer_step_ms", step_ms)
+        if self._perf_ledger is not None:
+            self._ledger_step(step_ms)
         return loss
 
     def _step_body(self, batch):
@@ -548,6 +598,12 @@ class SpmdTrainer:
         if self.return_outputs:
             self.last_outputs = None if outputs[0] is None \
                 else _concat_outputs(outputs)
+        nstats = None
+        if _flags.get_flag("numerics", False):
+            # on the RAW grads, before the guard and the optimizer's clip
+            nstats = self._numerics_grad_leg(grads)
+        elif self._numerics_old is not None:
+            self._numerics_old = None        # disarmed: drop the copy
         if guard and not self._all_finite(loss, grads):
             with torch.no_grad():
                 for n, b in self.buffers.items():
@@ -559,6 +615,8 @@ class SpmdTrainer:
                                             self.opt_state,
                                             lr=self.optimizer.get_lr())
             self.optimizer._step_count += 1
+        if nstats is not None:
+            self._numerics_note(self._numerics_update_leg(nstats, loss))
         for p in self.params.values():
             p.grad = None
         return loss
@@ -590,6 +648,119 @@ class SpmdTrainer:
                 f"(> FLAGS_max_skip_steps={max_skip}); aborting — every "
                 "skipped step left parameters and optimizer state "
                 "untouched; inspect the data pipeline / learning rate")
+
+    # -- numerics telescope (FLAGS_numerics) -----------------------------
+    def _numerics_grad_leg(self, grads):
+        """The gradient half of the step's stats, and the copy of the
+        parameters the update half reads; nothing leaves the device."""
+        from ..models.convert import linear_weights
+        from ..monitor import numerics as _numerics
+
+        names = sorted(self.params)
+        params = [self.params[n] for n in names]
+        if self._numerics_old is None:
+            # one flat fp32 buffer and a view of it shaped as each param
+            flat = torch.empty(sum(p.numel() for p in params),
+                               dtype=torch.float32, device=self._device)
+            self._numerics_old = (flat, [
+                v.view(p.shape) for v, p in zip(
+                    flat.split([p.numel() for p in params]), params)])
+        flat, views = self._numerics_old
+        with torch.no_grad():
+            if all(p.dtype == torch.float32 for p in params):
+                torch.cat([p.reshape(-1) for p in params], out=flat)
+            else:
+                torch._foreach_copy_(views, params)
+        if self._numerics_linear is None:
+            self._numerics_linear = linear_weights(self.layer)
+        gs = [grads[n] if grads[n] is not None
+              else torch.zeros_like(self.params[n]) for n in names]
+        return _numerics._grad_stats(
+            gs, [n in self._numerics_linear for n in names])
+
+    def _numerics_update_leg(self, nstats, loss):
+        from ..monitor import numerics as _numerics
+
+        names = sorted(self.params)
+        nstats.update(_numerics._update_stats(
+            self._numerics_old[1], [self.params[n] for n in names]))
+        return _numerics._with_loss(nstats, loss)
+
+    def _numerics_note(self, nstats):
+        """Bank the step's device-resident stats; fetch them to the host
+        only every FLAGS_numerics_interval armed steps."""
+        self._numerics_seen += 1
+        self._numerics_last_device = nstats
+        self._numerics_last_host = None
+        interval = max(1, int(_flags.get_flag("numerics_interval", 1)))
+        if self._numerics_seen % interval == 0:
+            self.numerics_fetch()
+
+    def numerics_fetch(self):
+        """Fetch the latest on-device numerics stats to the host (one
+        transfer), feed the drift detectors, and return the host dict
+        (STAT_KEYS -> numpy arrays, rows in ``sorted(self.params)`` order)
+        — or None when FLAGS_numerics never armed a step. Idempotent per
+        step (the parity harness fetches after every step without
+        observing twice); emits a ``numerics/fetch`` span."""
+        if self._numerics_last_host is not None:
+            return self._numerics_last_host
+        nstats = self._numerics_last_device
+        if nstats is None:
+            return None
+        from ..monitor import numerics as _numerics_mod
+
+        if self._numerics is None:
+            self._numerics = _numerics_mod.NumericsMonitor(
+                sorted(self.params), source="trainer")
+
+        def fetch():
+            packed = torch.cat([v.reshape(-1) for v in nstats.values()])
+            flat = packed.cpu().numpy()
+            host, off = {}, 0
+            for k, v in nstats.items():
+                n = v.numel()
+                host[k] = flat[off:off + n].reshape(tuple(v.shape))
+                off += n
+            return host
+
+        with _trace.span("numerics/fetch", subsystem="trainer",
+                         step=int(self.optimizer._step_count)):
+            if _monitor.is_enabled():
+                with _monitor.timed(_numerics_mod._metrics()["fetch_ms"]):
+                    host = fetch()
+            else:
+                host = fetch()
+        self._numerics_last_host = host
+        # anomalies carry the OPTIMIZER step, the clock of the spans
+        self._numerics.observe(host, step=int(self.optimizer._step_count))
+        return host
+
+    # -- perf ledger (FLAGS_perf_ledger) --------------------------------
+    def _ledger_step(self, step_ms):
+        """Armed-only per-step feed: the regression sentinel sees every
+        step's wall ms and, with the step's FLOPs in the cost registry,
+        its MFU; a JSONL row lands every FLAGS_perf_ledger_interval
+        steps. The first step of a batch signature is recorded ``cold``
+        and kept out of the baseline. Eager steps have no separate
+        execution window or sync, so ``exec_ms`` is the step's wall ms
+        and ``sync_ms`` 0."""
+        m = {"step_ms": step_ms, "exec_ms": step_ms, "sync_ms": 0.0}
+        if self._perf_cold:
+            m["cold"] = 1
+        entry = (self._cost_entries.get(self._last_sig)
+                 or _costs.get("trainer", self._last_sig)
+                 if self._last_sig else None)
+        flops = entry.get("flops") if entry else None
+        peak = _costs.peak_flops(self._device)
+        if flops and step_ms and peak:
+            m["mfu"] = float(flops) / ((step_ms / 1e3) * peak)
+            m["flops_per_step"] = flops
+        if entry and entry.get("bytes_accessed"):
+            m["bytes_per_step"] = entry["bytes_accessed"]
+        self._perf_ledger.on_step("trainer", m, sig=self._last_sig,
+                                  mesh=f"device={self._device}",
+                                  check=not self._perf_cold)
 
     # -- checkpoint / resume --------------------------------------------
     def _checkpoint_layout(self):
@@ -685,4 +856,8 @@ class SpmdTrainer:
                 "nonfinite_streak": self._nonfinite_streak,
             },
             "device_memory": _costs.sample_device_memory(),
+            # the numerics telescope's model-health snapshot (None until
+            # FLAGS_numerics arms a fetch)
+            "numerics": (self._numerics.snapshot()
+                         if self._numerics is not None else None),
         }

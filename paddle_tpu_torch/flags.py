@@ -6,12 +6,14 @@ conflicting re-definition, provisional entries made by set_flags before a
 flag is defined), with only the flags the ported serving and training
 paths read. As in the reference, the runtime services define their own
 flags where they live (``monitor``, ``trace``, ``testing.failpoints``,
-``trace.costs``); ``goodput`` is defined here so that hook sites can read
-it without importing monitor/goodput.py.
+``trace.costs``, ``monitor.blackbox``, ``monitor.numerics``); the master
+switches ``goodput``, ``blackbox``, ``numerics`` and ``perf_ledger`` (and
+the ledger's knobs) are defined here so that hook sites can read them
+without importing the module they arm.
 
 Flags of modules not ported yet are refused: ``set_flags`` raises
-NotImplementedError when one of them is set to a true value (and the
-monitor package raises at import when the environment arms one).
+NotImplementedError when one of them is set to a true value. Only
+``jit_cache_dir`` is left (framework/aot.py).
 """
 import os
 
@@ -19,9 +21,6 @@ _REGISTRY = {}
 
 #: flags whose module is not ported yet -> what is missing
 NOT_PORTED = {
-    "blackbox": "monitor/blackbox.py (the flight recorder)",
-    "numerics": "monitor/numerics.py (the numerics telescope)",
-    "perf_ledger": "monitor/perfledger.py (the perf ledger)",
     "jit_cache_dir": "framework/aot.py (the persistent AOT compile cache)",
 }
 
@@ -144,12 +143,50 @@ define_flag("goodput", False,
             "serving_stale_sessions_total). Host-side accounting only: "
             "armed and disarmed runs train bit-identically. Unset, "
             "monitor/goodput.py is never imported and every hook is one "
-            "flag read. The reference's perf-ledger row per run is not "
-            "ported (FLAGS_perf_ledger raises)")
+            "flag read. With FLAGS_perf_ledger also armed, each finished "
+            "run appends a site=run/goodput ledger row")
 define_flag("goodput_stall_s", 2.0,
             "with FLAGS_goodput: an unattributed gap (no bucket active) "
             "at least this many seconds books as `stall`; shorter gaps "
             "book as `other` (loop/bookkeeping overhead)")
-for _name in NOT_PORTED:
-    define_flag(_name, "" if _name == "jit_cache_dir" else False,
-                f"not ported yet: needs {NOT_PORTED[_name]}")
+define_flag("numerics", False,
+            "numerics telescope (monitor/numerics.py): SpmdTrainer adds ONE "
+            "batched on-device per-layer tensor-health aggregation to each "
+            "step (grad/param norms, update ratio, non-finite counts, "
+            "quantile digest) feeding drift detectors; unset, the train "
+            "step is bit-identical to the un-instrumented one and the "
+            "module is never imported")
+define_flag("numerics_interval", 1,
+            "with FLAGS_numerics: fetch the on-device stats to the host "
+            "every N train steps (the stats stay on the device between "
+            "fetches: no new per-step host sync)")
+define_flag("blackbox", False,
+            "black-box flight recorder on/off (monitor/blackbox.py): "
+            "progress beacons, the bounded event ring, the stall sentinel "
+            "and dump bundles; off turns every beacon()/note() call site "
+            "into one boolean check and monitor/blackbox.py is never "
+            "imported")
+define_flag("perf_ledger", False,
+            "persistent perf ledger (monitor/perfledger.py): trainer, "
+            "engine and goodput-run telemetry (step wall ms, MFU, cost-"
+            "registry FLOPs and bytes, latency digests) appended as "
+            "environment-fingerprinted JSONL rows to FLAGS_perf_ledger_"
+            "path, with an EMA/sigma regression sentinel firing "
+            "perf_regression_total{site,metric}. Host-side timings only: "
+            "armed and disarmed runs train bit-identically. Unset, the "
+            "module is never imported and every hook is one boolean check")
+define_flag("perf_ledger_path", "",
+            "with FLAGS_perf_ledger: path of the append-only JSONL ledger "
+            "(one write + flush + fsync a row; readers skip a torn tail). "
+            "Empty = rows are kept in-process only")
+define_flag("perf_ledger_sigma", 4.0,
+            "with FLAGS_perf_ledger: regression threshold, in EMA standard "
+            "deviations on the bad side of a (site, metric) baseline")
+define_flag("perf_ledger_warmup", 5,
+            "with FLAGS_perf_ledger: observations of a (site, metric) "
+            "series before the sentinel may fire")
+define_flag("perf_ledger_interval", 1,
+            "with FLAGS_perf_ledger: append a ledger row every N "
+            "observations per site (the sentinel sees every one)")
+define_flag("jit_cache_dir", "",
+            f"not ported yet: needs {NOT_PORTED['jit_cache_dir']}")

@@ -115,6 +115,9 @@ def _record_ckpt(op, path, t0, span=None):
         pass
     if span is not None:   # trace span tagged with the payload size
         span.end(path=path, **({} if nbytes is None else {"bytes": nbytes}))
+    # flight-recorder byte tag (one boolean check when the recorder is
+    # off): a checkpoint in flight at wedge time shows in the ring
+    _monitor.bb_note("checkpoint", op=op, path=str(path), bytes=nbytes)
     if not _monitor.is_enabled():
         return
     _CKPT.labels(op=op).inc()

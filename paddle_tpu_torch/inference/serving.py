@@ -90,9 +90,19 @@ Runtime services, as in the reference:
 - the lineage families ``serving_weight_version`` and
   ``serving_stale_sessions_total`` under FLAGS_goodput.
 
+- the flight recorder (FLAGS_blackbox): every engine is a dump provider
+  of its in-flight request table; ``serving/step`` windows around each
+  step and ``serving/admit`` windows around each admission; a
+  ``hot_swap`` note; ``run_until_complete``'s ``engine_stalled`` error
+  names the bundle it wrote;
+- the perf ledger (FLAGS_perf_ledger, read at construction): each step's
+  wall ms goes through the regression sentinel, and every
+  ``FLAGS_perf_ledger_interval``-th step appends the
+  ``stats()["breakdown"]`` row (``perfledger.record_engine``).
+
 Not ported, each raising ``NotImplementedError``: ``tp_mesh`` and
-``warmup``. Not ported at all: the blackbox recorder (its facade is
-inert), the perf ledger and the AOT cache.
+``warmup`` (``warmup`` needs framework/aot.py, the AOT cache, which is not
+ported either).
 """
 import time
 
@@ -103,6 +113,7 @@ from .. import flags as _flags
 from .. import monitor as _monitor
 from .. import trace as _trace
 from ..framework import lineage as _lineage
+from ..monitor import blackbox_lazy as _blackbox  # import-free facade
 from ..serving import decode_model as _dm_registry
 from ..serving import paging as _paging
 from ..serving.decode_model import cache_leaves, cache_map, cast_params
@@ -125,6 +136,31 @@ class _AdapterUnavailable(RuntimeError):
 
 def _not_ported(what):
     raise NotImplementedError(f"{what} is not ported yet")
+
+
+def _blackbox_request_table(eng):
+    """One engine's in-flight request table for a blackbox dump bundle:
+    where every unfinished request lives and how far it got — the
+    'which rids were mid-flight when it wedged' evidence."""
+    running = [{"rid": r.rid, "slot": s, "pos": int(eng._pos[s]),
+                "new_tokens": len(r.output_ids)}
+               for s, r in enumerate(eng._slot_req)
+               if r is not None and s not in eng._prefilling]
+    table = {
+        "slots": eng.B,
+        "step_no": eng._step_no,
+        "draining": eng._draining,
+        "queued": [r.rid for r in eng._queue],
+        "handoff": [e[0].rid for e in eng._handoff],
+        "prefilling": {s: e[0].rid for s, e in eng._prefilling.items()},
+        "running": running,
+        "finished": len(eng._finished),
+    }
+    table["in_flight"] = sorted(
+        set(table["queued"]) | set(table["handoff"])
+        | set(table["prefilling"].values())
+        | {r["rid"] for r in running})
+    return table
 
 
 # engine metrics in the default registry (every engine in the process
@@ -506,6 +542,18 @@ class ServingEngine:
 
             self._goodput = _goodput
             _goodput.note_serving_version(self._weight_version.counter)
+        # perf ledger (FLAGS_perf_ledger), consumed at construction; host
+        # accounting only, disarmed step() pays one `is not None`
+        self._perf_ledger = None
+        self._perf_rounds = 0
+        if _flags.get_flag("perf_ledger", False):
+            from ..monitor import perfledger as _perfledger
+
+            self._perf_ledger = _perfledger.get_ledger()
+        # blackbox dump bundles carry every live engine's in-flight
+        # request table (weakly held; only read at dump time)
+        _blackbox.register_provider("serving_engine", self,
+                                    _blackbox_request_table)
 
     # -- the decode math ----------------------------------------------------
     def _cache_row(self):
@@ -620,7 +668,8 @@ class ServingEngine:
         del self._prefixes[prefix_id]
 
     def warmup(self, batch_shapes=None, sampling=True):
-        _not_ported("warmup() (the reference's AOT program cache)")
+        _not_ported("warmup() (it needs framework/aot.py, the reference's "
+                    "AOT program cache)")
 
     # -- multi-LoRA adapters (paged engines) --------------------------------
     def _require_adapters(self):
@@ -770,6 +819,7 @@ class ServingEngine:
         self._weight_version = self._weight_version.bump("hot_swap")
         if self._goodput is not None:
             self._goodput.note_serving_version(self._weight_version.counter)
+        _blackbox.note("hot_swap", version=str(self._weight_version))
         return self._weight_version
 
     def _count_step(self, kind):
@@ -1302,6 +1352,10 @@ class ServingEngine:
             req._qspan = None
 
     def _admit_one(self, slot, req):
+        with _blackbox.progress("serving/admit"):
+            self._admit_one_inner(slot, req)
+
+    def _admit_one_inner(self, slot, req):
         if self._paged:
             return self._admit_one_paged(slot, req)
         prefix_len = req.prefix_len
@@ -1477,10 +1531,11 @@ class ServingEngine:
                 if self._handoff:
                     req, kc1, vc1, logits = self._handoff.pop(0)
                     try:
-                        self._note_admission(req)
-                        t0 = time.perf_counter()
-                        self._activate(slot, req, kc1, vc1, logits)
-                        self._acc_ms("handoff_admit", t0)
+                        with _blackbox.progress("serving/admit"):
+                            self._note_admission(req)
+                            t0 = time.perf_counter()
+                            self._activate(slot, req, kc1, vc1, logits)
+                            self._acc_ms("handoff_admit", t0)
                     except Exception:
                         self._finish_req(req, "error", slot=slot)
                         self._note_error()
@@ -1608,6 +1663,32 @@ class ServingEngine:
         slot. Returns the requests finished in this step. Host-side
         per-slot failures finish only that slot's request (reason
         "error"); a failure of the batched decode itself propagates."""
+        # window beacon around the WHOLE step (the failpoint delay
+        # included): a thread wedged anywhere inside leaves an active,
+        # non-advancing site for the stall sentinel to name
+        with _blackbox.progress("serving/step"):
+            if self._perf_ledger is None:
+                return self._step_inner()
+            t0 = time.perf_counter()
+            try:
+                return self._step_inner()
+            finally:
+                self._ledger_round((time.perf_counter() - t0) * 1e3)
+
+    def _ledger_round(self, step_ms):
+        """Armed-only (FLAGS_perf_ledger) per-step feed: the regression
+        sentinel sees every step's wall ms; every
+        FLAGS_perf_ledger_interval-th step appends the full
+        stats()['breakdown'] row."""
+        led = self._perf_ledger
+        led.observe("serving", {"step_ms": step_ms})
+        self._perf_rounds += 1
+        if self._perf_rounds % led.interval == 0:
+            from ..monitor import perfledger as _perfledger
+
+            _perfledger.record_engine(self, ledger=led)
+
+    def _step_inner(self):
         with torch.no_grad():
             _fp.failpoint("serving/step")
             if self._paged_active():
@@ -1788,13 +1869,22 @@ class ServingEngine:
     def run_until_complete(self, max_steps=100_000):
         """Step until nothing is queued or in flight; returns {rid:
         Request}. Past `max_steps` every request still in flight finishes
-        with reason "engine_stalled" and a RuntimeError names them."""
+        with reason "engine_stalled" and a RuntimeError names them (and,
+        with the recorder on, the dump bundle written first)."""
         steps = 0
         while self.has_work():
             self.step()
             steps += 1
             if steps > max_steps:
                 stalled = []
+                # the dump captures the wedge's live state; the finishes
+                # below rewrite it, so write the bundle FIRST
+                dump_path = None
+                if _blackbox.is_enabled():
+                    dump_path = _blackbox.dump(
+                        "stall", site="serving/step",
+                        extra={"trigger": "run_until_complete",
+                               "max_steps": max_steps})
                 for req in list(self._queue):
                     self._queue.remove(req)
                     self._finish_req(req, "engine_stalled")
@@ -1811,5 +1901,7 @@ class ServingEngine:
                 raise RuntimeError(
                     "serving engine did not converge within "
                     f"{max_steps} steps; failed in-flight requests "
-                    f"{sorted(set(stalled))} with reason='engine_stalled'")
+                    f"{sorted(set(stalled))} with reason='engine_stalled'"
+                    + (f"; blackbox dump bundle: {dump_path}"
+                       if dump_path else ""))
         return dict(self._finished)

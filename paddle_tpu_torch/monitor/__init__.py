@@ -26,12 +26,14 @@ Three exporters, one schema: ``snapshot()`` JSON dict -> ``to_json`` /
 ``FLAGS_monitor=0`` (or ``disable()``) turns every recording call into a
 single boolean check.
 
-The ``bb_*`` flight-recorder facade is kept so that call sites read as in
-the reference; it is inert, because monitor/blackbox.py is not ported:
-``FLAGS_blackbox`` (like ``FLAGS_numerics`` and ``FLAGS_perf_ledger``)
-raises NotImplementedError when set, and at this module's import when the
-environment arms it. ``monitor.goodput`` loads lazily, as in the
-reference.
+The ``bb_*`` flight-recorder facade keeps every instrumented path one
+boolean check without importing the recorder: monitor/blackbox.py adopts
+this module's on/off latch (``_BB_ON``), provider list and its lock at
+import. ``monitor.numerics``, ``monitor.blackbox``, ``monitor.perfledger``
+and ``monitor.goodput`` load lazily, as in the reference: a process that
+arms none of their flags imports none of them; the environment's
+``FLAGS_blackbox``, ``FLAGS_perf_ledger`` and ``FLAGS_goodput`` import
+theirs at this module's import.
 """
 import contextlib
 import time
@@ -57,16 +59,14 @@ __all__ = [
 
 
 def __getattr__(name):   # PEP 562
-    # the goodput accountant loads lazily: a process with FLAGS_goodput
-    # unset never imports it. Deliberately NOT in __all__ (a star-import
-    # would resolve it)
-    if name == "goodput":
+    # the numerics telescope, the flight recorder, the perf ledger and the
+    # goodput accountant load lazily: a process whose flags arm none of
+    # them never imports any. Deliberately NOT in __all__ (a star-import
+    # would resolve them)
+    if name in ("numerics", "blackbox", "perfledger", "goodput"):
         import importlib
 
         return importlib.import_module("." + name, __name__)
-    if name in ("numerics", "blackbox", "perfledger"):
-        raise NotImplementedError(
-            f"monitor.{name} is not ported yet (monitor/{name}.py)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -76,9 +76,6 @@ _flags.define_flag("monitor", True,
 _flags.define_flag("monitor_log_path", "",
                    "JSONL structured-event log path for "
                    "monitor.log_event/log_snapshot (empty = disabled)")
-
-for _name in ("blackbox", "numerics", "perf_ledger"):
-    _flags.refuse_unported(_name, _flags.get_flag(_name, False))
 
 _DEFAULT = StatRegistry(enabled=bool(_flags.get_flag("monitor", True)))
 
@@ -212,47 +209,98 @@ def record_collective(kind, nbytes=0, saved_bytes=0):
         _COLL_SAVED.labels(op=kind).inc(saved_bytes)
 
 
-# ---- flight-recorder facade (inert: monitor/blackbox.py is not ported) -------
+# ---- flight-recorder indirection ---------------------------------------------
+# monitor/blackbox.py is lazy: a plain process never imports it. Its on/off
+# latch and the provider registry live HERE so every instrumented hot path
+# stays one boolean check without pulling the recorder in; blackbox adopts
+# these objects as its own at import (the latch list is shared, not copied).
 
-_BB_ON = [False]          # never flipped: FLAGS_blackbox is refused
+import threading as _threading  # noqa: E402  (for the pre-import lock)
+
+_BB_ON = [False]          # flipped by blackbox.enable()/disable()
+_BB_PROVIDERS = []        # (kind, weakref(obj), fn) — shared with blackbox
+_BB_PROVIDER_CAP = 64     # one cap, adopted by blackbox.register_provider
+_BB_PROVIDERS_LOCK = _threading.Lock()   # the ONE lock for the provider
+#                          list — blackbox.register_provider adopts it
+#                          too, so pre- and post-import registrations
+#                          can never interleave under different locks
 _BB_NULL_CM = contextlib.nullcontext()
 
 
 def blackbox_on():
-    """Is the flight recorder enabled? Always False in the port."""
+    """Is the flight recorder enabled? One list read — safe to call on
+    any hot path without importing the recorder."""
     return _BB_ON[0]
 
 
+def _bb():
+    from . import blackbox
+
+    return blackbox
+
+
 def bb_note(kind, **fields):
-    """A flight-recorder ring event; inert (one boolean check)."""
+    """Forward one flight-recorder ring event iff the recorder is on
+    (disabled: one boolean check, no blackbox import)."""
+    if _BB_ON[0]:
+        _bb().note(kind, **fields)
 
 
 def bb_note_span(sp):
-    """A span-close digest for the flight recorder; inert."""
+    if _BB_ON[0]:
+        _bb().note_span(sp)
 
 
 def bb_beacon(site):
-    """A progress beat for the stall sentinel; inert."""
+    if _BB_ON[0]:
+        _bb().beacon(site)
 
 
 def bb_progress(site):
-    """`with bb_progress(site):` — a no-op context (the recorder is not
-    ported)."""
-    return _BB_NULL_CM
+    """`with bb_progress(site):` — a blackbox progress window when the
+    recorder is on, a no-op context otherwise."""
+    if not _BB_ON[0]:
+        return _BB_NULL_CM
+    return _bb().progress(site)
 
 
 def bb_dump(reason, **kw):
-    """A dump bundle; None (the recorder is not ported)."""
-    return None
+    """Write a dump bundle (imports the recorder; a disabled recorder
+    writes nothing and returns None). Keywords pass through to
+    blackbox.dump (site=, extra=, dir_=)."""
+    if not _BB_ON[0]:
+        return None
+    return _bb().dump(reason, **kw)
 
 
 def bb_register_provider(kind, obj, fn):
-    """A live-state dump provider; inert (nothing would read it)."""
+    """Register a live-state dump provider WITHOUT importing the
+    recorder: entries land in the shared list blackbox adopts at import
+    (same weakref shape + cap as blackbox.register_provider)."""
+    import sys as _sys
+    import weakref
+
+    # delegate only to a FULLY-initialized module: mid-import the
+    # half-built module already sits in sys.modules without
+    # register_provider — fall through to the shared list, which blackbox
+    # mutates under the SAME _BB_PROVIDERS_LOCK, so nothing is lost
+    mod = _sys.modules.get(__name__ + ".blackbox")
+    reg = getattr(mod, "register_provider", None)
+    if reg is not None:
+        reg(kind, obj, fn)
+        return
+    with _BB_PROVIDERS_LOCK:
+        _BB_PROVIDERS[:] = [(k, r, f) for (k, r, f) in _BB_PROVIDERS
+                            if r() is not None][-(_BB_PROVIDER_CAP - 1):]
+        _BB_PROVIDERS.append((str(kind), weakref.ref(obj), fn))
 
 
 class _BlackboxLazy:
-    """The recorder API surface the instrumented paths consume, so call
-    sites read as in the reference; every method is inert."""
+    """The recorder API surface the instrumented hot paths consume,
+    import-free: ``from ..monitor import blackbox_lazy as _blackbox``
+    keeps every call site spelled as in the reference while the heavy
+    module (ring, sentinel, bundle writer) loads only once the recorder
+    is actually enabled."""
 
     is_enabled = staticmethod(blackbox_on)
     note = staticmethod(bb_note)
@@ -266,8 +314,22 @@ class _BlackboxLazy:
 blackbox_lazy = _BlackboxLazy()
 
 
-# env-armed opt-in (FLAGS_goodput=1 python ...): import the accountant
-# eagerly so hook sites resolve it without paying the import inside a
-# step loop. No run is opened here.
+# env-armed opt-in (FLAGS_blackbox=1 python serve.py): load the recorder
+# eagerly so its sync_from_flag() enables it at import. The flag itself is
+# defined in flags.py so this check never touches the lazy module.
+if _flags.get_flag("blackbox", False):
+    from . import blackbox  # noqa: E402,F401
+
+# same opt-in for the perf ledger (FLAGS_perf_ledger=1 python ...): create
+# the process ledger eagerly so its dump provider and environment
+# fingerprint exist before the first recording site runs.
+if _flags.get_flag("perf_ledger", False):
+    from . import perfledger  # noqa: E402,F401
+
+    perfledger.get_ledger()
+
+# same opt-in for the goodput accountant (FLAGS_goodput=1 python ...):
+# import it eagerly so hook sites resolve it without paying the import
+# inside a step loop. No run is opened here.
 if _flags.get_flag("goodput", False):
     from . import goodput  # noqa: E402,F401

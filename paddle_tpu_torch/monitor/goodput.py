@@ -26,11 +26,12 @@ ckpt_restore) and ``SpmdTrainer.set_state_dict`` (ckpt_restore) — each
 one flag read when disarmed.
 
 A finalized run publishes ``goodput_seconds_total{bucket}`` + the
-``goodput_fraction`` gauge (``step`` seconds / wall). The reference also
-appends a perf-ledger row per run and registers each open run as a
-flight-recorder dump provider; neither module is ported
-(``FLAGS_perf_ledger`` raises NotImplementedError, and the recorder facade
-is inert). This module also owns the serving-side lineage metric families
+``goodput_fraction`` gauge (``step`` seconds / wall), notes the
+flight-recorder ring, and with ``FLAGS_perf_ledger`` also armed appends a
+``site=run/goodput`` perf-ledger row through the regression sentinel
+(``goodput`` is LOW_IS_BAD). Each open run is a flight-recorder dump
+provider, so a crash or stall bundle names the active bucket. This
+module also owns the serving-side lineage metric families
 (``serving_weight_version`` gauge, ``serving_stale_sessions_total``
 counter) so they share the one flag gate.
 
@@ -44,6 +45,7 @@ import threading
 import time
 
 from .. import flags as _flags
+from . import blackbox_lazy as _blackbox  # import-free recorder facade
 
 __all__ = [
     "BUCKETS", "is_armed", "GoodputRun", "start_run", "ensure_run",
@@ -143,6 +145,10 @@ class GoodputRun:
         self._stack = []
         self._last = self.t_start
         self._lock = threading.RLock()
+        # crash/stall bundles carry the breakdown + the active bucket at
+        # dump time (weakly held; read only when a bundle is written)
+        _blackbox.register_provider("goodput", self,
+                                    lambda run: run.snapshot())
 
     # -- attribution -------------------------------------------------------
     def _book(self, now):
@@ -304,9 +310,11 @@ def current_run():
 
 def end_run():
     """Finalize + detach the current run; publishes the fraction gauge.
-    Returns the row dict or None when no run was open. The reference's
-    perf-ledger row (``FLAGS_perf_ledger``) raises NotImplementedError:
-    monitor/perfledger.py is not ported."""
+    With ``FLAGS_perf_ledger`` also armed, appends the per-run ledger
+    row at ``site=run/goodput`` THROUGH the regression sentinel —
+    ``goodput`` is LOW_IS_BAD, so a run under its baseline fires
+    ``perf_regression_total{site=run/goodput}``. Returns the row dict or
+    None when no run was open."""
     global _RUN
     with _RUN_LOCK:
         run, _RUN = _RUN, None
@@ -317,9 +325,22 @@ def end_run():
 
 def _close(run):
     row = run.finalize()
-    # the reference's perf-ledger row: monitor/perfledger.py is not ported
-    _flags.refuse_unported("perf_ledger",
-                           _flags.get_flag("perf_ledger", False))
+    _blackbox.note("goodput_run", run_id=run.run_id,
+                   goodput=row["goodput"], wall_s=row["wall_s"],
+                   n_resumes=row["n_resumes"],
+                   n_reshards=row["n_reshards"])
+    if _flags.get_flag("perf_ledger", False):
+        from . import perfledger as _perfledger
+
+        # force=True: every run lands a row; check=True: the sentinel
+        # watches goodput itself (direction-aware — LOW_IS_BAD)
+        _perfledger.get_ledger().on_step(
+            "run/goodput",
+            {"goodput": row["goodput"], "wall_s": row["wall_s"],
+             "n_resumes": row["n_resumes"],
+             "n_reshards": row["n_reshards"],
+             "run_id": row["run_id"], "buckets": row["buckets"]},
+            sig=row["run_id"], force=True, check=True)
     return row
 
 

@@ -1,8 +1,9 @@
 """Serving tier (ports paddle_tpu/serving/): the decode-model registry
 that makes the engine model-agnostic, the paged KV pool
-(``FLAGS_paged_kv``) with its multi-LoRA adapter registry, and the
-prefill/decode disaggregation (``disagg``). The router is not ported
-yet."""
+(``FLAGS_paged_kv``) with its multi-LoRA adapter registry, the
+prefill/decode disaggregation (``disagg``) and the front-door ``Router``
+over named engines (``router``, loaded lazily as in the reference: a
+process that never routes never imports it)."""
 from . import decode_model, disagg
 from .decode_model import (DecodeModel, get_decode_model,
                            register_decode_model, registered_decode_models)
@@ -12,4 +13,13 @@ from .paging import AdapterRegistry, PagePool, PagePoolFullError
 __all__ = ["decode_model", "disagg", "DecodeModel", "register_decode_model",
            "get_decode_model", "registered_decode_models", "PagePool",
            "PagePoolFullError", "AdapterRegistry", "PrefillWorker",
-           "DisaggregatedPool"]
+           "DisaggregatedPool", "Router", "NoLiveEngineError"]
+
+
+def __getattr__(name):   # PEP 562: the router loads on first use
+    if name in ("Router", "NoLiveEngineError", "router"):
+        import importlib
+
+        mod = importlib.import_module(".router", __name__)
+        return mod if name == "router" else getattr(mod, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

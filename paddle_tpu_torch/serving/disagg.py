@@ -22,7 +22,11 @@ builds both sides from one model. Prefill runs at the prompt's own length
 port, without the padding), on the model's device. As in the reference,
 each hand-off counts ``kv_handoff_total{event}`` (ok, error) and
 ``kv_handoff_bytes_total`` (monitor) and, with FLAGS_trace, leaves a
-``kv_handoff`` span whose trace the engine's request joins. Not ported:
+``kv_handoff`` span whose trace the engine's request joins. With the
+flight recorder on (FLAGS_blackbox) each prefill runs in a
+``disagg/prefill`` window and each hand-off sweep in a ``disagg/handoff``
+window that beats once a hand-off, and a pool that does not converge
+writes a dump bundle its error names. Not ported:
 the reference's AOT cache and its MPMD stage edge (``FLAGS_mpmd``,
 ``compress=``), which raise ``NotImplementedError``.
 """
@@ -34,6 +38,7 @@ import torch
 from .. import flags as _flags
 from .. import monitor as _monitor
 from .. import trace as _trace
+from ..monitor import blackbox_lazy as _blackbox  # import-free facade
 from . import decode_model as _dm_registry
 
 __all__ = ["PrefillWorker", "DisaggregatedPool", "HANDOFF_SCHEMA",
@@ -198,7 +203,7 @@ class PrefillWorker:
             raise ValueError(
                 f"prompt ({len(ids)}) too long for max_seq_len {self.T}")
         t0 = time.perf_counter()
-        with torch.no_grad():
+        with _blackbox.progress("disagg/prefill"), torch.no_grad():
             kc1, vc1 = self._cache_init(1, self.T, self._cache_dt, self._dev)
             toks = torch.as_tensor(ids.astype(np.int64)[None],
                                    device=self._dev)
@@ -296,9 +301,18 @@ class DisaggregatedPool:
     def _advance_prefill(self):
         """Prefill pending prompts (round-robin over the workers) while a
         decode engine has room, handing each row off."""
+        if not self._pending:
+            return
+        # window beacon: the site is watched only while hand-offs are in
+        # flight (a beat each hand-off keeps the counter advancing)
+        with _blackbox.progress("disagg/handoff"):
+            self._advance_prefill_inner()
+
+    def _advance_prefill_inner(self):
         from ..inference.serving import QueueFullError
 
         while self._pending:
+            _blackbox.beacon("disagg/handoff")
             name = self._target_engine()
             if self._free_slots(name) <= 0:
                 return   # the decode tier is full: backpressure
@@ -384,9 +398,17 @@ class DisaggregatedPool:
             self.step()
             steps += 1
             if steps > max_steps:
-                raise RuntimeError(
-                    f"disaggregated pool did not converge within "
-                    f"{max_steps} steps")
+                msg = (f"disaggregated pool did not converge within "
+                       f"{max_steps} steps")
+                if _blackbox.is_enabled():
+                    path = _blackbox.dump(
+                        "stall", site="disagg/handoff",
+                        extra={"trigger": "run_until_complete",
+                               "max_steps": max_steps,
+                               "pending": len(self._pending)})
+                    if path:
+                        msg += f"; blackbox dump bundle: {path}"
+                raise RuntimeError(msg)
         return dict(self._results)
 
     def stats(self):

@@ -146,6 +146,10 @@ def _track_open(sp):
         if len(_OPEN) >= _OPEN_CAP:   # leaked never-ended spans must not
             _OPEN.pop(next(iter(_OPEN)))   # grow the table without bound
         _OPEN[sp.span_id] = sp
+    # flight-recorder OPEN digest (one boolean check when the recorder
+    # is off): a span that never closes is exactly the wedge evidence
+    _blackbox.note("span_open", name=sp.name, subsystem=sp.subsystem,
+                   trace_id=sp.trace_id)
 
 
 def counter_samples():
@@ -306,6 +310,8 @@ def _json_safe(v):
 def _record(sp):
     with _LOCK:
         _BUF.append(sp)
+    _blackbox.note_span(sp)   # flight-recorder close digest (one boolean
+    #                           check when the recorder is off)
     path = _flags.get_flag("trace_log_path", "")
     if path:
         from .. import monitor as _monitor
@@ -495,6 +501,10 @@ def load_spans(path):
                 out.append(rec)
     return out
 
+
+# the import-free recorder facade: an unrecorded process never imports
+# monitor/blackbox.py
+from ..monitor import blackbox_lazy as _blackbox  # noqa: E402
 
 # seed from the environment (FLAGS_trace=1 python serve.py)
 sync_from_flag()

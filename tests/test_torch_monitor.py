@@ -151,13 +151,20 @@ def test_flags_monitor_0_disables_the_default_registry_at_import():
 
 
 def test_unported_flags_refused():
-    with pytest.raises(NotImplementedError, match="blackbox"):
-        pflags.set_flags({"FLAGS_blackbox": True})
-    with pytest.raises(NotImplementedError, match="perfledger"):
-        pflags.set_flags({"perf_ledger": True})
-    pflags.set_flags({"blackbox": False})      # disarming is fine
-    with pytest.raises(NotImplementedError, match="numerics"):
-        monitor.numerics  # noqa: B018
+    """Only the AOT cache's flag is left unported; the recorder, the
+    telescope and the ledger load lazily and accept their flags."""
+    assert set(pflags.NOT_PORTED) == {"jit_cache_dir"}
+    with pytest.raises(NotImplementedError, match="framework/aot.py"):
+        pflags.set_flags({"FLAGS_jit_cache_dir": "/tmp/cache"})
+    pflags.set_flags({"jit_cache_dir": ""})   # disarming is fine
+    saved = pflags.get_flags(["blackbox", "numerics", "perf_ledger"])
+    try:
+        pflags.set_flags({"FLAGS_blackbox": True, "numerics": True,
+                          "perf_ledger": True})
+    finally:
+        pflags.set_flags(saved)
+    assert monitor.numerics.STAT_KEYS[0] == "grad_norm"
+    assert monitor.perfledger.SCHEMA_VERSION == 1
     assert monitor.bb_dump("x") is None and not monitor.blackbox_on()
 
 

@@ -41,7 +41,12 @@ def test_importing_every_module_loads_no_jax_and_no_paddle_tpu():
     assert {"paddle_tpu_torch.models.gpt", "paddle_tpu_torch.amp.auto_cast",
             "paddle_tpu_torch.optimizer.optimizer",
             "paddle_tpu_torch.distributed.spmd",
-            "paddle_tpu_torch.nn.functional.loss"} <= set(mods)
+            "paddle_tpu_torch.nn.functional.loss",
+            "paddle_tpu_torch.monitor.blackbox",
+            "paddle_tpu_torch.monitor.numerics",
+            "paddle_tpu_torch.monitor.perfledger",
+            "paddle_tpu_torch.serving.router",
+            "paddle_tpu_torch.testing.parity"} <= set(mods)
     code =("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "import paddle_tpu_torch\n"
